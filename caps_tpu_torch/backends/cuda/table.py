@@ -1,0 +1,692 @@
+"""DeviceTable: the Table SPI over bucketed device columns.
+
+The counterpart of ``caps_tpu/backends/tpu/table.py`` (itself the
+analog of the reference's ``SparkTable.DataFrameTable``, SURVEY.md §2):
+filter = mask + compact, join = CSR probe (or sort + search) + segmented
+expansion, aggregate = dense histogram or sort + segment reductions,
+orderBy = multi-key lexicographic sort — all over capacities padded to
+size buckets.
+
+Three hand-written kernels carry the hot path (``caps_tpu_torch/ops``):
+the expand-positions kernel materializes every join, the dense
+segment-aggregation kernel runs group-bys over dictionary-coded keys,
+and the bitonic kernel sorts capacities of 256 … 16384 rows.  There is
+no host fallback: an operator or expression without a device path
+raises :class:`UnsupportedOnDevice` naming it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from caps_tpu_torch import ops as OPS
+from caps_tpu_torch.backends.cuda import kernels as K
+from caps_tpu_torch.backends.cuda.column import (
+    Column, column_to_host, kind_for, literal_column, make_column,
+)
+from caps_tpu_torch.backends.cuda.expr import (
+    DeviceExprCompiler, UnsupportedOnDevice,
+)
+from caps_tpu_torch.backends.cuda.pool import StringPool
+from caps_tpu_torch.ir.exprs import Expr
+from caps_tpu_torch.okapi.config import EngineConfig
+from caps_tpu_torch.okapi.types import CTFloat, CTInteger, CypherType
+from caps_tpu_torch.relational.header import RecordHeader
+from caps_tpu_torch.relational.table import AggSpec, Table, TableFactory
+
+
+class DeviceBackend:
+    """Shared per-session state: the device, the string pool, the config
+    and the count of device→host size reads."""
+
+    def __init__(self, config: EngineConfig, device: torch.device):
+        self.pool = StringPool()
+        self.config = config
+        self.device = device
+        self.syncs = 0  # device->host scalar reads (perf metric)
+
+    def bucket(self, n: int) -> int:
+        return max(1, self.config.bucket_for(n))
+
+    def consume_count(self, dev_scalar: torch.Tensor) -> int:
+        """Read a data-dependent size on the host (one sync)."""
+        self.syncs += 1
+        return int(dev_scalar)
+
+
+class DeviceTable(Table):
+    def __init__(self, backend: DeviceBackend,
+                 columns: Optional[Dict[str, Column]] = None, n: int = 0):
+        self.backend = backend
+        self._cols: Dict[str, Column] = dict(columns or {})
+        self._n = n
+
+    @property
+    def capacity(self) -> int:
+        if self._cols:
+            return next(iter(self._cols.values())).capacity
+        return self.backend.bucket(self._n)
+
+    @property
+    def row_ok(self) -> torch.Tensor:
+        return K.row_mask(self.capacity, self._n, self.backend.device)
+
+    def _with_cols(self, columns: Dict[str, Column]) -> "DeviceTable":
+        """Row-preserving rebuild: same n."""
+        return DeviceTable(self.backend, columns, self._n)
+
+    def exact_size(self) -> int:
+        return self._n
+
+    def size_hint(self) -> int:
+        return self._n
+
+    def branch_empty(self) -> bool:
+        return self._n == 0
+
+    # -- shape ----------------------------------------------------------
+
+    @property
+    def columns(self) -> Tuple[str, ...]:
+        return tuple(self._cols.keys())
+
+    @property
+    def size(self) -> int:
+        return self._n
+
+    def column_type(self, col: str) -> CypherType:
+        return self._cols[col].ctype
+
+    @property
+    def nbytes(self) -> int:
+        """Exact device-buffer bytes of the columns (data + validity +
+        list lengths), padding included."""
+        total = 0
+        for col in self._cols.values():
+            total += col.data.nbytes + col.valid.nbytes
+            if col.lens is not None:
+                total += col.lens.nbytes
+        return total
+
+    # -- column ops ------------------------------------------------------
+
+    def select(self, cols: Sequence[str]) -> "DeviceTable":
+        missing = [c for c in cols if c not in self._cols]
+        if missing:
+            raise KeyError(f"missing columns {missing}; have {self.columns}")
+        return self._with_cols({c: self._cols[c] for c in cols})
+
+    def rename(self, mapping: Mapping[str, str]) -> "DeviceTable":
+        out = {mapping.get(c, c): col for c, col in self._cols.items()}
+        if len(out) != len(self._cols):
+            raise ValueError(f"rename collision: {mapping}")
+        return self._with_cols(out)
+
+    def copy_column(self, src: str, dst: str) -> "DeviceTable":
+        out = dict(self._cols)
+        out[dst] = self._cols[src]
+        return self._with_cols(out)
+
+    def with_literal_column(self, name, value, ctype) -> "DeviceTable":
+        try:
+            col = literal_column(value, ctype, self.capacity,
+                                 self.backend.pool, self.backend.device)
+        except ValueError as ex:
+            raise UnsupportedOnDevice(f"with_literal_column: {ex}")
+        out = dict(self._cols)
+        out[name] = col
+        return self._with_cols(out)
+
+    def with_row_index(self, name: str) -> "DeviceTable":
+        dev = self.backend.device
+        col = Column("int", torch.arange(self.capacity, dtype=torch.int64,
+                                         device=dev),
+                     torch.ones(self.capacity, dtype=torch.bool, device=dev),
+                     CTInteger)
+        out = dict(self._cols)
+        out[name] = col
+        return self._with_cols(out)
+
+    def _compiler(self, header: RecordHeader, parameters
+                  ) -> DeviceExprCompiler:
+        return DeviceExprCompiler(self._cols, self.capacity, header,
+                                  parameters, self.backend.pool, self.row_ok)
+
+    def with_column(self, name, expr: Expr, header: RecordHeader,
+                    parameters, ctype) -> "DeviceTable":
+        compiler = self._compiler(header, parameters)
+        col = _named(compiler.compile, "with_column", expr)
+        self._raise_row_errors(compiler)
+        out = dict(self._cols)
+        out[name] = col
+        return self._with_cols(out)
+
+    def _raise_row_errors(self, compiler: DeviceExprCompiler) -> None:
+        """Per-row runtime errors (e.g. division by zero): one host sync,
+        only when the compiled expression contains an error site."""
+        if compiler.error_mask is None:
+            return
+        if self.backend.consume_count(compiler.error_mask.sum()):
+            raise ExprEvalError(compiler.error_what)
+
+    # -- row ops ---------------------------------------------------------
+
+    def filter(self, expr: Expr, header: RecordHeader,
+               parameters) -> "DeviceTable":
+        compiler = self._compiler(header, parameters)
+        pred = _named(compiler.compile, "filter", expr)
+        if pred.kind != "bool":
+            raise UnsupportedOnDevice("filter: predicate is not boolean")
+        self._raise_row_errors(compiler)
+        mask = pred.data & pred.valid & self.row_ok
+        return self._compact(mask)
+
+    def _compact(self, mask: torch.Tensor) -> "DeviceTable":
+        new_n = self.backend.consume_count(K.mask_count(mask))
+        idx = K.compact_indices(mask, self.backend.bucket(new_n))
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+
+    def join(self, other: Table, how: str,
+             pairs: Sequence[Tuple[str, str]]) -> "DeviceTable":
+        assert isinstance(other, DeviceTable)
+        shared = set(self.columns) & set(other.columns)
+        if shared:
+            raise ValueError(f"join column collision: {shared}")
+        if how not in ("inner", "left"):
+            raise UnsupportedOnDevice(f"join: {how} join not yet ported")
+        return self._sort_merge_join(other, how, pairs)
+
+    def _join_key(self, col: Column, side: str = "l") -> torch.Tensor:
+        if col.kind in ("id", "int", "str", "bool"):
+            return col.data.to(torch.int64)
+        if col.kind == "float":
+            # Monotone float64 -> int64 bit transform: order-preserving, so
+            # the sort/search machinery works unchanged.  -0.0 is folded
+            # into +0.0 first (they must join), and NaN maps to a per-side
+            # sentinel so NaN never matches anything (incl. other NaNs).
+            x = torch.where(col.data == 0.0, torch.zeros_like(col.data),
+                            col.data).contiguous()
+            bits = x.view(torch.int64)
+            key = torch.where(bits < 0, -(2 ** 63) - bits, bits)
+            nan_sent = K._L_NAN if side == "l" else K._R_NAN
+            return torch.where(torch.isnan(col.data),
+                               torch.full_like(key, nan_sent), key)
+        raise UnsupportedOnDevice(f"join: key of kind {col.kind}")
+
+    def _cached_right_sort(self, other: "DeviceTable", rcol: Column):
+        """Sort of the build side, memoized on the column object: static
+        scan tables (a node table every hop probes) are sorted once per
+        graph, not once per hop."""
+        key = (other._n,)
+        cached = getattr(rcol, "_join_sort", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        r_ok = rcol.valid & other.row_ok
+        rk = torch.where(r_ok, self._join_key(rcol, side="r"),
+                         torch.full_like(rcol.data, K._R_NULL,
+                                         dtype=torch.int64))
+        perm = other._sort_perm([rk])
+        res = (rk[perm], perm)
+        rcol._join_sort = (key, res)
+        return res
+
+    def _csr_for(self, other: "DeviceTable", rcol: Column):
+        """The device-resident CSR for a build-side column, if the ingest
+        hook (DeviceTableFactory.prepare_rel_table) attached one and the
+        table still has the shape it was built for."""
+        cached = getattr(rcol, "_csr", None)
+        if cached is not None and cached[0] == (other._n,):
+            return cached[1]
+        return None
+
+    def _masked_left_key(self, lcol: Column) -> torch.Tensor:
+        """Probe key with null values folded to the never-matching
+        sentinel; liveness (row_ok) stays separate from key validity."""
+        key = self._join_key(lcol)
+        return torch.where(lcol.valid, key, torch.full_like(key, K._L_NULL))
+
+    def _sort_merge_join(self, other: "DeviceTable", how: str,
+                         pairs: Sequence[Tuple[str, str]]) -> "DeviceTable":
+        lc, rc = pairs[0]
+        lcol, rcol = self._cols[lc], other._cols[rc]
+        l_ok = self.row_ok
+        left_join = how == "left"
+        csr = self._csr_for(other, rcol)
+        if csr is not None:
+            # CSR probe: two indptr gathers per row, no sort, no search
+            counts, lo = csr.probe(self._masked_left_key(lcol), l_ok)
+            perm = csr.perm
+        else:
+            rk_sorted, perm = self._cached_right_sort(other, rcol)
+            counts, lo = K.probe_count(self._masked_left_key(lcol), l_ok,
+                                       rk_sorted)
+        total = self.backend.consume_count(
+            K.join_total(counts, l_ok, left_join))
+        out_cap = self.backend.bucket(total)
+        l_idx, r_idx, out_valid, r_matched = OPS.join_expand_via_positions(
+            counts, lo, perm, l_ok, out_cap, left_join)
+        out_cols = _gather_cols(self._cols, l_idx)
+        right = _gather_cols(other._cols, r_idx)
+        for c, col in right.items():
+            out_cols[c] = Column(col.kind, col.data, col.valid & r_matched,
+                                 col.ctype, col.lens)
+        out = DeviceTable(self.backend, out_cols, total)
+        return out._extra_pair_filter(pairs, left_join)
+
+    def _extra_pair_filter(self, pairs: Sequence[Tuple[str, str]],
+                           left_join: bool) -> "DeviceTable":
+        """Extra equality pairs: post-filter (the first pair drove the
+        merge)."""
+        out = self
+        for lc2, rc2 in pairs[1:]:
+            a, b = out._cols[lc2], out._cols[rc2]
+            if a.kind == "float" or b.kind == "float":
+                # NaN == NaN is False here, matching join semantics
+                eq = (a.data.to(torch.float64) == b.data.to(torch.float64))
+            else:
+                eq = a.data.to(torch.int64) == b.data.to(torch.int64)
+            eq = eq & a.valid & b.valid
+            if left_join:
+                # unmatched left rows keep their single null-extended row
+                keep = eq | ~out._cols[rc2].valid
+            else:
+                keep = eq
+            out = out._compact(keep & out.row_ok)
+        return out
+
+    def union_all(self, other: Table) -> "DeviceTable":
+        raise UnsupportedOnDevice("union_all: not yet ported")
+
+    def _sort_perm(self, keys: List[torch.Tensor]) -> torch.Tensor:
+        """Stable multi-key sort permutation: the bitonic kernel on the
+        capacities it covers (256 … 16384), the stable torch sort
+        otherwise."""
+        cap = self.capacity
+        if OPS.sort_cap_supported(cap):
+            return OPS.sort_perm_cuda(keys, cap)
+        return K.sort_perm(keys, cap)
+
+    def distinct(self) -> "DeviceTable":
+        keys = [(~self.row_ok).to(torch.int64)]
+        for col in self._cols.values():
+            keys.extend(_sort_keys(col, ascending=True, nulls_last=True,
+                                   pool=self.backend.pool, op="distinct"))
+        perm = self._sort_perm(keys)
+        sorted_cols = _gather_cols(self._cols, perm)
+        change = K.neighbor_change_keys([k[perm] for k in keys])
+        # the sort puts dead rows last, so the sorted live mask is the
+        # row_ok prefix
+        keep = change & self.row_ok[perm]
+        tmp = DeviceTable(self.backend, sorted_cols, self._n)
+        return tmp._compact(keep)
+
+    def order_by(self, items: Sequence[Tuple[str, bool]]) -> "DeviceTable":
+        keys = [(~self.row_ok).to(torch.int64)]
+        for col_name, asc in items:
+            col = self._cols[col_name]
+            keys.extend(_sort_keys(col, ascending=asc, nulls_last=asc,
+                                   pool=self.backend.pool, op="order_by"))
+        perm = self._sort_perm(keys)
+        return DeviceTable(self.backend, _gather_cols(self._cols, perm),
+                           self._n)
+
+    def skip(self, n: int) -> "DeviceTable":
+        n = max(0, n)
+        new_n = max(0, self._n - n)
+        out_cap = self.backend.bucket(new_n)
+        idx = torch.arange(out_cap, device=self.backend.device) + n
+        idx = idx.clamp(0, max(0, self.capacity - 1))
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+
+    def limit(self, n: int) -> "DeviceTable":
+        new_n = min(max(0, n), self._n)
+        out_cap = self.backend.bucket(new_n)
+        idx = torch.arange(out_cap, device=self.backend.device).clamp(
+            0, max(0, self.capacity - 1))
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+
+    # -- aggregation ------------------------------------------------------
+
+    def group(self, by: Sequence[str], aggs: Sequence[AggSpec]
+              ) -> "DeviceTable":
+        fast = self._group_dense_cuda(by, aggs)
+        if fast is not None:
+            return fast
+        return self._group_device(by, aggs)
+
+    def _group_device(self, by: Sequence[str],
+                      aggs: Sequence[AggSpec]) -> "DeviceTable":
+        """Sorted group-by: sort rows by the group keys, mark segment
+        starts, and reduce each aggregation over the segments."""
+        for a in aggs:
+            if a.distinct or a.kind in ("collect", "percentile_cont",
+                                        "percentile_disc"):
+                raise UnsupportedOnDevice(
+                    f"group: {a.kind}{' DISTINCT' if a.distinct else ''} "
+                    f"not yet ported")
+        cap = self.capacity
+        dev = self.backend.device
+        pool = self.backend.pool
+        if by:
+            keys = [(~self.row_ok).to(torch.int64)]
+            for c in by:
+                keys.extend(_sort_keys(self._cols[c], True, True, pool,
+                                       op="group"))
+            perm = self._sort_perm(keys)
+            sorted_cols = _gather_cols(self._cols, perm)
+            row_ok_sorted = self.row_ok[perm]
+            change = K.neighbor_change_keys(
+                [k[perm] for k in keys[1:]]) & row_ok_sorted
+            seg_id = (torch.cumsum(change.to(torch.int32), 0,
+                                   dtype=torch.int32) - 1).clamp(min=0)
+            n_groups = self.backend.consume_count(K.mask_count(change))
+        else:
+            sorted_cols = dict(self._cols)
+            seg_id = torch.zeros(cap, dtype=torch.int32, device=dev)
+            n_groups = 1
+            change = torch.zeros(cap, dtype=torch.bool, device=dev)
+            change[:1] = True
+            row_ok_sorted = self.row_ok
+        out_cap = self.backend.bucket(n_groups)
+        if by:
+            start_idx = K.compact_indices(change, out_cap)
+        else:
+            start_idx = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+
+        out: Dict[str, Column] = {}
+        for c in by:
+            col = sorted_cols[c]
+            out[c] = Column(col.kind, col.data[start_idx],
+                            col.valid[start_idx], col.ctype,
+                            col.lens[start_idx] if col.lens is not None
+                            else None)
+        for a in aggs:
+            out[a.name] = self._one_agg(a, sorted_cols, seg_id, out_cap,
+                                        row_ok_sorted, n_groups)
+        return DeviceTable(self.backend, out, n_groups)
+
+    def _group_dense_cuda(self, by: Sequence[str], aggs: Sequence[AggSpec]
+                          ) -> Optional["DeviceTable"]:
+        """Sort-free group-by over a dictionary-coded key: the string pool
+        makes group keys a *dense* int domain, so grouping is a histogram
+        (the segment-aggregation kernel, ops/segment.py).  Returns None
+        when the shape does not fit (the sorted path then runs)."""
+        if len(by) != 1:
+            return None
+        if any(a.distinct or a.kind == "collect" for a in aggs):
+            return None
+        key_col = self._cols.get(by[0])
+        if key_col is None or key_col.kind not in ("str", "bool"):
+            return None
+        domain = len(self.backend.pool) if key_col.kind == "str" else 2
+        S = domain + 1  # one slot for the null-key group
+        if S > OPS.segment.MAX_SEGMENTS or S > self.capacity * 64:
+            return None
+        for a in aggs:
+            if a.kind not in ("count_star", "count", "min", "max"):
+                return None
+            if a.kind in ("min", "max"):
+                c = self._cols.get(a.col)
+                if c is None or c.kind not in ("int", "id"):
+                    return None
+        row_ok = self.row_ok
+        # int64 min/max ride the int32 kernel only when the values fit
+        for c in {a.col for a in aggs if a.kind in ("min", "max")}:
+            col = self._cols[c]
+            if col.kind == "int":
+                ok = col.valid & row_ok
+                zero = torch.zeros_like(col.data)
+                lo = self.backend.consume_count(
+                    torch.where(ok, col.data, zero).min())
+                hi = self.backend.consume_count(
+                    torch.where(ok, col.data, zero).max())
+                if not (-2**31 < lo and hi < 2**31):
+                    return None
+
+        dev = self.backend.device
+        codes = torch.where(key_col.valid & row_ok,
+                            key_col.data.to(torch.int32),
+                            torch.full_like(key_col.data, domain,
+                                            dtype=torch.int32)).contiguous()
+        counts_all = OPS.dense_segment_agg(codes, row_ok, codes, S, "count")
+        count_cache: Dict[str, torch.Tensor] = {}
+
+        def count_of(col_name: str) -> torch.Tensor:
+            if col_name not in count_cache:
+                col = self._cols[col_name]
+                count_cache[col_name] = OPS.dense_segment_agg(
+                    codes, col.valid & row_ok, codes, S, "count")
+            return count_cache[col_name]
+
+        slots = torch.arange(S, device=dev)
+        live = torch.ones(S, dtype=torch.bool, device=dev)
+        out: Dict[str, Column] = {}
+        if key_col.kind == "str":
+            out[by[0]] = Column("str", slots.to(torch.int32), slots < domain,
+                                key_col.ctype)
+        else:
+            out[by[0]] = Column("bool", slots == 1, slots < domain,
+                                key_col.ctype)
+        for a in aggs:
+            if a.kind == "count_star":
+                out[a.name] = Column("int", counts_all.to(torch.int64), live,
+                                     CTInteger)
+            elif a.kind == "count":
+                out[a.name] = Column("int", count_of(a.col).to(torch.int64),
+                                     live, CTInteger)
+            else:  # min / max over int/id
+                col = self._cols[a.col]
+                agg = OPS.dense_segment_agg(
+                    codes, col.valid & row_ok,
+                    col.data.to(torch.int32).contiguous(),
+                    S, "min_i32" if a.kind == "min" else "max_i32")
+                has = count_of(a.col) > 0
+                out[a.name] = Column(col.kind, agg.to(
+                    torch.int64 if col.kind == "int" else torch.int32),
+                    has, col.ctype)
+        dense = DeviceTable(self.backend, out, S)
+        return dense._compact(counts_all > 0)
+
+    def _one_agg(self, a: AggSpec, cols: Dict[str, Column], seg_id,
+                 num_segments: int, row_ok, n_groups: int) -> Column:
+        dev = self.backend.device
+        group_live = torch.arange(num_segments, device=dev) < n_groups
+        if a.kind == "count_star":
+            data = K.sorted_segment_agg(row_ok, row_ok, seg_id,
+                                        num_segments, "count")
+            return Column("int", data, group_live, CTInteger)
+        col = cols[a.col]
+        ok = col.valid & row_ok
+        if a.kind == "count":
+            data = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
+            return Column("int", data, group_live, CTInteger)
+        if col.kind == "list":
+            raise UnsupportedOnDevice(f"group: {a.kind} over list column")
+        if a.kind == "first":
+            data, has = K.segment_agg(col.data, ok, seg_id, num_segments,
+                                      "first")
+            return Column(col.kind, data, has & group_live, col.ctype)
+        if col.kind == "str" and a.kind in ("min", "max"):
+            rank = torch.from_numpy(self.backend.pool.rank_array()).to(dev)
+            if rank.shape[0] == 0:
+                return Column("str", torch.zeros(num_segments,
+                                                 dtype=torch.int32,
+                                                 device=dev),
+                              torch.zeros(num_segments, dtype=torch.bool,
+                                          device=dev), col.ctype)
+            ranks = rank[col.data.clamp(0, rank.shape[0] - 1).long()]
+            agg = K.segment_agg(ranks.to(torch.int64), ok, seg_id,
+                                num_segments, a.kind)
+            counts = K.segment_agg(ranks, ok, seg_id, num_segments, "count")
+            inv = torch.argsort(rank).to(torch.int32)
+            safe = agg.clamp(0, inv.shape[0] - 1)
+            return Column("str", inv[safe], (counts > 0) & group_live,
+                          col.ctype)
+        if col.kind not in ("int", "float", "id", "bool"):
+            raise UnsupportedOnDevice(f"group: {a.kind} over kind {col.kind}")
+        values = col.data
+        counts = K.segment_agg(values, ok, seg_id, num_segments, "count")
+        if a.kind == "sum":
+            if col.kind in ("int", "bool"):
+                data = K.sorted_segment_agg(values.to(torch.int64), ok,
+                                            seg_id, num_segments, "sum")
+            else:
+                data = K.segment_agg(values, ok, seg_id, num_segments, "sum")
+            return Column(col.kind if col.kind != "bool" else "int",
+                          data, group_live, a.result_type or col.ctype)
+        if a.kind in ("min", "max"):
+            data = K.segment_agg(values, ok, seg_id, num_segments, a.kind)
+            return Column(col.kind, data, (counts > 0) & group_live,
+                          col.ctype)
+        if a.kind == "avg":
+            s = K.segment_agg(values.to(torch.float64), ok, seg_id,
+                              num_segments, "sum")
+            data = s / counts.clamp(min=1)
+            return Column("float", data, (counts > 0) & group_live, CTFloat)
+        if a.kind == "stdev":
+            v = values.to(torch.float64)
+            s = K.segment_agg(v, ok, seg_id, num_segments, "sum")
+            s2 = K.segment_agg(v * v, ok, seg_id, num_segments, "sum")
+            nn = counts.clamp(min=1).to(torch.float64)
+            var = ((s2 - s * s / nn) / (nn - 1).clamp(min=1)).clamp(min=0.0)
+            data = torch.where(counts > 1, torch.sqrt(var),
+                               torch.zeros_like(var))
+            return Column("float", data, (counts > 0) & group_live, CTFloat)
+        raise UnsupportedOnDevice(f"group: aggregation {a.kind}")
+
+    # -- lists -----------------------------------------------------------
+
+    def explode(self, list_col: str, out_col: str,
+                out_type: CypherType) -> "DeviceTable":
+        raise UnsupportedOnDevice("explode (UNWIND): not yet ported")
+
+    def pack_list(self, cols: Sequence[str], out_col: str,
+                  out_type: CypherType) -> "DeviceTable":
+        raise UnsupportedOnDevice("pack_list: not yet ported")
+
+    # -- materialization --------------------------------------------------
+
+    def column_values(self, col: str) -> List[Any]:
+        return column_to_host(self._cols[col], self._n, self.backend.pool)
+
+
+class ExprEvalError(Exception):
+    """A per-row runtime error of an expression (division by zero)."""
+
+
+def _named(compile_fn, op: str, expr: Expr):
+    """Compile ``expr``; an expression without a device path raises
+    :class:`UnsupportedOnDevice` naming the operator it was compiled for."""
+    try:
+        return compile_fn(expr)
+    except UnsupportedOnDevice as ex:
+        raise UnsupportedOnDevice(f"{op}: {ex}") from None
+
+
+def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
+                 ) -> Dict[str, Column]:
+    out = {}
+    for c, col in cols.items():
+        out[c] = Column(col.kind, col.data[idx], col.valid[idx], col.ctype,
+                        col.lens[idx] if col.lens is not None else None)
+    return out
+
+
+def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
+               pool, op: str) -> List[torch.Tensor]:
+    """Transform one column into (null_key, data_key) int64/float64 arrays
+    for an ascending lexicographic sort."""
+    if col.kind == "list":
+        raise UnsupportedOnDevice(f"{op}: sorting by list column")
+    null_key = (~col.valid).to(torch.int64)
+    if not nulls_last:
+        null_key = -null_key
+    if col.kind == "str":
+        rank = torch.from_numpy(pool.rank_array()).to(col.data.device)
+        if rank.shape[0] == 0:
+            data = col.data.to(torch.int64)
+        else:
+            data = rank[col.data.clamp(0, rank.shape[0] - 1).long()].to(
+                torch.int64)
+    elif col.kind == "float":
+        data = col.data
+    else:
+        data = col.data.to(torch.int64)
+    if not ascending:
+        data = -data
+    # nulls must not influence the data key
+    data = torch.where(col.valid, data, torch.zeros_like(data))
+    return [null_key, data]
+
+
+class DeviceTableFactory(TableFactory):
+    def __init__(self, backend: DeviceBackend):
+        self.backend = backend
+
+    def prepare_rel_table(self, rel_table) -> None:
+        """Ingest-time physical layout: a device-resident CSR over the
+        relationship table's source and target columns, built on the
+        host from the columns' ingest mirrors.  Every later Expand hop
+        against this table probes ``indptr`` instead of sorting +
+        binary-searching the edge list."""
+        t = rel_table.table
+        if not isinstance(t, DeviceTable):
+            return
+        m = rel_table.mapping
+        for name in (m.source_col, m.target_col):
+            col = t._cols.get(name)
+            if col is None or col.kind not in ("id", "int"):
+                continue
+            if getattr(col, "_csr", None) is not None:
+                continue
+            if col.host is not None:
+                keys, valid = col.host
+            else:
+                keys = col.data.cpu().numpy()
+                valid = col.valid.cpu().numpy()
+            csr = OPS.build_csr(keys[:t._n], valid[:t._n], t.capacity,
+                                self.backend.device)
+            col._csr = ((t._n,), csr)
+
+    def from_columns(self, data: Mapping[str, Sequence[Any]],
+                     types: Mapping[str, CypherType]) -> DeviceTable:
+        n = len(next(iter(data.values()))) if data else 0
+        cap = self.backend.bucket(n)
+        cols: Dict[str, Column] = {}
+        # a failed ingest must not leave the strings it interned behind
+        pool_mark = self.backend.pool.mark()
+        try:
+            for c, values in data.items():
+                ctype = types[c]
+                if kind_for(ctype) == "object":
+                    raise UnsupportedOnDevice(
+                        f"from_columns: column {c!r} of type {ctype!r} has "
+                        f"no device representation")
+                try:
+                    cols[c] = make_column(values, ctype, cap,
+                                          self.backend.pool,
+                                          self.backend.device)
+                except ValueError as ex:
+                    raise UnsupportedOnDevice(f"from_columns: {c!r}: {ex}")
+        except Exception:
+            self.backend.pool.rollback(pool_mark)
+            raise
+        return DeviceTable(self.backend, cols, n)
+
+    def unit(self) -> DeviceTable:
+        return DeviceTable(self.backend, {}, 1)
+
+    def empty(self, cols: Sequence[str],
+              types: Mapping[str, CypherType]) -> DeviceTable:
+        out: Dict[str, Column] = {}
+        cap = self.backend.bucket(0)
+        for c in cols:
+            ctype = types.get(c, CTInteger)
+            if kind_for(ctype) == "object":
+                raise UnsupportedOnDevice(
+                    f"empty: column {c!r} of type {ctype!r} has no device "
+                    f"representation")
+            out[c] = make_column([], ctype, cap, self.backend.pool,
+                                 self.backend.device)
+        return DeviceTable(self.backend, out, 0)

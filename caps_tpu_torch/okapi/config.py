@@ -1,0 +1,70 @@
+"""Engine configuration and debug flags.
+
+The reference used a small homegrown flag registry backed by JVM system
+properties (PrintTimings/PrintIr/PrintLogicalPlan/PrintRelationalPlan/...)
+plus the SparkConf passed to the session builder (ref:
+okapi-api/.../okapi/impl/configuration/ — reconstructed, mount empty;
+SURVEY.md §5.6).  Here: one frozen dataclass with env-var overrides.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import ClassVar, Tuple
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    # Debug printing (the reference's PrintIr / PrintLogicalPlan / ... flags)
+    print_timings: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PRINT_TIMINGS", False))
+    print_ir: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PRINT_IR", False))
+    print_logical_plan: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PRINT_LOGICAL", False))
+    print_relational_plan: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PRINT_RELATIONAL", False))
+
+    # Device backend tuning
+    # Row-count buckets: device tables are padded up to the next bucket so
+    # query programs compile once per (plan, bucket) key.
+    bucket_sizes: Tuple[int, ...] = (256, 1024, 4096, 16384, 65536, 262144, 1048576)
+    # Features of the JAX package this package has not ported yet (see
+    # ROADMAP).  They stay off; a session built with one of them on
+    # raises NotImplementedError instead of planning without it.
+    use_count_pushdown: bool = False
+    use_ring: bool = False
+    use_wcoj: bool = False
+    use_cost_model: bool = False
+    use_dist_join: bool = False
+    use_fused: bool = False
+    use_plan_cache: bool = False
+
+    UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = (
+        "use_count_pushdown", "use_ring", "use_wcoj", "use_cost_model",
+        "use_dist_join", "use_fused", "use_plan_cache")
+
+    # Determinism check (SURVEY.md §5.2): run each query twice and compare
+    # result digests; raises NondeterministicResultError on mismatch.
+    determinism_check: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_DETERMINISM_CHECK", False))
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.bucket_sizes:
+            if n <= b:
+                return b
+        # Beyond the largest bucket: round up to the next power of two.
+        b = self.bucket_sizes[-1]
+        while b < n:
+            b *= 2
+        return b
+
+
+DEFAULT_CONFIG = EngineConfig()

@@ -1,0 +1,460 @@
+"""Backend-generic session orchestration: the parse → IR → logical →
+relational → execute pipeline, result records, and entity materialization.
+
+Mirrors the reference's ``RelationalCypherSession`` / ``RelationalCypherRecords``
+(ref: okapi-relational/.../relational/api/ — reconstructed, mount empty;
+SURVEY.md §2, §3.1).  The plan cache, write path, shape lattice, tracing
+and deadline checkpoints of the JAX package are not ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+import abc
+import hashlib
+import logging
+import time
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+logger = logging.getLogger("caps_tpu_torch")
+
+from caps_tpu_torch._unported import not_ported
+from caps_tpu_torch.frontend import ast
+from caps_tpu_torch.frontend.parser import parse_query, query_mode
+from caps_tpu_torch.ir import blocks as B
+from caps_tpu_torch.ir import exprs as E
+from caps_tpu_torch.ir.builder import IRBuilder
+from caps_tpu_torch.logical.optimizer import LogicalOptimizer
+from caps_tpu_torch.logical.planner import LogicalPlanner
+from caps_tpu_torch.okapi.catalog import CypherCatalog
+from caps_tpu_torch.okapi.config import DEFAULT_CONFIG, EngineConfig
+from caps_tpu_torch.okapi.graph import (
+    CypherRecords, CypherResult, CypherSession, QualifiedGraphName,
+)
+from caps_tpu_torch.okapi.schema import Schema
+from caps_tpu_torch.okapi.types import (
+    _CTList, _CTNode, _CTPath, _CTRelationship,
+)
+from caps_tpu_torch.okapi.values import CypherNode, CypherPath, CypherRelationship
+from caps_tpu_torch.relational import ops as R
+from caps_tpu_torch.relational.graphs import EmptyGraph, RelationalCypherGraph, ScanGraph
+from caps_tpu_torch.relational.header import RecordHeader
+from caps_tpu_torch.relational.planner import RelationalPlanner
+from caps_tpu_torch.relational.table import Table, TableFactory
+
+_UPDATE_CLAUSES = (ast.CreateClause, ast.SetClause, ast.DeleteClause)
+
+
+class NondeterministicResultError(RuntimeError):
+    """Raised by the determinism check (EngineConfig.determinism_check)
+    when a replayed query yields a different result multiset."""
+
+
+def result_digest(result: "CypherResult") -> str:
+    """Order-insensitive sha256 of a result's rows (multiset digest):
+    per-row digests are sorted before hashing, so any valid row order
+    yields the same digest."""
+    rows = result.to_maps()
+    row_digests = sorted(
+        hashlib.sha256(repr(sorted(r.items())).encode()).hexdigest()
+        for r in rows)
+    return hashlib.sha256("".join(row_digests).encode()).hexdigest()
+
+
+class RelationalCypherRecords(CypherRecords):
+    def __init__(self, session: "RelationalCypherSession", header: RecordHeader,
+                 table: Table, columns: Tuple[str, ...],
+                 graph: Optional[RelationalCypherGraph] = None):
+        self._session = session
+        self._header = header
+        self._table = table
+        self._columns = tuple(columns)
+        self._graph = graph
+
+    @property
+    def columns(self) -> Tuple[str, ...]:
+        return self._columns
+
+    @property
+    def header(self) -> RecordHeader:
+        return self._header
+
+    @property
+    def table(self) -> Table:
+        return self._table
+
+    def size(self) -> int:
+        return self._table.exact_size()
+
+    # -- materialization ----------------------------------------------------
+
+    def to_maps(self) -> List[Dict[str, Any]]:
+        header, table = self._header, self._table
+        n = table.exact_size()
+        out: List[Dict[str, Any]] = [dict() for _ in range(n)]
+        for name in self._columns:
+            values = self._materialize_var(name, header, table, n)
+            for i in range(n):
+                out[i][name] = values[i]
+        return out
+
+    def _materialize_var(self, name: str, header: RecordHeader, table: Table,
+                         n: int) -> List[Any]:
+        var = E.Var(name)
+        t = header.type_of(var).material
+        if isinstance(t, _CTNode):
+            return self._materialize_nodes(name, header, table, n)
+        if isinstance(t, _CTRelationship):
+            return self._materialize_rels(name, header, table, n)
+        if isinstance(t, _CTList) and isinstance(t.inner.material,
+                                                 _CTRelationship):
+            ids_list = table.column_values(header.column(var))
+            lookup = self._rel_lookup()
+            return [None if ids is None else
+                    [self._rel_from_lookup(i, lookup) for i in ids]
+                    for ids in ids_list]
+        if isinstance(t, _CTList) and isinstance(t.inner.material, _CTNode):
+            ids_list = table.column_values(header.column(var))
+            lookup = self._node_lookup()
+            return [None if ids is None else
+                    [self._node_from_lookup(i, lookup) for i in ids]
+                    for ids in ids_list]
+        if isinstance(t, _CTPath):
+            return self._materialize_paths(name, header, table, n)
+        return table.column_values(header.column(var))
+
+    def _materialize_nodes(self, name, header, table, n) -> List[Any]:
+        var = E.Var(name)
+        ids = table.column_values(header.column(var))
+        label_cols = []
+        prop_cols = []
+        for e in header.exprs:
+            if isinstance(e, E.HasLabel) and e.node == var:
+                label_cols.append((e.label, table.column_values(header.column(e))))
+            elif isinstance(e, E.Property) and e.entity == var:
+                prop_cols.append((e.key, table.column_values(header.column(e))))
+        if not label_cols and not prop_cols:
+            # bare id column (e.g. an indexed element of nodes(p)): fill
+            # labels/properties from the graph's host-side lookup
+            lookup = self._node_lookup()
+            return [None if i is None else self._node_from_lookup(i, lookup)
+                    for i in ids]
+        out = []
+        for i in range(n):
+            if ids[i] is None:
+                out.append(None)
+                continue
+            labels = tuple(lbl for lbl, col in label_cols if col[i] is True)
+            props = {k: col[i] for k, col in prop_cols if col[i] is not None}
+            out.append(CypherNode(ids[i], labels, props))
+        return out
+
+    def _materialize_rels(self, name, header, table, n) -> List[Any]:
+        var = E.Var(name)
+        ids = table.column_values(header.column(var))
+        if not header.has(E.StartNode(var)):
+            # bare rel-id column (e.g. an indexed element of
+            # relationships(p)): materialize via the graph lookup
+            lookup = self._rel_lookup()
+            return [None if i is None else self._rel_from_lookup(i, lookup)
+                    for i in ids]
+        srcs = table.column_values(header.column(E.StartNode(var)))
+        tgts = table.column_values(header.column(E.EndNode(var)))
+        types = table.column_values(header.column(E.Type(var)))
+        prop_cols = []
+        for e in header.exprs:
+            if isinstance(e, E.Property) and e.entity == var:
+                prop_cols.append((e.key, table.column_values(header.column(e))))
+        out = []
+        for i in range(n):
+            if ids[i] is None:
+                out.append(None)
+                continue
+            props = {k: col[i] for k, col in prop_cols if col[i] is not None}
+            out.append(CypherRelationship(ids[i], srcs[i], tgts[i],
+                                          types[i] or "", props))
+        return out
+
+    def _materialize_paths(self, name, header, table, n) -> List[Any]:
+        """Assemble path values: start node id + per-hop rel id columns,
+        walking each hop's stored endpoints to find the next node
+        (direction-agnostic: next = the endpoint that isn't current,
+        which also handles undirected matches and self-loops)."""
+        var = E.Var(name)
+        starts = table.column_values(header.column(var))
+        segs = sorted(
+            ((e.index, e.is_varlen, table.column_values(header.column(e)))
+             for e in header.exprs
+             if isinstance(e, E.PathSeg) and e.path == var),
+            key=lambda s: s[0])
+        rel_lk = self._rel_lookup()
+        node_lk = self._node_lookup()
+        out: List[Any] = []
+        for i in range(n):
+            if starts[i] is None:
+                out.append(None)
+                continue
+            cur = starts[i]
+            nodes = [self._node_from_lookup(cur, node_lk)]
+            rels: List[CypherRelationship] = []
+            dead = False
+            for _, is_varlen, col in segs:
+                cell = col[i]
+                if cell is None:
+                    dead = True  # null hop (optional path): whole path null
+                    break
+                for rid in (cell if is_varlen else [cell]):
+                    rel = self._rel_from_lookup(rid, rel_lk)
+                    rels.append(rel)
+                    cur = rel.end if rel.start == cur else rel.start
+                    nodes.append(self._node_from_lookup(cur, node_lk))
+            out.append(None if dead else CypherPath(tuple(nodes), tuple(rels)))
+        return out
+
+    def _rel_lookup(self) -> Dict[int, Tuple[int, int, str, Dict[str, Any]]]:
+        if self._graph is None:
+            return {}
+        return self._graph.rel_lookup()
+
+    def _node_lookup(self) -> Dict[int, Tuple[Tuple[str, ...], Dict[str, Any]]]:
+        if self._graph is None:
+            return {}
+        return self._graph.node_lookup()
+
+    def _node_from_lookup(self, nid, lookup) -> CypherNode:
+        if nid in lookup:
+            labels, props = lookup[nid]
+            return CypherNode(nid, labels, props)
+        return CypherNode(nid)
+
+    def _rel_from_lookup(self, rid, lookup) -> CypherRelationship:
+        if rid in lookup:
+            src, tgt, typ, props = lookup[rid]
+            return CypherRelationship(rid, src, tgt, typ, props)
+        return CypherRelationship(rid, -1, -1, "")
+
+
+class RelationalCypherResult(CypherResult):
+    def __init__(self, records: Optional[RelationalCypherRecords] = None,
+                 graph: Optional[RelationalCypherGraph] = None,
+                 plans: Optional[Dict[str, str]] = None,
+                 metrics: Optional[Dict[str, Any]] = None):
+        self._records = records
+        self._graph = graph
+        self.plans = plans or {}
+        self.metrics = metrics or {}
+
+    @property
+    def records(self) -> Optional[RelationalCypherRecords]:
+        return self._records
+
+    @property
+    def graph(self) -> Optional[RelationalCypherGraph]:
+        return self._graph
+
+    def to_maps(self) -> List[Dict[str, Any]]:
+        return self._records.to_maps() if self._records is not None else []
+
+    def explain(self) -> str:
+        parts = []
+        for phase in ("ir", "logical", "relational"):
+            if phase in self.plans:
+                parts.append(f"=== {phase.upper()} ===\n{self.plans[phase]}")
+        return "\n\n".join(parts)
+
+
+class RelationalCypherSession(CypherSession):
+    """Backend-generic session; concrete backends provide a TableFactory."""
+
+    def __init__(self, config: Optional[EngineConfig] = None):
+        self._catalog = CypherCatalog()
+        self.config = config or DEFAULT_CONFIG
+        for flag in self.config.UNPORTED_FLAGS:
+            if getattr(self.config, flag):
+                raise not_ported(f"EngineConfig.{flag}")
+        self._ambient = EmptyGraph(self)
+
+    # -- backend SPI --------------------------------------------------------
+
+    @property
+    @abc.abstractmethod
+    def table_factory(self) -> TableFactory:
+        ...
+
+    # -- public API ---------------------------------------------------------
+
+    @property
+    def catalog(self) -> CypherCatalog:
+        return self._catalog
+
+    def cypher(self, query: str,
+               parameters: Optional[Mapping[str, Any]] = None) -> CypherResult:
+        return self.cypher_on_graph(self._ambient, query, parameters)
+
+    def cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
+                        parameters: Optional[Mapping[str, Any]] = None
+                        ) -> CypherResult:
+        mode, body = query_mode(query)
+        if mode == "explain":
+            return self._explain_on_graph(graph, body, parameters)
+        if mode == "profile":
+            raise not_ported("PROFILE")
+        result = self._cypher_on_graph(graph, query, parameters)
+        if self.config.determinism_check and result.records is not None:
+            # SURVEY.md §5.2: deterministic replay — run the same query a
+            # second time and compare multiset digests.
+            again = self._cypher_on_graph(graph, query, parameters)
+            d1 = result_digest(result)
+            d2 = result_digest(again)
+            if d1 != d2:
+                raise NondeterministicResultError(
+                    f"query produced different results on replay "
+                    f"({d1[:12]} vs {d2[:12]}): {query!r}")
+            result.metrics["determinism_digest"] = d1
+        return result
+
+    def _plan_ir(self, graph: RelationalCypherGraph, ir,
+                 params: Dict[str, Any]):
+        """Logical planning + optimization + relational planning for one
+        (non-catalog) IR statement — shared by the execute path, EXPLAIN
+        and CATALOG CREATE GRAPH, so the plan EXPLAIN renders is the
+        plan that executes.  Returns (logical, context, rel_planner,
+        root, t_logical_done)."""
+        logical = LogicalPlanner(graph.schema, self._schema_resolver,
+                                 params).process(ir)
+        logical = LogicalOptimizer(None).process(logical)
+        t3 = time.perf_counter()
+        context = R.RelationalRuntimeContext(self, params)
+        rel_planner = RelationalPlanner(context, graph, self._graph_resolver)
+        root = rel_planner.process(logical)
+        return logical, context, rel_planner, root, t3
+
+    @staticmethod
+    def _parse_read(query: str) -> ast.Statement:
+        stmt = parse_query(query)
+        if isinstance(stmt, ast.SingleQuery) and any(
+                isinstance(c, _UPDATE_CLAUSES) for c in stmt.clauses):
+            raise not_ported("updates (CREATE / SET / DELETE)")
+        return stmt
+
+    # -- EXPLAIN -------------------------------------------------------------
+
+    def _explain_on_graph(self, graph: RelationalCypherGraph, query: str,
+                          parameters: Optional[Mapping[str, Any]] = None
+                          ) -> CypherResult:
+        """``EXPLAIN <query>``: run the full planning frontend and return
+        the rendered plan trees WITHOUT executing anything."""
+        t0 = time.perf_counter()
+        params = dict(parameters or {})
+        stmt = self._parse_read(query)
+        ir = IRBuilder(graph.schema, self._schema_resolver,
+                       params).process(stmt)
+        plans: Dict[str, str] = {}
+        pretty = getattr(ir, "pretty", None)
+        if pretty is not None:
+            plans["ir"] = pretty()
+        if not isinstance(ir, B.DropGraphStatement):
+            inner = ir.inner if isinstance(ir, B.CreateGraphStatement) else ir
+            logical, _context, _planner, root, _t3 = self._plan_ir(
+                graph, inner, params)
+            plans["logical"] = logical.pretty()
+            plans["relational"] = root.pretty()
+        metrics = {"mode": "explain", "plan_s": time.perf_counter() - t0,
+                   "rows": 0}
+        return RelationalCypherResult(plans=plans, metrics=metrics)
+
+    # -- execution -------------------------------------------------------------
+
+    def _cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
+                         parameters: Optional[Mapping[str, Any]] = None
+                         ) -> CypherResult:
+        t0 = time.perf_counter()
+        params = dict(parameters or {})
+        stmt = self._parse_read(query)
+        t1 = time.perf_counter()
+        ir = IRBuilder(graph.schema, self._schema_resolver,
+                       params).process(stmt)
+        t2 = time.perf_counter()
+        if isinstance(ir, B.CreateGraphStatement):
+            return self._run_create_graph(graph, ir, params)
+        if isinstance(ir, B.DropGraphStatement):
+            self._catalog.delete(ir.qgn)
+            return RelationalCypherResult()
+        logical, context, rel_planner, root, t3 = self._plan_ir(
+            graph, ir, params)
+        t4 = time.perf_counter()
+
+        plans = {"ir": ir.pretty(), "logical": logical.pretty(),
+                 "relational": root.pretty()}
+        if self.config.print_ir:
+            print(plans["ir"])
+        if self.config.print_logical_plan:
+            print(plans["logical"])
+        if self.config.print_relational_plan:
+            print(plans["relational"])
+
+        result_graph: Optional[RelationalCypherGraph] = None
+        records: Optional[RelationalCypherRecords] = None
+        if logical.returns_graph:
+            result_graph = self._evaluate_graph(root)
+        else:
+            header, table = root.result
+            records = RelationalCypherRecords(
+                self, header, table, logical.result_fields,
+                graph=rel_planner.current_graph)
+        t5 = time.perf_counter()
+
+        metrics = {
+            "parse_s": t1 - t0, "ir_s": t2 - t1, "plan_s": t3 - t2,
+            "relational_s": t4 - t3, "execute_s": t5 - t4,
+            "rows": records.table.size_hint() if records is not None else 0,
+            "operators": context.op_metrics,
+            "bytes_touched": sum(m.get("bytes_in", 0)
+                                 for m in context.op_metrics),
+        }
+        if self.config.print_timings:
+            print(f"[caps-tpu-torch] timings: {metrics}")
+        logger.debug("query %r: %d rows in %.1f ms", query,
+                     metrics["rows"], 1e3 * (t5 - t0))
+        return RelationalCypherResult(records, result_graph, plans, metrics)
+
+    # -- graph-returning statements -----------------------------------------
+
+    def _run_create_graph(self, graph, ir: B.CreateGraphStatement, params):
+        """CATALOG CREATE GRAPH qgn { inner }: evaluate the inner query's
+        graph and store it under the qualified name."""
+        logical, context, planner, root, _t3 = self._plan_ir(
+            graph, ir.inner, params)
+        if not logical.returns_graph:
+            raise ValueError(
+                "CATALOG CREATE GRAPH requires the inner query to end with "
+                "RETURN GRAPH")
+        result_graph = self._evaluate_graph(root)
+        self._catalog.store(ir.qgn, result_graph)
+        return RelationalCypherResult(graph=result_graph)
+
+    def _evaluate_graph(self, root: R.RelationalOperator):
+        result_graph = getattr(root, "result_graph", None)
+        if result_graph is None:
+            raise ValueError("query does not produce a graph")
+        return result_graph
+
+    def _schema_resolver(self, qgn: QualifiedGraphName) -> Schema:
+        src = self._catalog.source(qgn.namespace)
+        s = src.schema(qgn.graph_name)
+        if s is None:
+            raise KeyError(f"graph {qgn!r} not found")
+        return s
+
+    def _graph_resolver(self, qgn: QualifiedGraphName) -> RelationalCypherGraph:
+        g = self._catalog.graph(qgn)
+        if not isinstance(g, RelationalCypherGraph):
+            raise TypeError(f"graph {qgn!r} is not a relational graph")
+        return g
+
+    # -- helpers used by graphs ---------------------------------------------
+
+    def records_from(self, header: RecordHeader, table: Table,
+                     columns: Tuple[str, ...]) -> RelationalCypherRecords:
+        return RelationalCypherRecords(self, header, table, columns)
+
+    def create_graph(self, node_tables=(), rel_tables=()) -> ScanGraph:
+        return ScanGraph(self, node_tables, rel_tables)

@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (caps_tpu_torch) on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py [--seed 0] [--persons 1000000] [--edges 10000000]
+
+Phases, one JSON line each; any failure raises and exits nonzero:
+
+  1. env     — torch / CUDA versions and the card's name and power limit;
+  2. build   — nvcc builds every kernel from ``caps_tpu_torch/ops/csrc``;
+  3. slice   — a seeded graph (1M :Person {age 18-89, city: one of 1,000
+               strings}, 10M uniform :KNOWS edges) is built on the card and
+               the grouped 2-hop query runs through ``local_session`` once
+               with the launch counts zeroed just before and read just
+               after; then warm runs and the ``count(*)`` form.  Both
+               results must equal a numpy oracle of the same graph;
+  4. kernels — each kernel wrapper against its plain PyTorch version on the
+               card, on the inputs the slice gave it and at edge shapes,
+               with the median time of 20 launches (CUDA events), the
+               plain version's and one library call's time;
+  5. the ``{"kernels": [...]}`` line, the card line, and the last line
+     ``{"ok": true, "device": {...}}``.
+
+Needs one card; without CUDA, or outside the repository, it exits
+nonzero before printing any result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+QUERY_GROUPED = (
+    "MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) WHERE a.age = $age "
+    "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+QUERY_COUNT = ("MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) "
+               "WHERE a.age = $age RETURN count(*) AS c")
+# The graph's dictionary-coded property and the seed filter.  1,000 cities
+# keep the group-by under the dense gate (S <= 4096), so it runs on K1.
+CITIES = 1000
+AGE = 30
+
+# One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM rate and the
+# float32 rate outside the tensor cores, used for 32-bit integer work too.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+KERNELS = {
+    "segment_agg": ("caps_tpu_torch/ops/csrc/segment_agg.cu",
+                    "caps_tpu/ops/segment.py:129"),
+    "expand_positions": ("caps_tpu_torch/ops/csrc/expand_positions.cu",
+                         "caps_tpu/ops/expand.py:81"),
+    "bitonic_sort": ("caps_tpu_torch/ops/csrc/bitonic_sort.cu",
+                     "caps_tpu/ops/sort.py:171"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` launches (CUDA events).
+    A spin kernel queued first keeps the card busy while the host
+    enqueues the launches, so host overhead between launches does not
+    count as device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms of device cycles
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound(bytes_moved: int, ops: int):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Recorder:
+    """Wraps a kernel wrapper to keep the arguments of its largest call on
+    the main path (references only; nothing is copied or launched)."""
+
+    def __init__(self, module, name: str, size_of):
+        self.module, self.name, self.size_of = module, name, size_of
+        self.inner = getattr(module, name)
+        self.largest = None
+
+    def __call__(self, *args):
+        if self.largest is None or self.size_of(args) > \
+                self.size_of(self.largest):
+            self.largest = args
+        return self.inner(*args)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def make_graph(np, seed: int, n_persons: int, n_edges: int, n_cities: int):
+    rng = np.random.default_rng(seed)
+    cities = np.array([f"city{i:04d}" for i in range(n_cities)])
+    nodes = {"Person": {
+        "_id": np.arange(n_persons, dtype=np.int64),
+        "age": rng.integers(18, 90, n_persons, dtype=np.int64),
+        "city": cities[rng.integers(0, n_cities, n_persons)]}}
+    rels = {"KNOWS": {
+        "_id": np.arange(n_persons, n_persons + n_edges, dtype=np.int64),
+        "_src": rng.integers(0, n_persons, n_edges, dtype=np.int64),
+        "_tgt": rng.integers(0, n_persons, n_edges, dtype=np.int64)}}
+    return nodes, rels
+
+
+def oracle(np, nodes, rels, age: int):
+    """Per-seed out-degree weights pushed over the edges twice, then
+    summed by city: (top-20 grouped rows, total 2-hop count)."""
+    p, k = nodes["Person"], rels["KNOWS"]
+    n = len(p["_id"])
+    seeds = (p["age"] == age).astype(np.int64)
+    hop1 = np.bincount(k["_tgt"], weights=seeds[k["_src"]], minlength=n)
+    hop2 = np.bincount(k["_tgt"], weights=hop1[k["_src"]], minlength=n)
+    names, codes = np.unique(p["city"], return_inverse=True)
+    per_city = np.rint(np.bincount(codes, weights=hop2,
+                                   minlength=len(names))).astype(np.int64)
+    rows = sorted(((str(c), int(v)) for c, v in zip(names, per_city) if v),
+                  key=lambda r: (-r[1], r[0]))[:20]
+    return [{"city": c, "n": v} for c, v in rows], int(round(hop2.sum()))
+
+
+def run_slice(torch, np, args, card: str):
+    import caps_tpu_torch
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.ops import expand, segment, sort
+
+    t0 = time.perf_counter()
+    nodes, rels = make_graph(np, args.seed, args.persons, args.edges,
+                             CITIES)
+    session = caps_tpu_torch.local_session()  # the card
+    graph = graph_from_numpy(session, nodes, rels)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    params = {"age": AGE}
+
+    recorders = [
+        Recorder(segment, "dense_segment_agg_cuda",
+                 lambda a: a[0].shape[0]),
+        Recorder(expand, "expand_positions_cuda", lambda a: a[2]),
+        Recorder(sort, "bitonic_sort_perm_cuda", lambda a: a[0][0].shape[0]),
+    ]
+    for r in recorders:
+        r.__enter__()
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        result = graph.cypher(QUERY_GROUPED, params)
+        rows = result.records.to_maps()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = ops.launches()
+    finally:
+        for r in recorders:
+            r.__exit__()
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise RuntimeError(f"main path never launched kernel {name}: "
+                               f"{launches}")
+
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        warm_result = graph.cypher(QUERY_GROUPED, params)
+        warm_rows = warm_result.records.to_maps()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    count_rows = graph.cypher(QUERY_COUNT, params).records.to_maps()
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+
+    want_rows, want_count = oracle(np, nodes, rels, AGE)
+    if rows != want_rows or warm_rows != want_rows:
+        raise RuntimeError(f"grouped query disagrees with the oracle:\n"
+                           f"got  {rows}\nwant {want_rows}")
+    if count_rows != [{"c": want_count}]:
+        raise RuntimeError(f"count query {count_rows} != {want_count}")
+    joined = sum(m["rows"] for m in result.metrics["operators"]
+                 if m["op"] == "Join")
+    warm_s = statistics.median(warm)
+    emit({"phase": "slice", "card": card, "persons": args.persons,
+          "edges": args.edges, "cities": CITIES, "age": AGE,
+          "ingest_s": ingest_s, "cold_s": cold_s, "warm_s": warm_s,
+          "warm_runs_s": warm, "count_query_s": count_s,
+          "rows_joined": joined, "rows_joined_per_s": joined / warm_s,
+          "two_hop_rows": want_count, "top_city": rows[0],
+          "size_syncs_total": session.backend.syncs,
+          # host clock per operator of the last warm run (exclusive of
+          # children is not tracked: an operator's seconds include the
+          # lazily evaluated inputs it pulled)
+          "warm_operators": [[m["op"], m["seconds"], m["rows"]]
+                             for m in warm_result.metrics["operators"]],
+          "warm_phases_s": {k: warm_result.metrics[k] for k in (
+              "parse_s", "ir_s", "plan_s", "relational_s", "execute_s")},
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "oracle": "equal"})
+    return launches, {r.name: r.largest for r in recorders}
+
+
+def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
+    """Max abs difference over a tuple of outputs; raises past tolerance."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{name}: {g.shape} {g.dtype} vs plain "
+                               f"{w.shape} {w.dtype}")
+        if g.dtype.is_floating_point:
+            both_inf = torch.isinf(g) & (g == w)
+            diff = torch.where(both_inf, torch.zeros_like(g),
+                               (g.double() - w.double()).abs())
+            ok = diff <= atol + rtol * w.double().abs()
+        else:
+            diff = (g.long() - w.long()).abs()
+            ok = diff == 0
+        if not bool(ok.all()):
+            raise RuntimeError(f"{name}: kernel disagrees with plain version "
+                               f"(max abs err {float(diff.max())})")
+        if diff.numel():
+            err = max(err, float(diff.max()))
+    return err
+
+
+def check_segment(torch, main_args, dev):
+    from caps_tpu_torch.ops import segment as S
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [("main_path", main_args)]
+    n = 1_400_000 + 17     # the slice's scale, not a multiple of 1024
+    for kind in S.KINDS:
+        for s in (1001, 1, 4096):
+            codes = torch.randint(0, s, (n,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            ok = torch.rand(n, generator=gen, device=dev) < 0.8
+            if kind.endswith("f32"):
+                vals = torch.randn(n, generator=gen, device=dev)
+            elif kind == "count":
+                vals = codes
+            else:
+                vals = torch.randint(-1000, 1000, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+            cases.append((f"{kind}/S={s}", (codes, ok, vals, s, kind)))
+    codes = torch.zeros(3000, dtype=torch.int32, device=dev)
+    cases.append(("all_masked", (codes, torch.zeros_like(codes, dtype=torch.bool),
+                                 codes, 7, "max_i32")))
+    err = 0.0
+    for label, a in cases:
+        tol = (1e-5, 1e-5) if a[4] == "sum_f32" else (0.0, 0.0)
+        e = check_equal(torch, f"segment_agg[{label}]",
+                        S.dense_segment_agg_cuda(*a),
+                        S.dense_segment_agg_plain(*a), *tol)
+        if label == "main_path":
+            err = e
+    codes, ok, vals, s, kind = main_args
+    n = codes.shape[0]
+    safe = torch.where(ok, codes, torch.full_like(codes, s))
+    ms = time_ms(torch, lambda: S.dense_segment_agg_cuda(*main_args))
+    plain_ms = time_ms(torch, lambda: S.dense_segment_agg_plain(*main_args))
+    library_ms = time_ms(torch, lambda: torch.bincount(safe, minlength=s + 1))
+    value_bytes = 0 if kind == "count" else 4 * n
+    b, by = bound(5 * n + value_bytes + 4 * s, n)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+            "cases": len(cases), "shape": {"n": n, "S": s, "kind": kind},
+            "library_call": "torch.bincount"}
+
+
+def check_expand(torch, main_args, dev):
+    from caps_tpu_torch.ops import expand as X
+    counts, lo, out_cap = main_args
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rnd = torch.randint(0, 5, (700,), generator=gen, device=dev)
+    cases = [("main_path", main_args),
+             ("non_tileable", (rnd, torch.arange(700, device=dev), 3000)),
+             ("all_zero", (torch.zeros(500, dtype=torch.int64, device=dev),
+                           torch.arange(500, device=dev), 1024))]
+    err = 0.0
+    for label, a in cases:
+        e = check_equal(torch, f"expand_positions[{label}]",
+                        X.expand_positions_cuda(*a),
+                        X.expand_positions_plain(*a))
+        if label == "main_path":
+            err = e
+    offsets = torch.cumsum(counts, 0)
+    t = torch.arange(out_cap, device=dev)
+    ms = time_ms(torch, lambda: X.expand_positions_cuda(*main_args))
+    plain_ms = time_ms(torch, lambda: X.expand_positions_plain(*main_args))
+    library_ms = time_ms(torch, lambda: torch.searchsorted(offsets, t,
+                                                           right=True))
+    cap_l = counts.shape[0]
+    total = int(offsets[-1])
+    b, by = bound(cap_l * (counts.element_size() + lo.element_size())
+                  + out_cap * 9,
+                  total * max(1, cap_l.bit_length()))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+            "cases": len(cases),
+            "shape": {"cap_l": cap_l, "out_cap": out_cap, "total": total},
+            "library_call": "torch.searchsorted"}
+
+
+def check_sort(torch, main_args, dev):
+    from caps_tpu_torch.backends.cuda import kernels as K
+    from caps_tpu_torch.ops import sort as S
+    (planes,) = main_args
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [("main_path", planes)]
+    cap = 256
+    while S.sort_cap_supported(cap):
+        for nkeys in (1, 2, 3):
+            keys = [torch.randint(0, 4, (cap,), generator=gen, device=dev)
+                    if i % 2 == 0 else
+                    torch.randint(-2 ** 62, 2 ** 62, (cap,), generator=gen,
+                                  device=dev) for i in range(nkeys)]
+            cases.append((f"int{nkeys}/cap={cap}", S.split_planes(keys)))
+        pick = torch.randint(0, 6, (cap,), generator=gen, device=dev)
+        table = torch.tensor([-1.5, 0.0, -0.0, 2.0, float("inf"),
+                              float("-inf")], dtype=torch.float64, device=dev)
+        cases.append((f"f64/cap={cap}", S.split_planes(
+            [table[pick], torch.randint(0, 3, (cap,), generator=gen,
+                                        device=dev)])))
+        cap *= 2
+    err = 0.0
+    for label, p in cases:
+        e = check_equal(torch, f"bitonic_sort[{label}]",
+                        S.bitonic_sort_perm_cuda(p),
+                        S.bitonic_sort_perm_plain(p))
+        if label == "main_path":
+            err = e
+    cap = planes[0].shape[0]
+    wide = [p.to(torch.int64) for p in planes]
+    ms = time_ms(torch, lambda: S.bitonic_sort_perm_cuda(planes))
+    plain_ms = time_ms(torch, lambda: S.bitonic_sort_perm_plain(planes))
+    library_ms = time_ms(torch, lambda: K.sort_perm(wide, cap))
+    levels = cap.bit_length() - 1
+    stages = levels * (levels + 1) // 2
+    b, by = bound(4 * cap * (len(planes) + 1),
+                  stages * (cap // 2) * (len(planes) + 1))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+            "cases": len(cases),
+            "shape": {"cap": cap, "planes": len(planes)},
+            "library_call": "torch.sort(stable) chained over the keys"}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    # --persons / --edges shrink the graph for a quick first call after a
+    # kernel change; the defaults are the slice's size
+    ap.add_argument("--persons", type=int, default=1_000_000)
+    ap.add_argument("--edges", type=int, default=10_000_000)
+    args = ap.parse_args()
+
+    if not os.path.isdir(os.path.join(ROOT, "caps_tpu_torch")):
+        print("chip_smoke.py: caps_tpu_torch/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available; this script needs a "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    from caps_tpu_torch.ops import build
+
+    card = card_line()
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(), "card": card})
+
+    t0 = time.perf_counter()
+    libs = build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": [os.path.basename(str(p)) for p in libs]})
+
+    launches, main_args = run_slice(torch, np, args, card)
+
+    dev = torch.device("cuda")
+    checks = {
+        "segment_agg": check_segment(torch, main_args["dense_segment_agg_cuda"],
+                                     dev),
+        "expand_positions": check_expand(
+            torch, main_args["expand_positions_cuda"], dev),
+        "bitonic_sort": check_sort(torch, main_args["bitonic_sort_perm_cuda"],
+                                   dev),
+    }
+    for name, c in checks.items():
+        emit({"phase": "kernel", "name": name, "card": card, **c})
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        c = checks[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
