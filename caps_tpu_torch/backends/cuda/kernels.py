@@ -15,7 +15,7 @@ under every monotone-bitcast float64 key (``table._join_key``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,8 +25,15 @@ _L_NAN = -(2 ** 63) + 3
 _R_NAN = -(2 ** 63) + 4
 
 
-def row_mask(capacity: int, n: int, device) -> torch.Tensor:
-    return torch.arange(capacity, device=device) < n
+def row_mask(capacity: int, n: int, device,
+             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows below ``n``; under generic replay (``live``, a device scalar
+    of the exact live count) also below ``live`` — no host read."""
+    idx = torch.arange(capacity, device=device)
+    m = idx < n
+    if live is not None:
+        m = m & (idx < live)
+    return m
 
 
 # -- compaction (filter) ----------------------------------------------------

@@ -10,9 +10,15 @@ size buckets.
 Three hand-written kernels carry the hot path (``caps_tpu_torch/ops``):
 the expand-positions kernel materializes every join, the dense
 segment-aggregation kernel runs group-bys over dictionary-coded keys,
-and the bitonic kernel sorts capacities of 256 … 16384 rows.  There is
-no host fallback: an operator or expression without a device path
-raises :class:`UnsupportedOnDevice` naming it.
+and the bitonic kernel sorts capacities of 256 … 16384 rows.  Each
+kernel family passes its self-test (``ops/probe.py ensure_kernels``)
+before its first use in a process.  There is no host fallback: an
+operator or expression without a device path raises
+:class:`UnsupportedOnDevice` naming it.
+
+Every data-dependent size goes through ``DeviceBackend.consume_*``, so
+the fused executor (``fused.py``) can record a query's sizes once and
+replay them with no device→host reads.
 """
 from __future__ import annotations
 
@@ -33,34 +39,191 @@ from caps_tpu_torch.ir.exprs import Expr
 from caps_tpu_torch.okapi.config import EngineConfig
 from caps_tpu_torch.okapi.types import CTFloat, CTInteger, CypherType
 from caps_tpu_torch.relational.header import RecordHeader
+from caps_tpu_torch.relational.shapes import ShapeBucketLattice
 from caps_tpu_torch.relational.table import AggSpec, Table, TableFactory
 
 
 class DeviceBackend:
-    """Shared per-session state: the device, the string pool, the config
-    and the count of device→host size reads."""
+    """Shared per-session state: the device, the string pool, the config,
+    the padding ladder, the count of device→host size reads and the
+    record/replay routing of the fused executor."""
 
     def __init__(self, config: EngineConfig, device: torch.device):
         self.pool = StringPool()
         self.config = config
         self.device = device
+        # Row-capacity bucket lattice (relational/shapes.py): defaults to
+        # config.bucket_sizes — the same rounding as config.bucket_for.
+        # The session swaps in its own lattice.
+        self.shapes = ShapeBucketLattice(config.bucket_sizes)
         self.syncs = 0  # device->host scalar reads (perf metric)
+        # Size-sync routing for the fused executor (fused.py):
+        # None = eager (device->host read per data-dependent size);
+        # ("record", entries)               = eager + record every size;
+        # ("replay", entries, [i])          = serve sizes, NO reads;
+        # ("replay_gen", entries, [i])      = serve merged sizes, check
+        #                                     each on the device.
+        self.count_mode: Optional[tuple] = None
+        # device bool scalar accumulated by generic-replay relation
+        # checks; the fused executor reads it once per query and
+        # re-records on violation
+        self._replay_viol: Optional[torch.Tensor] = None
+        # (host rank array, its device copy): see rank_tensor()
+        self._rank_dev: Optional[Tuple[Any, torch.Tensor]] = None
 
     def bucket(self, n: int) -> int:
-        return max(1, self.config.bucket_for(n))
+        return max(1, self.shapes.bucket(n))
 
-    def consume_count(self, dev_scalar: torch.Tensor) -> int:
-        """Read a data-dependent size on the host (one sync)."""
-        self.syncs += 1
-        return int(dev_scalar)
+    def rank_tensor(self) -> torch.Tensor:
+        """The string pool's rank array on the device, copied once per
+        pool version: a host→device copy from pageable memory on every
+        query would synchronize the stream."""
+        arr = self.pool.rank_array()
+        if self._rank_dev is None or self._rank_dev[0] is not arr:
+            self._rank_dev = (arr, torch.from_numpy(arr).to(self.device))
+        return self._rank_dev[1]
+
+    def consume_count(self, dev_scalar: torch.Tensor,
+                      relation: str = "exact") -> int:
+        """Materialize a data-dependent size (see ``count_mode``).
+
+        ``relation`` declares how the caller uses the value, so a
+        param-GENERIC replay (fused.py) can serve sizes recorded for
+        *different* parameter values and still stay exact:
+
+        * ``"cap"``   — an upper bound (capacity/bucket/width choice);
+          serving any value ≥ the actual one is correct.
+        * ``"lo"``    — a lower bound (e.g. a domain minimum); serving
+          any value ≤ the actual one is correct.
+        * ``"exact"`` — semantics depend on the exact value (error
+          counts, branch predicates); a generic replay must re-execute
+          when the actual value differs.
+        * ``"stat"``  — metrics only; any served value is acceptable.
+
+        Under generic replay the relation is CHECKED on the device (no
+        read): a violation raises the end-of-query re-record, so a wrong
+        served value never reaches results."""
+        mode = self.count_mode
+        if mode is None:
+            self.syncs += 1
+            return int(dev_scalar)
+        if mode[0] == "record":
+            self.syncs += 1
+            v = int(dev_scalar)
+            mode[1].append(("size", v, relation))
+            return v
+        v = self._next_entry(mode, "size")
+        if mode[0] == "replay_gen":
+            if v[2] != relation:
+                raise FusedReplayMismatch(
+                    f"generic replay relation mismatch: recorded {v[2]}, "
+                    f"consumed as {relation}")
+            self._accumulate_violation(dev_scalar, v[1], relation)
+        return v[1]
+
+    @staticmethod
+    def _next_entry(mode, tag: str):
+        """Pop the next record/replay stream entry, validating its tag —
+        any misalignment means the op sequence diverged from the
+        recording."""
+        entries, cursor = mode[1], mode[2]
+        if cursor[0] >= len(entries):
+            raise FusedReplayMismatch(
+                f"replay consumed {cursor[0]} entries but the recording "
+                f"only has {len(entries)}")
+        v = entries[cursor[0]]
+        cursor[0] += 1
+        if not (isinstance(v, tuple) and v and v[0] == tag):
+            raise FusedReplayMismatch(
+                f"replay op sequence diverged: {tag} consumed where "
+                f"{v[0] if isinstance(v, tuple) else type(v)} was recorded")
+        return v
+
+    def consume_rows(self, dev_scalar: torch.Tensor
+                     ) -> Tuple[int, Optional[torch.Tensor]]:
+        """Like :meth:`consume_count` for a table's LIVE ROW COUNT:
+        returns ``(n, live)`` where ``n`` is the host row count and
+        ``live`` is None in eager/record/exact-replay mode.  Under
+        generic replay ``n`` is a served upper bound and ``live`` is the
+        exact count as a device scalar — the caller attaches it to the
+        produced table (``DeviceTable(..., live=live)``) so ``row_ok``
+        stays exact without a read."""
+        mode = self.count_mode
+        if mode is None:
+            self.syncs += 1
+            return int(dev_scalar), None
+        if mode[0] == "record":
+            self.syncs += 1
+            v = int(dev_scalar)
+            mode[1].append(("rows", v))
+            return v, None
+        v = self._next_entry(mode, "rows")
+        if mode[0] == "replay_gen":
+            # strict: the actual count must fit the SERVED count, not
+            # just its bucket; headroom comes from the merge widening a
+            # violated row cap to its bucket boundary
+            # (fused._merge_streams)
+            self._accumulate_violation(dev_scalar, v[1], "cap")
+            return v[1], dev_scalar.to(torch.int32)
+        return v[1], None
+
+    def consume_pred(self, host_value: bool, dev_thunk) -> bool:
+        """A host BRANCH PREDICATE routed through the record/replay
+        stream.  Never reads the device: the host value is exact in
+        eager/record mode, replay serves the recorded branch, and generic
+        replay additionally checks ``dev_thunk()`` (a device bool of the
+        actual predicate) against it — a divergent branch trips the
+        end-of-query violation and re-records."""
+        mode = self.count_mode
+        if mode is None:
+            return host_value
+        if mode[0] == "record":
+            mode[1].append(("size", int(host_value), "exact"))
+            return host_value
+        v = self._next_entry(mode, "size")
+        if v[2] != "exact":
+            raise FusedReplayMismatch(
+                f"replay op sequence diverged: branch predicate consumed "
+                f"where a {v[2]} size was recorded")
+        if mode[0] == "replay_gen":
+            self._accumulate_violation(dev_thunk(), v[1], "exact")
+        return bool(v[1])
+
+    def _accumulate_violation(self, dev_scalar: torch.Tensor, served: int,
+                              relation: str) -> None:
+        """Device-side relation check for generic replay: ORs into
+        ``_replay_viol``, read ONCE at the end of the query."""
+        if relation == "stat":
+            return
+        actual = dev_scalar.to(torch.int64)
+        if relation == "cap":
+            bad = actual > served
+        elif relation == "lo":
+            bad = actual < served
+        else:  # exact
+            bad = actual != served
+        self._replay_viol = (bad if self._replay_viol is None
+                             else self._replay_viol | bad)
+
+
+class FusedReplayMismatch(RuntimeError):
+    """The op sequence during fused replay diverged from the recording."""
 
 
 class DeviceTable(Table):
     def __init__(self, backend: DeviceBackend,
-                 columns: Optional[Dict[str, Column]] = None, n: int = 0):
+                 columns: Optional[Dict[str, Column]] = None, n: int = 0,
+                 live: Optional[torch.Tensor] = None):
         self.backend = backend
         self._cols: Dict[str, Column] = dict(columns or {})
         self._n = n
+        # Generic-replay mode (fused.py): ``n`` is a SERVED upper bound
+        # and ``live`` is the exact live-row count as a device scalar —
+        # live rows always form a prefix (every producer compacts or
+        # expands live-first), so row_ok stays exact with no read.  None
+        # in eager/record mode, where ``n`` is exact.
+        self._live = live
+        self._exact_cache: Optional[int] = None  # memoized int(_live)
 
     @property
     def capacity(self) -> int:
@@ -70,20 +233,65 @@ class DeviceTable(Table):
 
     @property
     def row_ok(self) -> torch.Tensor:
-        return K.row_mask(self.capacity, self._n, self.backend.device)
+        return K.row_mask(self.capacity, self._n, self.backend.device,
+                          self._live)
 
     def _with_cols(self, columns: Dict[str, Column]) -> "DeviceTable":
-        """Row-preserving rebuild: same n."""
-        return DeviceTable(self.backend, columns, self._n)
+        """Row-preserving rebuild: same n and live count."""
+        return DeviceTable(self.backend, columns, self._n, live=self._live)
+
+    def _exact_n(self) -> int:
+        """The exact live row count as a host int.  Free in eager mode;
+        under generic replay a read (counted), used only at
+        materialization."""
+        if self._live is None:
+            return self._n
+        if self._exact_cache is None:
+            self.backend.syncs += 1
+            self._exact_cache = int(self._live)
+        return self._exact_cache
 
     def exact_size(self) -> int:
-        return self._n
+        return self._exact_n()
 
     def size_hint(self) -> int:
+        if self._exact_cache is not None:
+            return self._exact_cache
         return self._n
 
     def branch_empty(self) -> bool:
-        return self._n == 0
+        mode = self.backend.count_mode
+        if self._live is not None and (mode is None or mode[0] == "record"):
+            # a table that escaped its fused run (a generic-replay result
+            # reused as a plain input) only knows a served UPPER bound in
+            # _n; the branch needs the exact count, so pay the read.  In
+            # record mode too: consume_pred would bake the stale bound
+            # into the recording as an "exact" branch.
+            host_empty = self._exact_n() == 0
+        else:
+            host_empty = self._n == 0
+
+        def actual_empty() -> torch.Tensor:
+            if self._live is not None:
+                return self._live == 0
+            return torch.full((), self._n == 0, dtype=torch.bool,
+                              device=self.backend.device)
+
+        return self.backend.consume_pred(host_empty, actual_empty)
+
+    def prime_exact(self, viol: torch.Tensor) -> bool:
+        """Read the generic-replay violation flag together with this
+        table's exact live count in ONE device→host transfer; primes the
+        exact-count cache when the flag is clear (so a later ``to_maps``
+        pays no second read).  Returns the flag's truth value."""
+        if self._live is None or self._exact_cache is not None:
+            return bool(viol)
+        both = torch.stack([viol.to(torch.int64),
+                            self._live.to(torch.int64)]).cpu()
+        bad = bool(both[0])
+        if not bad:
+            self._exact_cache = int(both[1])
+        return bad
 
     # -- shape ----------------------------------------------------------
 
@@ -183,9 +391,10 @@ class DeviceTable(Table):
         return self._compact(mask)
 
     def _compact(self, mask: torch.Tensor) -> "DeviceTable":
-        new_n = self.backend.consume_count(K.mask_count(mask))
+        new_n, live = self.backend.consume_rows(K.mask_count(mask))
         idx = K.compact_indices(mask, self.backend.bucket(new_n))
-        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n,
+                           live=live)
 
     def join(self, other: Table, how: str,
              pairs: Sequence[Tuple[str, str]]) -> "DeviceTable":
@@ -217,9 +426,12 @@ class DeviceTable(Table):
     def _cached_right_sort(self, other: "DeviceTable", rcol: Column):
         """Sort of the build side, memoized on the column object: static
         scan tables (a node table every hop probes) are sorted once per
-        graph, not once per hop."""
+        graph, not once per hop.  The memo keys on the table's row
+        count, so it is used only where that count is exact: under
+        generic replay ``_n`` of a derived table is a served bound."""
         key = (other._n,)
-        cached = getattr(rcol, "_join_sort", None)
+        memo = other._live is None
+        cached = getattr(rcol, "_join_sort", None) if memo else None
         if cached is not None and cached[0] == key:
             return cached[1]
         r_ok = rcol.valid & other.row_ok
@@ -228,15 +440,17 @@ class DeviceTable(Table):
                                          dtype=torch.int64))
         perm = other._sort_perm([rk])
         res = (rk[perm], perm)
-        rcol._join_sort = (key, res)
+        if memo:
+            rcol._join_sort = (key, res)
         return res
 
     def _csr_for(self, other: "DeviceTable", rcol: Column):
         """The device-resident CSR for a build-side column, if the ingest
         hook (DeviceTableFactory.prepare_rel_table) attached one and the
-        table still has the shape it was built for."""
+        table still has the exact shape it was built for."""
         cached = getattr(rcol, "_csr", None)
-        if cached is not None and cached[0] == (other._n,):
+        if (cached is not None and other._live is None
+                and cached[0] == (other._n,)):
             return cached[1]
         return None
 
@@ -261,9 +475,10 @@ class DeviceTable(Table):
             rk_sorted, perm = self._cached_right_sort(other, rcol)
             counts, lo = K.probe_count(self._masked_left_key(lcol), l_ok,
                                        rk_sorted)
-        total = self.backend.consume_count(
+        total, live = self.backend.consume_rows(
             K.join_total(counts, l_ok, left_join))
         out_cap = self.backend.bucket(total)
+        OPS.ensure_kernels("prefetch", self.backend.device)
         l_idx, r_idx, out_valid, r_matched = OPS.join_expand_via_positions(
             counts, lo, perm, l_ok, out_cap, left_join)
         out_cols = _gather_cols(self._cols, l_idx)
@@ -271,7 +486,7 @@ class DeviceTable(Table):
         for c, col in right.items():
             out_cols[c] = Column(col.kind, col.data, col.valid & r_matched,
                                  col.ctype, col.lens)
-        out = DeviceTable(self.backend, out_cols, total)
+        out = DeviceTable(self.backend, out_cols, total, live=live)
         return out._extra_pair_filter(pairs, left_join)
 
     def _extra_pair_filter(self, pairs: Sequence[Tuple[str, str]],
@@ -304,6 +519,7 @@ class DeviceTable(Table):
         otherwise."""
         cap = self.capacity
         if OPS.sort_cap_supported(cap):
+            OPS.ensure_kernels("sort", self.backend.device)
             return OPS.sort_perm_cuda(keys, cap)
         return K.sort_perm(keys, cap)
 
@@ -311,14 +527,14 @@ class DeviceTable(Table):
         keys = [(~self.row_ok).to(torch.int64)]
         for col in self._cols.values():
             keys.extend(_sort_keys(col, ascending=True, nulls_last=True,
-                                   pool=self.backend.pool, op="distinct"))
+                                   backend=self.backend, op="distinct"))
         perm = self._sort_perm(keys)
         sorted_cols = _gather_cols(self._cols, perm)
         change = K.neighbor_change_keys([k[perm] for k in keys])
         # the sort puts dead rows last, so the sorted live mask is the
         # row_ok prefix
         keep = change & self.row_ok[perm]
-        tmp = DeviceTable(self.backend, sorted_cols, self._n)
+        tmp = DeviceTable(self.backend, sorted_cols, self._n, live=self._live)
         return tmp._compact(keep)
 
     def order_by(self, items: Sequence[Tuple[str, bool]]) -> "DeviceTable":
@@ -326,10 +542,10 @@ class DeviceTable(Table):
         for col_name, asc in items:
             col = self._cols[col_name]
             keys.extend(_sort_keys(col, ascending=asc, nulls_last=asc,
-                                   pool=self.backend.pool, op="order_by"))
+                                   backend=self.backend, op="order_by"))
         perm = self._sort_perm(keys)
         return DeviceTable(self.backend, _gather_cols(self._cols, perm),
-                           self._n)
+                           self._n, live=self._live)
 
     def skip(self, n: int) -> "DeviceTable":
         n = max(0, n)
@@ -337,14 +553,20 @@ class DeviceTable(Table):
         out_cap = self.backend.bucket(new_n)
         idx = torch.arange(out_cap, device=self.backend.device) + n
         idx = idx.clamp(0, max(0, self.capacity - 1))
-        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+        live = ((self._live - n).clamp(min=0).to(torch.int32)
+                if self._live is not None else None)
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n,
+                           live=live)
 
     def limit(self, n: int) -> "DeviceTable":
         new_n = min(max(0, n), self._n)
         out_cap = self.backend.bucket(new_n)
         idx = torch.arange(out_cap, device=self.backend.device).clamp(
             0, max(0, self.capacity - 1))
-        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n)
+        live = (self._live.clamp(max=max(0, n)).to(torch.int32)
+                if self._live is not None else None)
+        return DeviceTable(self.backend, _gather_cols(self._cols, idx), new_n,
+                           live=live)
 
     # -- aggregation ------------------------------------------------------
 
@@ -367,12 +589,11 @@ class DeviceTable(Table):
                     f"not yet ported")
         cap = self.capacity
         dev = self.backend.device
-        pool = self.backend.pool
         if by:
             keys = [(~self.row_ok).to(torch.int64)]
             for c in by:
-                keys.extend(_sort_keys(self._cols[c], True, True, pool,
-                                       op="group"))
+                keys.extend(_sort_keys(self._cols[c], True, True,
+                                       self.backend, op="group"))
             perm = self._sort_perm(keys)
             sorted_cols = _gather_cols(self._cols, perm)
             row_ok_sorted = self.row_ok[perm]
@@ -380,11 +601,12 @@ class DeviceTable(Table):
                 [k[perm] for k in keys[1:]]) & row_ok_sorted
             seg_id = (torch.cumsum(change.to(torch.int32), 0,
                                    dtype=torch.int32) - 1).clamp(min=0)
-            n_groups = self.backend.consume_count(K.mask_count(change))
+            n_groups, groups_live = self.backend.consume_rows(
+                K.mask_count(change))
         else:
             sorted_cols = dict(self._cols)
             seg_id = torch.zeros(cap, dtype=torch.int32, device=dev)
-            n_groups = 1
+            n_groups, groups_live = 1, None
             change = torch.zeros(cap, dtype=torch.bool, device=dev)
             change[:1] = True
             row_ok_sorted = self.row_ok
@@ -404,7 +626,7 @@ class DeviceTable(Table):
         for a in aggs:
             out[a.name] = self._one_agg(a, sorted_cols, seg_id, out_cap,
                                         row_ok_sorted, n_groups)
-        return DeviceTable(self.backend, out, n_groups)
+        return DeviceTable(self.backend, out, n_groups, live=groups_live)
 
     def _group_dense_cuda(self, by: Sequence[str], aggs: Sequence[AggSpec]
                           ) -> Optional["DeviceTable"]:
@@ -438,13 +660,14 @@ class DeviceTable(Table):
                 ok = col.valid & row_ok
                 zero = torch.zeros_like(col.data)
                 lo = self.backend.consume_count(
-                    torch.where(ok, col.data, zero).min())
+                    torch.where(ok, col.data, zero).min(), relation="lo")
                 hi = self.backend.consume_count(
-                    torch.where(ok, col.data, zero).max())
+                    torch.where(ok, col.data, zero).max(), relation="cap")
                 if not (-2**31 < lo and hi < 2**31):
                     return None
 
         dev = self.backend.device
+        OPS.ensure_kernels("basic", dev)
         codes = torch.where(key_col.valid & row_ok,
                             key_col.data.to(torch.int32),
                             torch.full_like(key_col.data, domain,
@@ -508,7 +731,7 @@ class DeviceTable(Table):
                                       "first")
             return Column(col.kind, data, has & group_live, col.ctype)
         if col.kind == "str" and a.kind in ("min", "max"):
-            rank = torch.from_numpy(self.backend.pool.rank_array()).to(dev)
+            rank = self.backend.rank_tensor()
             if rank.shape[0] == 0:
                 return Column("str", torch.zeros(num_segments,
                                                  dtype=torch.int32,
@@ -568,7 +791,8 @@ class DeviceTable(Table):
     # -- materialization --------------------------------------------------
 
     def column_values(self, col: str) -> List[Any]:
-        return column_to_host(self._cols[col], self._n, self.backend.pool)
+        return column_to_host(self._cols[col], self._exact_n(),
+                              self.backend.pool)
 
 
 class ExprEvalError(Exception):
@@ -594,7 +818,7 @@ def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
 
 
 def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
-               pool, op: str) -> List[torch.Tensor]:
+               backend: DeviceBackend, op: str) -> List[torch.Tensor]:
     """Transform one column into (null_key, data_key) int64/float64 arrays
     for an ascending lexicographic sort."""
     if col.kind == "list":
@@ -603,7 +827,7 @@ def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
     if not nulls_last:
         null_key = -null_key
     if col.kind == "str":
-        rank = torch.from_numpy(pool.rank_array()).to(col.data.device)
+        rank = backend.rank_tensor()
         if rank.shape[0] == 0:
             data = col.data.to(torch.int64)
         else:

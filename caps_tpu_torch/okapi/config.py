@@ -20,6 +20,13 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.lower() in ("1", "true", "yes", "on")
 
 
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return int(v)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     # Debug printing (the reference's PrintIr / PrintLogicalPlan / ... flags)
@@ -44,12 +51,27 @@ class EngineConfig:
     use_wcoj: bool = False
     use_cost_model: bool = False
     use_dist_join: bool = False
-    use_fused: bool = False
-    use_plan_cache: bool = False
 
     UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = (
         "use_count_pushdown", "use_ring", "use_wcoj", "use_cost_model",
-        "use_dist_join", "use_fused", "use_plan_cache")
+        "use_dist_join")
+
+    # Fused executor (backends/cuda/fused.py): record data-dependent sizes
+    # on a query's first run, replay them sync-free on repeats.
+    use_fused: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_USE_FUSED", True))
+    # Capacity of the fused executor's memo of recorded size streams.
+    compile_cache_size: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_COMPILE_CACHE", 512))
+    # Prepared-statement plan cache (relational/plan_cache.py): repeated
+    # parameterized queries skip parse/IR/logical/relational planning on a
+    # hit.  Keys are value-independent (query text + graph + parameter
+    # signature).
+    use_plan_cache: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PLAN_CACHE", True))
+    # Max cached plans per session (LRU evicted beyond this).
+    plan_cache_size: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_PLAN_CACHE_SIZE", 256))
 
     # Determinism check (SURVEY.md §5.2): run each query twice and compare
     # result digests; raises NondeterministicResultError on mismatch.

@@ -38,6 +38,12 @@ def check_cuda(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
+from caps_tpu_torch.ops.prefetch import (  # noqa: E402
+    prefetch_gather_cuda, prefetch_gather_plain,
+)
+from caps_tpu_torch.ops.probe import (  # noqa: E402
+    KernelSelfTestError, ensure_kernels,
+)
 from caps_tpu_torch.ops.expand import (  # noqa: E402
     DeviceCSR, build_csr, expand_positions, expand_positions_cuda,
     expand_positions_plain, join_expand_via_positions,
@@ -57,4 +63,6 @@ __all__ = [
     "expand_positions_plain", "join_expand_via_positions",
     "bitonic_sort_perm", "bitonic_sort_perm_cuda", "bitonic_sort_perm_plain",
     "sort_cap_supported", "sort_perm_cuda", "split_planes",
+    "prefetch_gather_cuda", "prefetch_gather_plain",
+    "KernelSelfTestError", "ensure_kernels",
 ]

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("segment_agg", "expand_positions", "bitonic_sort")
+SOURCES = ("segment_agg", "expand_positions", "bitonic_sort",
+           "prefetch_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

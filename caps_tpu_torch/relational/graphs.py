@@ -50,6 +50,11 @@ class RelationalCypherGraph(PropertyGraph):
     def cypher(self, query: str, parameters: Optional[Mapping[str, Any]] = None):
         return self._session.cypher_on_graph(self, query, parameters)
 
+    def prepare(self, query: str):
+        """Prepared statement bound to this graph: parse once, then
+        ``.run(params)`` serves the plan from the session plan cache."""
+        return self._session.prepare(query, graph=self)
+
     def nodes(self, var: str = "n", labels: Iterable[str] = ()):
         header, table = self.scan_node(var, labels)
         return self._session.records_from(header, table, (var,))

@@ -63,7 +63,10 @@ class RelationalRuntimeContext:
 
     Parameter VALUES are late-bound: every operator reads
     ``context.parameters`` inside ``_compute`` (filters, projections,
-    SKIP/LIMIT counts, percentile args), never at plan-construction time."""
+    SKIP/LIMIT counts, percentile args), never at plan-construction time.
+    That contract is what lets the session plan cache
+    (relational/plan_cache.py) re-execute one planned operator tree for
+    every binding of the same parameter signature."""
 
     def __init__(self, session, parameters: Optional[Mapping[str, Any]] = None):
         self.session = session
@@ -74,6 +77,16 @@ class RelationalRuntimeContext:
         # plan-node id sequence: operators draw a stable id at
         # CONSTRUCTION (planner order is deterministic per query)
         self.op_seq = itertools.count()
+
+    def rebind(self, parameters: Mapping[str, Any]) -> None:
+        """Swap in fresh parameter bindings for a cached-plan
+        re-execution: operators hold a reference to THIS context, so an
+        in-place update reaches every ``_compute``; per-run operator
+        metrics start fresh (the previous run's list stays owned by the
+        result that captured it)."""
+        self.parameters.clear()
+        self.parameters.update(parameters)
+        self.op_metrics = []
 
     @property
     def factory(self):
@@ -143,7 +156,9 @@ def host_eval(expr: E.Expr, parameters: Mapping[str, Any]) -> Any:
 
 
 class RelationalOperator(abc.ABC):
-    """Base: caches the computed (header, table) pair."""
+    """Base: caches the computed (header, table) pair in ``_result``
+    (cleared by ``plan_cache.reset_plan`` before a cached tree
+    re-executes)."""
 
     def __init__(self, context: RelationalRuntimeContext,
                  children: Sequence["RelationalOperator"] = ()):

@@ -3,22 +3,28 @@ relational → execute pipeline, result records, and entity materialization.
 
 Mirrors the reference's ``RelationalCypherSession`` / ``RelationalCypherRecords``
 (ref: okapi-relational/.../relational/api/ — reconstructed, mount empty;
-SURVEY.md §2, §3.1).  The plan cache, write path, shape lattice, tracing
-and deadline checkpoints of the JAX package are not ported yet (ROADMAP).
+SURVEY.md §2, §3.1).  Repeated queries are served from the prepared-
+statement plan cache (relational/plan_cache.py).  The write path, cost
+model, tracing and deadline checkpoints of the JAX package are not ported
+yet (ROADMAP).
 """
 from __future__ import annotations
 
 import abc
+import contextlib
 import hashlib
 import logging
+import threading
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 logger = logging.getLogger("caps_tpu_torch")
 
 from caps_tpu_torch._unported import not_ported
 from caps_tpu_torch.frontend import ast
-from caps_tpu_torch.frontend.parser import parse_query, query_mode
+from caps_tpu_torch.frontend.parser import (
+    normalize_query, parse_query, query_mode,
+)
 from caps_tpu_torch.ir import blocks as B
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.ir.builder import IRBuilder
@@ -37,6 +43,10 @@ from caps_tpu_torch.okapi.values import CypherNode, CypherPath, CypherRelationsh
 from caps_tpu_torch.relational import ops as R
 from caps_tpu_torch.relational.graphs import EmptyGraph, RelationalCypherGraph, ScanGraph
 from caps_tpu_torch.relational.header import RecordHeader
+from caps_tpu_torch.relational.plan_cache import (
+    CachedPlan, PlanCache, PlanParams, PreparedQuery, _plan_nbytes,
+    graph_plan_token, param_signature, reset_plan,
+)
 from caps_tpu_torch.relational.planner import RelationalPlanner
 from caps_tpu_torch.relational.table import Table, TableFactory
 
@@ -46,6 +56,41 @@ _UPDATE_CLAUSES = (ast.CreateClause, ast.SetClause, ast.DeleteClause)
 class NondeterministicResultError(RuntimeError):
     """Raised by the determinism check (EngineConfig.determinism_check)
     when a replayed query yields a different result multiset."""
+
+
+# -- degraded execution (failure containment) --------------------------------
+#
+# When shared cached state is suspect (a quarantined plan entry, a poisoned
+# fused memo), a query can re-execute in a degraded mode that provably
+# avoids that state: ``no_plan_cache`` bypasses the session plan cache in
+# BOTH directions (no lookup, no store — a degraded run must not mutate
+# shared state), ``no_fused`` additionally forces per-operator eager
+# execution on backends with a fused record/replay executor.  The flags
+# are per-THREAD: one thread's degraded re-execution must not strip
+# another thread's fast path.
+
+_degraded_tls = threading.local()
+
+
+def degraded_state() -> Tuple[bool, bool]:
+    """(no_plan_cache, no_fused) for the calling thread."""
+    return (getattr(_degraded_tls, "no_plan_cache", False),
+            getattr(_degraded_tls, "no_fused", False))
+
+
+@contextlib.contextmanager
+def degraded_execution(no_plan_cache: bool = True,
+                       no_fused: bool = False) -> Iterator[None]:
+    """Run queries on this thread in a degraded mode (see above).
+    Nests by OR-ing: an unfused region inside a replan region stays
+    unfused."""
+    prev = degraded_state()
+    _degraded_tls.no_plan_cache = prev[0] or no_plan_cache
+    _degraded_tls.no_fused = prev[1] or no_fused
+    try:
+        yield
+    finally:
+        _degraded_tls.no_plan_cache, _degraded_tls.no_fused = prev
 
 
 def result_digest(result: "CypherResult") -> str:
@@ -241,6 +286,9 @@ class RelationalCypherResult(CypherResult):
         self._graph = graph
         self.plans = plans or {}
         self.metrics = metrics or {}
+        #: ((qgn, dep token), ...) of the catalog graphs the query's plan
+        #: resolved (CachedPlan.catalog_deps)
+        self.catalog_deps: Tuple = ()
 
     @property
     def records(self) -> Optional[RelationalCypherRecords]:
@@ -271,6 +319,24 @@ class RelationalCypherSession(CypherSession):
             if getattr(self.config, flag):
                 raise not_ported(f"EngineConfig.{flag}")
         self._ambient = EmptyGraph(self)
+        # Prepared-statement plan cache (relational/plan_cache.py): keyed
+        # value-independently; catalog mutations evict dependent entries.
+        self.plan_cache = PlanCache(self.config.plan_cache_size,
+                                    enabled=self.config.use_plan_cache)
+        # Scoped catalog eviction: a mutation of graph X drops exactly
+        # X's dependents (okapi/catalog.py dep_token) — unrelated graphs'
+        # cached state survives.
+        self._catalog.subscribe(
+            lambda _version, qgn: self._evict_catalog_dependents(qgn))
+        # per-thread recorder of catalog graphs resolved while planning
+        # (they become the cached plan's catalog_deps)
+        self._deps_tls = threading.local()
+
+    def _evict_catalog_dependents(self, qgn) -> None:
+        """Drop the cached state of every query that resolved the
+        catalog graph ``qgn`` (any catalog graph when None).  Backends
+        with more per-query state than the plan cache extend it."""
+        self.plan_cache.evict_dependents(qgn)
 
     # -- backend SPI --------------------------------------------------------
 
@@ -288,6 +354,26 @@ class RelationalCypherSession(CypherSession):
     def cypher(self, query: str,
                parameters: Optional[Mapping[str, Any]] = None) -> CypherResult:
         return self.cypher_on_graph(self._ambient, query, parameters)
+
+    def prepare(self, query: str,
+                graph: Optional[RelationalCypherGraph] = None) -> PreparedQuery:
+        """Prepare a query for repeated execution: parses (and validates)
+        once, and every ``.run(params)`` serves the planned operator tree
+        from the session plan cache — the steady state skips
+        parse/IR/logical/relational planning entirely."""
+        return PreparedQuery(self, query, graph)
+
+    def cypher_degraded(self, graph: RelationalCypherGraph, query: str,
+                        parameters: Optional[Mapping[str, Any]] = None, *,
+                        no_plan_cache: bool = True,
+                        no_fused: bool = False) -> CypherResult:
+        """Degraded re-execution (see :func:`degraded_execution`): bypass
+        the plan cache (fresh plan, nothing stored) and optionally force
+        unfused per-operator execution.  Correct results, none of the
+        shared cached state a poisoned entry could hide in."""
+        with degraded_execution(no_plan_cache=no_plan_cache,
+                                no_fused=no_fused):
+            return self.cypher_on_graph(graph, query, parameters)
 
     def cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
                         parameters: Optional[Mapping[str, Any]] = None
@@ -311,15 +397,17 @@ class RelationalCypherSession(CypherSession):
             result.metrics["determinism_digest"] = d1
         return result
 
-    def _plan_ir(self, graph: RelationalCypherGraph, ir,
+    def _plan_ir(self, graph: RelationalCypherGraph, ir, plan_params,
                  params: Dict[str, Any]):
         """Logical planning + optimization + relational planning for one
         (non-catalog) IR statement — shared by the execute path, EXPLAIN
         and CATALOG CREATE GRAPH, so the plan EXPLAIN renders is the
-        plan that executes.  Returns (logical, context, rel_planner,
-        root, t_logical_done)."""
+        plan that executes.  Planning reads parameters through
+        ``plan_params`` (a :class:`PlanParams` view on the cached path);
+        the runtime context gets the plain ``params``.  Returns (logical,
+        context, rel_planner, root, t_logical_done)."""
         logical = LogicalPlanner(graph.schema, self._schema_resolver,
-                                 params).process(ir)
+                                 plan_params).process(ir)
         logical = LogicalOptimizer(None).process(logical)
         t3 = time.perf_counter()
         context = R.RelationalRuntimeContext(self, params)
@@ -354,7 +442,7 @@ class RelationalCypherSession(CypherSession):
         if not isinstance(ir, B.DropGraphStatement):
             inner = ir.inner if isinstance(ir, B.CreateGraphStatement) else ir
             logical, _context, _planner, root, _t3 = self._plan_ir(
-                graph, inner, params)
+                graph, inner, params, params)
             plans["logical"] = logical.pretty()
             plans["relational"] = root.pretty()
         metrics = {"mode": "explain", "plan_s": time.perf_counter() - t0,
@@ -363,33 +451,55 @@ class RelationalCypherSession(CypherSession):
 
     # -- execution -------------------------------------------------------------
 
+    def _plan_cache_key(self, graph: RelationalCypherGraph, query: str,
+                        params: Mapping[str, Any]) -> Optional[Tuple]:
+        gtok = graph_plan_token(graph)
+        if gtok is None:
+            return None
+        # catalog consistency is per-plan (CachedPlan.catalog_deps),
+        # not part of the key: a catalog mutation invalidates exactly
+        # its dependents instead of re-keying the whole session
+        return (normalize_query(query), gtok, param_signature(params))
+
     def _cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
                          parameters: Optional[Mapping[str, Any]] = None
                          ) -> CypherResult:
         t0 = time.perf_counter()
         params = dict(parameters or {})
+
+        no_plan_cache, _no_fused = degraded_state()
+        cache_key: Optional[Tuple] = None
+        if self.plan_cache.enabled and not no_plan_cache:
+            cache_key = self._plan_cache_key(graph, query, params)
+            if cache_key is not None:
+                cached = self.plan_cache.lookup(cache_key, params,
+                                                catalog=self._catalog)
+                if cached is not None:
+                    return self._run_cached(cached, query, params, t0)
+
+        # Cold path: the full front end.  Planning sees the parameters
+        # through a PlanParams view, which records any plan-time VALUE
+        # read as a cache specialization; runtime parameter reads go
+        # through the context's plain dict and stay free.
+        plan_params = PlanParams(params)
         stmt = self._parse_read(query)
         t1 = time.perf_counter()
-        ir = IRBuilder(graph.schema, self._schema_resolver,
-                       params).process(stmt)
-        t2 = time.perf_counter()
-        if isinstance(ir, B.CreateGraphStatement):
-            return self._run_create_graph(graph, ir, params)
-        if isinstance(ir, B.DropGraphStatement):
-            self._catalog.delete(ir.qgn)
-            return RelationalCypherResult()
-        logical, context, rel_planner, root, t3 = self._plan_ir(
-            graph, ir, params)
+        with self._record_catalog_deps() as catalog_deps:
+            ir = IRBuilder(graph.schema, self._schema_resolver,
+                           plan_params).process(stmt)
+            t2 = time.perf_counter()
+            if isinstance(ir, B.CreateGraphStatement):
+                return self._run_create_graph(graph, ir, params)
+            if isinstance(ir, B.DropGraphStatement):
+                self._catalog.delete(ir.qgn)
+                return RelationalCypherResult()
+            logical, context, rel_planner, root, t3 = self._plan_ir(
+                graph, ir, plan_params, params)
         t4 = time.perf_counter()
 
         plans = {"ir": ir.pretty(), "logical": logical.pretty(),
                  "relational": root.pretty()}
-        if self.config.print_ir:
-            print(plans["ir"])
-        if self.config.print_logical_plan:
-            print(plans["logical"])
-        if self.config.print_relational_plan:
-            print(plans["relational"])
+        self._print_plans(plans)
 
         result_graph: Optional[RelationalCypherGraph] = None
         records: Optional[RelationalCypherRecords] = None
@@ -405,16 +515,93 @@ class RelationalCypherSession(CypherSession):
         metrics = {
             "parse_s": t1 - t0, "ir_s": t2 - t1, "plan_s": t3 - t2,
             "relational_s": t4 - t3, "execute_s": t5 - t4,
+            # size_hint never syncs (generic replay may only know an
+            # upper bound until the result is materialized)
             "rows": records.table.size_hint() if records is not None else 0,
             "operators": context.op_metrics,
             "bytes_touched": sum(m.get("bytes_in", 0)
                                  for m in context.op_metrics),
+            "plan_cache": "miss" if cache_key is not None else "off",
         }
         if self.config.print_timings:
             print(f"[caps-tpu-torch] timings: {metrics}")
         logger.debug("query %r: %d rows in %.1f ms", query,
                      metrics["rows"], 1e3 * (t5 - t0))
-        return RelationalCypherResult(records, result_graph, plans, metrics)
+
+        deps = tuple(sorted(catalog_deps.items()))
+        if (cache_key is not None and records is not None
+                and not logical.returns_graph and plan_params.cacheable):
+            entry = CachedPlan(
+                root=root, result_fields=logical.result_fields, plans=plans,
+                records_graph=rel_planner.current_graph, context=context,
+                spec_key=plan_params.spec_key(),
+                cold_phase_s=t4 - t0,
+                nbytes=_plan_nbytes(plans, root, context=context,
+                                    catalog_deps=catalog_deps),
+                catalog_deps=deps)
+            # Drop the memoized results before parking the tree in the
+            # cache: the records object holds the (header, table) refs,
+            # so a cached plan retains no tables between executions.
+            reset_plan(root)
+            self.plan_cache.store(cache_key, entry)
+        result = RelationalCypherResult(records, result_graph, plans, metrics)
+        result.catalog_deps = deps
+        return result
+
+    def _run_cached(self, plan: CachedPlan, query: str,
+                    params: Dict[str, Any], t0: float) -> CypherResult:
+        """Execute a cached relational operator tree with fresh parameter
+        bindings: swap the shared runtime context's parameters, clear the
+        per-run memos, and pull the root's result.  parse/ir/plan/
+        relational metrics are 0 by construction (only the cache lookup
+        preceded this)."""
+        # The plan's operator tree and runtime context are shared mutable
+        # state (parameter dict, per-op result memos): concurrent
+        # executions of the SAME cached plan serialize on its lock.
+        with plan.exec_lock:
+            context = plan.context
+            context.rebind(params)
+            reset_plan(plan.root)
+            t1 = time.perf_counter()
+            try:
+                header, table = plan.root.result
+                records = RelationalCypherRecords(
+                    self, header, table, plan.result_fields,
+                    graph=plan.records_graph)
+                op_metrics = context.op_metrics
+            finally:
+                # the records object owns (header, table) now; the parked
+                # tree must not pin device buffers until its next
+                # execution — including when a run failed mid-tree with
+                # partial operator memos already computed
+                reset_plan(plan.root)
+        t2 = time.perf_counter()
+        self._print_plans(plan.plans)
+        metrics = {
+            "parse_s": 0.0, "ir_s": 0.0, "plan_s": 0.0, "relational_s": 0.0,
+            "plan_cache_lookup_s": t1 - t0,
+            "execute_s": t2 - t1,
+            "rows": table.size_hint(),
+            "operators": op_metrics,
+            "bytes_touched": sum(m.get("bytes_in", 0) for m in op_metrics),
+            "plan_cache": "hit",
+            "plan_cache_saved_s": plan.cold_phase_s,
+        }
+        if self.config.print_timings:
+            print(f"[caps-tpu-torch] timings: {metrics}")
+        logger.debug("query %r: %d rows in %.1f ms (plan cache hit)",
+                     query, metrics["rows"], 1e3 * (t2 - t0))
+        result = RelationalCypherResult(records, None, plan.plans, metrics)
+        result.catalog_deps = plan.catalog_deps
+        return result
+
+    def _print_plans(self, plans: Dict[str, str]) -> None:
+        if self.config.print_ir:
+            print(plans["ir"])
+        if self.config.print_logical_plan:
+            print(plans["logical"])
+        if self.config.print_relational_plan:
+            print(plans["relational"])
 
     # -- graph-returning statements -----------------------------------------
 
@@ -422,7 +609,7 @@ class RelationalCypherSession(CypherSession):
         """CATALOG CREATE GRAPH qgn { inner }: evaluate the inner query's
         graph and store it under the qualified name."""
         logical, context, planner, root, _t3 = self._plan_ir(
-            graph, ir.inner, params)
+            graph, ir.inner, params, params)
         if not logical.returns_graph:
             raise ValueError(
                 "CATALOG CREATE GRAPH requires the inner query to end with "
@@ -437,7 +624,26 @@ class RelationalCypherSession(CypherSession):
             raise ValueError("query does not produce a graph")
         return result_graph
 
+    @contextlib.contextmanager
+    def _record_catalog_deps(self):
+        """Collect every catalog graph the planning phases resolve on
+        this thread — the cached plan stores (qgn, dep token) pairs and
+        lookup revalidates them (scoped invalidation)."""
+        prev = getattr(self._deps_tls, "rec", None)
+        rec: Dict[QualifiedGraphName, Tuple] = {}
+        self._deps_tls.rec = rec
+        try:
+            yield rec
+        finally:
+            self._deps_tls.rec = prev
+
+    def _note_catalog_dep(self, qgn: QualifiedGraphName) -> None:
+        rec = getattr(self._deps_tls, "rec", None)
+        if rec is not None:
+            rec[qgn] = self._catalog.dep_token(qgn)
+
     def _schema_resolver(self, qgn: QualifiedGraphName) -> Schema:
+        self._note_catalog_dep(qgn)
         src = self._catalog.source(qgn.namespace)
         s = src.schema(qgn.graph_name)
         if s is None:
@@ -445,6 +651,7 @@ class RelationalCypherSession(CypherSession):
         return s
 
     def _graph_resolver(self, qgn: QualifiedGraphName) -> RelationalCypherGraph:
+        self._note_catalog_dep(qgn)
         g = self._catalog.graph(qgn)
         if not isinstance(g, RelationalCypherGraph):
             raise TypeError(f"graph {qgn!r} is not a relational graph")

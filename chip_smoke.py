@@ -7,19 +7,29 @@ Run from the repository root with no arguments:
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
-  1. env     — torch / CUDA versions and the card's name and power limit;
-  2. build   — nvcc builds every kernel from ``caps_tpu_torch/ops/csrc``;
-  3. slice   — a seeded graph (1M :Person {age 18-89, city: one of 1,000
-               strings}, 10M uniform :KNOWS edges) is built on the card and
-               the grouped 2-hop query runs through ``local_session`` once
-               with the launch counts zeroed just before and read just
-               after; then warm runs and the ``count(*)`` form.  Both
-               results must equal a numpy oracle of the same graph;
-  4. kernels — each kernel wrapper against its plain PyTorch version on the
-               card, on the inputs the slice gave it and at edge shapes,
-               with the median time of 20 launches (CUDA events), the
-               plain version's and one library call's time;
-  5. the ``{"kernels": [...]}`` line, the card line, and the last line
+  1. env      — torch / CUDA versions and the card's name and power limit;
+  2. build    — nvcc builds every kernel from ``caps_tpu_torch/ops/csrc``;
+  3. slice    — a seeded graph (1M :Person {age 18-89, city: one of 1,000
+                strings}, 10M uniform :KNOWS edges) is built on the card
+                and the grouped 2-hop query runs through ``local_session``
+                once with the launch counts zeroed just before and read
+                just after (a fused record run and a plan-cache miss; it
+                runs every kernel family's self-test first); then warm
+                runs (plan-cache hits, exact replays) and the ``count(*)``
+                form.  Both results must equal a numpy oracle of the same
+                graph;
+  4. warm     — on the same session: the eager path (plan cache and fused
+                replay off), exact replays (0 size reads each), and 24
+                rotating ``$age`` values (param-generic replay), each equal
+                to its own numpy oracle; one exact and one generic replay
+                run under ``torch.cuda.set_sync_debug_mode("warn")``;
+  5. selftest — the seconds each kernel family's self-test took, and a
+                check that a second request launches nothing;
+  6. kernels  — each kernel wrapper against its plain PyTorch version on
+                the card, on the inputs the slice gave it and at edge
+                shapes, with the median time of 20 launches (CUDA events),
+                the plain version's and one library call's time;
+  7. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -34,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -59,7 +70,15 @@ KERNELS = {
                          "caps_tpu/ops/expand.py:81"),
     "bitonic_sort": ("caps_tpu_torch/ops/csrc/bitonic_sort.cu",
                      "caps_tpu/ops/sort.py:171"),
+    "prefetch_gather": ("caps_tpu_torch/ops/csrc/prefetch_gather.cu",
+                        "caps_tpu/ops/probe.py:94"),
 }
+ROTATING = 24   # $age values of the warm phase's param-generic sequence
+# Launches one run of the grouped query makes of the kernels it runs
+# itself (K4 runs only in the self-test): two joins per hop, one
+# group-by, one sort of the grouped rows.
+MIN_QUERY_LAUNCHES = {"segment_agg": 1, "expand_positions": 4,
+                      "bitonic_sort": 1}
 
 
 def emit(obj) -> None:
@@ -139,12 +158,17 @@ def make_graph(np, seed: int, n_persons: int, n_edges: int, n_cities: int):
 
 def oracle(np, nodes, rels, age: int):
     """Per-seed out-degree weights pushed over the edges twice, then
-    summed by city: (top-20 grouped rows, total 2-hop count)."""
+    summed by city: (top-20 grouped rows, total 2-hop count).  A path
+    may not use one relationship twice (Cypher's relationship
+    uniqueness), so a-[r]->a-[r]->a over a self-loop r is taken out."""
     p, k = nodes["Person"], rels["KNOWS"]
     n = len(p["_id"])
     seeds = (p["age"] == age).astype(np.int64)
     hop1 = np.bincount(k["_tgt"], weights=seeds[k["_src"]], minlength=n)
     hop2 = np.bincount(k["_tgt"], weights=hop1[k["_src"]], minlength=n)
+    loops = k["_src"] == k["_tgt"]
+    hop2 -= np.bincount(k["_tgt"][loops], weights=seeds[k["_src"][loops]],
+                        minlength=n)
     names, codes = np.unique(p["city"], return_inverse=True)
     per_city = np.rint(np.bincount(codes, weights=hop2,
                                    minlength=len(names))).astype(np.int64)
@@ -153,11 +177,38 @@ def oracle(np, nodes, rels, age: int):
     return [{"city": c, "n": v} for c, v in rows], int(round(hop2.sum()))
 
 
+def run_info(session, result) -> dict:
+    """How one query ran: fused mode, plan cache, size reads."""
+    return {"mode": session.fused.last_mode,
+            "plan_cache": result.metrics["plan_cache"],
+            "size_syncs": result.metrics["size_syncs"]}
+
+
+def check_query_launches(label: str, launches: dict) -> None:
+    """Fail unless one run of the grouped query launched each of its
+    kernels at least as often as MIN_QUERY_LAUNCHES says."""
+    short = {k: launches.get(k, 0) for k in MIN_QUERY_LAUNCHES
+             if launches.get(k, 0) < MIN_QUERY_LAUNCHES[k]}
+    if short:
+        raise RuntimeError(f"{label} did not go through the kernels: "
+                           f"{short} of {launches}")
+
+
+def timed_query(torch, graph, query, params):
+    """(rows, result, seconds): host clock around the query and its
+    materialization, ending in a synchronize."""
+    t0 = time.perf_counter()
+    result = graph.cypher(query, params)
+    rows = result.records.to_maps()
+    torch.cuda.synchronize()
+    return rows, result, time.perf_counter() - t0
+
+
 def run_slice(torch, np, args, card: str):
     import caps_tpu_torch
     from caps_tpu_torch import ops
     from caps_tpu_torch.interop import graph_from_numpy
-    from caps_tpu_torch.ops import expand, segment, sort
+    from caps_tpu_torch.ops import expand, prefetch, probe, segment, sort
 
     t0 = time.perf_counter()
     nodes, rels = make_graph(np, args.seed, args.persons, args.edges,
@@ -173,16 +224,14 @@ def run_slice(torch, np, args, card: str):
                  lambda a: a[0].shape[0]),
         Recorder(expand, "expand_positions_cuda", lambda a: a[2]),
         Recorder(sort, "bitonic_sort_perm_cuda", lambda a: a[0][0].shape[0]),
+        Recorder(prefetch, "prefetch_gather_cuda", lambda a: a[0].shape[0]),
     ]
     for r in recorders:
         r.__enter__()
     try:
         ops.reset_launches()
-        t0 = time.perf_counter()
-        result = graph.cypher(QUERY_GROUPED, params)
-        rows = result.records.to_maps()
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
+        rows, result, cold_s = timed_query(torch, graph, QUERY_GROUPED,
+                                           params)
         launches = ops.launches()
     finally:
         for r in recorders:
@@ -191,18 +240,25 @@ def run_slice(torch, np, args, card: str):
         if launches.get(name, 0) <= 0:
             raise RuntimeError(f"main path never launched kernel {name}: "
                                f"{launches}")
+    # the first query runs every family's self-test; its own launches
+    # are what is left
+    selftest = probe.selftest_launches()
+    own = {k: launches.get(k, 0) - selftest.get(k, 0) for k in KERNELS}
+    check_query_launches("the record run", own)
+    runs = [run_info(session, result)]
+    if runs[0]["mode"] != "record" or runs[0]["plan_cache"] != "miss":
+        raise RuntimeError(f"first run was not a record run and a plan-cache "
+                           f"miss: {runs[0]}")
 
     warm = []
     for _ in range(5):
-        t0 = time.perf_counter()
-        warm_result = graph.cypher(QUERY_GROUPED, params)
-        warm_rows = warm_result.records.to_maps()
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    count_rows = graph.cypher(QUERY_COUNT, params).records.to_maps()
-    torch.cuda.synchronize()
-    count_s = time.perf_counter() - t0
+        warm_rows, warm_result, s = timed_query(torch, graph, QUERY_GROUPED,
+                                                params)
+        warm.append(s)
+        runs.append(run_info(session, warm_result))
+    count_rows, count_result, count_s = timed_query(torch, graph,
+                                                    QUERY_COUNT, params)
+    count_run = run_info(session, count_result)
 
     want_rows, want_count = oracle(np, nodes, rels, AGE)
     if rows != want_rows or warm_rows != want_rows:
@@ -210,6 +266,10 @@ def run_slice(torch, np, args, card: str):
                            f"got  {rows}\nwant {want_rows}")
     if count_rows != [{"c": want_count}]:
         raise RuntimeError(f"count query {count_rows} != {want_count}")
+    for r in runs[1:]:
+        if r != {"mode": "replay", "plan_cache": "hit", "size_syncs": 0}:
+            raise RuntimeError(f"warm run was not a sync-free exact replay "
+                               f"of a cached plan: {runs}")
     joined = sum(m["rows"] for m in result.metrics["operators"]
                  if m["op"] == "Join")
     warm_s = statistics.median(warm)
@@ -220,6 +280,7 @@ def run_slice(torch, np, args, card: str):
           "rows_joined": joined, "rows_joined_per_s": joined / warm_s,
           "two_hop_rows": want_count, "top_city": rows[0],
           "size_syncs_total": session.backend.syncs,
+          "runs": runs, "count_query_run": count_run,
           # host clock per operator of the last warm run (exclusive of
           # children is not tracked: an operator's seconds include the
           # lazily evaluated inputs it pulled)
@@ -228,8 +289,210 @@ def run_slice(torch, np, args, card: str):
           "warm_phases_s": {k: warm_result.metrics[k] for k in (
               "parse_s", "ir_s", "plan_s", "relational_s", "execute_s")},
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "oracle": "equal"})
-    return launches, {r.name: r.largest for r in recorders}
+          "launches": launches, "selftest_launches": selftest,
+          "record_run_launches": own, "oracle": "equal"})
+    return ({"first_run": launches, "selftest": selftest},
+            {r.name: r.largest for r in recorders},
+            (session, graph, nodes, rels))
+
+
+def count_syncs(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``;
+    returns (its value, the synchronizing calls warned, as
+    "file:line" of the Python line that made each)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            value = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own one-time notice ("prototype feature ...") is not a
+    # synchronizing call: match the per-call warning only
+    return value, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                   for w in seen if "called a synchronizing CUDA operation"
+                   in str(w.message)]
+
+
+def device_profile(torch, fn) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: wall time (host clock,
+    profiler on), device busy time (the union of the kernels' and
+    copies' intervals), the idle share, and the device time of the
+    eight heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"wall_s": wall_s, "device_busy_s": "not measured"}
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e6   # profiler times are microseconds
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall_s, "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_s),
+            "device_launches": len(spans),
+            "top_kernels_ms": [[n[:60], ms] for n, ms in top]}
+
+
+def run_warm(torch, np, args, card: str, state):
+    """The warm query path on the slice's session: eager, exact replay,
+    param-generic replay over rotating ages, and the synchronizing calls
+    of one exact and one generic replay's execute part, each with its
+    kernel launches counted."""
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.relational.session import degraded_execution
+    session, graph, nodes, rels = state
+    fused = session.fused
+    want = oracle(np, nodes, rels, AGE)[0]
+
+    # every sequence runs back to back; the oracles are checked after it
+    # (host work between queries would let the card and host idle)
+    eager, eager_exec = [], []
+    for _ in range(5):
+        with degraded_execution(no_plan_cache=True, no_fused=True):
+            rows, result, s = timed_query(torch, graph, QUERY_GROUPED,
+                                          {"age": AGE})
+        if rows != want or result.metrics["plan_cache"] != "off":
+            raise RuntimeError("eager run disagrees with the oracle or "
+                               "used the plan cache")
+        eager.append(s)
+        eager_exec.append(result.metrics["execute_s"])
+
+    exact, exact_exec = [], []
+    for _ in range(5):
+        rows, result, s = timed_query(torch, graph, QUERY_GROUPED,
+                                      {"age": AGE})
+        info = run_info(session, result)
+        if rows != want or info != {"mode": "replay", "plan_cache": "hit",
+                                    "size_syncs": 0}:
+            raise RuntimeError(f"exact replay failed: {info}")
+        exact.append(s)
+        exact_exec.append(result.metrics["execute_s"])
+
+    rng = np.random.default_rng(args.seed + 1)
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    before = (fused.recordings, fused.generic_replays, fused.mismatches)
+    rotating, seq, got, generic_exec = [], [], [], []
+    for age in ages:
+        rows, result, s = timed_query(torch, graph, QUERY_GROUPED,
+                                      {"age": age})
+        rotating.append(s)
+        seq.append(run_info(session, result))
+        got.append(rows)
+        if seq[-1]["mode"] == "replay_gen":
+            generic_exec.append(result.metrics["execute_s"])
+    for age, rows in zip(ages, got):
+        if rows != oracle(np, nodes, rels, age)[0]:
+            raise RuntimeError(f"rotating run at age {age} disagrees with "
+                               f"the oracle")
+    generic = [t for t, r in zip(rotating, seq) if r["mode"] == "replay_gen"]
+    counts = {"recordings": fused.recordings - before[0],
+              "generic_replays": fused.generic_replays - before[1],
+              "mismatches": fused.mismatches - before[2]}
+    if counts["generic_replays"] < 1:
+        raise RuntimeError(f"no generic replay in the rotating sequence: "
+                           f"{seq}")
+    if any(r["size_syncs"] > 1 for r in seq[-3:]):
+        raise RuntimeError(f"the rotating sequence did not settle at <= 1 "
+                           f"size read a query: {seq}")
+
+    # one exact and one generic replay's execute part (no to_maps) under
+    # the sync debug mode, the launch counts zeroed just before each run
+    # and read just after it.  The generic one takes an age the sequence
+    # did not visit (its exact memo is empty); should that age exceed a
+    # served bound, the run re-records and the next unvisited age is
+    # tried, up to five.
+    fresh = [a for a in range(18, 90) if a not in ages and a != AGE][:5]
+    syncs, launches = {}, {}
+    for label, candidates, mode in (("exact", [AGE], "replay"),
+                                    ("generic", fresh, "replay_gen")):
+        tried = []
+        for age in candidates:
+            ops.reset_launches()
+            result, sites = count_syncs(
+                torch, lambda: graph.cypher(QUERY_GROUPED, {"age": age}))
+            rows = result.records.to_maps()
+            run_launches = ops.launches()
+            if rows != oracle(np, nodes, rels, age)[0]:
+                raise RuntimeError(f"{label} run at age {age} disagrees "
+                                   f"with the oracle")
+            tried.append([age, fused.last_mode])
+            if fused.last_mode == mode:
+                check_query_launches(f"the {label} replay", run_launches)
+                launches[label] = run_launches
+                syncs[label] = {"age": age, "sync_calls": len(sites),
+                                "sync_sites": sites,
+                                "size_syncs": result.metrics["size_syncs"],
+                                "launches": run_launches, "tried": tried}
+                break
+        else:
+            raise RuntimeError(f"no {label} replay for the sync count: "
+                               f"{tried}")
+
+    def eager_run():
+        with degraded_execution(no_plan_cache=True, no_fused=True):
+            graph.cypher(QUERY_GROUPED, {"age": AGE}).records.to_maps()
+
+    profiles = {
+        "eager": device_profile(torch, eager_run),
+        "exact_replay": device_profile(torch, lambda: graph.cypher(
+            QUERY_GROUPED, {"age": AGE}).records.to_maps())}
+
+    emit({"phase": "warm", "card": card,
+          "eager_s": statistics.median(eager), "eager_runs_s": eager,
+          "exact_replay_s": statistics.median(exact),
+          "exact_runs_s": exact,
+          "rotating_s": statistics.median(rotating),
+          "rotating_runs_s": rotating, "ages": ages,
+          "generic_replay_s": statistics.median(generic),
+          # host seconds of the execute phase: under replay the time to
+          # dispatch the whole query (nothing waits for the card)
+          "execute_s": {"eager": statistics.median(eager_exec),
+                        "exact_replay": statistics.median(exact_exec),
+                        "generic_replay": statistics.median(generic_exec)},
+          "rotating_size_syncs": [r["size_syncs"] for r in seq],
+          "rotating_modes": [r["mode"] for r in seq], **counts,
+          "sync_debug": syncs, "profiles": profiles, "oracle": "equal"})
+    return launches
+
+
+def run_selftest(card: str) -> None:
+    """Seconds of each family's first self-test (in the slice's first
+    query); a second request must launch nothing."""
+    import torch
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.ops import probe
+    seconds = probe.selftest_seconds()
+    if sorted(seconds) != sorted(probe.FEATURES):
+        raise RuntimeError(f"self-tests run: {seconds}")
+    ops.reset_launches()
+    for feature in probe.FEATURES:
+        ops.ensure_kernels(feature, torch.device("cuda"))
+    if ops.launches():
+        raise RuntimeError(f"a second self-test request launched "
+                           f"{ops.launches()}")
+    emit({"phase": "selftest", "card": card, "first_call_s": seconds,
+          "second_call_launches": 0})
 
 
 def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
@@ -378,6 +641,63 @@ def check_sort(torch, main_args, dev):
             "library_call": "torch.sort(stable) chained over the keys"}
 
 
+def check_prefetch(torch, main_args, dev):
+    from caps_tpu_torch.ops import prefetch as P
+    x, blk, tile = main_args
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n_big = 1 << 16
+    big_x = torch.randint(-2 ** 30, 2 ** 30, (tile * n_big,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    big_blk = torch.randint(0, n_big, (n_big,), generator=gen, device=dev,
+                            dtype=torch.int32)   # repeats: a random draw
+    cases = [("main_path", main_args), ("tiles=65536", (big_x, big_blk, 256)),
+             ("tile=100", (torch.arange(700, dtype=torch.int32, device=dev),
+                           torch.tensor([6, 0, 3, 3], dtype=torch.int32,
+                                        device=dev), 100))]
+    err = 0.0
+    for label, (a, b, t) in cases:
+        out, bad = P.prefetch_gather_cuda(a, b, t)
+        if int(bad):
+            raise RuntimeError(f"prefetch_gather[{label}]: in-range blocks "
+                               f"flagged")
+        e = check_equal(torch, f"prefetch_gather[{label}]", out,
+                        P.prefetch_gather_plain(a, b, t))
+        if label == "main_path":
+            err = e
+    # one out-of-range block: the flag is set, that tile is zeros, the
+    # other tiles agree with the plain version, nothing is read past x
+    oob = blk.clone()
+    oob[1] = x.shape[0] // tile
+    out, bad = P.prefetch_gather_cuda(x, oob, tile)
+    if int(bad) != 1:
+        raise RuntimeError("prefetch_gather: out-of-range block not flagged")
+    good = torch.ones(oob.shape[0], dtype=torch.bool, device=dev)
+    good[1] = False
+    check_equal(torch, "prefetch_gather[out_of_range]",
+                out.view(-1, tile)[good].reshape(-1),
+                P.prefetch_gather_plain(x, oob[good], tile))
+    if bool(out.view(-1, tile)[1].any()):
+        raise RuntimeError("prefetch_gather: out-of-range tile not zeroed")
+
+    def timings(a, b, t):
+        n_tiles = b.shape[0]
+        ms = time_ms(torch, lambda: P.prefetch_gather_cuda(a, b, t))
+        plain_ms = time_ms(torch, lambda: P.prefetch_gather_plain(a, b, t))
+        library_ms = time_ms(torch, lambda: torch.index_select(
+            a.view(-1, t), 0, b).mul_(2))
+        bound_ms, by = bound(8 * t * n_tiles + 4 * n_tiles, t * n_tiles)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": by,
+                "shape": {"tile": t, "n_tiles": n_tiles}}
+
+    main = timings(x, blk, tile)
+    return {"max_abs_err": err, **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cases": len(cases) + 1, "shape": main["shape"],
+            "at_16Mi": timings(big_x, big_blk, 256),
+            "library_call": "torch.index_select(...).mul_(2)"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -411,7 +731,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(str(p)) for p in libs]})
 
-    launches, main_args = run_slice(torch, np, args, card)
+    launches, main_args, state = run_slice(torch, np, args, card)
+    launches.update(run_warm(torch, np, args, card, state))
+    run_selftest(card)
 
     dev = torch.device("cuda")
     checks = {
@@ -421,6 +743,8 @@ def main() -> int:
             torch, main_args["expand_positions_cuda"], dev),
         "bitonic_sort": check_sort(torch, main_args["bitonic_sort_perm_cuda"],
                                    dev),
+        "prefetch_gather": check_prefetch(
+            torch, main_args["prefetch_gather_cuda"], dev),
     }
     for name, c in checks.items():
         emit({"phase": "kernel", "name": name, "card": card, **c})
@@ -430,7 +754,13 @@ def main() -> int:
         c = checks[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches["first_run"][name],
+            # the first run's launches made by the kernel self-test, and
+            # those of one exact and one generic replay, each counted
+            # from zero for that run
+            "launches_selftest": launches["selftest"].get(name, 0),
+            "launches_exact_replay": launches["exact"].get(name, 0),
+            "launches_generic_replay": launches["generic"].get(name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})

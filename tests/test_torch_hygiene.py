@@ -68,7 +68,10 @@ def test_cpu_session_runs_on_cpu():
         256),
     lambda: ops.bitonic_sort_perm_cuda(
         [torch.zeros(256, dtype=torch.int32)]),
-], ids=["segment_agg", "expand_positions", "bitonic_sort"])
+    lambda: ops.prefetch_gather_cuda(
+        torch.zeros(1024, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32), 256),
+], ids=["segment_agg", "expand_positions", "bitonic_sort", "prefetch_gather"])
 def test_kernel_wrappers_raise_on_cpu_tensors(launch):
     before = ops.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
