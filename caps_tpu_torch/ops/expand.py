@@ -4,9 +4,11 @@ The counterpart of ``caps_tpu/ops/expand.py``.  The materialization step
 of every join / Expand hop: given per-left-row match counts, produce for
 every output slot ``t`` the left row it came from and the position of its
 match — the inversion of ``offsets = cumsum(counts)``.
-``csrc/expand_positions.cu`` computes it on the card (design notes
-there); :func:`expand_positions_plain` is the same function in plain
-PyTorch (searchsorted formulation).
+``csrc/expand_positions.cu`` computes it on the card with a
+load-balanced merge path over the slots and the row ends (design notes
+there; launch geometry :func:`expand_geometry`);
+:func:`expand_positions_plain` is the same function in plain PyTorch
+(searchsorted formulation).
 
 ``DeviceCSR`` makes the probe side of Expand O(1) per row: a CSR over a
 relationship table's source (or target) id column, built once at ingest
@@ -24,6 +26,12 @@ import torch
 
 from caps_tpu_torch import ops
 
+# Launch geometry of csrc/expand_positions.cu (its THREADS and VT): a
+# tile is NV merged items (slots and row ends), a scan tile NV rows.
+THREADS = 256
+VT = 8
+NV = THREADS * VT
+
 _lib = None
 
 
@@ -33,12 +41,25 @@ def _library():
         from caps_tpu_torch.ops.build import library
         lib = library("expand_positions")
         lib.expand_positions.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.expand_positions.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def expand_geometry(cap_l: int, out_cap: int) -> Tuple[int, int, int]:
+    """(scan_tiles, expand_tiles, scratch_words) of one launch: the scan
+    passes take ceil(cap_l / NV) blocks, the expand pass one block per NV
+    items of the merged sequence of out_cap slots and cap_l row ends.
+    Scratch: merged row ends and bases (cap_l each), the scan blocks'
+    sums and the tiles' splits (expand_tiles + 1), int32."""
+    scan_tiles = -(-cap_l // NV)
+    expand_tiles = -(-(out_cap + cap_l) // NV)
+    return (scan_tiles, expand_tiles,
+            2 * cap_l + scan_tiles + expand_tiles + 1)
 
 
 def expand_positions(counts: torch.Tensor, lo: torch.Tensor, out_cap: int
@@ -61,37 +82,39 @@ def expand_positions_cuda(counts: torch.Tensor, lo: torch.Tensor,
     """The kernel wrapper: checks its inputs, launches
     ``csrc/expand_positions.cu`` on the current stream, or raises.
     ``lo`` holds positions into an int32-indexed table (``r_pos`` is
-    int32, as in the JAX kernel)."""
+    int32, as in the JAX kernel).  The caller sizes ``out_cap >=
+    counts.sum()``, as for the JAX kernel; the total is never read on
+    the host."""
     for name, t in (("counts", counts), ("lo", lo)):
         if t.dtype not in (torch.int32, torch.int64):
             raise ValueError(f"expand_positions_cuda: {name} must be int32 "
                              f"or int64, got {t.dtype}")
-    if counts.device.type != "cuda":
-        raise ValueError(f"expand_positions_cuda: needs CUDA tensors, got "
-                         f"{counts.device}")
     cap_l = counts.shape[0]
     if counts.dim() != 1 or lo.shape != counts.shape \
             or lo.device != counts.device:
         raise ValueError("expand_positions_cuda: counts and lo must be "
                          "(cap_l,) tensors on one device")
-    if not 0 <= out_cap < 2 ** 31 or cap_l >= 2 ** 31:
-        # the kernel's offsets and positions are int32
-        raise ValueError(f"expand_positions_cuda: out_cap {out_cap} / cap_l "
+    if out_cap < 0 or out_cap + cap_l + NV >= 2 ** 31:
+        # merged positions (slots + row ends) are int32 in the kernel
+        raise ValueError(f"expand_positions_cuda: out_cap {out_cap} + cap_l "
                          f"{cap_l} exceed int32")
+    if counts.device.type != "cuda":
+        raise ValueError(f"expand_positions_cuda: needs CUDA tensors, got "
+                         f"{counts.device}")
     dev = counts.device
     l_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     r_pos = torch.empty(out_cap, dtype=torch.int32, device=dev)
     valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
     if out_cap == 0:
         return l_idx, r_pos, valid
-    # prelude (plain torch, as the JAX package leaves it to XLA): the
-    # inclusive running sum; its last element is the total
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32)
-    lo32 = lo.to(torch.int32).contiguous()
+    counts, lo = counts.contiguous(), lo.contiguous()
+    scan_tiles, tiles, words = expand_geometry(cap_l, out_cap)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     status = _library().expand_positions(
-        offsets.data_ptr(), lo32.data_ptr(), cap_l, out_cap,
-        l_idx.data_ptr(), r_pos.data_ptr(), valid.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        counts.data_ptr(), int(counts.dtype == torch.int64), lo.data_ptr(),
+        int(lo.dtype == torch.int64), cap_l, out_cap, scan_tiles, tiles,
+        scratch.data_ptr(), l_idx.data_ptr(), r_pos.data_ptr(),
+        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     ops.check_cuda(status, "expand_positions")
     ops.count_launch("expand_positions")
     return l_idx, r_pos, valid

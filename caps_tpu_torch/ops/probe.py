@@ -13,8 +13,14 @@ each result against its plain PyTorch version.
     basic    — the segment-aggregation kernel (K1), at S = 130 (count) and
                S = 1500 (max_f32), n = 4096
     prefetch — the tile-gather kernel (K4) at tile 256 × 4 tiles, and the
-               expand-positions kernel (K2) at a small shape
-    sort     — the bitonic sort kernel (K3) at capacity 256
+               expand-positions kernel (K2) at two small shapes that
+               between them reach every path of its merge-path design:
+               int64 and int32 inputs, a run of zero-count rows longer
+               than a tile, one row spanning several tiles, tiles that
+               mix rows and padding, and pure padding tiles
+    sort     — the sort kernel (K3) at capacity 256 (one chunk block) and
+               at capacity 2048 (two chunk blocks, then one merge pass
+               over the card)
 
 It never returns a verdict and never selects a plain version: any
 difference raises :class:`KernelSelfTestError`.  It keeps no verdicts on
@@ -127,23 +133,34 @@ def _prefetch(device) -> None:
     _expect_equal("prefetch", "prefetch_gather(tile=256, n_tiles=4)", out,
                   P.prefetch_gather_plain(x, blk, tile))
     rng = np.random.RandomState(0)
-    counts = torch.from_numpy(rng.randint(0, 5, 700)).to(device)
-    lo = torch.arange(700, device=device)
-    for g, w in zip(X.expand_positions_cuda(counts, lo, 4096),
-                    X.expand_positions_plain(counts, lo, 4096)):
-        _expect_equal("prefetch", "expand_positions(cap_l=700, "
-                      "out_cap=4096)", g, w)
+    # int64, a few tiles: rows, row ends and padding share tiles
+    counts = rng.randint(0, 5, 700)
+    # int32: a zero run longer than a tile, one row over several tiles,
+    # then pure padding tiles
+    long_run = rng.randint(0, 5, 3 * X.NV)
+    long_run[:X.NV + 100] = 0
+    long_run[X.NV + 100] = 3 * X.NV
+    for c, out_cap in ((counts, 4096),
+                       (long_run.astype(np.int32), 16 * X.NV)):
+        ct = torch.from_numpy(c).to(device)
+        lo = torch.arange(len(c), device=device, dtype=ct.dtype)
+        for g, w in zip(X.expand_positions_cuda(ct, lo, out_cap),
+                        X.expand_positions_plain(ct, lo, out_cap)):
+            _expect_equal("prefetch", f"expand_positions(cap_l={len(c)}, "
+                          f"out_cap={out_cap}, {ct.dtype})", g, w)
 
 
 def _sort(device) -> None:
     from caps_tpu_torch.ops import sort as S
     rng = np.random.RandomState(0)
-    keys = [torch.from_numpy(rng.randint(0, 50, 256).astype(np.int64))
-            .to(device)]
-    planes = S.split_planes(keys)
-    _expect_equal("sort", "bitonic_sort(cap=256)",
-                  S.bitonic_sort_perm_cuda(planes),
-                  S.bitonic_sort_perm_plain(planes))
+    for cap in (256, 2048):    # one chunk; two chunks and a merge pass
+        keys = [torch.from_numpy(rng.randint(0, 50, cap).astype(np.int64))
+                .to(device)]
+        planes = S.split_planes(keys)
+        _expect_equal("sort", f"bitonic_sort(cap={cap}, "
+                      f"{len(planes)} planes)",
+                      S.bitonic_sort_perm_cuda(planes),
+                      S.bitonic_sort_perm_plain(planes))
 
 
 _SELFTESTS = {"basic": _basic, "prefetch": _prefetch, "sort": _sort}

@@ -7,9 +7,11 @@ biased-lo) pairs — exact for the full 64-bit range — and float64 keys
 bitcast through the monotone total-order mapping.  The comparator chains
 the planes lexicographically with the original row index as the final
 tiebreak, so the network is a strict total order and its permutation is
-bit-identical to a stable sort.  ``csrc/bitonic_sort.cu`` runs the
-network on the card (design notes there); :func:`bitonic_sort_perm_plain`
-steps the same network in plain PyTorch.
+bit-identical to a stable sort.  Any algorithm that yields that
+permutation computes the same function: ``csrc/bitonic_sort.cu`` runs a
+merge sort by co-ranking on the card (design notes there; launch
+geometry :func:`sort_geometry`); :func:`bitonic_sort_perm_plain` steps
+the JAX package's bitonic network in plain PyTorch.
 
 Capacities :func:`sort_cap_supported` rejects take the stable torch sort
 in ``backends/cuda/kernels.sort_perm``.
@@ -17,7 +19,7 @@ in ``backends/cuda/kernels.sort_perm``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -26,6 +28,16 @@ from caps_tpu_torch import ops
 LANES = 128
 ROWS_MAX = 128          # cap <= 128 * 128 = 16384 elements
 _I64_MIN = -(2 ** 63)
+
+# Launch geometry of csrc/bitonic_sort.cu (its MAX_THREADS, PACKED and
+# MAX_PTRS): a block sorts a chunk of rows, a row a thread; the chunk's
+# planes, two buffers of packed rows (int4) and two per-plane words take
+# at most SMEM_BUDGET bytes of the 232,448 a block may use.
+SMEM_BUDGET = 204_800
+MAX_THREADS = 1024
+PACKED = 3
+MAX_PTR_PLANES = 64     # above this the planes are stacked into one tensor
+MIN_CHUNK = 32
 
 _lib = None
 
@@ -36,7 +48,8 @@ def _library():
         from caps_tpu_torch.ops.build import library
         lib = library("bitonic_sort")
         lib.bitonic_sort_perm.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
         lib.bitonic_sort_perm.restype = ctypes.c_int
         _lib = lib
@@ -49,6 +62,28 @@ def sort_cap_supported(cap: int) -> bool:
     r = cap // LANES
     return (cap % LANES == 0 and 2 <= r <= ROWS_MAX
             and (r & (r - 1)) == 0)
+
+
+def sort_smem_bytes(chunk: int, n_planes: int) -> int:
+    """Dynamic shared memory of one chunk block: two buffers of packed
+    rows, the staged planes, and the per-plane flag and offset words."""
+    return 32 * chunk + 4 * (n_planes * chunk + n_planes
+                             + max(n_planes, PACKED))
+
+
+def sort_geometry(cap: int, n_planes: int) -> Tuple[int, int, int]:
+    """(chunk, smem_bytes, merge_passes) of one sort: the chunk C is the
+    largest power of two <= min(cap, MAX_THREADS) whose block fits
+    SMEM_BUDGET; cap / C blocks of C threads sort a chunk each, then
+    log2(cap / C) merge passes run over the whole card."""
+    chunk = min(cap, MAX_THREADS)
+    while chunk > MIN_CHUNK and sort_smem_bytes(chunk, n_planes) > SMEM_BUDGET:
+        chunk //= 2
+    if sort_smem_bytes(chunk, n_planes) > SMEM_BUDGET or cap % chunk:
+        raise ValueError(f"sort_geometry: {n_planes} planes of capacity "
+                         f"{cap} do not fit a block")
+    passes = (cap // chunk).bit_length() - 1
+    return chunk, sort_smem_bytes(chunk, n_planes), passes
 
 
 def split_planes(keys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -91,10 +126,19 @@ def bitonic_sort_perm_cuda(planes: Sequence[torch.Tensor]) -> torch.Tensor:
         if p.dtype != torch.int32 or p.shape != (cap,) or p.device != dev:
             raise ValueError("bitonic_sort_perm_cuda: planes must be (cap,) "
                              "int32 tensors on one device")
-    stacked = torch.stack(list(planes)).contiguous()
+    n_planes = len(planes)
+    chunk, smem, passes = sort_geometry(cap, n_planes)
+    planes = [p.contiguous() for p in planes]
+    if n_planes <= MAX_PTR_PLANES:
+        ptrs, stacked = (ctypes.c_void_p * n_planes)(
+            *[p.data_ptr() for p in planes]), None
+    else:
+        ptrs, stacked = None, torch.stack(planes)
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
+    tmp = torch.empty(cap if passes else 0, dtype=torch.int32, device=dev)
     status = _library().bitonic_sort_perm(
-        stacked.data_ptr(), len(planes), cap, perm.data_ptr(),
+        ptrs, None if stacked is None else stacked.data_ptr(), n_planes,
+        cap, chunk, smem, perm.data_ptr(), tmp.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     ops.check_cuda(status, "bitonic_sort")
     ops.count_launch("bitonic_sort")

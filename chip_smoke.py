@@ -26,9 +26,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
   5. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
   6. kernels  — each kernel wrapper against its plain PyTorch version on
-                the card, on the inputs the slice gave it and at edge
-                shapes, with the median time of 20 launches (CUDA events),
-                the plain version's and one library call's time;
+                the card, on the inputs of every call one exact replay
+                made and at edge shapes, with the median time of 20
+                launches (CUDA events) at the largest call and at each
+                call (summed: ``ms_per_query``), the plain version's and
+                one library call's time, and, for the expand kernel, its
+                device time by kernel name (``torch.profiler``);
   7. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -120,15 +123,18 @@ def bound(bytes_moved: int, ops: int):
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep the arguments of its largest call on
-    the main path (references only; nothing is copied or launched)."""
+    """Wraps a kernel wrapper to keep the arguments of every call on the
+    main path and of its largest one (references only; nothing is
+    copied or launched)."""
 
     def __init__(self, module, name: str, size_of):
         self.module, self.name, self.size_of = module, name, size_of
         self.inner = getattr(module, name)
         self.largest = None
+        self.calls = []
 
     def __call__(self, *args):
+        self.calls.append(args)
         if self.largest is None or self.size_of(args) > \
                 self.size_of(self.largest):
             self.largest = args
@@ -250,10 +256,25 @@ def run_slice(torch, np, args, card: str):
         raise RuntimeError(f"first run was not a record run and a plan-cache "
                            f"miss: {runs[0]}")
 
+    # the first warm run is an exact replay: keep every kernel call it
+    # makes, so the kernels phase can time one query's calls
+    per_query = [Recorder(segment, "dense_segment_agg_cuda",
+                          lambda a: a[0].shape[0]),
+                 Recorder(expand, "expand_positions_cuda", lambda a: a[2]),
+                 Recorder(sort, "bitonic_sort_perm_cuda",
+                          lambda a: a[0][0].shape[0])]
     warm = []
-    for _ in range(5):
-        warm_rows, warm_result, s = timed_query(torch, graph, QUERY_GROUPED,
-                                                params)
+    for i in range(5):
+        if i == 0:
+            for r in per_query:
+                r.__enter__()
+        try:
+            warm_rows, warm_result, s = timed_query(torch, graph,
+                                                    QUERY_GROUPED, params)
+        finally:
+            if i == 0:
+                for r in per_query:
+                    r.__exit__()
         warm.append(s)
         runs.append(run_info(session, warm_result))
     count_rows, count_result, count_s = timed_query(torch, graph,
@@ -291,8 +312,11 @@ def run_slice(torch, np, args, card: str):
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches, "selftest_launches": selftest,
           "record_run_launches": own, "oracle": "equal"})
-    return ({"first_run": launches, "selftest": selftest},
-            {r.name: r.largest for r in recorders},
+    # each kernel's largest call of the exact replay (the record run's
+    # for K4, which only the self-test launches)
+    largest = {r.name: r.largest for r in recorders + per_query}
+    return ({"first_run": launches, "selftest": selftest}, largest,
+            {r.name: r.calls for r in per_query},
             (session, graph, nodes, rels))
 
 
@@ -520,7 +544,7 @@ def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
     return err
 
 
-def check_segment(torch, main_args, dev):
+def check_segment(torch, main_args, calls, dev):
     from caps_tpu_torch.ops import segment as S
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [("main_path", main_args)]
@@ -553,25 +577,83 @@ def check_segment(torch, main_args, dev):
     n = codes.shape[0]
     safe = torch.where(ok, codes, torch.full_like(codes, s))
     ms = time_ms(torch, lambda: S.dense_segment_agg_cuda(*main_args))
+    call_ms = time_calls(torch, S.dense_segment_agg_cuda, calls)
     plain_ms = time_ms(torch, lambda: S.dense_segment_agg_plain(*main_args))
     library_ms = time_ms(torch, lambda: torch.bincount(safe, minlength=s + 1))
     value_bytes = 0 if kind == "count" else 4 * n
     b, by = bound(5 * n + value_bytes + 4 * s, n)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "ms_per_query": sum(call_ms),
+            "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms,
             "cases": len(cases), "shape": {"n": n, "S": s, "kind": kind},
             "library_call": "torch.bincount"}
 
 
-def check_expand(torch, main_args, dev):
+def time_calls(torch, fn, calls) -> list:
+    """Median device time of ``fn`` on each recorded call's arguments."""
+    return [time_ms(torch, lambda a=a: fn(*a)) for a in calls]
+
+
+def kernel_split_ms(torch, fn, reps: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name, from one
+    ``torch.profiler`` run of ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0][:60]
+            by_name[name] = by_name.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return by_name or {"device time": "not measured"}
+
+
+def check_expand(torch, main_args, calls, dev):
     from caps_tpu_torch.ops import expand as X
     counts, lo, out_cap = main_args
     gen = torch.Generator(device=dev).manual_seed(2)
-    rnd = torch.randint(0, 5, (700,), generator=gen, device=dev)
-    cases = [("main_path", main_args),
-             ("non_tileable", (rnd, torch.arange(700, device=dev), 3000)),
-             ("all_zero", (torch.zeros(500, dtype=torch.int64, device=dev),
-                           torch.arange(500, device=dev), 1024))]
+
+    def rnd(n, hi=5, dtype=torch.int64):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev,
+                             dtype=dtype)
+
+    def case(c, lo_, out):
+        return (c, lo_, int(out))
+
+    cases = [("main_path", main_args)]
+    cases += [(f"replay_call_{i}", a) for i, a in enumerate(calls)]
+    cases.append(("main_path_int64", (counts.long(), lo.long(), out_cap)))
+    zrun = rnd(3 * X.NV, dtype=torch.int32)
+    zrun[:X.NV + 500] = 0                 # zero rows over more than a tile
+    cases.append(("zero_run_over_a_tile", case(
+        zrun, rnd(3 * X.NV, 10 ** 6, torch.int32), zrun.sum() + 1000)))
+    big = rnd(1000, 3)
+    big[500] = 50 * X.NV                  # one row over 50 tiles
+    cases.append(("row_over_many_tiles", case(
+        big, rnd(1000, 2 ** 31 - 1), big.sum() + 123)))
+    full = rnd(5000)
+    cases.append(("total_eq_out_cap", case(full, rnd(5000, 10 ** 6),
+                                           full.sum())))
+    cases.append(("total_zero", case(torch.zeros(5000, dtype=torch.int32,
+                                                 device=dev),
+                                     rnd(5000, 100, torch.int32), 4096)))
+    cases.append(("cap_l_1", case(torch.tensor([7777], device=dev),
+                                  torch.tensor([5], device=dev), 8192)))
+    sparse = torch.zeros(100_000, dtype=torch.int32, device=dev)
+    sparse[::97] = 3                      # cap_l > out_cap
+    cases.append(("cap_l_over_out_cap", case(sparse, rnd(100_000, 10 ** 6),
+                                             4096)))
+    cases.append(("out_cap_not_tile_multiple", case(
+        rnd(700), torch.arange(700, device=dev, dtype=torch.int32),
+        3 * X.NV + 77)))
+    cases.append(("int32_counts_int64_lo", case(
+        counts, lo.long() + 2 ** 31, out_cap)))   # r_pos wraps as int32
     err = 0.0
     for label, a in cases:
         e = check_equal(torch, f"expand_positions[{label}]",
@@ -582,42 +664,74 @@ def check_expand(torch, main_args, dev):
     offsets = torch.cumsum(counts, 0)
     t = torch.arange(out_cap, device=dev)
     ms = time_ms(torch, lambda: X.expand_positions_cuda(*main_args))
+    call_ms = time_calls(torch, X.expand_positions_cuda, calls)
     plain_ms = time_ms(torch, lambda: X.expand_positions_plain(*main_args))
     library_ms = time_ms(torch, lambda: torch.searchsorted(offsets, t,
                                                            right=True))
+    # the earlier design's prelude (torch cumsum to int32 and the lo
+    # cast), which the scan passes replace
+    prelude_ms = time_ms(torch, lambda: (
+        torch.cumsum(counts, 0, dtype=torch.int32), lo.to(torch.int32)))
+    # device ms by kernel (scan passes against the expand pass), for
+    # each call of the replay
+    split = [kernel_split_ms(torch, lambda a=a: X.expand_positions_cuda(*a))
+             for a in calls]
     cap_l = counts.shape[0]
     total = int(offsets[-1])
     b, by = bound(cap_l * (counts.element_size() + lo.element_size())
-                  + out_cap * 9,
-                  total * max(1, cap_l.bit_length()))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  + out_cap * 9, out_cap + cap_l)
+    return {"max_abs_err": err, "ms": ms, "ms_per_query": sum(call_ms),
+            "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+            "prelude_torch_ms": prelude_ms, "device_ms_by_kernel": split,
             "cases": len(cases),
             "shape": {"cap_l": cap_l, "out_cap": out_cap, "total": total},
+            "call_shapes": [[a[0].shape[0], a[2]] for a in calls],
             "library_call": "torch.searchsorted"}
 
 
-def check_sort(torch, main_args, dev):
+def check_sort(torch, main_args, calls, dev):
     from caps_tpu_torch.backends.cuda import kernels as K
     from caps_tpu_torch.ops import sort as S
     (planes,) = main_args
     gen = torch.Generator(device=dev).manual_seed(3)
+
+    def ties(cap, n):
+        return [torch.randint(0, 3, (cap,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(n)]
+
     cases = [("main_path", planes)]
+    cases += [(f"replay_call_{i}", a[0]) for i, a in enumerate(calls)]
     cap = 256
     while S.sort_cap_supported(cap):
-        for nkeys in (1, 2, 3):
-            keys = [torch.randint(0, 4, (cap,), generator=gen, device=dev)
-                    if i % 2 == 0 else
-                    torch.randint(-2 ** 62, 2 ** 62, (cap,), generator=gen,
-                                  device=dev) for i in range(nkeys)]
-            cases.append((f"int{nkeys}/cap={cap}", S.split_planes(keys)))
-        pick = torch.randint(0, 6, (cap,), generator=gen, device=dev)
-        table = torch.tensor([-1.5, 0.0, -0.0, 2.0, float("inf"),
-                              float("-inf")], dtype=torch.float64, device=dev)
-        cases.append((f"f64/cap={cap}", S.split_planes(
-            [table[pick], torch.randint(0, 3, (cap,), generator=gen,
-                                        device=dev)])))
+        for n in (1, 3, 10):              # merge passes run above cap 1024
+            p = ties(cap, n)
+            if n > 1:
+                p[0].fill_(-5)            # a constant plane, dropped
+            cases.append((f"ties/P={n}/cap={cap}", p))
         cap *= 2
+    cap = 4096
+    ramp = torch.arange(cap, device=dev, dtype=torch.int32)
+    cases += [("all_equal", [torch.full((cap,), 9, dtype=torch.int32,
+                                        device=dev)] * 3),
+              ("sorted", [ramp // 7, ramp]),
+              ("reversed", [-ramp // 7, -ramp]),
+              ("wide_values", [torch.randint(-2 ** 31, 2 ** 31 - 1, (cap,),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)
+                               for _ in range(2)]),
+              ("stacked_planes/P=65/cap=512", ties(512, 65)),
+              # many planes: smaller chunks (512, 256) and their merge
+              # passes, through the pointer and the stacked route
+              ("chunk_512/P=50/cap=4096", ties(4096, 50)),
+              ("chunk_256/P=100/cap=2048", ties(2048, 100))]
+    pick = torch.randint(0, 7, (cap,), generator=gen, device=dev)
+    table = torch.tensor([-1.5, 0.0, -0.0, 2.0, float("inf"),
+                          float("-inf"), float("nan")], dtype=torch.float64,
+                         device=dev)
+    cases.append(("f64", S.split_planes(
+        [table[pick], torch.randint(0, 3, (cap,), generator=gen,
+                                    device=dev)])))
     err = 0.0
     for label, p in cases:
         e = check_equal(torch, f"bitonic_sort[{label}]",
@@ -628,16 +742,21 @@ def check_sort(torch, main_args, dev):
     cap = planes[0].shape[0]
     wide = [p.to(torch.int64) for p in planes]
     ms = time_ms(torch, lambda: S.bitonic_sort_perm_cuda(planes))
+    call_ms = time_calls(torch, S.bitonic_sort_perm_cuda, calls)
     plain_ms = time_ms(torch, lambda: S.bitonic_sort_perm_plain(planes))
     library_ms = time_ms(torch, lambda: K.sort_perm(wide, cap))
     levels = cap.bit_length() - 1
     stages = levels * (levels + 1) // 2
     b, by = bound(4 * cap * (len(planes) + 1),
                   stages * (cap // 2) * (len(planes) + 1))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "ms_per_query": sum(call_ms),
+            "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms,
             "cases": len(cases),
+            "geometry": dict(zip(("chunk", "smem_bytes", "merge_passes"),
+                                 S.sort_geometry(cap, len(planes)))),
             "shape": {"cap": cap, "planes": len(planes)},
+            "call_shapes": [[a[0][0].shape[0], len(a[0])] for a in calls],
             "library_call": "torch.sort(stable) chained over the keys"}
 
 
@@ -691,7 +810,8 @@ def check_prefetch(torch, main_args, dev):
                 "shape": {"tile": t, "n_tiles": n_tiles}}
 
     main = timings(x, blk, tile)
-    return {"max_abs_err": err, **{k: main[k] for k in (
+    # a query launches it no time (the self-test does, once a process)
+    return {"max_abs_err": err, "ms_per_query": 0.0, **{k: main[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "cases": len(cases) + 1, "shape": main["shape"],
             "at_16Mi": timings(big_x, big_blk, 256),
@@ -731,18 +851,22 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(str(p)) for p in libs]})
 
-    launches, main_args, state = run_slice(torch, np, args, card)
+    launches, main_args, query_calls, state = run_slice(torch, np, args,
+                                                        card)
     launches.update(run_warm(torch, np, args, card, state))
     run_selftest(card)
 
     dev = torch.device("cuda")
     checks = {
-        "segment_agg": check_segment(torch, main_args["dense_segment_agg_cuda"],
-                                     dev),
+        "segment_agg": check_segment(
+            torch, main_args["dense_segment_agg_cuda"],
+            query_calls["dense_segment_agg_cuda"], dev),
         "expand_positions": check_expand(
-            torch, main_args["expand_positions_cuda"], dev),
-        "bitonic_sort": check_sort(torch, main_args["bitonic_sort_perm_cuda"],
-                                   dev),
+            torch, main_args["expand_positions_cuda"],
+            query_calls["expand_positions_cuda"], dev),
+        "bitonic_sort": check_sort(
+            torch, main_args["bitonic_sort_perm_cuda"],
+            query_calls["bitonic_sort_perm_cuda"], dev),
         "prefetch_gather": check_prefetch(
             torch, main_args["prefetch_gather_cuda"], dev),
     }
@@ -762,6 +886,8 @@ def main() -> int:
             "launches_exact_replay": launches["exact"].get(name, 0),
             "launches_generic_replay": launches["generic"].get(name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            # the sum over the calls of one exact replay, each timed
+            "ms_per_query": c["ms_per_query"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     emit({"kernels": kernels})

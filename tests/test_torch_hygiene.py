@@ -17,7 +17,7 @@ from caps_tpu_torch.interop import graph_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "caps_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 
 
 def _imported_modules(path):

@@ -85,3 +85,51 @@ def test_bitonic_at_cap_512():
     got = bitonic_sort_perm_plain(split_planes(
         [torch.from_numpy(k) for k in keys]))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# --- launch geometry of the co-rank merge sort (ops/csrc/bitonic_sort.cu)
+
+_SUPPORTED = [256 << i for i in range(7)]          # 256 ... 16384
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 10, 32, 45, 64])
+@pytest.mark.parametrize("cap", _SUPPORTED)
+def test_sort_geometry_fits_a_block(cap, n_planes):
+    from caps_tpu_torch.ops.sort import (
+        MAX_THREADS, SMEM_BUDGET, sort_geometry, sort_smem_bytes,
+    )
+    assert sort_cap_supported(cap)
+    chunk, smem, passes = sort_geometry(cap, n_planes)
+    assert chunk & (chunk - 1) == 0 and 32 <= chunk <= min(cap, MAX_THREADS)
+    assert smem == sort_smem_bytes(chunk, n_planes)
+    assert smem <= SMEM_BUDGET <= 232_448      # H100: a block's maximum
+    assert 2 ** passes == cap // chunk          # merge passes = log2(cap/C)
+    # the chunk is the largest that fits: doubling it would not
+    if chunk < min(cap, MAX_THREADS):
+        assert sort_smem_bytes(2 * chunk, n_planes) > SMEM_BUDGET
+
+
+@pytest.mark.parametrize("chunk", [32, 256, 1024])
+def test_sort_geometry_max_chunk(chunk):
+    """The chunk is the largest that fits: it shrinks as the planes grow,
+    and the merge passes make up the rest of the capacity."""
+    from caps_tpu_torch.ops.sort import sort_geometry
+    n_planes = {32: 1000, 256: 100, 1024: 10}[chunk]
+    got, _, passes = sort_geometry(4096, n_planes)
+    assert got == chunk and chunk << passes == 4096
+
+
+def test_sort_geometry_refuses_planes_that_do_not_fit():
+    from caps_tpu_torch.ops.sort import sort_geometry
+    with pytest.raises(ValueError, match="do not fit"):
+        sort_geometry(16384, 2000)
+
+
+@pytest.mark.parametrize("cap", [1024, 4096])
+def test_stable_permutation_above_one_chunk(cap):
+    """At the main path's capacity and above it, the port's permutation
+    is the JAX package's stable ``lax.sort`` permutation."""
+    keys = _int_keys(41 + cap, 3, cap=cap)
+    want = np.asarray(JK.sort_perm([jnp.asarray(k) for k in keys], cap))
+    got = bitonic_sort_perm(split_planes([torch.from_numpy(k) for k in keys]))
+    np.testing.assert_array_equal(got.numpy(), want)
