@@ -42,6 +42,11 @@ from caps_tpu_torch.relational.header import RecordHeader
 from caps_tpu_torch.relational.shapes import ShapeBucketLattice
 from caps_tpu_torch.relational.table import AggSpec, Table, TableFactory
 
+# The dense group-by's slot limit (the JAX backend's literal in
+# caps_tpu/backends/tpu/table.py _group_dense), so both route the same
+# group-bys to the histogram kernel; the kernel itself takes any count.
+DENSE_GROUP_MAX_SEGMENTS = 4096
+
 
 class DeviceBackend:
     """Shared per-session state: the device, the string pool, the config,
@@ -643,7 +648,7 @@ class DeviceTable(Table):
             return None
         domain = len(self.backend.pool) if key_col.kind == "str" else 2
         S = domain + 1  # one slot for the null-key group
-        if S > OPS.segment.MAX_SEGMENTS or S > self.capacity * 64:
+        if S > DENSE_GROUP_MAX_SEGMENTS or S > self.capacity * 64:
             return None
         for a in aggs:
             if a.kind not in ("count_star", "count", "min", "max"):

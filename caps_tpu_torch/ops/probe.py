@@ -11,7 +11,8 @@ and launches that family's kernels at the probe's own shapes and holds
 each result against its plain PyTorch version.
 
     basic    — the segment-aggregation kernel (K1), at S = 130 (count) and
-               S = 1500 (max_f32), n = 4096
+               S = 1500 (max_f32 and min_f32, with a few signed zeros and
+               NaNs of both signs), n = 4096
     prefetch — the tile-gather kernel (K4) at tile 256 × 4 tiles, and the
                expand-positions kernel (K2) at two small shapes that
                between them reach every path of its merge-path design:
@@ -94,6 +95,10 @@ def _expect_equal(feature: str, what: str, got: torch.Tensor,
         raise KernelSelfTestError(
             f"{feature}: {what} gave {tuple(got.shape)} {got.dtype}, the "
             f"plain version {tuple(want.shape)} {want.dtype}")
+    if got.dtype.is_floating_point:
+        # bit for bit: a NaN equals a NaN of the same bits, -0.0 != +0.0
+        got = got.view(torch.int32 if got.element_size() == 4 else torch.int64)
+        want = want.view(got.dtype)
     if not torch.equal(got, want):
         diff = (got.double() - want.double()).abs()
         diff = torch.where(torch.isnan(diff), torch.full_like(diff, 1.0),
@@ -108,13 +113,16 @@ def _basic(device) -> None:
     from caps_tpu_torch.ops import segment as S
     rng = np.random.RandomState(0)
     n = 4096
-    for segs, kind in ((130, "count"), (1500, "max_f32")):
+    for segs, kind in ((130, "count"), (1500, "max_f32"), (1500, "min_f32")):
         codes = torch.from_numpy(
             rng.randint(0, segs, n).astype(np.int32)).to(device)
         ok = torch.from_numpy(rng.rand(n) < 0.9).to(device)
-        vals = torch.from_numpy(rng.randn(n).astype(np.float32)).to(device)
-        if kind == "count":
-            vals = codes
+        v = rng.randn(n).astype(np.float32)
+        # signed zeros and NaNs of both signs on a few rows
+        v[rng.randint(0, n, 64)] = np.array([0.0, -0.0, np.nan, -np.nan],
+                                            dtype=np.float32)[
+            rng.randint(0, 4, 64)]
+        vals = codes if kind == "count" else torch.from_numpy(v).to(device)
         _expect_equal("basic", f"segment_agg({kind}, S={segs})",
                       S.dense_segment_agg_cuda(codes, ok, vals, segs, kind),
                       S.dense_segment_agg_plain(codes, ok, vals, segs, kind))

@@ -27,11 +27,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 check that a second request launches nothing;
   6. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
-                made and at edge shapes, with the median time of 20
-                launches (CUDA events) at the largest call and at each
-                call (summed: ``ms_per_query``), the plain version's and
-                one library call's time, and, for the expand kernel, its
-                device time by kernel name (``torch.profiler``);
+                made and at edge shapes (the segment kernel: bit for bit,
+                NaN and signed zeros included, and two calls bitwise
+                equal), with the median time of 20 launches (CUDA
+                events) at the largest call and at each call (summed:
+                ``ms_per_query``), the plain version's and one library
+                call's time, and, for the expand and segment kernels,
+                device time and launches by kernel name
+                (``torch.profiler``);
   7. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -520,7 +523,8 @@ def run_selftest(card: str) -> None:
 
 
 def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
-    """Max abs difference over a tuple of outputs; raises past tolerance."""
+    """Max abs difference over a tuple of outputs; raises past tolerance.
+    Floats: a NaN equals a NaN in the same place and nothing else."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0.0
@@ -529,10 +533,15 @@ def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
             raise RuntimeError(f"{name}: {g.shape} {g.dtype} vs plain "
                                f"{w.shape} {w.dtype}")
         if g.dtype.is_floating_point:
-            both_inf = torch.isinf(g) & (g == w)
-            diff = torch.where(both_inf, torch.zeros_like(g),
+            g_nan, w_nan = torch.isnan(g), torch.isnan(w)
+            if not torch.equal(g_nan, w_nan):
+                raise RuntimeError(f"{name}: kernel and plain version have "
+                                   f"NaNs in different places")
+            same = g_nan | (torch.isinf(g) & (g == w))
+            diff = torch.where(same, torch.zeros_like(g, dtype=torch.float64),
                                (g.double() - w.double()).abs())
-            ok = diff <= atol + rtol * w.double().abs()
+            ok = diff <= atol + rtol * torch.where(
+                same, torch.zeros_like(diff), w.double().abs())
         else:
             diff = (g.long() - w.long()).abs()
             ok = diff == 0
@@ -544,48 +553,120 @@ def check_equal(torch, name, got, want, rtol=0.0, atol=0.0) -> float:
     return err
 
 
-def check_segment(torch, main_args, calls, dev):
-    from caps_tpu_torch.ops import segment as S
+def bits(torch, t):
+    """The raw bits of a 32-bit tensor, so -0.0 != +0.0 and a NaN
+    equals a NaN of the same bits."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def segment_cases(torch, S, dev):
+    """K1's edge cases: every kind at S in {1, 3, 1001, 4096, 5000,
+    70000} over 1,400,017 rows (1 % of float rows +-0, NaN of both
+    signs or +-inf), a 90 %-one-code skew, n in {0, 1, 3} and a view one
+    row in (not 16-byte aligned)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [("main_path", main_args)]
-    n = 1_400_000 + 17     # the slice's scale, not a multiple of 1024
+    special = torch.tensor([0.0, -0.0, float("nan"), -float("nan"),
+                            float("inf"), -float("inf")], device=dev)
+
+    def draw(kind, n, s, skew=False):
+        codes = torch.randint(0, s, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        if skew:
+            codes[torch.rand(n, generator=gen, device=dev) < 0.9] = s // 2
+        ok = torch.rand(n, generator=gen, device=dev) < 0.8
+        if kind.endswith("f32"):
+            vals = torch.randn(n, generator=gen, device=dev)
+            pick = torch.rand(n, generator=gen, device=dev) < 0.01
+            vals[pick] = special[torch.randint(
+                0, 6, (n,), generator=gen, device=dev)[pick]]
+        elif kind == "count":
+            vals = codes
+        else:
+            vals = torch.randint(-1000, 1000, (n,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        return codes, ok, vals
+
+    n = 1_400_000 + 17     # the slice's scale, not a multiple of 4
+    cases = []
     for kind in S.KINDS:
-        for s in (1001, 1, 4096):
-            codes = torch.randint(0, s, (n,), generator=gen, device=dev,
-                                  dtype=torch.int32)
-            ok = torch.rand(n, generator=gen, device=dev) < 0.8
-            if kind.endswith("f32"):
-                vals = torch.randn(n, generator=gen, device=dev)
-            elif kind == "count":
-                vals = codes
-            else:
-                vals = torch.randint(-1000, 1000, (n,), generator=gen,
-                                     device=dev, dtype=torch.int32)
-            cases.append((f"{kind}/S={s}", (codes, ok, vals, s, kind)))
+        for s in (1, 3, 1001, 4096, 5000, 70000):
+            cases.append((f"{kind}/S={s}", (*draw(kind, n, s), s, kind)))
+        codes, ok, vals = draw(kind, n, 1001, skew=True)
+        cases.append((f"{kind}/S=1001/skew", (codes, ok, vals, 1001, kind)))
+        cases.append((f"{kind}/S=1001/misaligned",
+                      (codes[1:], ok[1:], vals[1:], 1001, kind)))
+        for small in (0, 1, 3):
+            cases.append((f"{kind}/S=1001/n={small}",
+                          (*draw(kind, small, 1001), 1001, kind)))
     codes = torch.zeros(3000, dtype=torch.int32, device=dev)
     cases.append(("all_masked", (codes, torch.zeros_like(codes, dtype=torch.bool),
                                  codes, 7, "max_i32")))
+    return cases
+
+
+def segment_bound(a):
+    """(bound ms, by) of one K1 call: codes and ok read once, values
+    too unless the kind is count, out written once."""
+    codes, _, _, s, kind = a
+    n = codes.shape[0]
+    return bound(5 * n + (0 if kind == "count" else 4 * n) + 4 * s, n)
+
+
+def check_segment(torch, main_args, calls, dev):
+    from caps_tpu_torch.ops import segment as S
+    cases = [("main_path", main_args)]
+    cases += [(f"replay_call_{i}", a) for i, a in enumerate(calls)]
+    cases += segment_cases(torch, S, dev)
     err = 0.0
     for label, a in cases:
         tol = (1e-5, 1e-5) if a[4] == "sum_f32" else (0.0, 0.0)
-        e = check_equal(torch, f"segment_agg[{label}]",
-                        S.dense_segment_agg_cuda(*a),
-                        S.dense_segment_agg_plain(*a), *tol)
+        got = S.dense_segment_agg_cuda(*a)
+        again = S.dense_segment_agg_cuda(*a)
+        want = S.dense_segment_agg_plain(*a)
+        e = check_equal(torch, f"segment_agg[{label}]", got, want, *tol)
+        if not torch.equal(bits(torch, got), bits(torch, again)):
+            raise RuntimeError(f"segment_agg[{label}]: two calls differ")
+        if a[4] != "sum_f32" and not torch.equal(bits(torch, got),
+                                                  bits(torch, want)):
+            raise RuntimeError(f"segment_agg[{label}]: kernel and plain "
+                               f"version differ in their bits")
         if label == "main_path":
             err = e
     codes, ok, vals, s, kind = main_args
-    n = codes.shape[0]
     safe = torch.where(ok, codes, torch.full_like(codes, s))
     ms = time_ms(torch, lambda: S.dense_segment_agg_cuda(*main_args))
     call_ms = time_calls(torch, S.dense_segment_agg_cuda, calls)
     plain_ms = time_ms(torch, lambda: S.dense_segment_agg_plain(*main_args))
     library_ms = time_ms(torch, lambda: torch.bincount(safe, minlength=s + 1))
-    value_bytes = 0 if kind == "count" else 4 * n
-    b, by = bound(5 * n + value_bytes + 4 * s, n)
+    b, by = segment_bound(main_args)
+    # the edge shapes beside the main one, each with its bound
+    by_label = dict(cases)
+    shapes = {}
+    for label in ("count/S=1", "count/S=3", "count/S=4096",
+                  "count/S=1001/skew", "count/S=70000", "max_f32/S=1001",
+                  "sum_f32/S=1001", "sum_f32/S=4096"):
+        a = by_label[label]
+        shapes[label] = {"n": a[0].shape[0],
+                         "ms": time_ms(torch, lambda a=a:
+                                       S.dense_segment_agg_cuda(*a)),
+                         "bound_ms": segment_bound(a)[0]}
     return {"max_abs_err": err, "ms": ms, "ms_per_query": sum(call_ms),
             "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms,
-            "cases": len(cases), "shape": {"n": n, "S": s, "kind": kind},
+            "cases": len(cases), "deterministic": "bitwise, every case",
+            "shape": {"n": codes.shape[0], "S": s, "kind": kind},
+            "geometry": S.segment_geometry(codes.shape[0], s, kind,
+                                           S._sm_count(dev.index or 0)),
+            "shapes": shapes,
+            # an empty kernel timed the same way: what any launch costs
+            "launch_floor_ms": time_ms(torch, lambda: torch.cuda._sleep(0)),
+            # device time and launches by kernel name, per call
+            "device_ms_by_kernel": {
+                "main_path": kernel_split_ms(
+                    torch, lambda: S.dense_segment_agg_cuda(*main_args)),
+                "count/S=70000": kernel_split_ms(
+                    torch, lambda: S.dense_segment_agg_cuda(
+                        *by_label["count/S=70000"]))},
             "library_call": "torch.bincount"}
 
 
@@ -595,8 +676,8 @@ def time_calls(torch, fn, calls) -> list:
 
 
 def kernel_split_ms(torch, fn, reps: int = 10) -> dict:
-    """Device ms per call of ``fn`` by kernel name, from one
-    ``torch.profiler`` run of ``reps`` calls."""
+    """Device ms and launches per call of ``fn`` by kernel name, from
+    one ``torch.profiler`` run of ``reps`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -609,9 +690,12 @@ def kernel_split_ms(torch, fn, reps: int = 10) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.split("(")[0][:60]
-            by_name[name] = by_name.get(name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / reps
-    return by_name or {"device time": "not measured"}
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + (e.time_range.end - e.time_range.start)
+                             / 1e3 / reps, n + 1)
+    return ({k: {"ms": ms, "launches": n / reps}
+             for k, (ms, n) in by_name.items()}
+            or {"device time": "not measured"})
 
 
 def check_expand(torch, main_args, calls, dev):
