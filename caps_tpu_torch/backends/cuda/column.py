@@ -17,7 +17,7 @@ Kinds:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -101,6 +101,13 @@ class Column:
     @property
     def capacity(self) -> int:
         return int(self.data.shape[0])
+
+    def host_arrays(self) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """(data, valid, read) as numpy: the ingest-time mirror when
+        present (``read`` False), else one device read of each."""
+        if self.host is not None:
+            return self.host[0], self.host[1], False
+        return self.data.cpu().numpy(), self.valid.cpu().numpy(), True
 
     def astype_kind(self, kind: str) -> "Column":
         if kind == self.kind:

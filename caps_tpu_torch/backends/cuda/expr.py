@@ -352,7 +352,10 @@ class DeviceExprCompiler:
             if not isinstance(values, (list, tuple)):
                 raise UnsupportedOnDevice("IN parameter is not a list")
         else:
-            raise UnsupportedOnDevice("IN needs a literal/parameter list")
+            rhs = self.compile(e.rhs)
+            if rhs.kind != "list":
+                raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
+            return self._in_list_column(l, rhs)
         has_null = any(v is None for v in values)
         values = [v for v in values if v is not None]
         if l.kind == "str":
@@ -375,6 +378,27 @@ class DeviceExprCompiler:
         found = torch.isin(l.data, arr) if arr.shape[0] else \
             self._full(False)
         valid = l.valid & (found | (not has_null))
+        return Column("bool", found, valid, CTBoolean)
+
+    def _in_list_column(self, l: Column, rhs: Column) -> Column:
+        """``x IN list`` against a list column, row by row (e.g. a hop's
+        relationship id against a var-length path's list).  Device list
+        elements are never null: a hit is true, a miss false, except
+        that a null ``x`` against a non-empty list and a null list give
+        null."""
+        from caps_tpu_torch.backends.cuda.column import list_elem_kind
+        ek = list_elem_kind(rhs.ctype)
+        kinds = {"id": ("id", "int"), "int": ("id", "int"),
+                 "str": ("str",), "bool": ("bool",)}.get(ek, ())
+        if l.kind not in kinds:
+            raise UnsupportedOnDevice(f"{l.kind} IN list of {ek}")
+        width = rhs.data.shape[1]
+        in_len = (torch.arange(width, device=self.device)[None, :]
+                  < rhs.lens[:, None])
+        hit = (rhs.data.to(torch.int64)
+               == l.data.to(torch.int64)[:, None]) & in_len
+        found = hit.any(dim=1) & l.valid
+        valid = rhs.valid & (l.valid | (rhs.lens == 0))
         return Column("bool", found, valid, CTBoolean)
 
     def _arith(self, e) -> Column:

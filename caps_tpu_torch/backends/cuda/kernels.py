@@ -160,3 +160,27 @@ def segment_agg(values: torch.Tensor, ok: torch.Tensor, seg_id: torch.Tensor,
         safe = first_pos.clamp(0, max(cap - 1, 0))
         return values[safe], first_pos < cap
     raise ValueError(f"unknown segment aggregation {kind}")
+
+
+# -- explode ----------------------------------------------------------------
+
+def explode_expand(lens: torch.Tensor, ok: torch.Tensor, out_cap: int):
+    """Invert ``cumsum(lens)``: for each of ``out_cap`` output slots its
+    source row, its position within that row's run, whether the slot is
+    live, and the total (a device scalar).  The function K2 computes
+    with ``lo = 0``; kept plain, as the JAX package keeps it outside
+    any Pallas kernel."""
+    dev = lens.device
+    t = torch.arange(out_cap, device=dev)
+    if lens.shape[0] == 0:
+        zero = torch.zeros_like(t)
+        return zero, zero, t < 0, torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+    counts = torch.where(ok, lens, torch.zeros_like(lens))
+    offsets = torch.cumsum(counts, 0)
+    total = offsets[-1]
+    row = torch.searchsorted(offsets, t, right=True).clamp(
+        0, counts.shape[0] - 1)
+    seg_start = torch.where(row > 0, offsets[(row - 1).clamp(min=0)],
+                            torch.zeros_like(row))
+    return row, t - seg_start, t < total, total

@@ -24,6 +24,9 @@ from caps_tpu_torch.relational.shapes import ShapeBucketLattice
 
 class CUDACypherSession(RelationalCypherSession):
 
+    # count-only pattern chains lower to SpMV (relational/count_pattern.py)
+    supports_count_pushdown = True
+
     def __init__(self, config: Optional[EngineConfig] = None,
                  device="cuda"):
         super().__init__(config)
@@ -83,7 +86,8 @@ class CUDACypherSession(RelationalCypherSession):
 
     def metrics_snapshot(self) -> dict:
         """The backend's size-read count, the fused executor's
-        record/replay counters and the plan cache's counters."""
+        record/replay counters, the count closures built and the plan
+        cache's counters."""
         fused = self.fused
         snap = {
             "backend.syncs": self.backend.syncs,
@@ -91,6 +95,7 @@ class CUDACypherSession(RelationalCypherSession):
             "fused.replays": fused.replays,
             "fused.generic_replays": fused.generic_replays,
             "fused.mismatches": fused.mismatches,
+            "fused.count_builds": self.backend.count_builds,
         }
         snap.update({f"plan_cache.{k}": v
                      for k, v in self.plan_cache.stats().items()})

@@ -24,7 +24,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from caps_tpu_torch import ops as OPS
 from caps_tpu_torch.backends.cuda import kernels as K
@@ -75,6 +77,14 @@ class DeviceBackend:
         self._replay_viol: Optional[torch.Tensor] = None
         # (host rank array, its device copy): see rank_tensor()
         self._rank_dev: Optional[Tuple[Any, torch.Tensor]] = None
+        # Count-pushdown caches (relational/count_pattern.py): per-graph
+        # static structures (sorted edges and ids, segment boundaries)
+        # and per-(graph, plan shape, parameter shapes) closures.
+        self.fused_count_static: Dict[int, dict] = {}
+        self.fused_count_fns: Dict[tuple, Any] = {}
+        # count closures built (a cache miss); the JAX package charges
+        # the same event to its compile ledger
+        self.count_builds = 0
 
     def bucket(self, n: int) -> int:
         return max(1, self.shapes.bucket(n))
@@ -516,7 +526,41 @@ class DeviceTable(Table):
         return out
 
     def union_all(self, other: Table) -> "DeviceTable":
-        raise UnsupportedOnDevice("union_all: not yet ported")
+        assert isinstance(other, DeviceTable)
+        if set(self.columns) != set(other.columns):
+            raise ValueError(f"union column mismatch: {self.columns} vs "
+                             f"{other.columns}")
+        total = self._n + other._n
+        out_cap = self.backend.bucket(total)
+        out: Dict[str, Column] = {}
+        for c in self.columns:
+            a, b = self._cols[c], other._cols[c]
+            if a.kind != b.kind:
+                numeric = {"id", "int", "float"}
+                if a.kind not in numeric or b.kind not in numeric:
+                    raise UnsupportedOnDevice(
+                        f"union_all: column {c!r} of kinds {a.kind} and "
+                        f"{b.kind}")
+                target = "float" if "float" in (a.kind, b.kind) else "int"
+                a, b = a.astype_kind(target), b.astype_kind(target)
+            out[c] = _concat_columns(a, self._n, b, other._n, out_cap,
+                                     a.ctype.join(b.ctype))
+        if self._live is None and other._live is None:
+            return DeviceTable(self.backend, out, total)
+        # generic replay: either side's live prefix may be shorter than
+        # its served n, leaving a dead gap in the middle of the concat —
+        # close it with a read-free same-capacity compaction
+        dev = self.backend.device
+        live_a = (self._live if self._live is not None
+                  else torch.tensor(self._n, dtype=torch.int32, device=dev))
+        live_b = (other._live if other._live is not None
+                  else torch.tensor(other._n, dtype=torch.int32,
+                                    device=dev))
+        t = torch.arange(out_cap, device=dev)
+        mask = (t < live_a) | ((t >= self._n) & (t < self._n + live_b))
+        idx = K.compact_indices(mask, out_cap)
+        return DeviceTable(self.backend, _gather_cols(out, idx), total,
+                           live=(live_a + live_b).to(torch.int32))
 
     def _sort_perm(self, keys: List[torch.Tensor]) -> torch.Tensor:
         """Stable multi-key sort permutation: the bitonic kernel on the
@@ -791,13 +835,64 @@ class DeviceTable(Table):
 
     def pack_list(self, cols: Sequence[str], out_col: str,
                   out_type: CypherType) -> "DeviceTable":
-        raise UnsupportedOnDevice("pack_list: not yet ported")
+        """Pack integer columns (a path's hop ids) into one list column:
+        per row the valid entries, left-aligned, and their count."""
+        cap = self.capacity
+        dev = self.backend.device
+        if not cols:
+            data = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+            lens = torch.zeros(cap, dtype=torch.int32, device=dev)
+        else:
+            parts, valids = [], []
+            for c in cols:
+                col = self._cols[c]
+                if col.kind not in ("id", "int"):
+                    raise UnsupportedOnDevice(
+                        f"pack_list: column {c!r} of kind {col.kind}")
+                parts.append(col.data.to(torch.int32))
+                valids.append(col.valid)
+            # valid entries to the left of each row, in column order: a
+            # running count over the k columns places them (the JAX
+            # package's stable argsort of ~valid, whose tail no reader
+            # sees; a scan along the short row axis is slow on the card)
+            k = len(cols)
+            count = torch.zeros(cap, dtype=torch.int64, device=dev)
+            dest = []
+            for v in valids:
+                dest.append(torch.where(v, count, torch.full_like(count, k)))
+                count = count + v
+            data = torch.zeros((cap, k + 1), dtype=torch.int32, device=dev)
+            data = data.scatter_(1, torch.stack(dest, dim=1),
+                                 torch.stack(parts, dim=1))[:, :k]
+            lens = count.to(torch.int32)
+        out = dict(self._cols)
+        out[out_col] = Column("list", data,
+                              torch.ones(cap, dtype=torch.bool, device=dev),
+                              out_type, lens)
+        return self._with_cols(out)
 
     # -- materialization --------------------------------------------------
 
     def column_values(self, col: str) -> List[Any]:
         return column_to_host(self._cols[col], self._exact_n(),
                               self.backend.pool)
+
+    def host_column(self, col: str):
+        """(values, ok) numpy host view of an integer column — the
+        ingest-time mirror when present (Column.host), else one counted
+        device read.  ``ok`` folds in row liveness.  None when the
+        column has no integer representation; host plan builders (count
+        pushdown, matrix var-expand) key off this."""
+        c = self._cols.get(col)
+        if c is None or c.kind not in ("id", "int"):
+            return None
+        d, v, read = c.host_arrays()
+        if read:
+            self.backend.syncs += 1
+        # _exact_n, not _n: under generic replay the served bound covers
+        # dead-gap rows whose gathered values look valid — a host plan
+        # builder (matrix var-expand seeds) must never see them
+        return d, v & (np.arange(c.capacity) < self._exact_n())
 
 
 class ExprEvalError(Exception):
@@ -820,6 +915,24 @@ def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
         out[c] = Column(col.kind, col.data[idx], col.valid[idx], col.ctype,
                         col.lens[idx] if col.lens is not None else None)
     return out
+
+
+def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
+                    ctype: CypherType) -> Column:
+    """The first ``n_a`` rows of ``a`` then the first ``n_b`` of ``b``,
+    padded to ``out_cap``; list columns widen to the wider of the two."""
+    pad = out_cap - n_a - n_b
+    if a.kind == "list":
+        width = max(a.data.shape[1], b.data.shape[1])
+        da = F.pad(a.data[:n_a], (0, width - a.data.shape[1]))
+        db = F.pad(b.data[:n_b], (0, width - b.data.shape[1]))
+        data = F.pad(torch.cat([da, db]), (0, 0, 0, pad))
+        lens = F.pad(torch.cat([a.lens[:n_a], b.lens[:n_b]]), (0, pad))
+        valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
+        return Column("list", data, valid, ctype, lens)
+    data = F.pad(torch.cat([a.data[:n_a], b.data[:n_b]]), (0, pad))
+    valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
+    return Column(a.kind, data, valid, ctype)
 
 
 def _sort_keys(col: Column, ascending: bool, nulls_last: bool,

@@ -43,24 +43,37 @@ class EngineConfig:
     # Row-count buckets: device tables are padded up to the next bucket so
     # query programs compile once per (plan, bucket) key.
     bucket_sizes: Tuple[int, ...] = (256, 1024, 4096, 16384, 65536, 262144, 1048576)
+    # Aggregate pushdown (relational/count_pattern.py): lower count-only
+    # pattern chains to SpMV over the adjacency instead of join+count.
+    use_count_pushdown: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_COUNT_PUSHDOWN", True))
+    # Matrix var-expand (relational/var_expand.py): an eligible
+    # var-length pattern whose relationship list nothing reads runs as
+    # SpMV hops over a per-seed count matrix (strategy "matrix") instead
+    # of the join cascade.  One card: no ring schedule yet (ROADMAP).
+    use_ring: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_USE_RING", True))
     # Features of the JAX package this package has not ported yet (see
     # ROADMAP).  They stay off; a session built with one of them on
     # raises NotImplementedError instead of planning without it.
-    use_count_pushdown: bool = False
-    use_ring: bool = False
     use_wcoj: bool = False
     use_cost_model: bool = False
     use_dist_join: bool = False
 
     UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = (
-        "use_count_pushdown", "use_ring", "use_wcoj", "use_cost_model",
-        "use_dist_join")
+        "use_wcoj", "use_cost_model", "use_dist_join")
 
     # Fused executor (backends/cuda/fused.py): record data-dependent sizes
     # on a query's first run, replay them sync-free on repeats.
     use_fused: bool = dataclasses.field(
         default_factory=lambda: _env_bool("CAPS_TPU_USE_FUSED", True))
-    # Capacity of the fused executor's memo of recorded size streams.
+    # Cached count-pushdown closures (relational/count_pattern.py): the
+    # seed→hops→masks→correction chain over per-graph static edge
+    # arrays, built once per (graph, plan shape, parameter shapes).
+    use_fused_count: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_FUSED_COUNT", True))
+    # Capacity of the fused executor's memo of recorded size streams
+    # (and of the cached count-pushdown closures).
     compile_cache_size: int = dataclasses.field(
         default_factory=lambda: _env_int("CAPS_TPU_COMPILE_CACHE", 512))
     # Prepared-statement plan cache (relational/plan_cache.py): repeated

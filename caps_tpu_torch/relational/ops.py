@@ -202,6 +202,9 @@ class RelationalOperator(abc.ABC):
                 "seconds": time.perf_counter() - t0,
                 "rows": self._result[1].size,
                 "bytes_in": bytes_in,
+                # operator-specific keys (e.g. the pushdown and
+                # var-expand "strategy", a closure's own "bytes_in")
+                **getattr(self, "_metric_extra", {}),
             })
         return self._result
 

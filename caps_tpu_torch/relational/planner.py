@@ -18,6 +18,7 @@ from caps_tpu_torch.okapi.types import CTNode, CTRelationship
 from caps_tpu_torch.relational import ops as R
 from caps_tpu_torch._unported import not_ported
 from caps_tpu_torch.relational.graphs import RelationalCypherGraph
+from caps_tpu_torch.relational.var_expand import VarExpandOp
 
 
 class RelationalPlanningError(Exception):
@@ -38,6 +39,16 @@ class RelationalPlanner:
         self.current_graph = ambient_graph
         self._memo: Dict[L.LogicalOperator, R.RelationalOperator] = {}
         self._fresh = 0
+        # Names referenced anywhere in the plan (None = unknown, assume
+        # everything is used); lets VarExpand prove its rel var dead and
+        # take the matrix path (var_expand.py module docstring).
+        self._used_names: Opt[frozenset] = None
+        # Names whose only reads are size()/length() — a var-length rel
+        # list read that way is served by a PATH-LENGTH column instead,
+        # keeping the query on the matrix path (e.g. LDBC IC13/IC14's
+        # min(size(r))).  _fix() rewrites those reads in consumers.
+        self._size_only_ok: frozenset = frozenset()
+        self._len_names: Dict[str, str] = {}
         # single-hop rel var -> its pattern endpoints (for the
         # startNode()/endNode() property rewrite in _fix)
         self._rel_endpoints: Dict[str, Tuple[str, str]] = {}
@@ -66,6 +77,8 @@ class RelationalPlanner:
              ) -> E.Expr:
         """Expression rewrites that need plan context:
 
+        * size(rel)/length(rel) of a size-only var-length rel variable
+          → its path-length column (see _len_names);
         * startNode(rel).k / endNode(rel).k where the MATCH bound the
           endpoints → CASE WHEN startNode(rel) = id(x) THEN x.k ELSE
           y.k — correct for every match direction, because startNode/
@@ -75,10 +88,15 @@ class RelationalPlanner:
           when ``scope`` (the consumer's input subtree) still carries
           the pattern's endpoint bindings unobscured — see
           _endpoints_reach."""
-        if not self._rel_endpoints:
+        if not self._len_names and not self._rel_endpoints:
             return e
 
         def repl(x):
+            if (isinstance(x, E.FunctionExpr)
+                    and x.name.lower() in ("size", "length")
+                    and len(x.args) == 1 and isinstance(x.args[0], E.Var)
+                    and x.args[0].name in self._len_names):
+                return E.Var(self._len_names[x.args[0].name])
             if (isinstance(x, E.Property)
                     and isinstance(x.entity, (E.StartNode, E.EndNode))
                     and isinstance(x.entity.rel, E.Var)
@@ -141,41 +159,124 @@ class RelationalPlanner:
         return False
 
     def process(self, plan: L.LogicalPlan) -> R.RelationalOperator:
-        self._rel_endpoints = self._collect_rel_endpoints(plan.root)
+        self._used_names, self._size_only_ok, self._rel_endpoints = \
+            self._collect_used_names(plan.root)
         return self.plan_op(plan.root)
 
     @staticmethod
-    def _collect_rel_endpoints(root: L.LogicalOperator
-                               ) -> Dict[str, Tuple[str, str]]:
-        """Single-hop rel var -> its (source, target) pattern endpoints,
-        for every rel var bound by exactly one Expand orientation; empty
-        when the plan holds graph-constructing operators, whose name
-        flow this walk does not model."""
-        rel_endpoints: Dict[str, Tuple[str, str]] = {}
+    def _op_exprs(op):
+        """The expression trees one logical operator carries."""
+        if isinstance(op, L.Filter):
+            return (op.predicate,)
+        if isinstance(op, L.Project):
+            return tuple(e for _, e in op.items)
+        if isinstance(op, L.Aggregate):
+            return (tuple(e for _, e in op.group)
+                    + tuple(a for _, a in op.aggregations))
+        if isinstance(op, L.OrderBy):
+            return tuple(e for e, _ in op.items)
+        if isinstance(op, (L.Skip, L.Limit)):
+            return (op.expr,)
+        if isinstance(op, L.Unwind):
+            return (op.list_expr,)
+        if isinstance(op, L.ValueJoin):
+            return tuple(op.predicates)
+        return ()
+
+    @staticmethod
+    def _collect_used_names(root: L.LogicalOperator):
+        """(used, size_only): every name read by an expression or
+        selection in the plan, and the subset whose EVERY read is
+        ``size(name)``/``length(name)`` (those reads can be served by a
+        path-length column instead of the materialized value).  used is
+        None (= treat all names as used) when the plan contains
+        operators whose name flow this walk doesn't model (CONSTRUCT
+        patterns carry var references outside the Expr tree)."""
+        used = set()
+        selected = set()
+        total: dict = {}
+        wrapped: dict = {}
+        varlen_binds: dict = {}
+        other_binds = set()
+        rel_endpoints: dict = {}
         shadowed = set()
+        conservative = False
+        has_exists = False
+
+        def count_expr(e):
+            nonlocal has_exists
+            if isinstance(e, E.Var):
+                total[e.name] = total.get(e.name, 0) + 1
+            if isinstance(e, E.ExistsSubQuery):
+                # the subquery pattern introduces its own scope this
+                # name-level analysis does not model
+                has_exists = True
+            if (isinstance(e, E.FunctionExpr)
+                    and e.name.lower() in ("size", "length")
+                    and len(e.args) == 1 and isinstance(e.args[0], E.Var)):
+                n = e.args[0].name
+                wrapped[n] = wrapped.get(n, 0) + 1
+            for c in e.children:
+                if isinstance(c, E.Expr):
+                    count_expr(c)
+
         seen_ops = set()
 
-        def walk(op) -> bool:
+        def walk(op):
+            nonlocal conservative
             # shared subtrees (Optional/ExistsSemiJoin rhs embeds lhs)
             # must count once, or a single Expand looks rebound
             if id(op) in seen_ops:
-                return True
+                return
             seen_ops.add(id(op))
             if isinstance(op, (L.ConstructGraph, L.ReturnGraph)):
-                return False
-            if isinstance(op, L.Expand):
+                conservative = True
+            if isinstance(op, L.Select):
+                used.update(op.names)
+                selected.update(op.names)
+            # binding sites: a size-only rewrite is sound only when the
+            # name has exactly ONE binding in the whole plan and it is a
+            # var-length rel — same-named bindings in sibling scopes
+            # (UNION branches, UNWIND) would otherwise be rewritten to a
+            # length column their branch does not have
+            if isinstance(op, L.BoundedVarLengthExpand):
+                varlen_binds[op.rel] = varlen_binds.get(op.rel, 0) + 1
+                other_binds.add(op.target)
+            elif isinstance(op, (L.NodeScan, L.RelScan)):
+                other_binds.add(op.var)
+            elif isinstance(op, L.Expand):
+                other_binds.update((op.rel, op.target))
                 if op.rel in rel_endpoints and \
                         rel_endpoints[op.rel] != (op.source, op.target):
                     shadowed.add(op.rel)  # rebound: ambiguous endpoints
                 rel_endpoints[op.rel] = (op.source, op.target)
-            return all(walk(c) for c in op.children
-                       if isinstance(c, L.LogicalOperator))
+            elif isinstance(op, L.Unwind):
+                other_binds.add(op.var)
+            elif isinstance(op, L.Project):
+                other_binds.update(n for n, _ in op.items)
+            elif isinstance(op, L.Aggregate):
+                other_binds.update(n for n, _ in op.group)
+                other_binds.update(n for n, _ in op.aggregations)
+            for e in RelationalPlanner._op_exprs(op):
+                used.update(v.name for v in E.vars_in(e))
+                count_expr(e)
+            for c in op.children:
+                if isinstance(c, L.LogicalOperator):
+                    walk(c)
 
-        if not walk(root):
-            return {}
+        walk(root)
         for n in shadowed:
             rel_endpoints.pop(n, None)
-        return rel_endpoints
+
+        if conservative:
+            return None, frozenset(), {}
+        if has_exists:
+            return frozenset(used), frozenset(), rel_endpoints
+        size_only = frozenset(
+            n for n, t in total.items()
+            if wrapped.get(n, 0) == t and n not in selected
+            and varlen_binds.get(n, 0) == 1 and n not in other_binds)
+        return frozenset(used), size_only, rel_endpoints
 
     # ------------------------------------------------------------------
 
@@ -205,7 +306,22 @@ class RelationalPlanner:
         if isinstance(op, L.Expand):
             return self._plan_expand(op)
         if isinstance(op, L.BoundedVarLengthExpand):
-            raise not_ported("variable-length relationships")
+            parent = self.plan_op(op.parent)
+            rel_needed = (self._used_names is None
+                          or op.rel in self._used_names)
+            emit_len = None
+            if rel_needed and op.rel in self._size_only_ok:
+                # every read is size(rel)/length(rel): emit a path-length
+                # column and rewrite those reads to it — the rel list
+                # itself need not materialize
+                emit_len = f"__{op.rel}_len"
+                self._len_names[op.rel] = emit_len
+                rel_needed = False
+            return VarExpandOp(
+                ctx, parent, self.current_graph, op.source, op.rel,
+                op.rel_types, op.target, op.target_labels, op.direction,
+                op.lower, op.upper, op.into, rel_needed=rel_needed,
+                emit_len=emit_len)
         if isinstance(op, L.Filter):
             parent = self.plan_op(op.parent)
             return R.FilterOp(ctx, parent,
@@ -227,7 +343,15 @@ class RelationalPlanner:
                      for n, e in op.group]
             aggs = [(n, self._fix(a, op.parent), env[n])
                     for n, a in op.aggregations]
-            return R.AggregateOp(ctx, parent, group, aggs)
+            default = R.AggregateOp(ctx, parent, group, aggs)
+            # count-only pattern chains lower to SpMV hops (no cost
+            # model in this package: the matcher alone decides, as the
+            # JAX package does under use_cost_model=False)
+            from caps_tpu_torch.relational.count_pattern import (
+                try_plan_count_pushdown,
+            )
+            pushed = try_plan_count_pushdown(self, op, default)
+            return pushed if pushed is not None else default
         if isinstance(op, L.OrderBy):
             parent = self.plan_op(op.parent)
             items = tuple((self._fix(e, op.parent), asc)

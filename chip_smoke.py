@@ -23,9 +23,21 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 rotating ``$age`` values (param-generic replay), each equal
                 to its own numpy oracle; one exact and one generic replay
                 run under ``torch.cuda.set_sync_debug_mode("warn")``;
-  5. selftest — the seconds each kernel family's self-test took, and a
+  5. patterns — on the same session: the ``count(*)`` form on count
+                pushdown (``fused-spmv``: 5 exact replays with 0 size
+                reads, 24 rotating ``$age`` values against the oracle, the
+                join cascade of a ``use_count_pushdown=False`` session),
+                the 3-hop count and the cycle count (``cycle-probe``, on
+                the graph with its self-loops dropped) against the
+                cascade, the var-length grouped query in its join form
+                (K1, K2 and K3 launched by a replay) and, with
+                ``a.city = $city``, its matrix form, each against the
+                oracle, and the var-length ``count(*)``; per query the
+                cold and warm latencies, strategy, size reads, launches
+                and peak allocated bytes;
+  6. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
-  6. kernels  — each kernel wrapper against its plain PyTorch version on
+  7. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made and at edge shapes (the segment kernel: bit for bit,
                 NaN and signed zeros included, and two calls bitwise
@@ -35,7 +47,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
-  7. the ``{"kernels": [...]}`` line, the card line, and the last line
+  8. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -59,6 +71,22 @@ QUERY_GROUPED = (
     "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
 QUERY_COUNT = ("MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) "
                "WHERE a.age = $age RETURN count(*) AS c")
+# The patterns phase: count pushdown (2 and 3 hops, the cycle), and the
+# bounded var-length expand in its join and matrix forms.
+QUERY_COUNT3 = ("MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c)-[:KNOWS]->(d) "
+                "WHERE a.age = $age RETURN count(*) AS c")
+QUERY_CYCLE = ("MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c)-[:KNOWS]->(a) "
+               "WHERE a.age = $age RETURN count(*) AS c")
+QUERY_VARLEN = (
+    "MATCH (a:Person)-[:KNOWS*1..2]->(c) WHERE a.age = $age "
+    "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+QUERY_VARLEN_CITY = (
+    "MATCH (a:Person)-[:KNOWS*1..2]->(c) WHERE a.age = $age "
+    "AND a.city = $city "
+    "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+QUERY_VARLEN_COUNT = ("MATCH (a:Person)-[:KNOWS*1..2]->(c) "
+                      "WHERE a.age = $age RETURN count(*) AS c")
+CITY = "city0007"   # with AGE: about 14 seeds, the var-expand matrix form
 # The graph's dictionary-coded property and the seed filter.  1,000 cities
 # keep the group-by under the dense gate (S <= 4096), so it runs on K1.
 CITIES = 1000
@@ -85,6 +113,18 @@ ROTATING = 24   # $age values of the warm phase's param-generic sequence
 # group-by, one sort of the grouped rows.
 MIN_QUERY_LAUNCHES = {"segment_agg": 1, "expand_positions": 4,
                       "bitonic_sort": 1}
+# The same for one run of the var-expand query's matrix form: its two
+# assembling joins (K2 each), the sort of the seed-target pairs (the
+# first join's build side) and of the grouped rows (K3), the group-by.
+MIN_MATRIX_LAUNCHES = {"segment_agg": 1, "expand_positions": 2,
+                       "bitonic_sort": 2}
+# the kernel wrappers a query calls, each with the size its Recorder
+# keeps the largest call by
+QUERY_KERNELS = (("segment", "dense_segment_agg_cuda",
+                  lambda a: a[0].shape[0]),
+                 ("expand", "expand_positions_cuda", lambda a: a[2]),
+                 ("sort", "bitonic_sort_perm_cuda",
+                  lambda a: a[0][0].shape[0]))
 
 
 def emit(obj) -> None:
@@ -165,25 +205,37 @@ def make_graph(np, seed: int, n_persons: int, n_edges: int, n_cities: int):
     return nodes, rels
 
 
-def oracle(np, nodes, rels, age: int):
-    """Per-seed out-degree weights pushed over the edges twice, then
-    summed by city: (top-20 grouped rows, total 2-hop count).  A path
-    may not use one relationship twice (Cypher's relationship
-    uniqueness), so a-[r]->a-[r]->a over a self-loop r is taken out."""
-    p, k = nodes["Person"], rels["KNOWS"]
-    n = len(p["_id"])
-    seeds = (p["age"] == age).astype(np.int64)
+def hop_counts(np, nodes, rels, seeds):
+    """Paths from the ``seeds`` indicator ending at each node after one
+    hop and after two.  A path may not use one relationship twice
+    (Cypher's relationship uniqueness), so a-[r]->a-[r]->a over a
+    self-loop r is taken out."""
+    k = rels["KNOWS"]
+    n = len(nodes["Person"]["_id"])
     hop1 = np.bincount(k["_tgt"], weights=seeds[k["_src"]], minlength=n)
     hop2 = np.bincount(k["_tgt"], weights=hop1[k["_src"]], minlength=n)
     loops = k["_src"] == k["_tgt"]
     hop2 -= np.bincount(k["_tgt"][loops], weights=seeds[k["_src"][loops]],
                         minlength=n)
-    names, codes = np.unique(p["city"], return_inverse=True)
-    per_city = np.rint(np.bincount(codes, weights=hop2,
+    return hop1, hop2
+
+
+def top_cities(np, nodes, per_node):
+    """``per_node`` summed by city: the top-20 rows, count descending."""
+    names, codes = np.unique(nodes["Person"]["city"], return_inverse=True)
+    per_city = np.rint(np.bincount(codes, weights=per_node,
                                    minlength=len(names))).astype(np.int64)
     rows = sorted(((str(c), int(v)) for c, v in zip(names, per_city) if v),
                   key=lambda r: (-r[1], r[0]))[:20]
-    return [{"city": c, "n": v} for c, v in rows], int(round(hop2.sum()))
+    return [{"city": c, "n": v} for c, v in rows]
+
+
+def oracle(np, nodes, rels, age: int):
+    """Per-seed out-degree weights pushed over the edges twice, then
+    summed by city: (top-20 grouped rows, total 2-hop count)."""
+    seeds = (nodes["Person"]["age"] == age).astype(np.int64)
+    _hop1, hop2 = hop_counts(np, nodes, rels, seeds)
+    return top_cities(np, nodes, hop2), int(round(hop2.sum()))
 
 
 def run_info(session, result) -> dict:
@@ -193,11 +245,13 @@ def run_info(session, result) -> dict:
             "size_syncs": result.metrics["size_syncs"]}
 
 
-def check_query_launches(label: str, launches: dict) -> None:
-    """Fail unless one run of the grouped query launched each of its
-    kernels at least as often as MIN_QUERY_LAUNCHES says."""
-    short = {k: launches.get(k, 0) for k in MIN_QUERY_LAUNCHES
-             if launches.get(k, 0) < MIN_QUERY_LAUNCHES[k]}
+def check_query_launches(label: str, launches: dict, floor=None) -> None:
+    """Fail unless one run of a query launched each of its kernels at
+    least as often as ``floor`` (by default MIN_QUERY_LAUNCHES, the
+    grouped query's) says."""
+    floor = MIN_QUERY_LAUNCHES if floor is None else floor
+    short = {k: launches.get(k, 0) for k in floor
+             if launches.get(k, 0) < floor[k]}
     if short:
         raise RuntimeError(f"{label} did not go through the kernels: "
                            f"{short} of {launches}")
@@ -217,7 +271,7 @@ def run_slice(torch, np, args, card: str):
     import caps_tpu_torch
     from caps_tpu_torch import ops
     from caps_tpu_torch.interop import graph_from_numpy
-    from caps_tpu_torch.ops import expand, prefetch, probe, segment, sort
+    from caps_tpu_torch.ops import prefetch, probe
 
     t0 = time.perf_counter()
     nodes, rels = make_graph(np, args.seed, args.persons, args.edges,
@@ -228,13 +282,8 @@ def run_slice(torch, np, args, card: str):
     ingest_s = time.perf_counter() - t0
     params = {"age": AGE}
 
-    recorders = [
-        Recorder(segment, "dense_segment_agg_cuda",
-                 lambda a: a[0].shape[0]),
-        Recorder(expand, "expand_positions_cuda", lambda a: a[2]),
-        Recorder(sort, "bitonic_sort_perm_cuda", lambda a: a[0][0].shape[0]),
-        Recorder(prefetch, "prefetch_gather_cuda", lambda a: a[0].shape[0]),
-    ]
+    recorders = query_recorders() + [
+        Recorder(prefetch, "prefetch_gather_cuda", lambda a: a[0].shape[0])]
     for r in recorders:
         r.__enter__()
     try:
@@ -261,11 +310,7 @@ def run_slice(torch, np, args, card: str):
 
     # the first warm run is an exact replay: keep every kernel call it
     # makes, so the kernels phase can time one query's calls
-    per_query = [Recorder(segment, "dense_segment_agg_cuda",
-                          lambda a: a[0].shape[0]),
-                 Recorder(expand, "expand_positions_cuda", lambda a: a[2]),
-                 Recorder(sort, "bitonic_sort_perm_cuda",
-                          lambda a: a[0][0].shape[0])]
+    per_query = query_recorders()
     warm = []
     for i in range(5):
         if i == 0:
@@ -320,7 +365,8 @@ def run_slice(torch, np, args, card: str):
     largest = {r.name: r.largest for r in recorders + per_query}
     return ({"first_run": launches, "selftest": selftest}, largest,
             {r.name: r.calls for r in per_query},
-            (session, graph, nodes, rels))
+            (session, graph, nodes, rels, {"count_cold_s": count_s,
+                                           "count_cold_run": count_run}))
 
 
 def count_syncs(torch, fn):
@@ -388,7 +434,7 @@ def run_warm(torch, np, args, card: str, state):
     kernel launches counted."""
     from caps_tpu_torch import ops
     from caps_tpu_torch.relational.session import degraded_execution
-    session, graph, nodes, rels = state
+    session, graph, nodes, rels, _ = state
     fused = session.fused
     want = oracle(np, nodes, rels, AGE)[0]
 
@@ -503,6 +549,225 @@ def run_warm(torch, np, args, card: str, state):
     return launches
 
 
+def query_recorders():
+    """A Recorder for each kernel wrapper a query calls."""
+    from caps_tpu_torch import ops
+    return [Recorder(getattr(ops, mod), name, size_of)
+            for mod, name, size_of in QUERY_KERNELS]
+
+
+def pattern_runs(torch, session, graph, query, params, card, warm=5,
+                 cold=True, recorders=()):
+    """One query's cold run (unless ``cold`` is False: the caller ran it
+    before) and ``warm`` repeats, each equal to the first; the launches
+    of the last repeat, counted from zero, and its kernel calls kept by
+    ``recorders``; peak allocated bytes.
+    Returns (rows, {numbers, how each run went}, the last result)."""
+    from caps_tpu_torch import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"card": card}
+    rows = None
+    if cold:
+        rows, result, out["cold_s"] = timed_query(torch, graph, query,
+                                                  params)
+        out["cold_run"] = run_info(session, result)
+    times, runs = [], []
+    for i in range(warm):
+        last = i == warm - 1
+        if last:
+            ops.reset_launches()
+            for r in recorders:
+                r.__enter__()
+        try:
+            got, result, t = timed_query(torch, graph, query, params)
+        finally:
+            if last:
+                for r in recorders:
+                    r.__exit__()
+        if rows is not None and got != rows:
+            raise RuntimeError(f"repeat of {query!r} changed its rows")
+        rows = got
+        times.append(t)
+        runs.append(run_info(session, result))
+    out.update({
+        "warm_s": statistics.median(times), "warm_runs_s": times,
+        "replay_launches": ops.launches(),
+        "strategies": {m["op"]: m["strategy"]
+                       for m in result.metrics["operators"]
+                       if "strategy" in m},
+        "warm_runs": runs, "size_syncs": [r["size_syncs"] for r in runs],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "base_mem_bytes": base})
+    return rows, out, result
+
+
+def expect(label, cond, detail) -> None:
+    if not cond:
+        raise RuntimeError(f"patterns/{label}: {detail}")
+
+
+def expect_replays(label, info, reads: int) -> None:
+    """Every repeat an exact replay of a cached plan with ``reads`` size
+    reads."""
+    want = {"mode": "replay", "plan_cache": "hit", "size_syncs": reads}
+    expect(label, all(r == want for r in info["warm_runs"]),
+           f"repeats were not exact replays with {reads} size reads: "
+           f"{info['warm_runs']}")
+
+
+def run_patterns(torch, np, args, card: str, state) -> dict:
+    """Count pushdown and var-length expand on the slice's graph: each
+    result against its numpy oracle or the port's own join cascade (a
+    session with ``use_count_pushdown=False``), the strategy each query
+    must take, size reads and kernel launches of its replays."""
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.okapi.config import EngineConfig
+    session, graph, nodes, rels, slice_info = state
+    age = {"age": AGE}
+    t0 = time.perf_counter()
+    # the same graph with its self-loops dropped: the cycle count's
+    # structural guarantee (with loops it takes the join plan)
+    knows = rels["KNOWS"]
+    no_loops = knows["_src"] != knows["_tgt"]
+    rels2 = {"KNOWS": {c: v[no_loops] for c, v in knows.items()}}
+    graph2 = graph_from_numpy(session, nodes, rels2)
+    cascade = caps_tpu_torch.local_session(
+        config=EngineConfig(use_count_pushdown=False))
+    cgraph = graph_from_numpy(cascade, nodes, rels)
+    cgraph2 = graph_from_numpy(cascade, nodes, rels2)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    out = {"phase": "patterns", "card": card, "ingest_s": ingest_s,
+           "self_loops_dropped": int((~no_loops).sum())}
+    persons = nodes["Person"]
+    seeds = (persons["age"] == AGE).astype(np.int64)
+    hop1, hop2 = hop_counts(np, nodes, rels, seeds)
+
+    # -- 2 hops: exact replays, 24 rotating ages, the cascade ------------
+    rows, info, result = pattern_runs(torch, session, graph, QUERY_COUNT,
+                                      age, card, cold=False)
+    info["cold_s"] = slice_info["count_cold_s"]
+    info["cold_run"] = slice_info["count_cold_run"]
+    expect("count_2hop", rows == [{"c": int(round(hop2.sum()))}],
+           f"{rows} != oracle {hop2.sum()}")
+    expect("count_2hop", info["strategies"] == {"CountPattern":
+                                                "fused-spmv"},
+           info["strategies"])
+    expect_replays("count_2hop", info, 0)
+    rng = np.random.default_rng(args.seed + 2)
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    gen_times, gen_runs, got = [], [], []
+    for a in ages:
+        r, res, t = timed_query(torch, graph, QUERY_COUNT, {"age": a})
+        got.append(r)
+        gen_runs.append(run_info(session, res))
+        if gen_runs[-1]["mode"] == "replay_gen":
+            gen_times.append(t)
+    for a, r in zip(ages, got):
+        want = int(round(hop_counts(
+            np, nodes, rels, (persons["age"] == a).astype(np.int64))[1].sum()))
+        expect("count_2hop", r == [{"c": want}],
+               f"age {a}: {r} != oracle {want}")
+    expect("count_2hop", all(r["mode"] in ("replay", "replay_gen")
+                             and r["size_syncs"] <= 1 for r in gen_runs),
+           f"rotating ages: {gen_runs}")
+    expect("count_2hop", gen_times, f"no generic replay: {gen_runs}")
+    info.update({"generic_s": statistics.median(gen_times),
+                 "generic_runs_s": gen_times, "ages": ages,
+                 "generic_size_syncs": [r["size_syncs"] for r in gen_runs],
+                 "generic_modes": [r["mode"] for r in gen_runs],
+                 "profile_exact_replay": device_profile(
+                     torch, lambda: graph.cypher(
+                         QUERY_COUNT, age).records.to_maps())})
+    crows, cinfo, cres = pattern_runs(torch, cascade, cgraph, QUERY_COUNT,
+                                      age, card, warm=3)
+    expect("count_2hop", crows == rows, f"cascade {crows} != {rows}")
+    expect("count_2hop", "CountPattern" not in
+           [m["op"] for m in cres.metrics["operators"]],
+           "the cascade session pushed the count down")
+    info["cascade"] = cinfo
+    out["count_2hop"] = info
+
+    # -- 3 hops, against the cascade -----------------------------------------
+    rows, info, _ = pattern_runs(torch, session, graph, QUERY_COUNT3, age,
+                                 card)
+    expect("count_3hop", info["strategies"] == {"CountPattern":
+                                                "fused-spmv"},
+           info["strategies"])
+    expect_replays("count_3hop", info, 0)
+    crows, info["cascade"], _ = pattern_runs(torch, cascade, cgraph,
+                                             QUERY_COUNT3, age, card, warm=1)
+    expect("count_3hop", crows == rows, f"cascade {crows} != {rows}")
+    out["count_3hop"] = info
+
+    # -- the cycle, on the loop-free graph, against the cascade ---------------
+    rows, info, _ = pattern_runs(torch, session, graph2, QUERY_CYCLE, age,
+                                 card)
+    expect("cycle", info["strategies"] == {"CountCycle": "cycle-probe"},
+           info["strategies"])
+    expect_replays("cycle", info, 0)
+    crows, info["cascade"], _ = pattern_runs(torch, cascade, cgraph2,
+                                             QUERY_CYCLE, age, card, warm=1)
+    expect("cycle", crows == rows, f"cascade {crows} != {rows}")
+    out["cycle"] = info
+
+    # -- var-expand, join form: ~13.7k seeds give more than 64 chunks --------
+    # (the kernel calls of one exact replay of each form go to the
+    # kernels phase, to be held against their plain versions)
+    join_calls = query_recorders()
+    rows, info, _ = pattern_runs(torch, session, graph, QUERY_VARLEN, age,
+                                 card, recorders=join_calls)
+    expect("varlen_join", rows == top_cities(np, nodes, hop1 + hop2),
+           f"disagrees with the oracle: {rows}")
+    expect("varlen_join", info["strategies"] == {"VarExpand": "join"},
+           info["strategies"])
+    expect_replays("varlen_join", info, 0)
+    check_query_launches("the var-expand join form's replay",
+                         info["replay_launches"])
+    info["profile_exact_replay"] = device_profile(
+        torch, lambda: graph.cypher(QUERY_VARLEN, age).records.to_maps())
+    out["varlen_join"] = info
+
+    # -- var-expand, matrix form: ~14 seeds ------------------------------------
+    city_seeds = seeds * (np.asarray(persons["city"]) == CITY)
+    c1, c2 = hop_counts(np, nodes, rels, city_seeds)
+    params = {"age": AGE, "city": CITY}
+    matrix_calls = query_recorders()
+    rows, info, _ = pattern_runs(torch, session, graph, QUERY_VARLEN_CITY,
+                                 params, card, recorders=matrix_calls)
+    expect("varlen_matrix", rows == top_cities(np, nodes, c1 + c2),
+           f"disagrees with the oracle: {rows}")
+    expect("varlen_matrix", info["strategies"] == {"VarExpand": "matrix"},
+           info["strategies"])
+    expect_replays("varlen_matrix", info, 0)
+    check_query_launches("the var-expand matrix form's replay",
+                         info["replay_launches"], MIN_MATRIX_LAUNCHES)
+    info["seeds"] = int(city_seeds.sum())
+    out["varlen_matrix"] = info
+
+    # -- var-length count ----------------------------------------------------------
+    rows, info, res = pattern_runs(torch, session, graph, QUERY_VARLEN_COUNT,
+                                   age, card)
+    expect("varlen_count", rows == [{"c": int(round((hop1 + hop2).sum()))}],
+           f"{rows} != oracle")
+    expect("varlen_count", info["strategies"] == {"CountPattern":
+                                                  "fused-spmv"}
+           and "lengths=[1, 2]" in res.plans["relational"],
+           f"{info['strategies']}: {res.plans['relational']}")
+    expect_replays("varlen_count", info, 0)
+    out["varlen_count"] = info
+    out["count_builds"] = session.backend.count_builds
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"varlen_join": out["varlen_join"]["replay_launches"],
+             "varlen_matrix": out["varlen_matrix"]["replay_launches"]},
+            {"varlen_join": {r.name: r.calls for r in join_calls},
+             "varlen_matrix": {r.name: r.calls for r in matrix_calls}})
+
+
 def run_selftest(card: str) -> None:
     """Seconds of each family's first self-test (in the slice's first
     query); a second request must launch nothing."""
@@ -612,10 +877,11 @@ def segment_bound(a):
     return bound(5 * n + (0 if kind == "count" else 4 * n) + 4 * s, n)
 
 
-def check_segment(torch, main_args, calls, dev):
+def check_segment(torch, main_args, calls, dev, pattern_calls=()):
     from caps_tpu_torch.ops import segment as S
     cases = [("main_path", main_args)]
     cases += [(f"replay_call_{i}", a) for i, a in enumerate(calls)]
+    cases += list(pattern_calls)
     cases += segment_cases(torch, S, dev)
     err = 0.0
     for label, a in cases:
@@ -698,7 +964,7 @@ def kernel_split_ms(torch, fn, reps: int = 10) -> dict:
             or {"device time": "not measured"})
 
 
-def check_expand(torch, main_args, calls, dev):
+def check_expand(torch, main_args, calls, dev, pattern_calls=()):
     from caps_tpu_torch.ops import expand as X
     counts, lo, out_cap = main_args
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -712,6 +978,7 @@ def check_expand(torch, main_args, calls, dev):
 
     cases = [("main_path", main_args)]
     cases += [(f"replay_call_{i}", a) for i, a in enumerate(calls)]
+    cases += list(pattern_calls)
     cases.append(("main_path_int64", (counts.long(), lo.long(), out_cap)))
     zrun = rnd(3 * X.NV, dtype=torch.int32)
     zrun[:X.NV + 500] = 0                 # zero rows over more than a tile
@@ -774,7 +1041,7 @@ def check_expand(torch, main_args, calls, dev):
             "library_call": "torch.searchsorted"}
 
 
-def check_sort(torch, main_args, calls, dev):
+def check_sort(torch, main_args, calls, dev, pattern_calls=()):
     from caps_tpu_torch.backends.cuda import kernels as K
     from caps_tpu_torch.ops import sort as S
     (planes,) = main_args
@@ -786,6 +1053,7 @@ def check_sort(torch, main_args, calls, dev):
 
     cases = [("main_path", planes)]
     cases += [(f"replay_call_{i}", a[0]) for i, a in enumerate(calls)]
+    cases += [(label, a[0]) for label, a in pattern_calls]
     cap = 256
     while S.sort_cap_supported(cap):
         for n in (1, 3, 10):              # merge passes run above cap 1024
@@ -938,22 +1206,31 @@ def main() -> int:
     launches, main_args, query_calls, state = run_slice(torch, np, args,
                                                         card)
     launches.update(run_warm(torch, np, args, card, state))
+    pattern_launches, pattern_calls = run_patterns(torch, np, args, card,
+                                                   state)
+    launches.update(pattern_launches)
     run_selftest(card)
 
+    def of_patterns(wrapper):
+        """Every call of ``wrapper`` in one exact replay of each
+        var-expand form, labelled by form."""
+        return [(f"{form}_call_{i}", a)
+                for form, calls in pattern_calls.items()
+                for i, a in enumerate(calls[wrapper])]
+
     dev = torch.device("cuda")
-    checks = {
-        "segment_agg": check_segment(
-            torch, main_args["dense_segment_agg_cuda"],
-            query_calls["dense_segment_agg_cuda"], dev),
-        "expand_positions": check_expand(
-            torch, main_args["expand_positions_cuda"],
-            query_calls["expand_positions_cuda"], dev),
-        "bitonic_sort": check_sort(
-            torch, main_args["bitonic_sort_perm_cuda"],
-            query_calls["bitonic_sort_perm_cuda"], dev),
-        "prefetch_gather": check_prefetch(
-            torch, main_args["prefetch_gather_cuda"], dev),
-    }
+    checks = {}
+    for name, wrapper, check in (
+            ("segment_agg", "dense_segment_agg_cuda", check_segment),
+            ("expand_positions", "expand_positions_cuda", check_expand),
+            ("bitonic_sort", "bitonic_sort_perm_cuda", check_sort)):
+        checks[name] = check(torch, main_args[wrapper], query_calls[wrapper],
+                             dev, of_patterns(wrapper))
+        # the var-expand calls held against the plain version, by form
+        checks[name]["pattern_calls"] = {
+            form: len(calls[wrapper]) for form, calls in pattern_calls.items()}
+    checks["prefetch_gather"] = check_prefetch(
+        torch, main_args["prefetch_gather_cuda"], dev)
     for name, c in checks.items():
         emit({"phase": "kernel", "name": name, "card": card, **c})
 
@@ -969,6 +1246,12 @@ def main() -> int:
             "launches_selftest": launches["selftest"].get(name, 0),
             "launches_exact_replay": launches["exact"].get(name, 0),
             "launches_generic_replay": launches["generic"].get(name, 0),
+            # one exact replay of the grouped var-expand, join form and
+            # matrix form
+            "launches_varlen_join_replay": launches["varlen_join"].get(
+                name, 0),
+            "launches_varlen_matrix_replay": launches["varlen_matrix"].get(
+                name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             # the sum over the calls of one exact replay, each timed
             "ms_per_query": c["ms_per_query"],

@@ -239,6 +239,33 @@ def test_catalog_store_never_replays_stale_sizes():
     assert session.fused.last_mode == "replay"
 
 
+def test_catalog_store_never_answers_from_stale_count_closures():
+    """Storing a new graph under a catalog name must not be answered
+    from the old graph's count closures or static arrays (they key on
+    the graph object's epoch, never on its name or ``id()``)."""
+    import gc
+    from tests.test_torch_count_pushdown import edges, op_strategy
+    session = caps_tpu_torch.local_session(device="cpu")
+    q = "MATCH (a:P)-[:K]->(b)-[:K]->(c) RETURN count(*) AS c"
+    nodes = {"P": {"_id": np.arange(4, dtype=np.int64)}}
+    session.catalog.store("g", graph_from_numpy(
+        session, nodes, {"K": edges([(0, 1), (1, 2)])}))
+    for mode in ("record", "replay"):
+        res = session.catalog.graph("g").cypher(q)
+        assert res.records.to_maps() == [{"c": 1}]
+        assert session.fused.last_mode == mode
+    session.catalog.store("g", graph_from_numpy(
+        session, nodes, {"K": edges([(0, 1), (1, 2), (1, 3), (2, 3)])}))
+    gc.collect()
+    res = session.catalog.graph("g").cypher(q)
+    assert res.records.to_maps() == [{"c": 3}]
+    assert op_strategy(res, "CountPattern") == "fused-spmv"
+    assert len(session.backend.fused_count_static) == 2
+    # the FROM GRAPH form (the matcher leaves it on the cascade) agrees
+    assert session.cypher("FROM GRAPH session.g " + q).records.to_maps() \
+        == [{"c": 3}]
+
+
 def test_unrelated_catalog_store_keeps_exact_replays(arrays):
     """Catalog staleness is scoped as the plan cache scopes it: storing
     a graph no query read leaves every exact replay in place, while a
