@@ -16,10 +16,11 @@ from typing import Any, Callable, Dict, Mapping
 import numpy as np
 import torch
 
+from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import Column, kind_for
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.okapi.types import (
-    CTBoolean, CTFloat, CTInteger, CTString, CypherType,
+    CTBoolean, CTFloat, CTInteger, CTNull, CTString, CypherType,
 )
 from caps_tpu_torch.relational.header import RecordHeader
 
@@ -84,6 +85,8 @@ class DeviceExprCompiler:
             return self._const_list(values)
         if isinstance(e, E.Index):
             return self._index(e)
+        if isinstance(e, E.Slice):
+            return self._slice(e)
         if isinstance(e, E.Id):
             return self.compile(e.entity)
 
@@ -126,6 +129,8 @@ class DeviceExprCompiler:
             return self._arith(e)
         if isinstance(e, E.Negate):
             c = self.compile(e.expr)
+            if _is_null(c):
+                return self._null()
             if c.kind not in ("int", "float", "id"):
                 raise UnsupportedOnDevice("negate non-numeric")
             return Column(c.kind, -c.data, c.valid, c.ctype)
@@ -163,9 +168,17 @@ class DeviceExprCompiler:
         from caps_tpu_torch.okapi.types import from_python
         if isinstance(v, (list, tuple, dict)):
             raise UnsupportedOnDevice("collection literal")
-        ctype = from_python(v)
-        return literal_column(v, ctype if v is not None else CTBoolean,
-                              self.capacity, self.pool, self.device)
+        if v is None:
+            return self._null()
+        return literal_column(v, from_python(v), self.capacity, self.pool,
+                              self.device)
+
+    def _null(self) -> Column:
+        """An all-null column of no value type: a null literal's (and a
+        missing property's), and what a null-propagating function or
+        operator gives for one.  Its kind is a placeholder that
+        ``_promote`` swaps for the other operand's."""
+        return Column("bool", self._full(False), self._full(False), CTNull)
 
     def _const_list(self, values) -> Column:
         """A constant list value broadcast to every row (literal lists and
@@ -196,27 +209,219 @@ class DeviceExprCompiler:
                       lens)
 
     def _index(self, e) -> Column:
-        from caps_tpu_torch.backends.cuda.column import _DTYPES, list_elem_kind
         base = self.compile(e.expr)
         if base.kind != "list":
             raise UnsupportedOnDevice(f"indexing kind {base.kind}")
         idx = self.compile(e.idx)
         if idx.kind not in ("int", "id"):
             raise UnsupportedOnDevice("non-integer list index")
+        i = idx.data.to(torch.int32)
+        i = torch.where(i < 0, i + base.lens, i)  # negative = from the end
+        inb = (i >= 0) & (i < base.lens)
+        return self._element(base, i, idx.valid & inb)
+
+    def _element(self, base: Column, i: torch.Tensor,
+                 valid: torch.Tensor) -> Column:
+        """Each row's element ``i`` of a list column (``valid`` says
+        where ``i`` is in range), as a column of the element kind."""
+        from caps_tpu_torch.backends.cuda.column import _DTYPES, list_elem_kind
         ek = list_elem_kind(base.ctype)
         if ek is None:
             raise UnsupportedOnDevice("indexing host-only list")
         inner = base.ctype.material.inner
-        i = idx.data.to(torch.int32)
-        i = torch.where(i < 0, i + base.lens, i)  # negative = from the end
-        inb = (i >= 0) & (i < base.lens)
         safe = i.clamp(0, base.data.shape[1] - 1).to(torch.int64)
         vals = base.data[torch.arange(self.capacity, device=self.device),
                          safe]
-        valid = base.valid & idx.valid & inb
+        valid = base.valid & valid
         if ek == "bool":
             return Column("bool", vals != 0, valid, inner)
         return Column(ek, vals.to(_DTYPES[ek]), valid, inner)
+
+    def _list_function(self, name: str, c: Column) -> Column:
+        """head / last / tail / reverse of a list column."""
+        if c.kind != "list":
+            raise UnsupportedOnDevice(f"{name}() on kind {c.kind}")
+        n = c.lens.to(torch.int64)
+        if name == "head":
+            return self._element(c, torch.zeros_like(n), n > 0)
+        if name == "last":
+            return self._element(c, n - 1, n > 0)
+        if name == "tail":
+            return self._sublist(c, torch.ones_like(n), (n - 1).clamp(min=0),
+                                 self._full(True))
+        return self._sublist(c, n - 1, n, self._full(True), step=-1)
+
+    def _sublist(self, base: Column, start: torch.Tensor,
+                 length: torch.Tensor, valid: torch.Tensor,
+                 step: int = 1) -> Column:
+        """Each row's ``length`` elements of a list column from position
+        ``start`` on (``step`` -1 walks backwards), left-aligned."""
+        width = max(1, base.data.shape[1])
+        j = torch.arange(width, device=self.device)[None, :]
+        src = (start.to(torch.int64)[:, None] + step * j).clamp(0, width - 1)
+        data = torch.gather(base.data, 1, src.expand(self.capacity, width))
+        data = torch.where(j < length[:, None], data, torch.zeros_like(data))
+        return Column("list", data, base.valid & valid, base.ctype,
+                      length.to(torch.int32))
+
+    def _slice(self, e) -> Column:
+        """``list[lower..upper]``: from ``lower`` up to but not including
+        ``upper``, each counted from the end when negative and clamped
+        into the list."""
+        base = self.compile(e.expr)
+        if _is_null(base):
+            return self._null()
+        if base.kind != "list":
+            raise UnsupportedOnDevice(f"slicing kind {base.kind}")
+        n = base.lens.to(torch.int64)
+        valid = self._full(True)
+
+        def bound(x, default):
+            nonlocal valid
+            if x is None:
+                return default
+            c = self.compile(x)
+            if _is_null(c):
+                return None
+            if c.kind not in ("int", "id"):
+                raise UnsupportedOnDevice("non-integer slice bound")
+            valid = valid & c.valid
+            v = c.data.to(torch.int64)
+            return torch.where(v < 0, v + n, v).clamp(min=0)
+
+        lo = bound(e.lower, torch.zeros_like(n))
+        hi = bound(e.upper, n)
+        if lo is None or hi is None:
+            return self._null()
+        lo, hi = torch.minimum(lo, n), torch.minimum(hi, n)
+        return self._sublist(base, lo, (hi - lo).clamp(min=0), valid)
+
+    def _concat_lists(self, l: Column, r: Column) -> Column:
+        """``a + b`` of two list columns of one element kind: each row's
+        elements of ``a`` then those of ``b``."""
+        from caps_tpu_torch.backends.cuda.column import list_elem_kind
+        from caps_tpu_torch.okapi.types import CTList
+        ek = list_elem_kind(l.ctype)
+        if ek is None or ek != list_elem_kind(r.ctype):
+            raise UnsupportedOnDevice("concatenation of lists of different "
+                                      "element kinds")
+        wl, wr = l.data.shape[1], r.data.shape[1]
+        width = wl + wr
+        jl = torch.arange(wl, device=self.device)[None, :]
+        jr = torch.arange(wr, device=self.device)[None, :]
+        data = torch.zeros((self.capacity, width + 1), dtype=torch.int32,
+                           device=self.device)
+        data[:, :wl] = torch.where(jl < l.lens[:, None], l.data,
+                                   torch.zeros_like(l.data))
+        # the right side's elements go after each row's left elements;
+        # those past its length go to a spare last column
+        dest = torch.where(jr < r.lens[:, None],
+                           l.lens[:, None].to(torch.int64) + jr,
+                           torch.full_like(jr, width))
+        data.scatter_(1, dest.expand(self.capacity, wr),
+                      r.data.expand(self.capacity, wr).to(torch.int32))
+        inner = l.ctype.material.inner.join(r.ctype.material.inner)
+        return Column("list", data[:, :width], l.valid & r.valid,
+                      CTList(inner), l.lens + r.lens)
+
+    def _concat_strings(self, e, l: Column, r: Column) -> Column:
+        """``a + b`` of two strings, one of them a literal or parameter."""
+        if isinstance(e.rhs, (E.Lit, E.Param)):
+            v = self._constant(e.rhs)
+            out = self._map_held(l, lambda s: s + v)
+        elif isinstance(e.lhs, (E.Lit, E.Param)):
+            v = self._constant(e.lhs)
+            out = self._map_held(r, lambda s: v + s)
+        else:
+            raise UnsupportedOnDevice("concatenation of two string columns")
+        return Column("str", out.data, l.valid & r.valid, CTString)
+
+    def _held(self, c: Column):
+        """The distinct codes that a string column's valid rows hold
+        (sorted, on the device) and each row's position among them;
+        None where no row is valid.  A function that makes new strings
+        maps only these, so running a query again adds nothing to the
+        pool (a table over the whole pool would map the last run's
+        results too).  The caller reads them to the host: on the card,
+        one device-to-host copy."""
+        held = torch.unique(c.data[c.valid])
+        if held.numel() == 0:
+            return None, None
+        pos = torch.searchsorted(held, c.data).clamp(max=held.numel() - 1)
+        return held, pos
+
+    def _map_held(self, c: Column, fn: Callable[[str], str]) -> Column:
+        """fn of each string of a string column, new strings added to
+        the pool (see :meth:`_held`)."""
+        held, pos = self._held(c)
+        if held is None:
+            return Column("str", torch.zeros_like(c.data), c.valid, CTString)
+        codes = self.pool.map_codes(held.cpu().numpy(), fn)
+        return Column("str", self._lut(codes)[pos], c.valid, CTString)
+
+    def _parse_strings(self, c: Column, name: str, fn, kind: str,
+                       ctype: CypherType) -> Column:
+        """A conversion of a string column: a lookup table over the pool
+        (null where the string does not parse), applied as a gather."""
+        from caps_tpu_torch.backends.cuda.column import _NP_DTYPES
+        try:
+            values, ok = self.pool.value_lut(name, fn, _NP_DTYPES[kind])
+        except OverflowError:
+            raise UnsupportedOnDevice(f"{name} of a string beyond int64")
+        if values.shape[0] == 0:
+            return self._null()
+        return Column(kind, _gather(self._lut(values), c.data),
+                      c.valid & _gather(self._lut(ok), c.data), ctype)
+
+    def _to_string(self, arg: E.Expr, c: Column) -> Column:
+        """toString of a string or boolean column, or of a number given
+        as a literal or parameter."""
+        if c.kind == "str":
+            return c
+        if c.kind == "bool":
+            codes = torch.where(
+                c.data, torch.full_like(c.data, self.pool.encode("true"),
+                                        dtype=torch.int32),
+                torch.full_like(c.data, self.pool.encode("false"),
+                                dtype=torch.int32))
+            return Column("str", codes, c.valid, CTString)
+        if c.kind in ("int", "float") and isinstance(arg, (E.Lit, E.Param)):
+            return self._literal(str(self._constant(arg)))
+        raise UnsupportedOnDevice(f"toString on kind {c.kind}")
+
+    def _string_function(self, name: str, e, c: Column) -> Column:
+        """substring / left / right / replace / split of a string column
+        with constant further arguments (see :meth:`_held`)."""
+        if c.kind != "str":
+            raise UnsupportedOnDevice(f"{name}() on kind {c.kind}")
+        rest = [self._constant(a) for a in e.args[1:]]
+        if any(v is None for v in rest):
+            return self._null()
+        fn = _STRING_FUNCTIONS[name](*rest)
+        if name != "split":
+            return self._map_held(c, fn)
+        from caps_tpu_torch.okapi.types import CTList
+        held, pos = self._held(c)
+        if held is None:
+            return Column("list", torch.zeros((self.capacity, 1),
+                                              dtype=torch.int32,
+                                              device=self.device),
+                          c.valid, CTList(CTString),
+                          torch.zeros_like(c.data, dtype=torch.int32))
+        codes, lens = self.pool.list_codes(held.cpu().numpy(), fn)
+        return Column("list", self._lut(codes)[pos], c.valid,
+                      CTList(CTString), self._lut(lens)[pos])
+
+    def _constant(self, e: E.Expr):
+        """The host value of a literal or parameter expression."""
+        if isinstance(e, E.Lit):
+            return e.value
+        if isinstance(e, E.Param):
+            return self.params.get(e.name)
+        if isinstance(e, E.Negate):
+            v = self._constant(e.expr)
+            return None if v is None else -v
+        raise UnsupportedOnDevice(f"{type(e).__name__} is not a constant")
 
     def _bool(self, c: Column) -> Column:
         if c.kind != "bool":
@@ -241,6 +446,16 @@ class DeviceExprCompiler:
 
     def _promote(self, l: Column, r: Column):
         """Promote two columns to a common comparable kind."""
+        if _is_null(l) or _is_null(r):
+            # an all-null side takes the other side's kind and type (also
+            # where its placeholder kind is the other's), so a result built
+            # from both is typed by the side that holds values
+            null, other = (l, r) if _is_null(l) else (r, l)
+            null = Column(other.kind, torch.zeros_like(other.data),
+                          null.valid, other.ctype,
+                          None if other.lens is None
+                          else torch.zeros_like(other.lens))
+            return (null, other) if _is_null(l) else (other, null)
         if l.kind == r.kind:
             return l, r
         numeric = {"id", "int", "float"}
@@ -300,12 +515,20 @@ class DeviceExprCompiler:
         l = self.compile(e.lhs)
         r = self.compile(e.rhs)
         valid = l.valid & r.valid
+        if _is_null(l) or _is_null(r):
+            return self._null()
         if l.kind == "str" and r.kind == "str":
             rank = self._lut(self.pool.rank_array())
             ld = _gather(rank, l.data) if rank.shape[0] else l.data
             rd = _gather(rank, r.data) if rank.shape[0] else r.data
         else:
-            l2, r2 = self._promote(l, r)
+            try:
+                l2, r2 = self._promote(l, r)
+            except UnsupportedOnDevice:
+                if "list" in (l.kind, r.kind):
+                    raise
+                # values of incomparable types: the comparison is null
+                return self._null()
             if l2.kind == "bool":
                 raise UnsupportedOnDevice("boolean ordering")
             ld, rd = l2.data, r2.data
@@ -321,6 +544,8 @@ class DeviceExprCompiler:
 
     def _string_predicate(self, e) -> Column:
         l = self.compile(e.lhs)
+        if _is_null(l):
+            return self._null()
         if l.kind != "str":
             raise UnsupportedOnDevice("string predicate on non-string")
         if not isinstance(e.rhs, (E.Lit, E.Param)):
@@ -344,6 +569,15 @@ class DeviceExprCompiler:
 
     def _in_list(self, e) -> Column:
         l = self.compile(e.lhs)
+        if _is_null(l):
+            # null IN a list is null, but false for an empty list
+            rhs = self.compile(e.rhs)
+            if _is_null(rhs):
+                return self._null()
+            if rhs.kind != "list":
+                raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
+            return Column("bool", self._full(False),
+                          rhs.valid & (rhs.lens == 0), CTBoolean)
         if isinstance(e.rhs, E.ListLit) and all(
                 isinstance(i, E.Lit) for i in e.rhs.items):
             values = [i.value for i in e.rhs.items]
@@ -373,6 +607,11 @@ class DeviceExprCompiler:
                 [float(v) for v in values
                  if isinstance(v, (int, float)) and not isinstance(v, bool)],
                 dtype=np.float64))
+        elif l.kind == "bool":
+            arr = self._lut(np.array(
+                [int(v) for v in values if isinstance(v, bool)],
+                dtype=np.int64))
+            l = Column("int", l.data.to(torch.int64), l.valid, CTInteger)
         else:
             raise UnsupportedOnDevice(f"IN over kind {l.kind}")
         found = torch.isin(l.data, arr) if arr.shape[0] else \
@@ -404,6 +643,12 @@ class DeviceExprCompiler:
     def _arith(self, e) -> Column:
         l = self.compile(e.lhs)
         r = self.compile(e.rhs)
+        if _is_null(l) or _is_null(r):
+            return self._null()
+        if isinstance(e, E.Add) and l.kind == "str" and r.kind == "str":
+            return self._concat_strings(e, l, r)
+        if isinstance(e, E.Add) and l.kind == "list" and r.kind == "list":
+            return self._concat_lists(l, r)
         valid = l.valid & r.valid
         numeric = {"id", "int", "float"}
         # Python-numeric semantics for booleans (True == 1), matching the
@@ -485,16 +730,22 @@ class DeviceExprCompiler:
                         CypherDateTime.parse(e.args[0].value).micros,
                         "datetime", CTDateTime)
             except ValueError as ex:
-                raise UnsupportedOnDevice(str(ex))
+                # an invalid literal is a runtime error of every live row
+                self._note_row_error(self._full(True), f"{name}(): {ex}")
+                return self._null()
             return Column(kind, torch.full((self.capacity,), enc,
                                            dtype=torch.int64,
                                            device=self.device),
                           self._full(True), ct)
         args = [self.compile(a) for a in e.args]
+        if any(_is_null(a) for a in args):
+            # every function of the compiler returns null for a null
+            # argument
+            return self._null()
 
-        unary_float = {"sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
-                       "log10": torch.log10, "sin": torch.sin,
-                       "cos": torch.cos, "tan": torch.tan,
+        unary_float = {"sqrt": K.sqrt_f64, "exp": torch.exp,
+                       "log": torch.log, "log10": torch.log10,
+                       "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
                        "atan": torch.atan, "asin": torch.asin,
                        "acos": torch.acos, "ceil": torch.ceil,
                        "floor": torch.floor}
@@ -530,12 +781,44 @@ class DeviceExprCompiler:
             if c.kind == "float":
                 return Column("int", c.data.to(torch.int64), c.valid,
                               CTInteger)
+            if c.kind == "str":
+                return self._parse_strings(c, "tointeger", _to_int,
+                                           "int", CTInteger)
             raise UnsupportedOnDevice("toInteger on non-numeric")
         if name == "tofloat":
             c = args[0]
             if c.kind in ("int", "id", "float"):
                 return c.astype_kind("float")
+            if c.kind == "str":
+                return self._parse_strings(c, "tofloat", _to_float,
+                                           "float", CTFloat)
             raise UnsupportedOnDevice("toFloat on non-numeric")
+        if name == "toboolean":
+            c = args[0]
+            if c.kind == "bool":
+                return c
+            if c.kind == "str":
+                return self._parse_strings(c, "toboolean", _to_bool,
+                                           "bool", CTBoolean)
+            raise UnsupportedOnDevice(f"toBoolean on kind {c.kind}")
+        if name == "tostring":
+            return self._to_string(e.args[0], args[0])
+        if name in _STRING_FUNCTIONS:
+            return self._string_function(name, e, args[0])
+        if name in ("head", "last", "tail") or (
+                name == "reverse" and args[0].kind == "list"):
+            return self._list_function(name, args[0])
+        if name == "range":
+            bounds = [self._constant(a) for a in e.args]
+            if not all(isinstance(b, int) and not isinstance(b, bool)
+                       for b in bounds) or len(bounds) not in (2, 3):
+                raise UnsupportedOnDevice("range() of non-constant bounds")
+            step = bounds[2] if len(bounds) == 3 else 1
+            if step == 0:
+                self._note_row_error(self._full(True), "range() step of 0")
+                return self._const_list([])
+            end = bounds[1] + (1 if step > 0 else -1)
+            return self._const_list(list(range(bounds[0], end, step)))
         if name in ("toupper", "touppercase", "tolower", "tolowercase",
                     "trim", "ltrim", "rtrim", "reverse"):
             c = args[0]
@@ -569,6 +852,43 @@ class DeviceExprCompiler:
             import math
             return self._literal(math.e if name == "e" else math.pi)
         raise UnsupportedOnDevice(f"function {name}() has no device path")
+
+
+# Functions of a string and constant further arguments, each given as a
+# maker of the string -> value function (the oracle's semantics).
+_STRING_FUNCTIONS: Dict[str, Callable] = {
+    "substring": lambda start, length=None: (
+        (lambda s: s[start:]) if length is None
+        else (lambda s: s[start:start + length])),
+    "left": lambda n: lambda s: s[:n],
+    "right": lambda n: lambda s: s[-n:] if n > 0 else "",
+    "replace": lambda find, repl: lambda s: s.replace(find, repl),
+    "split": lambda sep: lambda s: s.split(sep),
+}
+
+
+def _to_int(s: str):
+    """toInteger of a string: null where it does not parse."""
+    try:
+        return int(float(s)) if "." in s or "e" in s.lower() else int(s)
+    except (ValueError, OverflowError):
+        return None
+
+
+def _to_float(s: str):
+    try:
+        return float(s)
+    except ValueError:
+        return None
+
+
+def _to_bool(s: str):
+    return {"true": True, "false": False}.get(s.lower())
+
+
+def _is_null(c: Column) -> bool:
+    """True for the all-null column of :meth:`DeviceExprCompiler._null`."""
+    return c.ctype == CTNull
 
 
 def _gather(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _L_NULL = -(2 ** 63) + 1
@@ -34,6 +35,17 @@ def row_mask(capacity: int, n: int, device,
     if live is not None:
         m = m & (idx < live)
     return m
+
+
+def sqrt_f64(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float64 square root, as IEEE 754 requires and
+    ``jnp.sqrt`` gives.  CUDA's double ``sqrt`` is correctly rounded, so
+    on the card this is ``torch.sqrt``.  PyTorch's CPU kernel for
+    float64 is not (it is one ulp off on some inputs, 527 of
+    sqrt(0 … 99,999)), so a tensor on the CPU goes through numpy's."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.contiguous().numpy()))
+    return torch.sqrt(x)
 
 
 # -- compaction (filter) ----------------------------------------------------

@@ -14,7 +14,7 @@ ported yet (ROADMAP).
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,8 +27,9 @@ class StringPool:
         self._codes: Dict[str, int] = {}
         self._rank_version = -1
         self._rank: Optional[np.ndarray] = None
-        # cache of unary string->string function LUTs, keyed by (fn_name, version)
-        self._fn_luts: Dict[tuple, np.ndarray] = {}
+        # cache of the function lookup tables over the pool, keyed by
+        # (fn_name, version)
+        self._fn_luts: Dict[tuple, Any] = {}
 
     def __len__(self) -> int:
         return len(self._strings)
@@ -152,6 +153,39 @@ class StringPool:
                 out[code] = self.encode(fn(self._strings[code]))
             self._fn_luts[key] = out
         return self._fn_luts[key]
+
+    def value_lut(self, name: str, fn: Callable[[str], Any], dtype
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """(values, ok) over all pool strings: values[code] = fn(string)
+        of ``dtype``, ok False where fn gives None (a null).  Cached per
+        (name, pool version)."""
+        key = (name, self.version)
+        if key not in self._fn_luts:
+            vals = [fn(s) for s in self._strings]
+            self._fn_luts[key] = (
+                np.array([0 if v is None else v for v in vals], dtype=dtype),
+                np.array([v is not None for v in vals], dtype=bool))
+        return self._fn_luts[key]
+
+    def map_codes(self, codes: np.ndarray, fn: Callable[[str], str]
+                  ) -> np.ndarray:
+        """int32 codes of fn(string) for each of ``codes``; new strings
+        are added to the pool."""
+        return np.array([self.encode(fn(self._strings[c]))
+                         for c in codes.tolist()], dtype=np.int32)
+
+    def list_codes(self, codes: np.ndarray,
+                   fn: Callable[[str], List[str]]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """(codes, lens) of fn(string) for each of ``codes``: row i of
+        the int32 matrix holds the codes of the strings fn gives for
+        ``codes[i]``, left-aligned; new strings are added to the pool."""
+        lists = [fn(self._strings[c]) for c in codes.tolist()]
+        width = max([1] + [len(x) for x in lists])
+        out = np.zeros((len(lists), width), dtype=np.int32)
+        for i, x in enumerate(lists):
+            out[i, :len(x)] = [self.encode(v) for v in x]
+        return out, np.array([len(x) for x in lists], dtype=np.int32)
 
     def lengths_array(self) -> np.ndarray:
         """int64 table mapping each code to len(string); cached per pool

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from caps_tpu_torch import ops as OPS
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    Column, column_to_host, kind_for, literal_column, make_column,
+    _DTYPES, Column, column_to_host, kind_for, list_elem_kind, literal_column,
+    make_column,
 )
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice,
@@ -39,7 +40,9 @@ from caps_tpu_torch.backends.cuda.expr import (
 from caps_tpu_torch.backends.cuda.pool import StringPool
 from caps_tpu_torch.ir.exprs import Expr
 from caps_tpu_torch.okapi.config import EngineConfig
-from caps_tpu_torch.okapi.types import CTFloat, CTInteger, CypherType
+from caps_tpu_torch.okapi.types import (
+    CTFloat, CTInteger, CTNull, CTVoid, CypherType,
+)
 from caps_tpu_torch.relational.header import RecordHeader
 from caps_tpu_torch.relational.shapes import ShapeBucketLattice
 from caps_tpu_torch.relational.table import AggSpec, Table, TableFactory
@@ -417,8 +420,10 @@ class DeviceTable(Table):
         shared = set(self.columns) & set(other.columns)
         if shared:
             raise ValueError(f"join column collision: {shared}")
+        if how == "cross":
+            return self._cross_join(other)
         if how not in ("inner", "left"):
-            raise UnsupportedOnDevice(f"join: {how} join not yet ported")
+            raise UnsupportedOnDevice(f"join: {how} join")
         return self._sort_merge_join(other, how, pairs)
 
     def _join_key(self, col: Column, side: str = "l") -> torch.Tensor:
@@ -525,6 +530,35 @@ class DeviceTable(Table):
             out = out._compact(keep & out.row_ok)
         return out
 
+    def _cross_join(self, other: "DeviceTable") -> "DeviceTable":
+        """Every live left row paired with every live right row, left
+        row major.  The output slots invert the cumulative pair counts
+        as in ``explode``."""
+        total = self._n * other._n
+        out_cap = self.backend.bucket(total)
+        dev = self.backend.device
+        # per-live-left-row pair count: the exact device count when the
+        # right side rides generic replay (other._n is then only a
+        # served upper bound), the host int otherwise
+        count_b = (other._live.to(torch.int64) if other._live is not None
+                   else torch.tensor(other._n, dtype=torch.int64,
+                                     device=dev))
+        counts = torch.where(self.row_ok, count_b,
+                             torch.zeros((), dtype=torch.int64, device=dev))
+        offsets = torch.cumsum(counts, 0)
+        t = torch.arange(out_cap, device=dev)
+        l_idx = torch.searchsorted(offsets, t, right=True).clamp(
+            0, max(0, self.capacity - 1))
+        seg_start = torch.where(l_idx > 0, offsets[(l_idx - 1).clamp(min=0)],
+                                torch.zeros_like(l_idx))
+        within = (t - seg_start) % max(1, other.capacity)
+        out_cols = _gather_cols(self._cols, l_idx)
+        out_cols.update(_gather_cols(other._cols, within))
+        live = (offsets[-1].to(torch.int32)
+                if self._live is not None or other._live is not None
+                else None)
+        return DeviceTable(self.backend, out_cols, total, live=live)
+
     def union_all(self, other: Table) -> "DeviceTable":
         assert isinstance(other, DeviceTable)
         if set(self.columns) != set(other.columns):
@@ -630,12 +664,6 @@ class DeviceTable(Table):
                       aggs: Sequence[AggSpec]) -> "DeviceTable":
         """Sorted group-by: sort rows by the group keys, mark segment
         starts, and reduce each aggregation over the segments."""
-        for a in aggs:
-            if a.distinct or a.kind in ("collect", "percentile_cont",
-                                        "percentile_disc"):
-                raise UnsupportedOnDevice(
-                    f"group: {a.kind}{' DISTINCT' if a.distinct else ''} "
-                    f"not yet ported")
         cap = self.capacity
         dev = self.backend.device
         if by:
@@ -646,14 +674,16 @@ class DeviceTable(Table):
             perm = self._sort_perm(keys)
             sorted_cols = _gather_cols(self._cols, perm)
             row_ok_sorted = self.row_ok[perm]
+            group_keys_sorted = [k[perm] for k in keys]
             change = K.neighbor_change_keys(
-                [k[perm] for k in keys[1:]]) & row_ok_sorted
+                group_keys_sorted[1:]) & row_ok_sorted
             seg_id = (torch.cumsum(change.to(torch.int32), 0,
                                    dtype=torch.int32) - 1).clamp(min=0)
             n_groups, groups_live = self.backend.consume_rows(
                 K.mask_count(change))
         else:
             sorted_cols = dict(self._cols)
+            group_keys_sorted = []
             seg_id = torch.zeros(cap, dtype=torch.int32, device=dev)
             n_groups, groups_live = 1, None
             change = torch.zeros(cap, dtype=torch.bool, device=dev)
@@ -672,10 +702,87 @@ class DeviceTable(Table):
                             col.valid[start_idx], col.ctype,
                             col.lens[start_idx] if col.lens is not None
                             else None)
+
+        # DISTINCT aggregation: one extra stable sort by the group keys
+        # plus the value marks the FIRST occurrence of each (group,
+        # value); the aggregation then runs with that mask ANDed in (the
+        # oracle keeps the first occurrence, so collect order matches)
+        firstocc_cache: Dict[str, torch.Tensor] = {}
+
+        def firstocc_for(col_name: str) -> torch.Tensor:
+            if col_name not in firstocc_cache:
+                combined = group_keys_sorted + _sort_keys(
+                    sorted_cols[col_name], True, True, self.backend,
+                    op="group")
+                p2 = self._sort_perm(combined)
+                first = torch.zeros(cap, dtype=torch.bool, device=dev)
+                first[p2] = K.neighbor_change_keys([k[p2] for k in combined])
+                firstocc_cache[col_name] = first
+            return firstocc_cache[col_name]
+
         for a in aggs:
-            out[a.name] = self._one_agg(a, sorted_cols, seg_id, out_cap,
-                                        row_ok_sorted, n_groups)
+            firstocc = firstocc_for(a.col) if a.distinct else None
+            if a.kind in ("percentile_cont", "percentile_disc"):
+                out[a.name] = self._percentile_agg(
+                    a, sorted_cols, group_keys_sorted, seg_id, out_cap,
+                    row_ok_sorted, n_groups, start_idx, firstocc)
+            else:
+                out[a.name] = self._one_agg(a, sorted_cols, seg_id, out_cap,
+                                            row_ok_sorted, n_groups,
+                                            firstocc, start_idx)
         return DeviceTable(self.backend, out, n_groups, live=groups_live)
+
+    def _percentile_agg(self, a: AggSpec, cols: Dict[str, Column],
+                        group_keys_sorted: List[torch.Tensor], seg_id,
+                        num_segments: int, row_ok, n_groups: int,
+                        start_idx, firstocc=None) -> Column:
+        """percentileDisc / percentileCont: one extra stable sort by
+        (group keys, value) puts each group's valid values ascending at
+        the head of its row block, so the percentile is a rank gather.
+        disc takes the ceil(p·n) nearest rank (Neo4j's rule, as the
+        oracle); cont interpolates between the two ranks either side, in
+        float64.  The re-sort is group-major with the same keys, so each
+        group's block keeps its offset (``start_idx``).  DISTINCT
+        (``firstocc``) excludes repeated values and sorts them to the
+        block's tail with one more key, so the ranks stay contiguous."""
+        dev = self.backend.device
+        group_live = torch.arange(num_segments, device=dev) < n_groups
+        col = cols[a.col]
+        if col.kind not in ("int", "float", "id", "bool"):
+            raise UnsupportedOnDevice(f"group: {a.kind} over kind {col.kind}")
+        vk = _sort_keys(col, True, True, self.backend, op="group")
+        # grouped, group_keys_sorted[0] is already the ~row_ok key;
+        # ungrouped it must be added: padding rows look valid
+        lead = (list(group_keys_sorted) if group_keys_sorted
+                else [(~row_ok).to(torch.int64)])
+        ok_full = col.valid & row_ok
+        if firstocc is not None:
+            ok_full = ok_full & firstocc
+            lead = lead + [(~ok_full).to(torch.int64)]
+        p2 = self._sort_perm(lead + vk)
+        ok = ok_full[p2]
+        seg2 = seg_id[p2]  # still non-decreasing: stable and group-major
+        values = col.data[p2]
+        counts = K.sorted_segment_agg(ok, ok, seg2, num_segments, "count")
+        starts = start_idx.to(torch.int64)
+        p = float(a.percentile or 0.0)
+        last = values.shape[0] - 1
+        top = (counts - 1).clamp(min=0)
+        if a.kind == "percentile_disc":
+            # nearest rank: the 1-based rank ceil(p * n)
+            rank = torch.ceil(p * counts.to(torch.float64)).to(torch.int64)
+            r = torch.minimum((rank.clamp(min=1) - 1).clamp(min=0), top)
+            data = values[(starts + r).clamp(0, last)]
+            return Column(col.kind, data, (counts > 0) & group_live,
+                          col.ctype)
+        pos = p * top.to(torch.float64)
+        lo = torch.floor(pos).to(torch.int64)
+        hi = torch.minimum(lo + 1, top)
+        frac = pos - lo.to(torch.float64)
+        vlo = values[(starts + lo).clamp(0, last)].to(torch.float64)
+        vhi = values[(starts + hi).clamp(0, last)].to(torch.float64)
+        data = vlo * (1.0 - frac) + vhi * frac
+        return Column("float", data, (counts > 0) & group_live, CTFloat)
 
     def _group_dense_cuda(self, by: Sequence[str], aggs: Sequence[AggSpec]
                           ) -> Optional["DeviceTable"]:
@@ -761,7 +868,8 @@ class DeviceTable(Table):
         return dense._compact(counts_all > 0)
 
     def _one_agg(self, a: AggSpec, cols: Dict[str, Column], seg_id,
-                 num_segments: int, row_ok, n_groups: int) -> Column:
+                 num_segments: int, row_ok, n_groups: int,
+                 firstocc=None, start_idx=None) -> Column:
         dev = self.backend.device
         group_live = torch.arange(num_segments, device=dev) < n_groups
         if a.kind == "count_star":
@@ -770,9 +878,14 @@ class DeviceTable(Table):
             return Column("int", data, group_live, CTInteger)
         col = cols[a.col]
         ok = col.valid & row_ok
+        if firstocc is not None:
+            ok = ok & firstocc
         if a.kind == "count":
             data = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
             return Column("int", data, group_live, CTInteger)
+        if a.kind == "collect":
+            return self._collect_agg(a, col, ok, seg_id, num_segments,
+                                     group_live, start_idx)
         if col.kind == "list":
             raise UnsupportedOnDevice(f"group: {a.kind} over list column")
         if a.kind == "first":
@@ -822,16 +935,100 @@ class DeviceTable(Table):
             s2 = K.segment_agg(v * v, ok, seg_id, num_segments, "sum")
             nn = counts.clamp(min=1).to(torch.float64)
             var = ((s2 - s * s / nn) / (nn - 1).clamp(min=1)).clamp(min=0.0)
-            data = torch.where(counts > 1, torch.sqrt(var),
+            data = torch.where(counts > 1, K.sqrt_f64(var),
                                torch.zeros_like(var))
             return Column("float", data, (counts > 0) & group_live, CTFloat)
         raise UnsupportedOnDevice(f"group: aggregation {a.kind}")
+
+    def _collect_agg(self, a: AggSpec, col: Column, ok, seg_id,
+                     num_segments: int, group_live, start_idx) -> Column:
+        """collect(x): each group's values as one row of a (groups, L)
+        int32 list matrix, written by one flat scatter.  The kept rows
+        are in group-sorted (stable) order, so each list holds its
+        values in row order: the oracle's collect order."""
+        if col.kind not in ("id", "int", "str", "bool"):
+            raise UnsupportedOnDevice(f"group: collect over kind {col.kind}")
+        if a.result_type is None or (
+                list_elem_kind(a.result_type) is None
+                and a.result_type.material.inner.material not in (CTVoid,
+                                                                  CTNull)):
+            # (a list of no element type: every value is null, so each
+            # group's list is empty)
+            raise UnsupportedOnDevice(
+                f"group: collect to {a.result_type!r}, a list type with no "
+                f"device representation")
+        dev = self.backend.device
+        if col.kind == "int":
+            # list elements are int32: collect values that fit only
+            zero = torch.zeros_like(col.data)
+            lo = self.backend.consume_count(
+                torch.where(ok, col.data, zero).min(), relation="lo")
+            hi = self.backend.consume_count(
+                torch.where(ok, col.data, zero).max(), relation="cap")
+            if not (-2**31 < lo and hi < 2**31):
+                raise UnsupportedOnDevice("group: collect of int64-range "
+                                          "values")
+        counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
+        # the row width: the longest list rounded up to a power of two on
+        # the card, so a param-generic replay whose longest list grows a
+        # little still fits the served width (the lengths bound each row)
+        longest = counts.max().clamp(min=1)
+        width = torch.exp2(torch.ceil(torch.log2(
+            longest.to(torch.float64)))).to(torch.int64)
+        L = self.backend.consume_count(width, relation="cap")
+        # each kept row's rank within its segment
+        c = torch.cumsum(ok.to(torch.int64), 0)
+        sp = start_idx[seg_id.clamp(0, start_idx.shape[0] - 1).long()]
+        base = torch.where(sp > 0, c[(sp - 1).clamp(min=0)],
+                           torch.zeros_like(sp))
+        within = c - 1 - base
+        sentinel = num_segments * L
+        flat_idx = torch.where(ok, seg_id.to(torch.int64) * L + within,
+                               torch.full_like(within, sentinel))
+        vals32 = col.data.to(torch.int32)
+        flat = torch.zeros(sentinel + 1, dtype=torch.int32, device=dev)
+        flat.scatter_(0, flat_idx, vals32)
+        data = flat[:-1].reshape(num_segments, L)
+        return Column("list", data, group_live, a.result_type,
+                      counts.to(torch.int32))
 
     # -- lists -----------------------------------------------------------
 
     def explode(self, list_col: str, out_col: str,
                 out_type: CypherType) -> "DeviceTable":
-        raise UnsupportedOnDevice("explode (UNWIND): not yet ported")
+        """UNWIND: one output row per element of ``list_col``, in row
+        order then element order; null and empty lists give no row."""
+        col = self._cols[list_col]
+        rest = {c: v for c, v in self._cols.items() if c != list_col}
+        if col.kind != "list":
+            # UNWIND of a value that is not a list: one row holding the
+            # value itself, none for null
+            rest[out_col] = Column(col.kind, col.data, col.valid, out_type,
+                                   col.lens)
+            return self._with_cols(rest)._compact(col.valid & self.row_ok)
+        out_kind = kind_for(out_type)
+        if out_kind == "object":
+            if out_type.material not in (CTVoid, CTNull):
+                raise UnsupportedOnDevice(
+                    f"explode: element type {out_type!r} has no device "
+                    f"representation")
+            # a list of no element type holds no element (every list is
+            # empty or null), so no row comes out; the column takes the
+            # device list's element kind, or a null literal's
+            out_kind = list_elem_kind(col.ctype) or "bool"
+        ok = col.valid & self.row_ok
+        lens = torch.where(ok, col.lens, torch.zeros_like(col.lens))
+        total, live = self.backend.consume_rows(lens.sum())
+        out_cap = self.backend.bucket(total)
+        row, within, out_valid, _ = K.explode_expand(col.lens, ok, out_cap)
+        out_cols = _gather_cols(rest, row)
+        values = col.data[row, within.clamp(0, col.data.shape[1] - 1)]
+        if out_kind == "bool":
+            values = values != 0
+        else:
+            values = values.to(_DTYPES[out_kind])
+        out_cols[out_col] = Column(out_kind, values, out_valid, out_type)
+        return DeviceTable(self.backend, out_cols, total, live=live)
 
     def pack_list(self, cols: Sequence[str], out_col: str,
                   out_type: CypherType) -> "DeviceTable":

@@ -35,19 +35,37 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 oracle, and the var-length ``count(*)``; per query the
                 cold and warm latencies, strategy, size reads, launches
                 and peak allocated bytes;
-  6. selftest — the seconds each kernel family's self-test took, and a
+  6. unwind   — on the same session: collect then UNWIND, DISTINCT
+                count with percentileDisc and percentileCont, and a cross
+                join of about 13.3M rows; per query its cold run, exact
+                replays (0 size reads) and the warm phase's 24 rotating
+                ``$age`` values, each against its numpy oracle, with
+                launches, size reads, peak allocated bytes and the
+                device busy time of one exact replay (``torch.profiler``);
+  7. tck      — the 465 TCK scenarios on the card under the CPU tests'
+                strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
+                and the port's float64 sqrt on 2^20 values bit for bit
+                against numpy;
+  8. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+                generator: at scale 11 (about LDBC SF1) 3 parameter draws
+                each, equal to the port's CPU session; at scale 110
+                (about SF10) a cold run, 5 exact replays and 3 generic
+                draws, each equal to an eager run, the device busy time
+                of one exact replay, and IS1/IS4/IS5 against numpy;
+  9. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
-  7. kernels  — each kernel wrapper against its plain PyTorch version on
+ 10. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
-                made and at edge shapes (the segment kernel: bit for bit,
-                NaN and signed zeros included, and two calls bitwise
-                equal), with the median time of 20 launches (CUDA
+                made (of the grouped query, the var-expand forms, the
+                unwind queries and IC12) and at edge shapes (the segment
+                kernel: bit for bit, NaN and signed zeros included, and
+                two calls bitwise equal), with the median time of 20 launches (CUDA
                 events) at the largest call and at each call (summed:
                 ``ms_per_query``), the plain version's and one library
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
-  8. the ``{"kernels": [...]}`` line, the card line, and the last line
+ 11. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -86,6 +104,19 @@ QUERY_VARLEN_CITY = (
     "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
 QUERY_VARLEN_COUNT = ("MATCH (a:Person)-[:KNOWS*1..2]->(c) "
                       "WHERE a.age = $age RETURN count(*) AS c")
+# The unwind phase: collect then UNWIND, DISTINCT aggregates with the two
+# percentiles, and a cross join, each on the slice's graph.
+QUERY_UNWIND = (
+    "MATCH (a:Person)-[:KNOWS]->(b) WHERE a.age = $age "
+    "WITH a, collect(b.city) AS cs UNWIND cs AS c "
+    "RETURN c AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+QUERY_PERCENTILES = (
+    "MATCH (a:Person)-[:KNOWS]->(b) WHERE a.age = $age "
+    "RETURN a.city AS city, count(DISTINCT b.city) AS nc, "
+    "percentileDisc(b.age, 0.5) AS p50, percentileCont(b.age, 0.9) AS p90 "
+    "ORDER BY city LIMIT 20")
+QUERY_CROSS = ("MATCH (a:Person), (b:Person) WHERE a.age = $age "
+               "AND b.city = $city RETURN count(*) AS n")
 CITY = "city0007"   # with AGE: about 14 seeds, the var-expand matrix form
 # The graph's dictionary-coded property and the seed filter.  1,000 cities
 # keep the group-by under the dense gate (S <= 4096), so it runs on K1.
@@ -118,6 +149,16 @@ MIN_QUERY_LAUNCHES = {"segment_agg": 1, "expand_positions": 4,
 # first join's build side) and of the grouped rows (K3), the group-by.
 MIN_MATRIX_LAUNCHES = {"segment_agg": 1, "expand_positions": 2,
                        "bitonic_sort": 2}
+# The same for one run of the collect/UNWIND query: its two joins (K2),
+# the dense group-by of the unwound cities (K1), the sort of about 1,000
+# grouped rows (K3).
+MIN_UNWIND_LAUNCHES = {"segment_agg": 1, "expand_positions": 1,
+                       "bitonic_sort": 1}
+# The LDBC phase's scales: 11 is about LDBC SF1 (11k persons, 150k
+# nodes), 110 about SF10 (BASELINE.md configs 2 and 3).
+LDBC_SCALES = (11.0, 110.0)
+LDBC_SEED = 7
+LDBC_DRAWS = 3
 # the kernel wrappers a query calls, each with the size its Recorder
 # keeps the largest call by
 QUERY_KERNELS = (("segment", "dense_segment_agg_cuda",
@@ -603,18 +644,18 @@ def pattern_runs(torch, session, graph, query, params, card, warm=5,
     return rows, out, result
 
 
-def expect(label, cond, detail) -> None:
+def expect(label, cond, detail, phase="patterns") -> None:
     if not cond:
-        raise RuntimeError(f"patterns/{label}: {detail}")
+        raise RuntimeError(f"{phase}/{label}: {detail}")
 
 
-def expect_replays(label, info, reads: int) -> None:
+def expect_replays(label, info, reads: int, phase="patterns") -> None:
     """Every repeat an exact replay of a cached plan with ``reads`` size
     reads."""
     want = {"mode": "replay", "plan_cache": "hit", "size_syncs": reads}
     expect(label, all(r == want for r in info["warm_runs"]),
            f"repeats were not exact replays with {reads} size reads: "
-           f"{info['warm_runs']}")
+           f"{info['warm_runs']}", phase)
 
 
 def run_patterns(torch, np, args, card: str, state) -> dict:
@@ -766,6 +807,308 @@ def run_patterns(torch, np, args, card: str, state) -> dict:
              "varlen_matrix": out["varlen_matrix"]["replay_launches"]},
             {"varlen_join": {r.name: r.calls for r in join_calls},
              "varlen_matrix": {r.name: r.calls for r in matrix_calls}})
+
+
+def unwind_oracle(np, nodes, rels, age: int):
+    """The collect/UNWIND query: one unwound row per edge out of a seed,
+    so each city counts the 1-hop paths ending in it."""
+    seeds = (nodes["Person"]["age"] == age).astype(np.int64)
+    return top_cities(np, nodes, hop_counts(np, nodes, rels, seeds)[0])
+
+
+def percentile_oracle(np, nodes, rels, age: int):
+    """The DISTINCT/percentile query: per city of a seed, over the edges
+    out of its seeds, the distinct target cities, the nearest-rank
+    median target age and the interpolated 90th percentile (float64)."""
+    person, knows = nodes["Person"], rels["KNOWS"]
+    sel = person["age"][knows["_src"]] == age
+    city_a = person["city"][knows["_src"][sel]]
+    city_b = person["city"][knows["_tgt"][sel]]
+    age_b = person["age"][knows["_tgt"][sel]]
+    order = np.lexsort((age_b, city_a))
+    city_a, city_b, age_b = city_a[order], city_b[order], age_b[order]
+    names, starts = np.unique(city_a, return_index=True)
+    ends = list(starts[1:]) + [len(city_a)]
+    rows = []
+    for name, lo, hi in list(zip(names, starts, ends))[:20]:
+        ages = age_b[lo:hi]
+        n = len(ages)
+        disc = max(int(np.ceil(0.5 * n)), 1) - 1
+        pos = 0.9 * (n - 1)
+        low = int(np.floor(pos))
+        high = min(low + 1, n - 1)
+        frac = pos - low
+        rows.append({"city": str(name), "nc": len(set(city_b[lo:hi])),
+                     "p50": int(ages[disc]),
+                     "p90": float(ages[low]) * (1.0 - frac)
+                     + float(ages[high]) * frac})
+    return rows
+
+
+def rows_equal(got, want, float_ulps: int = 0) -> bool:
+    """Equal rows in order; floats within ``float_ulps`` ulp."""
+    import math
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            return False
+        for k, wv in w.items():
+            gv = g[k]
+            if isinstance(wv, float) and isinstance(gv, float):
+                if abs(gv - wv) > float_ulps * math.ulp(max(abs(gv),
+                                                            abs(wv))):
+                    return False
+            elif gv != wv:
+                return False
+    return True
+
+
+def run_unwind(torch, np, args, card: str, state):
+    """collect then UNWIND, DISTINCT aggregates with percentiles, and a
+    cross join on the slice's graph: each query's cold run, exact
+    replays and the warm phase's 24 rotating ages (param-generic
+    replays), every run against its numpy oracle; the kernel calls of
+    the last exact replay of each, its launches, and one more exact
+    replay under the profiler."""
+    session, graph, nodes, rels, _ = state
+    person = nodes["Person"]
+    n_city = int((np.asarray(person["city"]) == CITY).sum())
+    oracles = {
+        "collect_unwind": (QUERY_UNWIND, lambda a: {"age": a},
+                           lambda a: unwind_oracle(np, nodes, rels, a)),
+        "distinct_percentiles": (
+            QUERY_PERCENTILES, lambda a: {"age": a},
+            lambda a: percentile_oracle(np, nodes, rels, a)),
+        "cross_join": (QUERY_CROSS, lambda a: {"age": a, "city": CITY},
+                       lambda a: [{"n": int((person["age"] == a).sum())
+                                   * n_city}]),
+    }
+    rng = np.random.default_rng(args.seed + 1)   # the warm phase's ages
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    t0 = time.perf_counter()
+    out = {"phase": "unwind", "card": card, "age": AGE, "ages": ages}
+    launches, calls = {}, {}
+    for label, (query, params, want) in oracles.items():
+        recorders = query_recorders()
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params(AGE), card,
+                                          recorders=recorders)
+        expect(label, rows_equal(rows, want(AGE), 2),
+               f"disagrees with the oracle:\ngot  {rows}\n"
+               f"want {want(AGE)}", "unwind")
+        expect_replays(label, info, 0, "unwind")
+        gen_times, gen_runs, got = [], [], []
+        for a in ages:
+            r, res, t = timed_query(torch, graph, query, params(a))
+            got.append(r)
+            gen_runs.append(run_info(session, res))
+            if gen_runs[-1]["mode"] == "replay_gen":
+                gen_times.append(t)
+        for a, r in zip(ages, got):
+            expect(label, rows_equal(r, want(a), 2),
+                   f"age {a}: {r} != oracle {want(a)}", "unwind")
+        expect(label, gen_times, f"no generic replay: {gen_runs}", "unwind")
+        info.update({
+            "rows": len(rows),
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(
+                    query, params(AGE)).records.to_maps()),
+            "rows_joined": sum(m["rows"] for m in result.metrics["operators"]
+                               if m["op"] in ("Join", "Cross")),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]],
+            "generic_s": statistics.median(gen_times),
+            "generic_runs_s": gen_times,
+            "generic_size_syncs": [r["size_syncs"] for r in gen_runs],
+            "generic_modes": [r["mode"] for r in gen_runs]})
+        launches[label] = info["replay_launches"]
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    check_query_launches("the collect/UNWIND query's replay",
+                         launches["collect_unwind"], MIN_UNWIND_LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"unwind": launches["collect_unwind"]},
+            {f"unwind_{k}": v for k, v in calls.items()})
+
+
+def run_tck(torch, np, args, card: str) -> None:
+    """The TCK corpus on the card, one session per feature file, under
+    the CPU tests' strict list (``tck/blacklists/cuda.txt``): an
+    unlisted scenario must match its expected table, a listed one must
+    raise the error the list names or return the expected table; then
+    the port's float64 sqrt on the card against numpy, bit for bit."""
+    import caps_tpu_torch
+    from caps_tpu_torch.backends.cuda import kernels as K
+    from caps_tpu_torch.tck import NotPorted, load_features, run_scenario
+    from caps_tpu_torch.tck.runner import BLACKLIST, TckFailure, load_gaps
+    t0 = time.perf_counter()
+    gaps = load_gaps(BLACKLIST)
+    sessions = {}
+    counts = {"scenarios": 0, "matched": 0, "raised_as_listed": 0,
+              "listed_but_matched": 0}
+    failures = []
+    for scenario in load_features():
+        counts["scenarios"] += 1
+        session = sessions.get(scenario.feature)
+        if session is None:
+            session = sessions[scenario.feature] = \
+                caps_tpu_torch.local_session()
+        cause = gaps.get(scenario.key)
+        try:
+            run_scenario(session, scenario)
+        except NotPorted as ex:
+            if cause is not None and cause in str(ex):
+                counts["raised_as_listed"] += 1
+            else:
+                failures.append(f"{scenario.key}: {ex}")
+        except TckFailure as ex:
+            failures.append(str(ex))
+        else:
+            counts["listed_but_matched" if cause else "matched"] += 1
+    if failures:
+        raise RuntimeError(f"tck: {len(failures)} scenarios failed on the "
+                           f"card:\n" + "\n".join(failures[:20]))
+    # the sqrt: the integers 0 … 99,999 (where PyTorch's CPU kernel is
+    # one ulp off) and seeded values over 40 binades, 2^20 in all
+    rng = np.random.default_rng(args.seed + 3)
+    n_int = 100_000
+    x = np.concatenate([np.arange(n_int, dtype=np.float64),
+                        rng.random((1 << 20) - n_int)
+                        * 2.0 ** rng.integers(-20, 20, (1 << 20) - n_int)])
+    got = K.sqrt_f64(torch.from_numpy(x).cuda()).cpu().numpy()
+    differ = int((got.view(np.int64) != np.sqrt(x).view(np.int64)).sum())
+    if differ:
+        raise RuntimeError(f"tck: sqrt on the card differs from np.sqrt "
+                           f"in {differ} of {len(x)} values")
+    emit({"phase": "tck", "card": card, **counts, "listed": len(gaps),
+          "sqrt_values": len(x), "sqrt_bitwise_equal": True,
+          "phase_s": time.perf_counter() - t0})
+
+
+def ldbc_rows_agree(query: str, got, want) -> bool:
+    """Equal in order, or, for ORDER BY … LIMIT, equal before the cutoff
+    key and the same count at it (ties at the cutoff may be broken
+    either way); without ORDER BY, equal as multisets."""
+    from caps_tpu_torch.testing.bag import Bag
+    if got == want:
+        return True
+    if "ORDER BY" not in query:
+        return Bag(got) == want
+    if "LIMIT" not in query or len(got) != len(want):
+        return False
+    keys = [k.strip().split()[0] for k in
+            query.split("ORDER BY")[1].split("LIMIT")[0].split(",")]
+
+    def key_of(r):
+        return tuple(r[k] for k in keys)
+
+    cutoff = key_of(want[-1])
+    head_got = [r for r in got if key_of(r) != cutoff]
+    head_want = [r for r in want if key_of(r) != cutoff]
+    return (head_got == head_want and
+            all(key_of(r) == cutoff for r in got[len(head_got):]))
+
+
+def run_ldbc(torch, np, args, card: str):
+    """The LDBC-like reads (IS1–IS7, IC1–IC14) on the port's generator.
+    At the small scale every read with 3 parameter draws on the card
+    equals the port's CPU session on the same graph; at the large scale
+    each read runs cold, then 5 exact replays (each equal to an eager
+    run), 3 generic draws (each equal to its eager run) and one more
+    exact replay under the profiler, with IS1, IS4 and IS5 against
+    numpy answers."""
+    import caps_tpu_torch
+    from caps_tpu_torch.datasets import ldbc
+    from caps_tpu_torch.relational.session import degraded_execution
+    reads = {**ldbc.SHORT_READS, **ldbc.COMPLEX_READS}
+    small, large = LDBC_SCALES
+    t0 = time.perf_counter()
+    out = {"phase": "ldbc", "card": card, "scales": [small, large],
+           "seed": LDBC_SEED}
+
+    # -- the small scale: the card against the CPU session -----------------
+    gcard, d = ldbc.build_graph(caps_tpu_torch.local_session(), small,
+                                LDBC_SEED)
+    gcpu, _ = ldbc.build_graph(caps_tpu_torch.local_session(device="cpu"),
+                               small, LDBC_SEED)
+    torch.cuda.synchronize()
+    out["small_ingest_s"] = time.perf_counter() - t0
+    for name, (query, make) in reads.items():
+        rng = np.random.RandomState(11)
+        for _ in range(LDBC_DRAWS):
+            params = make(d, rng)
+            got = gcard.cypher(query, params).records.to_maps()
+            want = gcpu.cypher(query, params).records.to_maps()
+            expect(name, ldbc_rows_agree(query, got, want),
+                   f"scale {small} {params}: card {got} != cpu {want}",
+                   "ldbc")
+    out["small_reads_equal"] = len(reads) * LDBC_DRAWS
+    out["small_s"] = time.perf_counter() - t0
+    del gcard, gcpu
+
+    # -- the large scale: cold, exact replays, generic draws --------------
+    t1 = time.perf_counter()
+    session = caps_tpu_torch.local_session()
+    graph, d = ldbc.build_graph(session, large, LDBC_SEED)
+    torch.cuda.synchronize()
+    out["large_ingest_s"] = time.perf_counter() - t1
+    out["large_persons"] = len(d.person_ids)
+    per_read, ic12_calls, ic12_launches = {}, {}, {}
+    for name, (query, make) in reads.items():
+        rng = np.random.RandomState(11)
+        draws = [make(d, rng) for _ in range(1 + LDBC_DRAWS)]
+        recorders = query_recorders() if name == "IC12" else []
+        rows, info, _ = pattern_runs(torch, session, graph, query, draws[0],
+                                     card, recorders=recorders)
+        with degraded_execution(no_plan_cache=True, no_fused=True):
+            eager = graph.cypher(query, draws[0]).records.to_maps()
+        expect(name, rows == eager, f"replays {rows} != eager {eager}",
+               "ldbc")
+        gen_times, gen_runs = [], []
+        for params in draws[1:]:
+            got, res, t = timed_query(torch, graph, query, params)
+            gen_runs.append(run_info(session, res))
+            gen_times.append(t)
+            with degraded_execution(no_plan_cache=True, no_fused=True):
+                eager = graph.cypher(query, params).records.to_maps()
+            expect(name, got == eager, f"draw {params}: {got} != eager "
+                   f"{eager}", "ldbc")
+        info.update({"rows": len(rows), "draw_s": gen_times,
+                     "draw_runs": gen_runs,
+                     "profile_exact_replay": device_profile(
+                         torch, lambda: graph.cypher(
+                             query, draws[0]).records.to_maps())})
+        per_read[name] = info
+        if name == "IC12":
+            ic12_calls = {r.name: r.calls for r in recorders}
+            ic12_launches = info["replay_launches"]
+    # IS1, IS4, IS5 against the generator's arrays
+    i = len(d.person_ids) // 3
+    got = graph.cypher(ldbc.SHORT_READS["IS1"][0],
+                       {"personId": int(d.person_ids[i])}).records.to_maps()
+    expect("IS1", got == [{
+        "firstName": d.person_first[i], "lastName": d.person_last[i],
+        "birthday": int(d.person_birthday[i]),
+        "cityId": int(d.city_ids[d.person_city[i]]),
+        "creationDate": int(d.person_creation[i])}], got, "ldbc")
+    j = len(d.post_ids) // 3
+    mid, creator = int(d.post_ids[j]), int(d.post_creator[j])
+    got = graph.cypher(ldbc.SHORT_READS["IS4"][0],
+                       {"messageId": mid}).records.to_maps()
+    expect("IS4", got == [{"messageCreationDate": int(d.post_creation[j]),
+                           "messageId": mid}], got, "ldbc")
+    got = graph.cypher(ldbc.SHORT_READS["IS5"][0],
+                       {"messageId": mid}).records.to_maps()
+    expect("IS5", got == [{"personId": int(d.person_ids[creator]),
+                           "firstName": d.person_first[creator],
+                           "lastName": d.person_last[creator]}], got, "ldbc")
+    out["large"] = per_read
+    out["numpy_checked"] = ["IS1", "IS4", "IS5"]
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return {"ldbc_ic12": ic12_launches}, {"ldbc_ic12": ic12_calls}
 
 
 def run_selftest(card: str) -> None:
@@ -1209,11 +1552,20 @@ def main() -> int:
     pattern_launches, pattern_calls = run_patterns(torch, np, args, card,
                                                    state)
     launches.update(pattern_launches)
+    unwind_launches, unwind_calls = run_unwind(torch, np, args, card, state)
+    launches.update(unwind_launches)
+    pattern_calls.update(unwind_calls)
+    del state
+    run_tck(torch, np, args, card)
+    ldbc_launches, ldbc_calls = run_ldbc(torch, np, args, card)
+    launches.update(ldbc_launches)
+    pattern_calls.update(ldbc_calls)
     run_selftest(card)
 
     def of_patterns(wrapper):
         """Every call of ``wrapper`` in one exact replay of each
-        var-expand form, labelled by form."""
+        var-expand form, of each unwind-phase query and of IC12,
+        labelled by query."""
         return [(f"{form}_call_{i}", a)
                 for form, calls in pattern_calls.items()
                 for i, a in enumerate(calls[wrapper])]
@@ -1226,7 +1578,8 @@ def main() -> int:
             ("bitonic_sort", "bitonic_sort_perm_cuda", check_sort)):
         checks[name] = check(torch, main_args[wrapper], query_calls[wrapper],
                              dev, of_patterns(wrapper))
-        # the var-expand calls held against the plain version, by form
+        # the calls of the var-expand forms, the unwind-phase queries and
+        # IC12 held against the plain version, by query
         checks[name]["pattern_calls"] = {
             form: len(calls[wrapper]) for form, calls in pattern_calls.items()}
     checks["prefetch_gather"] = check_prefetch(
@@ -1252,6 +1605,10 @@ def main() -> int:
                 name, 0),
             "launches_varlen_matrix_replay": launches["varlen_matrix"].get(
                 name, 0),
+            # one exact replay of the collect/UNWIND query and of IC12 at
+            # the large LDBC scale
+            "launches_unwind_replay": launches["unwind"].get(name, 0),
+            "launches_ldbc_ic12_replay": launches["ldbc_ic12"].get(name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             # the sum over the calls of one exact replay, each timed
             "ms_per_query": c["ms_per_query"],

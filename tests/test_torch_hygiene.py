@@ -115,3 +115,26 @@ def test_unported_config_flags_raise():
         with pytest.raises(NotImplementedError, match=flag):
             caps_tpu_torch.local_session(
                 device="cpu", config=EngineConfig(**{flag: True}))
+
+
+HARNESS_MODULES = (
+    "caps_tpu_torch/tck/__init__.py", "caps_tpu_torch/tck/runner.py",
+    "caps_tpu_torch/tck/values.py", "caps_tpu_torch/testing/__init__.py",
+    "caps_tpu_torch/testing/bag.py", "caps_tpu_torch/testing/factory.py",
+    "caps_tpu_torch/datasets/__init__.py", "caps_tpu_torch/datasets/ldbc.py",
+)
+
+
+@pytest.mark.parametrize("module", HARNESS_MODULES)
+def test_import_scan_covers_the_harness_modules(module):
+    assert ROOT / module in PORT_FILES
+
+
+def test_tck_corpus_and_list_are_the_ports_own_files():
+    from caps_tpu_torch.tck.runner import BLACKLIST, FEATURES_DIR
+    own = ROOT / "caps_tpu_torch" / "tck"
+    features = sorted(pathlib.Path(FEATURES_DIR).glob("*.feature"))
+    assert len(features) == 29
+    for path in features + [pathlib.Path(BLACKLIST)]:
+        assert not path.is_symlink()
+        assert path.resolve().parent.parent == own.resolve()
