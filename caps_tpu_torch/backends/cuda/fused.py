@@ -245,6 +245,25 @@ class FusedExecutor:
             self._generic.pop(k[:2], None)
         return len(stale)
 
+    def forget(self, graph, query: str) -> int:
+        """Drop every size memo — exact and generic — recorded for
+        (graph, query), so the next execution re-records from scratch.
+        The re-plan loop (relational/session.py ``_maybe_replan``) calls
+        it with each retired plan: a re-planned tree may have another
+        shape, and replaying the old plan's size stream against it would
+        mis-gather.  Returns the number of entries dropped."""
+        gk = getattr(graph, "_fused_epoch", None)
+        if gk is None:
+            return 0
+        gkey = (gk, query)
+        dropped = 0
+        for key in [k for k in self._memo if k[:2] == gkey]:
+            del self._memo[key]
+            dropped += 1
+        if self._generic.pop(gkey, None) is not None:
+            dropped += 1
+        return dropped
+
     @contextlib.contextmanager
     def _activate(self, key: Optional[Tuple],
                   state: Optional[Dict[str, Any]] = None,

@@ -100,6 +100,27 @@ def sort_perm(keys: Sequence[torch.Tensor], capacity: int) -> torch.Tensor:
     return perm
 
 
+def distinct_count(data: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Distinct values among the rows ``ok`` (a device scalar), counted
+    as a Python ``set`` of the host values counts them: for floats
+    -0.0 and 0.0 once and every NaN row on its own.  Kept rows sort
+    first, in value order; a kept row counts when its value differs from
+    the row before it."""
+    nan = torch.zeros_like(ok)
+    if data.is_floating_point():
+        nan = ok & torch.isnan(data)
+        data = torch.where(data == 0, torch.zeros_like(data), data)
+    else:
+        data = data.to(torch.int64)
+    keep = ok & ~nan
+    vals = torch.where(keep, data, torch.zeros_like(data))
+    perm = sort_perm([(~keep).to(torch.int64), vals], vals.shape[0])
+    s, k = vals[perm], keep[perm]
+    new = k.clone()
+    new[1:] &= s[1:] != s[:-1]
+    return new.sum() + nan.sum()
+
+
 def neighbor_change_keys(sorted_keys: Sequence[torch.Tensor]
                          ) -> torch.Tensor:
     """True where a row starts a new group (row 0 included), comparing

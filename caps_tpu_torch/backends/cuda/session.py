@@ -26,6 +26,9 @@ class CUDACypherSession(RelationalCypherSession):
 
     # count-only pattern chains lower to SpMV (relational/count_pattern.py)
     supports_count_pushdown = True
+    # cyclic MATCH segments may run as one worst-case-optimal multiway
+    # join (relational/wcoj.py)
+    supports_wcoj = True
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  device="cuda"):
@@ -86,8 +89,9 @@ class CUDACypherSession(RelationalCypherSession):
 
     def metrics_snapshot(self) -> dict:
         """The backend's size-read count, the fused executor's
-        record/replay counters, the count closures built and the plan
-        cache's counters."""
+        record/replay counters, the count closures built, the plan
+        cache's counters and the session's named counters (``cost.*``,
+        ``wcoj.*``, ``replan.*``, ``stats.*``, ``opstats.*``)."""
         fused = self.fused
         snap = {
             "backend.syncs": self.backend.syncs,
@@ -99,4 +103,5 @@ class CUDACypherSession(RelationalCypherSession):
         }
         snap.update({f"plan_cache.{k}": v
                      for k, v in self.plan_cache.stats().items()})
+        snap.update(self.metrics_registry.snapshot())
         return snap

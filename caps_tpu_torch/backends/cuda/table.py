@@ -1074,6 +1074,25 @@ class DeviceTable(Table):
         return column_to_host(self._cols[col], self._exact_n(),
                               self.backend.pool)
 
+    def distinct_counts(self, cols: Sequence[str]) -> List[Optional[int]]:
+        """Per column, its distinct non-null values as a Python ``set``
+        of the host values counts them (``kernels.distinct_count``);
+        None for a list column, which has no set semantics.  One
+        device-to-host read for all columns (relational/stats.py)."""
+        out: List[Optional[int]] = [None] * len(cols)
+        at, counts = [], []
+        for i, c in enumerate(cols):
+            col = self._cols[c]
+            if col.kind == "list":
+                continue
+            at.append(i)
+            counts.append(K.distinct_count(col.data, col.valid & self.row_ok))
+        if counts:
+            self.backend.syncs += 1
+            for i, v in zip(at, torch.stack(counts).tolist()):
+                out[i] = int(v)
+        return out
+
     def host_column(self, col: str):
         """(values, ok) numpy host view of an integer column — the
         ingest-time mirror when present (Column.host), else one counted

@@ -53,15 +53,31 @@ class EngineConfig:
     # of the join cascade.  One card: no ring schedule yet (ROADMAP).
     use_ring: bool = dataclasses.field(
         default_factory=lambda: _env_bool("CAPS_TPU_USE_RING", True))
+    # Worst-case-optimal multiway joins (relational/wcoj.py): detected
+    # cyclic MATCH segments (chain + closing edges) run as one
+    # leapfrog-style intersection over sorted edge keys instead of the
+    # binary join cascade.  Cost-selected when the model is on; off =
+    # the cascade everywhere.
+    use_wcoj: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_WCOJ", True))
+    # Cost-based planning (relational/cost.py + relational/stats.py):
+    # ingest-time cardinality/degree/skew sketches price plans, re-root
+    # Expand chains at their cheaper end (logical/optimizer.py), choose
+    # count pushdown vs cascade and WCOJ vs cascade, and stamp
+    # per-operator row estimates.  Off = the fixed heuristics.
+    use_cost_model: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_COST_MODEL", True))
+    # Divergence-triggered re-planning: model-divergent executions per
+    # plan family before its cached plan retires and re-plans with
+    # calibrated statistics.  0 disables.
+    replan_threshold: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_REPLAN_THRESHOLD", 2))
     # Features of the JAX package this package has not ported yet (see
     # ROADMAP).  They stay off; a session built with one of them on
     # raises NotImplementedError instead of planning without it.
-    use_wcoj: bool = False
-    use_cost_model: bool = False
     use_dist_join: bool = False
 
-    UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = (
-        "use_wcoj", "use_cost_model", "use_dist_join")
+    UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = ("use_dist_join",)
 
     # Fused executor (backends/cuda/fused.py): record data-dependent sizes
     # on a query's first run, replay them sync-free on repeats.

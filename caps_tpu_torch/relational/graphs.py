@@ -79,6 +79,13 @@ class RelationalCypherGraph(PropertyGraph):
         path values and node lists."""
         return {}
 
+    def statistics(self):
+        """Ingest-time statistics sketch (relational/stats.py) — the
+        cost model's prior.  Graphs without scan tables report the
+        empty sketch; ScanGraph computes lazily and caches."""
+        from caps_tpu_torch.relational.stats import EMPTY_STATS
+        return EMPTY_STATS
+
 
 def _align_node_scan(nt: NodeTable, header: RecordHeader, var: str,
                      all_labels: Iterable[str]) -> Table:
@@ -155,10 +162,48 @@ class ScanGraph(RelationalCypherGraph):
         self._schema = schema
         self._rel_lookup_cache = None
         self._node_lookup_cache = None
+        self._statistics_cache = None
 
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def statistics(self):
+        """Lazily computed, cached ingest-time sketch: per-label
+        cardinalities, degree distributions, hot-key skew
+        (relational/stats.py) — the cost model's prior.  One pass at
+        first use; a ``stats.computed`` counter records it."""
+        if self._statistics_cache is None:
+            from caps_tpu_torch.relational.stats import (
+                compute_graph_statistics,
+            )
+            self._statistics_cache = compute_graph_statistics(self)
+            registry = getattr(self._session, "metrics_registry", None)
+            if registry is not None:
+                registry.counter("stats.computed").inc()
+        return self._statistics_cache
+
+    def seed_statistics(self, payload) -> bool:
+        """Adopt a persisted statistics sketch (``to_payload`` form) as
+        this graph's prior, so the first plans price from it without the
+        recompute.  Only lands when nothing has been computed yet (a
+        live sketch always wins), and stays advisory: a stale seed
+        mis-prices a plan at worst, and calibration from ``op_stats``
+        actuals plus the divergence → re-plan loop correct that case."""
+        if self._statistics_cache is not None:
+            return False
+        from caps_tpu_torch.relational.stats import GraphStatistics
+        try:
+            stats = GraphStatistics.from_payload(payload)
+        except Exception:  # malformed payload — a hint, not an authority
+            return False
+        if stats is None or not stats.total_nodes:
+            return False
+        self._statistics_cache = stats
+        registry = getattr(self._session, "metrics_registry", None)
+        if registry is not None:
+            registry.counter("stats.seeded").inc()
+        return True
 
     def node_lookup(self):
         if self._node_lookup_cache is None:

@@ -196,7 +196,7 @@ class RelationalOperator(abc.ABC):
             evaluated = [c for c in self.children if c._result is not None]
             bytes_in = (sum(c.table.nbytes for c in evaluated) if evaluated
                         else self._result[1].nbytes)
-            self.context.op_metrics.append({
+            entry = {
                 "op": name,
                 "op_id": self.op_id,
                 "seconds": time.perf_counter() - t0,
@@ -205,7 +205,14 @@ class RelationalOperator(abc.ABC):
                 # operator-specific keys (e.g. the pushdown and
                 # var-expand "strategy", a closure's own "bytes_in")
                 **getattr(self, "_metric_extra", {}),
-            })
+            }
+            # cost-model estimate (relational/cost.py annotate_plan):
+            # ride the entry so the observed-statistics store measures
+            # model error, not drift from its own running mean
+            est = getattr(self, "est_rows", None)
+            if est is not None:
+                entry["est_rows"] = int(est)
+            self.context.op_metrics.append(entry)
         return self._result
 
     @property
@@ -219,8 +226,15 @@ class RelationalOperator(abc.ABC):
     def pretty(self, depth: int = 0) -> str:
         label = type(self).__name__.removesuffix("Op")
         extra = self._pretty_args()
+        est = getattr(self, "est_rows", None)
+        suffix = ""
+        if est is not None:
+            # estimated-vs-chosen in EXPLAIN: the cost model's row
+            # estimate (src: model prior or observed calibration)
+            src = getattr(self, "est_source", "model")
+            suffix = f"  ~rows={est} ({src})"
         lines = [("    " * depth) + ("└─" if depth else "") + label
-                 + (f"({extra})" if extra else "")]
+                 + (f"({extra})" if extra else "") + suffix]
         for c in self.children:
             lines.append(c.pretty(depth + 1))
         return "\n".join(lines)

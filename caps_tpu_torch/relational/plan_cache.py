@@ -232,6 +232,10 @@ class CachedPlan:
     #: revalidates against the live catalog, so a mutation of graph X
     #: invalidates exactly X's dependents — never the whole cache.
     catalog_deps: Tuple = ()
+    #: the query text as run (the fused executor's memo key), so a
+    #: retired plan's recorded size streams go with it
+    #: (session._maybe_replan)
+    query_text: str = ""
     # Serializes executions of THIS plan: the operator tree and its
     # runtime context are shared mutable state (parameter dict, per-op
     # result memos), so concurrent threads that hit the same entry take
@@ -310,6 +314,8 @@ class PlanCache:
         self.invalidations = 0
         # cold-phase seconds skipped by hits
         self.saved_s = 0.0
+        # plans retired by evict_family (the re-plan loop)
+        self.quarantined = 0
 
     def lookup(self, key: Tuple, params: Mapping[str, Any],
                catalog=None) -> Optional[CachedPlan]:
@@ -360,6 +366,23 @@ class PlanCache:
                 self._count -= len(dropped)
                 self.evictions += len(dropped)
 
+    def evict_family(self, family: str) -> List[CachedPlan]:
+        """Divergence-triggered retirement (relational/session.py
+        ``_maybe_replan``): drop every cached plan whose key's
+        normalized-query-text component is ``family``, counted under
+        ``quarantined``, so the next execution re-plans from scratch
+        with fresh statistics.  Returns the dropped plans so the caller
+        can also retire their fused recordings (a re-planned tree must
+        never replay the retired plan's size stream)."""
+        dropped: List[CachedPlan] = []
+        with self._lock:
+            for k in [k for k in self._entries if k[0] == family]:
+                plans = self._entries.pop(k)
+                self._count -= len(plans)
+                self.quarantined += len(plans)
+                dropped.extend(plans)
+        return dropped
+
     def evict_dependents(self, qgn=None) -> int:
         """Scoped catalog eviction (the session's catalog subscription):
         drop exactly the plans that resolved the mutated graph ``qgn``
@@ -392,6 +415,7 @@ class PlanCache:
                 "misses": self.misses,
                 "evictions": self.evictions,
                 "invalidations": self.invalidations,
+                "quarantined": self.quarantined,
                 "hit_rate": (self.hits / total) if total else 0.0,
                 "bytes": sum(p.nbytes for plans in self._entries.values()
                              for p in plans),

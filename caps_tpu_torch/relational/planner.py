@@ -31,10 +31,15 @@ GraphResolver = Callable[[QualifiedGraphName], RelationalCypherGraph]
 class RelationalPlanner:
     def __init__(self, context: R.RelationalRuntimeContext,
                  ambient_graph: RelationalCypherGraph,
-                 graph_resolver: Opt[GraphResolver] = None):
+                 graph_resolver: Opt[GraphResolver] = None,
+                 cost_model=None):
         self.context = context
         self.ambient_graph = ambient_graph
         self.graph_resolver = graph_resolver
+        #: relational/cost.py CostModel — physical-strategy choices
+        #: (count pushdown vs cascade, WCOJ vs cascade) consult it when
+        #: present
+        self.cost_model = cost_model
         self._entity_ctx_cache: Dict[int, R.EntityContext] = {}
         self.current_graph = ambient_graph
         self._memo: Dict[L.LogicalOperator, R.RelationalOperator] = {}
@@ -344,13 +349,17 @@ class RelationalPlanner:
             aggs = [(n, self._fix(a, op.parent), env[n])
                     for n, a in op.aggregations]
             default = R.AggregateOp(ctx, parent, group, aggs)
-            # count-only pattern chains lower to SpMV hops (no cost
-            # model in this package: the matcher alone decides, as the
-            # JAX package does under use_cost_model=False)
             from caps_tpu_torch.relational.count_pattern import (
-                try_plan_count_pushdown,
+                CountCycleOp, try_plan_count_pushdown,
             )
             pushed = try_plan_count_pushdown(self, op, default)
+            if pushed is not None and self.cost_model is not None \
+                    and not isinstance(pushed, CountCycleOp) \
+                    and not self._pushdown_wins(pushed):
+                # count pushdown vs cascade is a model choice: a
+                # hyper-selective seed on a huge graph keeps the join
+                # cascade (tiny padded frontiers beat a full-graph SpMV)
+                pushed = None
             return pushed if pushed is not None else default
         if isinstance(op, L.OrderBy):
             parent = self.plan_op(op.parent)
@@ -405,6 +414,21 @@ class RelationalPlanner:
             raise not_ported("CALL procedures (graph algorithms)")
         raise RelationalPlanningError(f"cannot plan {type(op).__name__}")
 
+    def _pushdown_wins(self, pushed) -> bool:
+        """Price the matched count chain both ways (relational/cost.py
+        ``count_pushdown_wins``) — SpMV touches every edge once, the
+        cascade the padded expanded frontiers."""
+        model = self.cost_model
+        seed = pushed.seed
+        try:
+            return model.count_pushdown_wins(
+                seed.labels, model.selectivity(seed.preds, seed.labels),
+                [(h.rel_types, h.direction, h.target.labels,
+                  model.selectivity(h.target.preds, h.target.labels))
+                 for h in pushed.hops])
+        except Exception:  # pragma: no cover — pricing must not fail
+            return True
+
     # -- branch-scoped graph context ----------------------------------------
 
     def _plan_two(self, lhs: L.LogicalOperator, rhs: L.LogicalOperator,
@@ -446,7 +470,10 @@ class RelationalPlanner:
 
         def branch(outgoing: bool, rel_name: str) -> R.RelationalOperator:
             # parent planning lives INSIDE the branch (memoized, so the
-            # BOTH union's two branches still share one subtree)
+            # BOTH union's two branches still share one subtree): a WCOJ
+            # substitution must not plan the chain below it until the
+            # decision is made, or nested closing edges would substitute
+            # their own operators into what becomes this op's fallback
             parent = self.plan_op(op.parent)
             rel_scan = R.ScanOp(ctx, self.current_graph, rel_name, rel_ct)
             rv = E.Var(rel_name)
@@ -461,6 +488,26 @@ class RelationalPlanner:
             return R.JoinOp(ctx, j1, tgt_scan, [(far, tgt_var)], "inner")
 
         if op.direction in (Direction.OUTGOING, Direction.INCOMING):
+            if op.into and not getattr(self, "_in_wcoj_fallback", False):
+                # cyclic pattern: a closing edge (both endpoints bound)
+                # roots a segment the worst-case-optimal multiway join
+                # can own (relational/wcoj.py) — decided before the
+                # cascade is built, and the embedded fallback cascade is
+                # built with nested substitution suppressed: ONE
+                # MultiwayJoinOp per segment, never a second one buried
+                # inside the fallback of the first
+                from caps_tpu_torch.relational.wcoj import try_plan_wcoj
+
+                def build_cascade():
+                    self._in_wcoj_fallback = True
+                    try:
+                        return branch(op.direction == Direction.OUTGOING,
+                                      op.rel)
+                    finally:
+                        self._in_wcoj_fallback = False
+                pushed = try_plan_wcoj(self, op, build_cascade)
+                if pushed is not None:
+                    return pushed
             return branch(op.direction == Direction.OUTGOING, op.rel)
         # BOTH: union of the two orientations; exclude self-loops from the
         # second branch so each loop edge matches exactly once.

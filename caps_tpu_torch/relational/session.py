@@ -4,9 +4,13 @@ relational → execute pipeline, result records, and entity materialization.
 Mirrors the reference's ``RelationalCypherSession`` / ``RelationalCypherRecords``
 (ref: okapi-relational/.../relational/api/ — reconstructed, mount empty;
 SURVEY.md §2, §3.1).  Repeated queries are served from the prepared-
-statement plan cache (relational/plan_cache.py).  The write path, cost
-model, tracing and deadline checkpoints of the JAX package are not ported
-yet (ROADMAP).
+statement plan cache (relational/plan_cache.py).  Plans are priced by the
+cost model (relational/cost.py) over the graph's statistics
+(relational/stats.py), each execution's operator rows feed the
+observed-statistics store (obs/telemetry.py), and a family whose rows
+keep diverging from the model's estimates re-plans (``_maybe_replan``).
+The write path, tracing and deadline checkpoints of the JAX package are
+not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.ir.builder import IRBuilder
 from caps_tpu_torch.logical.optimizer import LogicalOptimizer
 from caps_tpu_torch.logical.planner import LogicalPlanner
+from caps_tpu_torch.obs import Counters, OpStatsStore
 from caps_tpu_torch.okapi.catalog import CypherCatalog
 from caps_tpu_torch.okapi.config import DEFAULT_CONFIG, EngineConfig
 from caps_tpu_torch.okapi.graph import (
@@ -303,7 +308,7 @@ class RelationalCypherResult(CypherResult):
 
     def explain(self) -> str:
         parts = []
-        for phase in ("ir", "logical", "relational"):
+        for phase in ("ir", "logical", "relational", "cost"):
             if phase in self.plans:
                 parts.append(f"=== {phase.upper()} ===\n{self.plans[phase]}")
         return "\n\n".join(parts)
@@ -319,6 +324,26 @@ class RelationalCypherSession(CypherSession):
             if getattr(self.config, flag):
                 raise not_ported(f"EngineConfig.{flag}")
         self._ambient = EmptyGraph(self)
+        # Named counters (cost.*, wcoj.*, replan.*, stats.*, opstats.*):
+        # the part of the reference's metrics registry the planner
+        # reaches (obs/telemetry.py); metrics_snapshot() returns them.
+        self.metrics_registry = Counters()
+        # Observed per-operator statistics (obs/telemetry.py): every
+        # execution folds its op_metrics entries in, keyed by (plan
+        # family, operator id) — the cost model's calibration and the
+        # model-divergence detector that triggers re-planning.
+        self.op_stats = OpStatsStore(
+            registry=self.metrics_registry,
+            replan_threshold=max(1, self.config.replan_threshold or 1),
+            # late-binding: backends set the session's shape lattice
+            bucket_fn=lambda n: self.shape_lattice.bucket(n))
+        # Divergence-triggered re-planning: a family whose executions
+        # keep diverging from the model's estimates retires its cached
+        # plans (plan_cache.evict_family) and re-plans.  Listeners
+        # observe the replan.* events; the pending set marks families
+        # whose NEXT cold plan completes a re-plan.
+        self.replan_listeners: List[Any] = []
+        self._replanned_pending: set = set()
         # Prepared-statement plan cache (relational/plan_cache.py): keyed
         # value-independently; catalog mutations evict dependent entries.
         self.plan_cache = PlanCache(self.config.plan_cache_size,
@@ -397,23 +422,59 @@ class RelationalCypherSession(CypherSession):
             result.metrics["determinism_digest"] = d1
         return result
 
+    def _make_cost_model(self, graph: RelationalCypherGraph,
+                         family: Optional[str] = None):
+        """One query's cost model (relational/cost.py): the graph's
+        statistics sketch + the session shape lattice + observed-actuals
+        calibration for ``family``.  None with the model disabled
+        (``EngineConfig.use_cost_model=False``: the fixed heuristics)."""
+        if not self.config.use_cost_model:
+            return None
+        from caps_tpu_torch.relational.cost import CostModel
+        from caps_tpu_torch.relational.stats import graph_statistics
+        return CostModel(graph_statistics(graph),
+                         lattice=getattr(self, "shape_lattice", None),
+                         op_stats=self.op_stats, config=self.config,
+                         family=family, registry=self.metrics_registry)
+
     def _plan_ir(self, graph: RelationalCypherGraph, ir, plan_params,
-                 params: Dict[str, Any]):
+                 params: Dict[str, Any], family: Optional[str] = None):
         """Logical planning + optimization + relational planning for one
         (non-catalog) IR statement — shared by the execute path, EXPLAIN
         and CATALOG CREATE GRAPH, so the plan EXPLAIN renders is the
-        plan that executes.  Planning reads parameters through
-        ``plan_params`` (a :class:`PlanParams` view on the cached path);
-        the runtime context gets the plain ``params``.  Returns (logical,
-        context, rel_planner, root, t_logical_done)."""
+        plan that executes, with the same cost-model decisions (chain
+        orientation, physical strategy, per-operator estimates).
+        Planning reads parameters through ``plan_params`` (a
+        :class:`PlanParams` view on the cached path); the runtime
+        context gets the plain ``params``.  Returns (logical, context,
+        rel_planner, root, t_logical_done); the model rides
+        ``rel_planner.cost_model``."""
+        model = self._make_cost_model(graph, family)
         logical = LogicalPlanner(graph.schema, self._schema_resolver,
                                  plan_params).process(ir)
-        logical = LogicalOptimizer(None).process(logical)
+        logical = LogicalOptimizer(model).process(logical)
         t3 = time.perf_counter()
         context = R.RelationalRuntimeContext(self, params)
-        rel_planner = RelationalPlanner(context, graph, self._graph_resolver)
+        rel_planner = RelationalPlanner(context, graph, self._graph_resolver,
+                                        cost_model=model)
         root = rel_planner.process(logical)
+        rel_planner.cost_summary = None
+        if model is not None:
+            from caps_tpu_torch.relational.cost import annotate_plan
+            try:
+                rel_planner.cost_summary = annotate_plan(root, model)
+            except Exception:  # pragma: no cover — pricing must not fail
+                rel_planner.cost_summary = None
         return logical, context, rel_planner, root, t3
+
+    @staticmethod
+    def _cost_text(rel_planner) -> Optional[str]:
+        """EXPLAIN's cost section: the model's decision log, when it
+        made a decision."""
+        summary = rel_planner.cost_summary
+        if summary and summary.get("decisions"):
+            return rel_planner.cost_model.render_decisions()
+        return None
 
     @staticmethod
     def _parse_read(query: str) -> ast.Statement:
@@ -441,10 +502,15 @@ class RelationalCypherSession(CypherSession):
             plans["ir"] = pretty()
         if not isinstance(ir, B.DropGraphStatement):
             inner = ir.inner if isinstance(ir, B.CreateGraphStatement) else ir
-            logical, _context, _planner, root, _t3 = self._plan_ir(
-                graph, inner, params, params)
+            logical, _context, planner, root, _t3 = self._plan_ir(
+                graph, inner, params, params, family=normalize_query(query))
             plans["logical"] = logical.pretty()
             plans["relational"] = root.pretty()
+            cost = self._cost_text(planner)
+            if cost is not None:
+                # estimated-vs-chosen: the model's decision log rides
+                # EXPLAIN next to the annotated operator tree
+                plans["cost"] = cost
         metrics = {"mode": "explain", "plan_s": time.perf_counter() - t0,
                    "rows": 0}
         return RelationalCypherResult(plans=plans, metrics=metrics)
@@ -475,7 +541,8 @@ class RelationalCypherSession(CypherSession):
                 cached = self.plan_cache.lookup(cache_key, params,
                                                 catalog=self._catalog)
                 if cached is not None:
-                    return self._run_cached(cached, query, params, t0)
+                    return self._run_cached(cached, query, params, t0,
+                                            family=cache_key[0])
 
         # Cold path: the full front end.  Planning sees the parameters
         # through a PlanParams view, which records any plan-time VALUE
@@ -493,12 +560,27 @@ class RelationalCypherSession(CypherSession):
             if isinstance(ir, B.DropGraphStatement):
                 self._catalog.delete(ir.qgn)
                 return RelationalCypherResult()
+            family = cache_key[0] if cache_key is not None \
+                else normalize_query(query)
             logical, context, rel_planner, root, t3 = self._plan_ir(
-                graph, ir, plan_params, params)
+                graph, ir, plan_params, params, family=family)
         t4 = time.perf_counter()
 
         plans = {"ir": ir.pretty(), "logical": logical.pretty(),
                  "relational": root.pretty()}
+        cost = self._cost_text(rel_planner)
+        if cost is not None:
+            plans["cost"] = cost
+        if family in self._replanned_pending:
+            # this cold plan IS the divergence-triggered re-plan, its
+            # estimates calibrated from observed actuals
+            self._replanned_pending.discard(family)
+            self.metrics_registry.counter("replan.completed").inc()
+            summary = rel_planner.cost_summary or {}
+            self._notify_replan("replan.completed", {
+                "family": family, "plan_s": t4 - t0,
+                "root_est_rows": summary.get("root_est_rows"),
+                "decisions": summary.get("decisions")})
         self._print_plans(plans)
 
         result_graph: Optional[RelationalCypherGraph] = None
@@ -527,6 +609,10 @@ class RelationalCypherSession(CypherSession):
             print(f"[caps-tpu-torch] timings: {metrics}")
         logger.debug("query %r: %d rows in %.1f ms", query,
                      metrics["rows"], 1e3 * (t5 - t0))
+        # observed-statistics fold, keyed by the plan family (the cache
+        # key's normalized query text)
+        self.op_stats.record(family, context.op_metrics)
+        self._maybe_replan()
 
         deps = tuple(sorted(catalog_deps.items()))
         if (cache_key is not None and records is not None
@@ -538,7 +624,7 @@ class RelationalCypherSession(CypherSession):
                 cold_phase_s=t4 - t0,
                 nbytes=_plan_nbytes(plans, root, context=context,
                                     catalog_deps=catalog_deps),
-                catalog_deps=deps)
+                catalog_deps=deps, query_text=query)
             # Drop the memoized results before parking the tree in the
             # cache: the records object holds the (header, table) refs,
             # so a cached plan retains no tables between executions.
@@ -549,7 +635,8 @@ class RelationalCypherSession(CypherSession):
         return result
 
     def _run_cached(self, plan: CachedPlan, query: str,
-                    params: Dict[str, Any], t0: float) -> CypherResult:
+                    params: Dict[str, Any], t0: float,
+                    family: Optional[str] = None) -> CypherResult:
         """Execute a cached relational operator tree with fresh parameter
         bindings: swap the shared runtime context's parameters, clear the
         per-run memos, and pull the root's result.  parse/ir/plan/
@@ -591,9 +678,57 @@ class RelationalCypherSession(CypherSession):
             print(f"[caps-tpu-torch] timings: {metrics}")
         logger.debug("query %r: %d rows in %.1f ms (plan cache hit)",
                      query, metrics["rows"], 1e3 * (t2 - t0))
+        # observed statistics: op_metrics was captured under the exec
+        # lock (rebind swaps in a fresh list per run)
+        self.op_stats.record(
+            family if family is not None else normalize_query(query),
+            op_metrics)
+        self._maybe_replan()
         result = RelationalCypherResult(records, None, plan.plans, metrics)
         result.catalog_deps = plan.catalog_deps
         return result
+
+    # -- divergence-triggered re-planning -------------------------------------
+
+    def _maybe_replan(self) -> None:
+        """Retire every plan family whose executions crossed the model-
+        divergence threshold (obs/telemetry.py OpStatsStore): its cached
+        plans and their fused recordings go, the family is marked so its
+        next cold plan reports ``replan.completed``, and listeners
+        observe ``replan.triggered``."""
+        if not self.config.use_cost_model \
+                or (self.config.replan_threshold or 0) <= 0:
+            return
+        for family in self.op_stats.take_replan_candidates():
+            dropped = self.plan_cache.evict_family(family)
+            # retire the fused recordings with the plans: the re-planned
+            # tree may have another shape (re-rooted chain, changed
+            # physical strategy), and replaying the old plan's recorded
+            # size stream against it would mis-gather
+            fused = getattr(self, "fused", None)
+            if fused is not None:
+                seen = set()
+                for p in dropped:
+                    fk = (id(p.records_graph), p.query_text)
+                    if p.query_text and fk not in seen:
+                        seen.add(fk)
+                        fused.forget(p.records_graph, p.query_text)
+            # the family's observed history is kept: a re-plan that
+            # keeps the plan shape calibrates from it; one that changes
+            # the shape resets it in cost.annotate_plan (operator ids do
+            # not transfer across plan shapes)
+            self.metrics_registry.counter("replan.triggered").inc()
+            if len(self._replanned_pending) < 64:
+                self._replanned_pending.add(family)
+            self._notify_replan("replan.triggered", {
+                "family": family, "quarantined_plans": len(dropped)})
+
+    def _notify_replan(self, event: str, info: Dict[str, Any]) -> None:
+        for listener in list(self.replan_listeners):
+            try:
+                listener(event, info)
+            except Exception:  # pragma: no cover — observers must not fail
+                pass
 
     def _print_plans(self, plans: Dict[str, str]) -> None:
         if self.config.print_ir:

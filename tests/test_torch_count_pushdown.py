@@ -2,8 +2,8 @@
 JAX package.
 
 Seeded graphs (numpy, a few hundred nodes) go into a CPU session of the
-port and into the JAX package's device backend with the cost model off
-(``EngineConfig(use_cost_model=False)``; on the CPU, Pallas in
+port and into the JAX package's device backend, both with the cost model
+off (``EngineConfig(use_cost_model=False)``; on the CPU, Pallas in
 interpret mode).  Each count-only pattern query must plan to the same
 operator (``CountPattern`` / ``CountCycle``) with the same ``strategy``
 on both engines, and return the same count exactly.  The query lists
@@ -53,8 +53,11 @@ def jax_graph(session, nodes, rels):
 
 
 def both(nodes, rels, port_config=None, jax_config=None):
-    """(port graph, JAX graph) over the same arrays."""
-    port = caps_tpu_torch.local_session(device="cpu", config=port_config)
+    """(port graph, JAX graph) over the same arrays; both sessions plan
+    with the cost model off unless a config says otherwise."""
+    port = caps_tpu_torch.local_session(
+        device="cpu",
+        config=port_config or EngineConfig(use_cost_model=False))
     ref = TPUCypherSession(config=jax_config
                            or JaxConfig(use_cost_model=False))
     return (graph_from_numpy(port, nodes, rels),
@@ -169,7 +172,8 @@ def test_eager_pushdown_matches_jax(query):
     counts, strategy "spmv", the id domain read through the size
     stream."""
     graphs = both(*random_graph(),
-                  port_config=EngineConfig(use_fused_count=False),
+                  port_config=EngineConfig(use_cost_model=False,
+                                           use_fused_count=False),
                   jax_config=JaxConfig(use_cost_model=False,
                                        use_fused_count=False))
     got = check_same(graphs, query)
@@ -356,7 +360,8 @@ def test_pushdown_bytes_in_matches_jax(query, fused, op):
     0 on the eager path (the fallback plan never ran), as in the JAX
     package."""
     graphs = both(*random_graph(self_loops=False),
-                  port_config=EngineConfig(use_fused_count=fused),
+                  port_config=EngineConfig(use_cost_model=False,
+                                           use_fused_count=fused),
                   jax_config=JaxConfig(use_cost_model=False,
                                        use_fused_count=fused))
     got = op_metric(graphs[0].cypher(query), op)

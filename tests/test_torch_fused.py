@@ -444,3 +444,24 @@ def test_transient_device_error_during_replay_keeps_the_memo(arrays,
     assert session.fused.last_mode == "replay"
     assert classify(torch.cuda.OutOfMemoryError("x")) == TRANSIENT
     assert classify(KeyError("missing parameter $age")) == FATAL
+
+
+def test_forget_drops_exact_and_generic_memos(arrays):
+    """``FusedExecutor.forget(graph, query)``: both memo levels of that
+    (graph, query) go, so its next run records; another query's memo and
+    another graph's stay."""
+    session, graph = _port(arrays)
+    _, other = _port(arrays)
+    q1 = QUERIES["min_max_by_city"][0]
+    q2 = "MATCH (a:Person) WHERE a.age = $age RETURN count(*) AS c"
+    for age in (30, 31):
+        graph.cypher(q1, {"age": age})
+    graph.cypher(q2, {"age": 30})
+    fused = session.fused
+    assert fused.forget(other, q1) == 0         # never ran there
+    assert fused.forget(graph, q1) == 3         # two exact, one generic
+    assert fused.forget(graph, q1) == 0
+    graph.cypher(q1, {"age": 30})
+    assert fused.last_mode == "record"
+    graph.cypher(q2, {"age": 30})
+    assert fused.last_mode == "replay"

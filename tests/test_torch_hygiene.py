@@ -138,3 +138,29 @@ def test_tck_corpus_and_list_are_the_ports_own_files():
     for path in features + [pathlib.Path(BLACKLIST)]:
         assert not path.is_symlink()
         assert path.resolve().parent.parent == own.resolve()
+
+
+SLICE_MODULES = (
+    "caps_tpu_torch/obs/__init__.py", "caps_tpu_torch/obs/telemetry.py",
+    "caps_tpu_torch/relational/stats.py", "caps_tpu_torch/relational/cost.py",
+    "caps_tpu_torch/relational/wcoj.py", "caps_tpu_torch/ops/wcoj.py",
+    "caps_tpu_torch/datasets/patterns.py",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_import_scan_covers_the_cost_model_and_wcoj_modules(module):
+    assert ROOT / module in PORT_FILES
+
+
+def test_cost_model_wcoj_and_replan_are_on_by_default():
+    """The port plans as the JAX package does by default: the cost
+    model, WCOJ and re-planning on; only the distributed join is still
+    refused."""
+    from caps_tpu_torch.okapi.config import EngineConfig
+    cfg = EngineConfig()
+    assert cfg.use_cost_model and cfg.use_wcoj
+    assert cfg.replan_threshold == 2
+    assert EngineConfig.UNPORTED_FLAGS == ("use_dist_join",)
+    s = caps_tpu_torch.local_session(device="cpu")
+    assert s.supports_wcoj

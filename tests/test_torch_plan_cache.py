@@ -320,3 +320,27 @@ def test_shape_lattice_is_the_padding_ladder():
     assert session.shape_lattice.seed([300, 5000]) == 2
     assert session.backend.bucket(300) == 512
     assert session.shape_lattice.seed([300]) == 0
+
+
+def test_evict_family_drops_every_plan_of_one_query_text():
+    """``PlanCache.evict_family`` (the re-plan loop's retirement): every
+    cached plan whose normalized text is the family goes — under any
+    parameter signature — and is counted as quarantined; other families
+    stay cached and hit."""
+    session = _session()
+    g = _social(session)
+    q1 = "MATCH (a:Person) WHERE a.age > $x RETURN a.name AS n"
+    q2 = "MATCH (a:Person) RETURN a.name AS n"
+    g.cypher(q1, {"x": 30})
+    g.cypher(q1, {"x": "thirty"})      # a second parameter signature
+    g.cypher(q2)
+    assert session.plan_cache.stats()["entries"] == 3
+    from caps_tpu_torch.frontend.parser import normalize_query
+    dropped = session.plan_cache.evict_family(normalize_query(q1))
+    assert len(dropped) == 2
+    assert {p.query_text for p in dropped} == {q1}
+    stats = session.plan_cache.stats()
+    assert stats["entries"] == 1 and stats["quarantined"] == 2
+    assert session.plan_cache.evict_family(normalize_query(q1)) == []
+    assert g.cypher(q1, {"x": 30}).metrics["plan_cache"] == "miss"
+    assert g.cypher(q2).metrics["plan_cache"] == "hit"
