@@ -2,10 +2,13 @@
 
 The counterpart of ``caps_tpu/backends/tpu/session.py``: the planning
 stack is the backend-generic one; only the Table factory is
-device-backed, and every query runs through the fused record/replay
-executor (``fused.py``).  The session runs on the card unless the caller
-asks for ``device="cpu"`` (the tests do), where every kernel wrapper
-takes its plain PyTorch version.
+device-backed, and every read query runs through the fused
+record/replay executor (``fused.py``).  The session runs on the card
+unless the caller asks for ``device="cpu"`` (the tests do), where every
+kernel wrapper takes its plain PyTorch version.  A record run is a
+compile boundary (``obs/compile.py``), and PROFILE's epilogue says
+which timings are device times and which are host dispatch
+(``_annotate_profile``).
 """
 from __future__ import annotations
 
@@ -13,13 +16,19 @@ from typing import Optional
 
 import torch
 
+from caps_tpu_torch import obs
 from caps_tpu_torch.backends.cuda.fused import FusedExecutor
 from caps_tpu_torch.backends.cuda.table import DeviceBackend, DeviceTableFactory
+from caps_tpu_torch.obs import clock
+from caps_tpu_torch.obs.compile import current_charges
 from caps_tpu_torch.okapi.config import EngineConfig
 from caps_tpu_torch.relational.session import (
     RelationalCypherSession, degraded_state,
 )
-from caps_tpu_torch.relational.shapes import ShapeBucketLattice
+from caps_tpu_torch.relational.shapes import (
+    ShapeBucketLattice, param_shape_signature, signature_text,
+)
+from caps_tpu_torch.relational.updates import is_update_query
 
 
 class CUDACypherSession(RelationalCypherSession):
@@ -55,30 +64,93 @@ class CUDACypherSession(RelationalCypherSession):
         return self._factory
 
     def _cypher_on_graph(self, graph, query, parameters=None):
-        """Route every query through the fused executor: the first run
-        records the data-dependent sizes, repeats replay them with no
+        """Route every read query through the fused executor: the first
+        run records the data-dependent sizes, repeats replay them with no
         device→host reads.  Attaches the per-query count of size reads
         (``size_syncs``) and of generic replays to the result's
         metrics."""
         be = self.backend
         # degraded unfused mode (relational/session.py): per-operator
-        # eager execution, no memo touched
-        use_fused = self.config.use_fused and not degraded_state()[1]
+        # eager execution, no memo touched.  Update statements never
+        # fuse: their effect is a commit, not a replayable size stream.
+        use_fused = (self.config.use_fused and not degraded_state()[1]
+                     and not is_update_query(query))
         syncs0 = be.syncs
         generic0 = self.fused.generic_replays
         if not use_fused:
             result = super()._cypher_on_graph(graph, query, parameters)
         else:
-            key = self.fused.key(graph, query, dict(parameters or {}))
+            params = dict(parameters or {})
+            key = self.fused.key(graph, query, params)
+            charges = current_charges()
+            n0 = len(charges) if charges is not None else 0
             result = self.fused.run(
                 key, lambda: super(CUDACypherSession, self)._cypher_on_graph(
                     graph, query, parameters))
+            if (key is not None and self.fused.last_mode == "record"
+                    and result.metrics is not None):
+                # Compile ledger: a record run is the fused compile
+                # boundary (its host seconds are the first run of this
+                # shape).  Replays charge nothing.  Boundaries inside the
+                # execute phase (count-closure builds, multiway-join
+                # step shapes) charged themselves: subtract them so a
+                # query's compile seconds sum the wall clock once.
+                exec_s = float(result.metrics.get("execute_s") or 0.0)
+                if charges is not None:
+                    exec_s -= sum(c["seconds"] for c in charges[n0:]
+                                  if c["kind"] != "plan")
+                # the shape label is the BUCKETED parameter signature: two
+                # record runs whose bindings differ only within a bucket
+                # are the same shape, so the second is a re-compile
+                sig = signature_text(param_shape_signature(
+                    params, lattice=self.shape_lattice))
+                obs.compile_charge("fused_record", max(0.0, exec_s),
+                                   shape=f"g{key[0]}:{sig}")
         if result.metrics is not None:
             result.metrics["size_syncs"] = be.syncs - syncs0
             if use_fused:
                 result.metrics["fused_generic_replays"] = \
                     self.fused.generic_replays - generic0
+        if self._profiling:
+            self._annotate_profile(result, use_fused)
         return result
+
+    def _annotate_profile(self, result, use_fused: bool) -> None:
+        """Fused-replay-aware PROFILE epilogue (never silently wrong
+        numbers): when the query REPLAYED and per-op sync was off, the
+        per-operator spans measured only host dispatch of an async
+        stream — tag them so, and report device time as ONE per-replay
+        aggregate span (the time to a ``torch.cuda.synchronize`` after
+        the result).  Eager and record runs, and per-op-sync profiles,
+        carry per-op times of their own.  A run that did not go through
+        the fused executor (fusing off, a degraded eager run, an update)
+        is ``eager``, whatever mode the executor's last run had."""
+        mode = self.fused.last_mode if use_fused else None
+        if result.metrics is not None:
+            result.metrics["fused_mode"] = mode or "eager"
+        replayed = mode in ("replay", "replay_gen")
+        per_op_device = self.tracer.sync_device
+        if result.profile is not None:
+            obs.tag_timing(result.profile,
+                           "device" if per_op_device else
+                           ("dispatch" if replayed else "host"))
+        if replayed and not per_op_device and result.records is not None:
+            t0 = clock.now()
+            result.records.table.device_sync()
+            device_s = clock.now() - t0
+            self.tracer.event("fused_replay.aggregate", kind="phase",
+                              device_s=device_s, fused_mode=mode)
+            if result.metrics is not None:
+                result.metrics["replay_device_s"] = device_s
+            if result.profile is not None:
+                result.profile["replay_device_s"] = device_s
+                # per-op rows under generic replay are served UPPER
+                # bounds; fix the root to the exact result cardinality
+                # (one read) and say what the inner numbers are
+                if mode == "replay_gen":
+                    result.profile["rows"] = \
+                        result.records.table.exact_size()
+                    result.profile["rows_inner"] = "upper-bound"
 
     def _evict_catalog_dependents(self, qgn) -> None:
         """A query that reads a catalog graph (FROM GRAPH) sees other
@@ -88,20 +160,17 @@ class CUDACypherSession(RelationalCypherSession):
         self.fused.evict_dependents(qgn)
 
     def metrics_snapshot(self) -> dict:
-        """The backend's size-read count, the fused executor's
-        record/replay counters, the count closures built, the plan
-        cache's counters and the session's named counters (``cost.*``,
-        ``wcoj.*``, ``replan.*``, ``stats.*``, ``opstats.*``)."""
+        """The session snapshot (registry, plan cache, tracer) extended
+        with the backend's size-read count, the fused executor's
+        record/replay counters and the count closures built."""
+        snap = super().metrics_snapshot()
         fused = self.fused
-        snap = {
+        snap.update({
             "backend.syncs": self.backend.syncs,
             "fused.recordings": fused.recordings,
             "fused.replays": fused.replays,
             "fused.generic_replays": fused.generic_replays,
             "fused.mismatches": fused.mismatches,
             "fused.count_builds": self.backend.count_builds,
-        }
-        snap.update({f"plan_cache.{k}": v
-                     for k, v in self.plan_cache.stats().items()})
-        snap.update(self.metrics_registry.snapshot())
+        })
         return snap

@@ -85,12 +85,41 @@ class DeviceBackend:
         # and per-(graph, plan shape, parameter shapes) closures.
         self.fused_count_static: Dict[int, dict] = {}
         self.fused_count_fns: Dict[tuple, Any] = {}
-        # count closures built (a cache miss); the JAX package charges
-        # the same event to its compile ledger
+        # count closures built (a cache miss; each also charges the
+        # session's compile ledger, obs/compile.py)
         self.count_builds = 0
+        # padded tombstone id arrays on the device (drop_in), keyed by
+        # the id set's identity; the set is kept in the entry so its id
+        # cannot be reused while the entry lives
+        self._tombstones: Dict[int, Tuple[Any, torch.Tensor]] = {}
 
     def bucket(self, n: int) -> int:
         return max(1, self.shapes.bucket(n))
+
+    def place_column(self, col: Column) -> Column:
+        """The placement seam every ingested column passes (one card:
+        nothing to move).  Fault injection (testing/faults.py
+        ``abort_write``, ``flaky_compaction``) wraps it."""
+        return col
+
+    def tombstone_tensor(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """A snapshot's tombstone ids on the device, sorted and padded
+        to a size bucket by repeating the largest (duplicates change
+        nothing and keep the array sorted, so no sentinel id is
+        reserved).  Copied to the card once per id set: a copy from
+        host memory on every replay would synchronize the stream."""
+        hit = self._tombstones.get(id(values))
+        if hit is not None and hit[0] is values \
+                and hit[1].dtype == dtype:
+            return hit[1]
+        vals = sorted(int(v) for v in values)
+        padded = np.full(self.bucket(len(vals)), vals[-1], dtype=np.int64)
+        padded[:len(vals)] = vals
+        dev = torch.from_numpy(padded).to(self.device, dtype)
+        while len(self._tombstones) >= 16:
+            self._tombstones.pop(next(iter(self._tombstones)))
+        self._tombstones[id(values)] = (values, dev)
+        return dev
 
     def rank_tensor(self) -> torch.Tensor:
         """The string pool's rank array on the device, copied once per
@@ -356,8 +385,9 @@ class DeviceTable(Table):
 
     def with_literal_column(self, name, value, ctype) -> "DeviceTable":
         try:
-            col = literal_column(value, ctype, self.capacity,
-                                 self.backend.pool, self.backend.device)
+            col = self.backend.place_column(
+                literal_column(value, ctype, self.capacity,
+                               self.backend.pool, self.backend.device))
         except ValueError as ex:
             raise UnsupportedOnDevice(f"with_literal_column: {ex}")
         out = dict(self._cols)
@@ -366,10 +396,11 @@ class DeviceTable(Table):
 
     def with_row_index(self, name: str) -> "DeviceTable":
         dev = self.backend.device
-        col = Column("int", torch.arange(self.capacity, dtype=torch.int64,
-                                         device=dev),
-                     torch.ones(self.capacity, dtype=torch.bool, device=dev),
-                     CTInteger)
+        col = self.backend.place_column(
+            Column("int", torch.arange(self.capacity, dtype=torch.int64,
+                                       device=dev),
+                   torch.ones(self.capacity, dtype=torch.bool, device=dev),
+                   CTInteger))
         out = dict(self._cols)
         out[name] = col
         return self._with_cols(out)
@@ -407,6 +438,76 @@ class DeviceTable(Table):
         self._raise_row_errors(compiler)
         mask = pred.data & pred.valid & self.row_ok
         return self._compact(mask)
+
+    def drop_in(self, col: str, values) -> "DeviceTable":
+        """Tombstone mask (relational/updates.py snapshot overlay): drop
+        rows whose ``col`` is in ``values``, on the card, then the same
+        compaction as a filter, whose row count goes through the size
+        stream.  Null cells never match.  Membership is a binary search
+        in the sorted, padded id array (``DeviceBackend.tombstone_tensor``):
+        it computes ``torch.isin``, whose sorting path (more than a
+        hundred ids against millions of rows) synchronizes the stream,
+        and a replay must not."""
+        if not values:
+            return self
+        c = self._cols[col]
+        ids = self.backend.tombstone_tensor(values, c.data.dtype)
+        pos = torch.searchsorted(ids, c.data).clamp_(max=ids.shape[0] - 1)
+        hit = (ids[pos] == c.data) & c.valid
+        return self._compact(self.row_ok & ~hit)
+
+    # -- point lookups for the write path (relational/updates.py) ---------
+
+    def _id_index(self, col: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sorted int64 keys, row permutation) of an integer column's
+        live non-null values, dead and null rows keyed past every value;
+        memoized on the column for this row count (an immutable base is
+        sorted once)."""
+        c = self._cols[col]
+        cached = getattr(c, "_id_index", None)
+        if cached is not None and cached[0] == self._n \
+                and self._live is None:
+            return cached[1]
+        top = torch.iinfo(torch.int64).max
+        keys = torch.where(c.valid & self.row_ok, c.data.to(torch.int64),
+                           torch.full((), top, dtype=torch.int64,
+                                      device=self.backend.device))
+        res = torch.sort(keys, stable=True)
+        if self._live is None:
+            c._id_index = (self._n, (res.values, res.indices))
+        return res.values, res.indices
+
+    def rows_where(self, col: str, value: int) -> "DeviceTable":
+        """The live rows whose integer ``col`` equals ``value``, found by
+        binary search in the column's sorted index: one read."""
+        keys, perm = self._id_index(col)
+        q = torch.full((2,), int(value), dtype=torch.int64,
+                       device=self.backend.device)
+        ends = torch.stack([torch.searchsorted(keys, q[:1]),
+                            torch.searchsorted(keys, q[1:], right=True)])
+        self.backend.syncs += 1
+        lo, hi = ends.flatten().tolist()
+        return DeviceTable(self.backend,
+                           _gather_cols(self._cols, perm[lo:hi]), hi - lo)
+
+    def max_int(self, col: str) -> Optional[int]:
+        """The largest live non-null value of an integer column (None
+        when there is none): one read."""
+        keys, _perm = self._id_index(col)
+        top = torch.iinfo(torch.int64).max
+        n = torch.searchsorted(keys, torch.full(
+            (1,), top, dtype=torch.int64, device=self.backend.device))
+        both = torch.cat([n, keys[(n - 1).clamp(min=0)]])
+        self.backend.syncs += 1
+        count, hi = both.tolist()
+        return hi if count else None
+
+    def place(self) -> "DeviceTable":
+        """This table with every column passed through the backend's
+        placement seam (``DeviceBackend.place_column``), as an ingested
+        table's are: compaction's folded base is a new placement."""
+        return self._with_cols({c: self.backend.place_column(col)
+                                for c, col in self._cols.items()})
 
     def _compact(self, mask: torch.Tensor) -> "DeviceTable":
         new_n, live = self.backend.consume_rows(K.mask_count(mask))
@@ -1070,6 +1171,13 @@ class DeviceTable(Table):
 
     # -- materialization --------------------------------------------------
 
+    def device_sync(self) -> None:
+        """Wait for the card's queued work (PROFILE's per-operator
+        device-time mode): ``torch.cuda.synchronize``; nothing to wait
+        for on the CPU.  Reads no data and consumes no size."""
+        if self.backend.device.type == "cuda":
+            torch.cuda.synchronize(self.backend.device)
+
     def column_values(self, col: str) -> List[Any]:
         return column_to_host(self._cols[col], self._exact_n(),
                               self.backend.pool)
@@ -1222,11 +1330,11 @@ class DeviceTableFactory(TableFactory):
                         f"from_columns: column {c!r} of type {ctype!r} has "
                         f"no device representation")
                 try:
-                    cols[c] = make_column(values, ctype, cap,
-                                          self.backend.pool,
-                                          self.backend.device)
+                    col = make_column(values, ctype, cap, self.backend.pool,
+                                      self.backend.device)
                 except ValueError as ex:
                     raise UnsupportedOnDevice(f"from_columns: {c!r}: {ex}")
+                cols[c] = self.backend.place_column(col)
         except Exception:
             self.backend.pool.rollback(pool_mark)
             raise

@@ -1,60 +1,26 @@
-"""Observed per-operator statistics and the session's named counters.
+"""Observed per-operator statistics (``OpStatsStore``).
 
 The counterpart of the observed-statistics part of
-``caps_tpu/obs/telemetry.py`` (``OpStatsStore``): per (plan family,
-operator id) observed rows / bytes / wall time, recorded by the session
-from the per-operator entries ``relational/ops.py`` appends, so the
-numbers are fused-replay aware by construction.  When an entry carries
-the planner's own estimate (``est_rows``, stamped by
-``relational/cost.py annotate_plan``) the divergence check measures
-model error, and a family whose executions keep diverging becomes a
-re-plan candidate (``take_replan_candidates``).
+``caps_tpu/obs/telemetry.py``: per (plan family, operator id) observed
+rows / bytes / wall time, recorded by the session from the per-operator
+entries ``relational/ops.py`` appends, so the numbers are fused-replay
+aware by construction.  When an entry carries the planner's own
+estimate (``est_rows``, stamped by ``relational/cost.py
+annotate_plan``) the divergence check measures model error, and a
+family whose executions keep diverging becomes a re-plan candidate
+(``take_replan_candidates``).  Its counters (``opstats.recorded``,
+``opstats.divergences``, ``replan.candidates``) and the
+``opstats.families`` gauge go to the session's metrics registry.
 
-Differences from the reference, until ROADMAP Queue 1 item 5 brings the
-rest of ``obs/``:
-
-* the store's lock is a plain ``threading.Lock`` (the reference takes
-  it from ``obs/lockgraph.make_lock``);
-* counters go to :class:`Counters`, a dict of named integers that the
-  session's ``metrics_snapshot()`` returns under the reference's names
-  (``opstats.recorded``, ``opstats.divergences``, ``replan.candidates``,
-  and the planner's ``cost.*``, ``wcoj.*``, ``replan.*``, ``stats.*``);
-  the reference's ``opstats.families`` gauge has no counterpart.
+The serving half of the reference module (``ServingTelemetry``,
+``FlightRecorder``, ``SLOConfig``, the rolling counters) comes with the
+serving tier (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict, List, Optional, Sequence
 
-
-class _Counter:
-    __slots__ = ("_owner", "_name")
-
-    def __init__(self, owner: "Counters", name: str):
-        self._owner, self._name = owner, name
-
-    def inc(self, n: int = 1) -> None:
-        self._owner.add(self._name, n)
-
-
-class Counters:
-    """Named integer counters with the reference registry's
-    ``counter(name).inc(n)`` call shape."""
-
-    def __init__(self):
-        self._values: Dict[str, int] = {}
-        self._lock = threading.Lock()
-
-    def counter(self, name: str) -> _Counter:
-        return _Counter(self, name)
-
-    def add(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._values[name] = self._values.get(name, 0) + int(n)
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._values)
+from caps_tpu_torch.obs.lockgraph import make_lock
 
 
 class OpStatsStore:
@@ -68,7 +34,7 @@ class OpStatsStore:
     re-plan candidate.  Entries without an estimate fall back to the
     running mean.  Families are LRU-bounded (``max_families``)."""
 
-    def __init__(self, registry: Optional[Counters] = None,
+    def __init__(self, registry=None,
                  max_families: int = 128,
                  divergence_factor: float = 4.0,
                  replan_threshold: int = 2,
@@ -90,13 +56,15 @@ class OpStatsStore:
         self.recorded = 0
         self._diverged_execs: Dict[str, int] = {}
         self._replan_candidates: List[str] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.OpStatsStore._lock")
         self._recorded_c = (registry.counter("opstats.recorded")
                             if registry is not None else None)
         self._diverged_c = (registry.counter("opstats.divergences")
                             if registry is not None else None)
         self._replan_cand_c = (registry.counter("replan.candidates")
                                if registry is not None else None)
+        if registry is not None:
+            registry.gauge("opstats.families", fn=self.family_count)
 
     def record(self, family: str,
                op_metrics: Sequence[Dict[str, Any]]) -> None:
@@ -214,6 +182,10 @@ class OpStatsStore:
                         for k, v in self._families.get(family, {}).items()}
             return {f: {k: dict(v) for k, v in ops.items()}
                     for f, ops in self._families.items()}
+
+    def family_count(self) -> int:
+        with self._lock:
+            return len(self._families)
 
     def summary(self) -> Dict[str, Any]:
         with self._lock:

@@ -10,8 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
-import threading
-
+from caps_tpu_torch.obs.lockgraph import make_rlock
 from caps_tpu_torch.okapi.graph import (
     GraphName, Namespace, PropertyGraph, PropertyGraphCatalog, QualifiedGraphName,
 )
@@ -71,7 +70,7 @@ class CypherCatalog(PropertyGraphCatalog):
         # two serving threads interleaving mutations could leave the
         # token bumped with stale entries still cached.  Reentrant
         # because a listener may legitimately read the catalog back.
-        self._lock = threading.RLock()
+        self._lock = make_rlock("catalog.CypherCatalog._lock")
 
     def subscribe(self, fn) -> None:
         """Register a callback invoked as ``fn(version, qgn)`` after

@@ -106,6 +106,20 @@ class EngineConfig:
     # result digests; raises NondeterministicResultError on mismatch.
     determinism_check: bool = dataclasses.field(
         default_factory=lambda: _env_bool("CAPS_TPU_DETERMINISM_CHECK", False))
+    # Observability (obs/): ambient tracing for EVERY query.  Off by
+    # default — the disabled tracer costs one attribute check per
+    # instrumented site and adds no synchronizing call; PROFILE
+    # force-enables it for its one query regardless of this flag.
+    trace: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_TRACE", False))
+    # PROFILE granularity: wait for the card after each operator
+    # (torch.cuda.synchronize) so per-op spans carry device-inclusive
+    # time.  Off, the dispatch stream stays async (what steady-state
+    # fused replay runs) and the CUDA session reports device time as ONE
+    # per-replay aggregate span — per-op numbers are then host dispatch
+    # times and are labeled as such.
+    profile_sync_each_op: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_PROFILE_SYNC", True))
 
     def bucket_for(self, n: int) -> int:
         for b in self.bucket_sizes:

@@ -43,8 +43,8 @@ throughout.  Nothing in this package calls :func:`choose_dist_strategy`
 or :meth:`CostModel.dist_strategy` yet (the sharded path is ROADMAP
 Queue 1 item 12); the graph algorithms' pricing (``algo_pushdown_wins``)
 and their branch of :func:`annotate_plan` come with their operator
-(item 9).  Counters go to the session's
-``obs.Counters``.
+(item 9).  Counters go to the session's metrics registry
+(``obs/metrics.py``).
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ cast to int32 only under ``_MAX_DOMAIN``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional as Opt, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +43,8 @@ import torch
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.ir.pattern import Direction
 from caps_tpu_torch.logical import ops as L
+from caps_tpu_torch.obs import clock
+from caps_tpu_torch.obs.compile import charge as _compile_charge
 from caps_tpu_torch.okapi.types import CTInteger
 from caps_tpu_torch.relational.header import RecordHeader
 from caps_tpu_torch.relational.ops import RelationalOperator, resolve_expr
@@ -498,7 +501,9 @@ class CountPatternOp(RelationalOperator):
         entry = backend.fused_count_fns.get(key)
         if entry is _NO_FUSE:
             return None
-        if entry is None:
+        fresh = entry is None
+        if fresh:
+            t_build = clock.now()
             # Build outside any record/replay scope: the one-time host
             # reads of the static build must not leak into a fused-
             # executor recording (a replay would never repeat them).
@@ -536,6 +541,17 @@ class CountPatternOp(RelationalOperator):
         # closure self-reports (the cycle op's batches re-read theirs)
         self._fused_bytes = _nbytes(args) + getattr(fn, "nbytes_in", 0)
         self.strategy = "fused-spmv"
+        if fresh:
+            # Compile ledger (obs/compile.py): a fused_count_fns miss is
+            # a compile boundary — the closure build plus its first run.
+            # Hits (fresh bindings of a seen shape included) charge
+            # nothing.
+            out = fn(*args)
+            sig = hashlib.sha1(
+                repr(self._plan_sig()).encode()).hexdigest()[:10]
+            _compile_charge("count_fused", clock.now() - t_build,
+                            shape=f"g{gk}:{sig}")
+            return out, entry["valid"]
         return fn(*args), entry["valid"]
 
     def _plan_sig(self):

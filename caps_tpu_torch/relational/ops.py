@@ -12,10 +12,13 @@ from __future__ import annotations
 import abc
 import dataclasses
 import itertools
-import time
+from contextlib import nullcontext
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import torch
+
 from caps_tpu_torch.ir import exprs as E
+from caps_tpu_torch.obs import clock
 from caps_tpu_torch.okapi.types import (
     CTBoolean, CTInteger, CTList, CTNode, CTRelationship, CypherType,
     _CTNode, _CTRelationship,
@@ -77,6 +80,9 @@ class RelationalRuntimeContext:
         # plan-node id sequence: operators draw a stable id at
         # CONSTRUCTION (planner order is deterministic per query)
         self.op_seq = itertools.count()
+        # the session tracer, cached so the per-operator hot path pays
+        # one attribute read
+        self.tracer = getattr(session, "tracer", None)
 
     def rebind(self, parameters: Mapping[str, Any]) -> None:
         """Swap in fresh parameter bindings for a cached-plan
@@ -191,21 +197,58 @@ class RelationalOperator(abc.ABC):
     def result(self) -> Tuple[RecordHeader, Table]:
         if self._result is None:
             name = type(self).__name__.removesuffix("Op")
-            t0 = time.perf_counter()
-            self._result = self._compute()
+            tracer = self.context.tracer
+            traced = tracer is not None and tracer.enabled
+            tr_span = (tracer.span(f"op.{name}", kind="operator")
+                       if traced else nullcontext())
+            t0 = clock.now()
+            device_s: Optional[float] = None
+            with tr_span as sp:
+                # a named range on the card's timeline, opened only
+                # while torch.profiler records (the C-level check costs
+                # nothing otherwise)
+                prof_range = (torch.profiler.record_function(
+                    f"caps_tpu_torch.{name}")
+                    if torch.autograd._profiler_enabled() else nullcontext())
+                with prof_range:
+                    try:
+                        self._result = self._compute()
+                    except Exception as ex:
+                        # only the op that ACTUALLY failed reports; the
+                        # ancestors it unwinds through (parents evaluate
+                        # children lazily inside their own _compute)
+                        # must not re-count it
+                        if getattr(ex, "caps_failed_op", None) is None:
+                            self._propagate_error(ex, name, tracer)
+                        raise
+                if traced and tracer.sync_device:
+                    # PROFILE per-op device mode: wait for the card so
+                    # this span's time includes the operator's device
+                    # work (torch.cuda.synchronize; a no-op on the CPU)
+                    self._result[1].device_sync()
+                    device_s = clock.now() - t0
             evaluated = [c for c in self.children if c._result is not None]
             bytes_in = (sum(c.table.nbytes for c in evaluated) if evaluated
                         else self._result[1].nbytes)
+            if device_s is not None:
+                # PROFILE per-op mode: exact cardinality, not a served
+                # bound (free in eager/exact-replay mode; one counted
+                # read per op under generic replay)
+                rows = self._result[1].exact_size()
+            else:
+                rows = self._result[1].size
             entry = {
                 "op": name,
                 "op_id": self.op_id,
-                "seconds": time.perf_counter() - t0,
-                "rows": self._result[1].size,
+                "seconds": clock.now() - t0,
+                "rows": rows,
                 "bytes_in": bytes_in,
                 # operator-specific keys (e.g. the pushdown and
                 # var-expand "strategy", a closure's own "bytes_in")
                 **getattr(self, "_metric_extra", {}),
             }
+            if device_s is not None:
+                entry["device_s"] = device_s
             # cost-model estimate (relational/cost.py annotate_plan):
             # ride the entry so the observed-statistics store measures
             # model error, not drift from its own running mean
@@ -213,7 +256,34 @@ class RelationalOperator(abc.ABC):
             if est is not None:
                 entry["est_rows"] = int(est)
             self.context.op_metrics.append(entry)
+            # run-stamped measurement for PROFILE (obs/profile.py): the
+            # op_metrics LIST identity tags which run the entry belongs
+            # to — rebind() swaps in a fresh list, so stale stamps from
+            # an earlier cached-plan execution are detectable
+            self._last_metrics = (self.context.op_metrics, entry)
+            if sp is not None:  # nullcontext (tracing off) yields None
+                sp.annotate(rows=entry["rows"], bytes=bytes_in,
+                            device_s=device_s)
         return self._result
+
+    def _propagate_error(self, ex: Exception, name: str, tracer) -> None:
+        """Failure telemetry for one operator failure: an ``op.error``
+        trace event, an ``ops.errors`` counter tick, and the failing
+        operator stamped on the exception.  The caller gates on the
+        stamp being absent, so the report fires once per failure — at
+        the operator that raised, not at every ancestor it unwound
+        through."""
+        try:
+            if tracer is not None and tracer.enabled:
+                tracer.event("op.error", kind="event", op=name,
+                             error=type(ex).__name__)
+            registry = getattr(self.context.session, "metrics_registry",
+                               None)
+            if registry is not None:
+                registry.counter("ops.errors").inc()
+            ex.caps_failed_op = name
+        except Exception:  # pragma: no cover — telemetry must not mask
+            pass
 
     @property
     def header(self) -> RecordHeader:

@@ -40,10 +40,11 @@ import threading
 from collections import OrderedDict
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
+from caps_tpu_torch.obs.lockgraph import make_lock, make_rlock
 from caps_tpu_torch.okapi.types import from_python
 
 _plan_tokens = itertools.count(1)
-_plan_token_lock = threading.Lock()
+_plan_token_lock = make_lock("plan_cache._plan_token_lock")
 
 
 def graph_plan_token(graph) -> Optional[int]:
@@ -241,7 +242,9 @@ class CachedPlan:
     # result memos), so concurrent threads that hit the same entry take
     # turns — per-plan, not cache-wide (see session._run_cached).
     exec_lock: threading.Lock = dataclasses.field(
-        default_factory=threading.Lock, repr=False, compare=False)
+        default_factory=lambda: make_lock("plan_cache.CachedPlan"
+                                          ".exec_lock"),
+        repr=False, compare=False)
 
 
 def reset_plan(root) -> None:
@@ -306,7 +309,7 @@ class PlanCache:
         # move_to_end, store's append+evict, and the catalog-subscription
         # eviction all mutate the OrderedDict and may run on different
         # threads.
-        self._lock = threading.RLock()
+        self._lock = make_rlock("plan_cache.PlanCache._lock")
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -405,6 +408,20 @@ class PlanCache:
                 if not plans:
                     del self._entries[k]
         return dropped
+
+    def evict_graph(self, graph_token) -> int:
+        """Scoped per-graph eviction: drop every plan anchored on this
+        graph plan token (key position 1).  The versioned write path
+        (relational/updates.py) frees a superseded snapshot's plans the
+        moment the next version publishes — no other graph's entries
+        are touched."""
+        with self._lock:
+            n = 0
+            for k in [k for k in self._entries if k[1] == graph_token]:
+                n += len(self._entries.pop(k))
+            self._count -= n
+            self.invalidations += n
+            return n
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

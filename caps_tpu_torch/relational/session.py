@@ -9,8 +9,10 @@ cost model (relational/cost.py) over the graph's statistics
 (relational/stats.py), each execution's operator rows feed the
 observed-statistics store (obs/telemetry.py), and a family whose rows
 keep diverging from the model's estimates re-plans (``_maybe_replan``).
-The write path, tracing and deadline checkpoints of the JAX package are
-not ported yet (ROADMAP).
+Queries run under the session tracer (phase and operator spans, EXPLAIN
+and PROFILE — obs/), and CREATE / SET / DELETE commit through a
+versioned graph (relational/updates.py).  The deadline checkpoints of
+the JAX package come with the serving tier (ROADMAP).
 """
 from __future__ import annotations
 
@@ -19,13 +21,12 @@ import contextlib
 import hashlib
 import logging
 import threading
-import time
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 logger = logging.getLogger("caps_tpu_torch")
 
+from caps_tpu_torch import obs
 from caps_tpu_torch._unported import not_ported
-from caps_tpu_torch.frontend import ast
 from caps_tpu_torch.frontend.parser import (
     normalize_query, parse_query, query_mode,
 )
@@ -34,7 +35,7 @@ from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.ir.builder import IRBuilder
 from caps_tpu_torch.logical.optimizer import LogicalOptimizer
 from caps_tpu_torch.logical.planner import LogicalPlanner
-from caps_tpu_torch.obs import Counters, OpStatsStore
+from caps_tpu_torch.obs import clock
 from caps_tpu_torch.okapi.catalog import CypherCatalog
 from caps_tpu_torch.okapi.config import DEFAULT_CONFIG, EngineConfig
 from caps_tpu_torch.okapi.graph import (
@@ -54,8 +55,10 @@ from caps_tpu_torch.relational.plan_cache import (
 )
 from caps_tpu_torch.relational.planner import RelationalPlanner
 from caps_tpu_torch.relational.table import Table, TableFactory
-
-_UPDATE_CLAUSES = (ast.CreateClause, ast.SetClause, ast.DeleteClause)
+from caps_tpu_torch.relational.updates import (
+    UpdateError, VersionedGraph, describe_plan, is_update_query,
+    is_update_statement, plan_update, stage_rows,
+)
 
 
 class NondeterministicResultError(RuntimeError):
@@ -294,6 +297,9 @@ class RelationalCypherResult(CypherResult):
         #: ((qgn, dep token), ...) of the catalog graphs the query's plan
         #: resolved (CachedPlan.catalog_deps)
         self.catalog_deps: Tuple = ()
+        # PROFILE annotation (obs/profile.py): plain-dict operator tree
+        # with per-node rows/seconds/bytes; None unless profiled.
+        self.profile: Optional[Dict[str, Any]] = None
 
     @property
     def records(self) -> Optional[RelationalCypherRecords]:
@@ -308,7 +314,7 @@ class RelationalCypherResult(CypherResult):
 
     def explain(self) -> str:
         parts = []
-        for phase in ("ir", "logical", "relational", "cost"):
+        for phase in ("ir", "logical", "relational", "cost", "profile"):
             if phase in self.plans:
                 parts.append(f"=== {phase.upper()} ===\n{self.plans[phase]}")
         return "\n\n".join(parts)
@@ -324,15 +330,19 @@ class RelationalCypherSession(CypherSession):
             if getattr(self.config, flag):
                 raise not_ported(f"EngineConfig.{flag}")
         self._ambient = EmptyGraph(self)
-        # Named counters (cost.*, wcoj.*, replan.*, stats.*, opstats.*):
-        # the part of the reference's metrics registry the planner
-        # reaches (obs/telemetry.py); metrics_snapshot() returns them.
-        self.metrics_registry = Counters()
+        # Observability (obs/): the session tracer collects query →
+        # phase → operator spans; the registry holds the session's
+        # counters (cost.*, wcoj.*, replan.*, stats.*, opstats.*,
+        # updates.*, compaction.*, compile.*), gauges (mem.*) and
+        # per-phase histograms behind metrics_snapshot().  Tracing is
+        # off unless config.trace or a PROFILE query force-enables it.
+        self.metrics_registry = obs.MetricsRegistry()
+        self.tracer = obs.Tracer(enabled=self.config.trace)
         # Observed per-operator statistics (obs/telemetry.py): every
         # execution folds its op_metrics entries in, keyed by (plan
         # family, operator id) — the cost model's calibration and the
         # model-divergence detector that triggers re-planning.
-        self.op_stats = OpStatsStore(
+        self.op_stats = obs.OpStatsStore(
             registry=self.metrics_registry,
             replan_threshold=max(1, self.config.replan_threshold or 1),
             # late-binding: backends set the session's shape lattice
@@ -344,10 +354,21 @@ class RelationalCypherSession(CypherSession):
         # whose NEXT cold plan completes a re-plan.
         self.replan_listeners: List[Any] = []
         self._replanned_pending: set = set()
+        # Compile ledger (obs/compile.py): the host seconds of a shape's
+        # first run at each compile boundary — the cold plan phase here,
+        # a fused record run, a count-closure build, a multiway join's
+        # first-seen step shape — charged per plan family.
+        self.compile_ledger = obs.CompileLedger(
+            registry=self.metrics_registry)
+        self._profiling = False
         # Prepared-statement plan cache (relational/plan_cache.py): keyed
         # value-independently; catalog mutations evict dependent entries.
         self.plan_cache = PlanCache(self.config.plan_cache_size,
                                     enabled=self.config.use_plan_cache)
+        # Memory ledger (obs/ledger.py): live mem.* gauges over the plan
+        # cache, string pool, tracked graphs and the card's allocator.
+        self.memory_ledger = obs.MemoryLedger(
+            registry=self.metrics_registry, session=self)
         # Scoped catalog eviction: a mutation of graph X drops exactly
         # X's dependents (okapi/catalog.py dep_token) — unrelated graphs'
         # cached state survives.
@@ -403,24 +424,58 @@ class RelationalCypherSession(CypherSession):
     def cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
                         parameters: Optional[Mapping[str, Any]] = None
                         ) -> CypherResult:
+        # EXPLAIN / PROFILE prefixes strip HERE, before any cache key is
+        # formed — a PROFILE run hits the same plan-cache / fused-memo
+        # entries as the plain query (and vice versa), never a poisoned
+        # key.
         mode, body = query_mode(query)
+        if isinstance(graph, VersionedGraph) \
+                and not is_update_query(body if mode is not None else query):
+            # snapshot isolation: a READ resolves the mutable handle to
+            # the latest committed snapshot ONCE, here, and runs on it
+            # end to end — commits that land meanwhile are invisible.
+            # Writes keep the handle (they serialize on its commit
+            # lock); so does EXPLAIN of a write.
+            graph = graph.current()
         if mode == "explain":
             return self._explain_on_graph(graph, body, parameters)
         if mode == "profile":
-            raise not_ported("PROFILE")
-        result = self._cypher_on_graph(graph, query, parameters)
-        if self.config.determinism_check and result.records is not None:
-            # SURVEY.md §5.2: deterministic replay — run the same query a
-            # second time and compare multiset digests.
-            again = self._cypher_on_graph(graph, query, parameters)
-            d1 = result_digest(result)
-            d2 = result_digest(again)
-            if d1 != d2:
-                raise NondeterministicResultError(
-                    f"query produced different results on replay "
-                    f"({d1[:12]} vs {d2[:12]}): {query!r}")
-            result.metrics["determinism_digest"] = d1
+            return self._profile_on_graph(graph, body, parameters)
+        # Compile attribution (obs/compile.py): every compile boundary
+        # crossed below charges the session ledger under THIS query's
+        # plan-cache family, and the per-query total is stamped into the
+        # result metrics.
+        with obs.compile_attributed(self.compile_ledger,
+                                    normalize_query(query)) as charges:
+            with self._observed():
+                result = self._cypher_on_graph(graph, query, parameters)
+            if self.config.determinism_check and result.records is not None:
+                # SURVEY.md §5.2: deterministic replay — run the same
+                # query a second time and compare multiset digests.
+                again = self._cypher_on_graph(graph, query, parameters)
+                d1 = result_digest(result)
+                d2 = result_digest(again)
+                if d1 != d2:
+                    raise NondeterministicResultError(
+                        f"query produced different results on replay "
+                        f"({d1[:12]} vs {d2[:12]}): {query!r}")
+                result.metrics["determinism_digest"] = d1
+        self._stamp_compile_charges(result, charges)
         return result
+
+    @staticmethod
+    def _stamp_compile_charges(result, charges) -> None:
+        """Per-query compile accounting onto the result metrics:
+        ``compile_s_charged`` is ALWAYS present (0.0 on a warm path),
+        the per-charge detail only when something was charged."""
+        if result.metrics is None:
+            return
+        result.metrics["compile_s_charged"] = round(
+            sum(c["seconds"] for c in charges), 9)
+        if charges:
+            result.metrics["compile_charges"] = [
+                {"kind": c["kind"], "seconds": round(c["seconds"], 9),
+                 "recompile": c["recompile"]} for c in charges]
 
     def _make_cost_model(self, graph: RelationalCypherGraph,
                          family: Optional[str] = None):
@@ -434,8 +489,10 @@ class RelationalCypherSession(CypherSession):
         from caps_tpu_torch.relational.stats import graph_statistics
         return CostModel(graph_statistics(graph),
                          lattice=getattr(self, "shape_lattice", None),
-                         op_stats=self.op_stats, config=self.config,
-                         family=family, registry=self.metrics_registry)
+                         op_stats=self.op_stats,
+                         compile_ledger=self.compile_ledger,
+                         config=self.config, family=family,
+                         registry=self.metrics_registry)
 
     def _plan_ir(self, graph: RelationalCypherGraph, ir, plan_params,
                  params: Dict[str, Any], family: Optional[str] = None):
@@ -450,14 +507,17 @@ class RelationalCypherSession(CypherSession):
         rel_planner, root, t_logical_done); the model rides
         ``rel_planner.cost_model``."""
         model = self._make_cost_model(graph, family)
-        logical = LogicalPlanner(graph.schema, self._schema_resolver,
-                                 plan_params).process(ir)
-        logical = LogicalOptimizer(model).process(logical)
-        t3 = time.perf_counter()
-        context = R.RelationalRuntimeContext(self, params)
-        rel_planner = RelationalPlanner(context, graph, self._graph_resolver,
-                                        cost_model=model)
-        root = rel_planner.process(logical)
+        with self.tracer.span("logical", kind="phase"):
+            logical = LogicalPlanner(graph.schema, self._schema_resolver,
+                                     plan_params).process(ir)
+            logical = LogicalOptimizer(model).process(logical)
+        t3 = clock.now()
+        with self.tracer.span("relational", kind="phase"):
+            context = R.RelationalRuntimeContext(self, params)
+            rel_planner = RelationalPlanner(context, graph,
+                                            self._graph_resolver,
+                                            cost_model=model)
+            root = rel_planner.process(logical)
         rel_planner.cost_summary = None
         if model is not None:
             from caps_tpu_torch.relational.cost import annotate_plan
@@ -476,44 +536,128 @@ class RelationalCypherSession(CypherSession):
             return rel_planner.cost_model.render_decisions()
         return None
 
-    @staticmethod
-    def _parse_read(query: str) -> ast.Statement:
-        stmt = parse_query(query)
-        if isinstance(stmt, ast.SingleQuery) and any(
-                isinstance(c, _UPDATE_CLAUSES) for c in stmt.clauses):
-            raise not_ported("updates (CREATE / SET / DELETE)")
-        return stmt
+    @contextlib.contextmanager
+    def _observed(self):
+        """Activate this session's tracer for the duration of a query so
+        session-less instrumentation (compile charges) lands in it.  With
+        tracing disabled the only cost is one enabled check."""
+        if not self.tracer.enabled:
+            yield
+            return
+        with obs.activate(self.tracer):
+            yield
 
-    # -- EXPLAIN -------------------------------------------------------------
+    # -- EXPLAIN / PROFILE ---------------------------------------------------
 
     def _explain_on_graph(self, graph: RelationalCypherGraph, query: str,
                           parameters: Optional[Mapping[str, Any]] = None
                           ) -> CypherResult:
         """``EXPLAIN <query>``: run the full planning frontend and return
-        the rendered plan trees WITHOUT executing anything."""
-        t0 = time.perf_counter()
+        the rendered plan trees WITHOUT executing anything — no operator
+        computes, no catalog mutation applies, no write commits."""
+        t0 = clock.now()
         params = dict(parameters or {})
-        stmt = self._parse_read(query)
-        ir = IRBuilder(graph.schema, self._schema_resolver,
-                       params).process(stmt)
+        plan_params = PlanParams(params)
         plans: Dict[str, str] = {}
-        pretty = getattr(ir, "pretty", None)
-        if pretty is not None:
-            plans["ir"] = pretty()
-        if not isinstance(ir, B.DropGraphStatement):
-            inner = ir.inner if isinstance(ir, B.CreateGraphStatement) else ir
-            logical, _context, planner, root, _t3 = self._plan_ir(
-                graph, inner, params, params, family=normalize_query(query))
-            plans["logical"] = logical.pretty()
-            plans["relational"] = root.pretty()
-            cost = self._cost_text(planner)
-            if cost is not None:
-                # estimated-vs-chosen: the model's decision log rides
-                # EXPLAIN next to the annotated operator tree
-                plans["cost"] = cost
-        metrics = {"mode": "explain", "plan_s": time.perf_counter() - t0,
-                   "rows": 0}
+        with self._observed(), self.tracer.span("explain", kind="query",
+                                                query=query):
+            stmt = parse_query(query)
+            if is_update_statement(stmt):
+                # EXPLAIN of a write: render the staged update program
+                # (and plan — not execute — its read half) without
+                # committing anything
+                up = plan_update(stmt)
+                plans["updates"] = describe_plan(up)
+                if up.read_ast is not None:
+                    read_graph = graph.current() \
+                        if isinstance(graph, VersionedGraph) else graph
+                    ir = IRBuilder(read_graph.schema, self._schema_resolver,
+                                   plan_params).process(up.read_ast)
+                    logical, _ctx, _planner, root, _t = self._plan_ir(
+                        read_graph, ir, plan_params, params)
+                    plans["logical"] = logical.pretty()
+                    plans["relational"] = root.pretty()
+            else:
+                ir = IRBuilder(graph.schema, self._schema_resolver,
+                               plan_params).process(stmt)
+                pretty = getattr(ir, "pretty", None)
+                if pretty is not None:
+                    plans["ir"] = pretty()
+                if not isinstance(ir, B.DropGraphStatement):
+                    inner = ir.inner \
+                        if isinstance(ir, B.CreateGraphStatement) else ir
+                    logical, _context, planner, root, _t3 = self._plan_ir(
+                        graph, inner, plan_params, params,
+                        family=normalize_query(query))
+                    plans["logical"] = logical.pretty()
+                    plans["relational"] = root.pretty()
+                    cost = self._cost_text(planner)
+                    if cost is not None:
+                        # estimated-vs-chosen: the model's decision log
+                        # rides EXPLAIN next to the annotated tree
+                        plans["cost"] = cost
+        metrics = {"mode": "explain", "plan_s": clock.now() - t0, "rows": 0}
         return RelationalCypherResult(plans=plans, metrics=metrics)
+
+    def _profile_on_graph(self, graph: RelationalCypherGraph, query: str,
+                          parameters: Optional[Mapping[str, Any]] = None
+                          ) -> CypherResult:
+        """``PROFILE <query>``: execute with the tracer force-enabled and
+        annotate every relational operator with its measured span (rows,
+        wall time, bytes; device time when per-op sync is on —
+        ``config.profile_sync_each_op``)."""
+        prev_profiling = self._profiling
+        self._profiling = True
+        try:
+            with self.tracer.forced(
+                    sync_device=self.config.profile_sync_each_op):
+                with obs.activate(self.tracer):
+                    with self.tracer.span("query", kind="query",
+                                          query=query, mode="profile"), \
+                            obs.compile_attributed(
+                                self.compile_ledger,
+                                normalize_query(query)) as charges:
+                        result = self._cypher_on_graph(graph, query,
+                                                       parameters)
+            self._stamp_compile_charges(result, charges)
+        finally:
+            self._profiling = prev_profiling
+        if result.metrics is not None:
+            result.metrics["mode"] = "profile"
+        if result.profile is not None:
+            # copy-on-write: the plans dict may be SHARED with a cached
+            # plan entry — annotating in place would leak profile text
+            # into later non-profile results served from the cache
+            result.plans = dict(result.plans)
+            result.plans["profile"] = obs.render_profile(result.profile)
+        return result
+
+    # -- metrics / trace export ----------------------------------------------
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """One flat dict of every session-level stat: the metrics
+        registry (counters, gauges, per-phase histograms), the plan
+        cache's numbers and the tracer's span counts.  Backends extend
+        this with their device counters.  Consumers measure intervals
+        with ``obs.diff_snapshots(before, after)``."""
+        snap = self.metrics_registry.snapshot()
+        for k, v in self.plan_cache.stats().items():
+            snap[f"plan_cache.{k}"] = v
+        snap["tracer.spans"] = len(self.tracer.spans)
+        snap["tracer.dropped"] = self.tracer.dropped
+        return snap
+
+    def export_trace(self, path: str, fmt: str = "chrome") -> str:
+        """Dump the tracer's collected spans: ``fmt='chrome'`` writes a
+        ``chrome://tracing``-loadable file, ``fmt='jsonl'`` one JSON
+        object per span."""
+        if fmt == "chrome":
+            obs.write_chrome_trace(self.tracer.spans, path)
+        elif fmt == "jsonl":
+            obs.write_jsonl(self.tracer.spans, path)
+        else:
+            raise ValueError(f"unknown trace format {fmt!r}")
+        return path
 
     # -- execution -------------------------------------------------------------
 
@@ -530,8 +674,9 @@ class RelationalCypherSession(CypherSession):
     def _cypher_on_graph(self, graph: RelationalCypherGraph, query: str,
                          parameters: Optional[Mapping[str, Any]] = None
                          ) -> CypherResult:
-        t0 = time.perf_counter()
+        t0 = clock.now()
         params = dict(parameters or {})
+        tracer = self.tracer
 
         no_plan_cache, _no_fused = degraded_state()
         cache_key: Optional[Tuple] = None
@@ -549,12 +694,18 @@ class RelationalCypherSession(CypherSession):
         # read as a cache specialization; runtime parameter reads go
         # through the context's plain dict and stay free.
         plan_params = PlanParams(params)
-        stmt = self._parse_read(query)
-        t1 = time.perf_counter()
+        with tracer.span("parse", kind="phase"):
+            stmt = parse_query(query)
+        if is_update_statement(stmt):
+            # the write path: read on the current snapshot, stage,
+            # commit atomically (relational/updates.py)
+            return self._run_update(graph, stmt, query, params, t0)
+        t1 = clock.now()
         with self._record_catalog_deps() as catalog_deps:
-            ir = IRBuilder(graph.schema, self._schema_resolver,
-                           plan_params).process(stmt)
-            t2 = time.perf_counter()
+            with tracer.span("ir", kind="phase"):
+                ir = IRBuilder(graph.schema, self._schema_resolver,
+                               plan_params).process(stmt)
+            t2 = clock.now()
             if isinstance(ir, B.CreateGraphStatement):
                 return self._run_create_graph(graph, ir, params)
             if isinstance(ir, B.DropGraphStatement):
@@ -564,7 +715,13 @@ class RelationalCypherSession(CypherSession):
                 else normalize_query(query)
             logical, context, rel_planner, root, t3 = self._plan_ir(
                 graph, ir, plan_params, params, family=family)
-        t4 = time.perf_counter()
+        t4 = clock.now()
+        # Compile ledger (obs/compile.py): the cold plan phase is a
+        # compile boundary — a cache hit never pays it again, and a
+        # re-plan of the same (family, signature) counts as a
+        # re-compile.
+        obs.compile_charge("plan", t4 - t0,
+                           shape=repr(param_signature(params)))
 
         plans = {"ir": ir.pretty(), "logical": logical.pretty(),
                  "relational": root.pretty()}
@@ -585,14 +742,15 @@ class RelationalCypherSession(CypherSession):
 
         result_graph: Optional[RelationalCypherGraph] = None
         records: Optional[RelationalCypherRecords] = None
-        if logical.returns_graph:
-            result_graph = self._evaluate_graph(root)
-        else:
-            header, table = root.result
-            records = RelationalCypherRecords(
-                self, header, table, logical.result_fields,
-                graph=rel_planner.current_graph)
-        t5 = time.perf_counter()
+        with tracer.span("execute", kind="phase"):
+            if logical.returns_graph:
+                result_graph = self._evaluate_graph(root)
+            else:
+                header, table = root.result
+                records = RelationalCypherRecords(
+                    self, header, table, logical.result_fields,
+                    graph=rel_planner.current_graph)
+        t5 = clock.now()
 
         metrics = {
             "parse_s": t1 - t0, "ir_s": t2 - t1, "plan_s": t3 - t2,
@@ -609,10 +767,16 @@ class RelationalCypherSession(CypherSession):
             print(f"[caps-tpu-torch] timings: {metrics}")
         logger.debug("query %r: %d rows in %.1f ms", query,
                      metrics["rows"], 1e3 * (t5 - t0))
+        self.metrics_registry.observe("query.plan_s", t4 - t0)
+        self.metrics_registry.observe("query.execute_s", t5 - t4)
         # observed-statistics fold, keyed by the plan family (the cache
         # key's normalized query text)
         self.op_stats.record(family, context.op_metrics)
         self._maybe_replan()
+        # snapshot per-operator measurements into plain dicts BEFORE the
+        # cache store resets the tree (obs/profile.py)
+        result_profile = (obs.profile_tree(root, context)
+                          if self._profiling else None)
 
         deps = tuple(sorted(catalog_deps.items()))
         if (cache_key is not None and records is not None
@@ -632,6 +796,7 @@ class RelationalCypherSession(CypherSession):
             self.plan_cache.store(cache_key, entry)
         result = RelationalCypherResult(records, result_graph, plans, metrics)
         result.catalog_deps = deps
+        result.profile = result_profile
         return result
 
     def _run_cached(self, plan: CachedPlan, query: str,
@@ -649,20 +814,24 @@ class RelationalCypherSession(CypherSession):
             context = plan.context
             context.rebind(params)
             reset_plan(plan.root)
-            t1 = time.perf_counter()
+            t1 = clock.now()
             try:
-                header, table = plan.root.result
-                records = RelationalCypherRecords(
-                    self, header, table, plan.result_fields,
-                    graph=plan.records_graph)
+                with self.tracer.span("execute", kind="phase",
+                                      plan_cache="hit"):
+                    header, table = plan.root.result
+                    records = RelationalCypherRecords(
+                        self, header, table, plan.result_fields,
+                        graph=plan.records_graph)
                 op_metrics = context.op_metrics
+                result_profile = (obs.profile_tree(plan.root, context)
+                                  if self._profiling else None)
             finally:
                 # the records object owns (header, table) now; the parked
                 # tree must not pin device buffers until its next
                 # execution — including when a run failed mid-tree with
                 # partial operator memos already computed
                 reset_plan(plan.root)
-        t2 = time.perf_counter()
+        t2 = clock.now()
         self._print_plans(plan.plans)
         metrics = {
             "parse_s": 0.0, "ir_s": 0.0, "plan_s": 0.0, "relational_s": 0.0,
@@ -678,6 +847,7 @@ class RelationalCypherSession(CypherSession):
             print(f"[caps-tpu-torch] timings: {metrics}")
         logger.debug("query %r: %d rows in %.1f ms (plan cache hit)",
                      query, metrics["rows"], 1e3 * (t2 - t0))
+        self.metrics_registry.observe("query.execute_s", t2 - t1)
         # observed statistics: op_metrics was captured under the exec
         # lock (rebind swaps in a fresh list per run)
         self.op_stats.record(
@@ -686,6 +856,7 @@ class RelationalCypherSession(CypherSession):
         self._maybe_replan()
         result = RelationalCypherResult(records, None, plan.plans, metrics)
         result.catalog_deps = plan.catalog_deps
+        result.profile = result_profile
         return result
 
     # -- divergence-triggered re-planning -------------------------------------
@@ -737,6 +908,82 @@ class RelationalCypherSession(CypherSession):
             print(plans["logical"])
         if self.config.print_relational_plan:
             print(plans["relational"])
+
+    # -- update statements (relational/updates.py) ---------------------------
+
+    def _run_update(self, graph: RelationalCypherGraph, stmt, query: str,
+                    params: Dict[str, Any], t0: float) -> CypherResult:
+        """Execute a ``CREATE``/``SET``/``DELETE`` statement: plan-split
+        it into a read query + staging directives, run the read part on
+        the writer's CURRENT snapshot through the normal pipeline, stage
+        per-row update ops host-side, and commit them atomically through
+        the versioned handle.  A failure anywhere before the publish —
+        validation, device placement, an injected fault — leaves the
+        graph untouched (the commit is failure-atomic), so a
+        transiently-failed write may be retried safely."""
+        if not isinstance(graph, VersionedGraph):
+            kind = type(graph).__name__
+            if kind == "GraphSnapshot":
+                raise UpdateError(
+                    "snapshots are immutable — submit writes against "
+                    "the versioned graph handle, not a pinned snapshot")
+            raise UpdateError(
+                f"updates need a versioned graph "
+                f"(session.create_versioned_graph / "
+                f"caps_tpu_torch.relational.updates.versioned), got {kind}")
+        from caps_tpu_torch.frontend.semantic import check_statement
+        check_statement(stmt)  # scope errors surface before any staging
+        plan = plan_update(stmt)
+        snap = graph.current()
+        t1 = clock.now()
+        rows: List[Dict[str, Any]] = [{}]
+        if plan.read_ast is not None:
+            rows = self._execute_read_ast(snap, plan.read_ast, params)
+        t2 = clock.now()
+        staged = stage_rows(plan, rows, params)
+        with self.tracer.span("apply", kind="phase"):
+            info = graph.apply(staged)
+        t3 = clock.now()
+        metrics = {
+            "parse_s": t1 - t0, "read_s": t2 - t1, "apply_s": t3 - t2,
+            "rows": 0, "plan_cache": "off",
+            "updates": info.counts(),
+            "snapshot_version": info.version,
+        }
+        self.metrics_registry.observe("query.execute_s", t3 - t1)
+        plans = {"ir": describe_plan(plan)}
+        logger.debug("update %r: %s -> v%d in %.1f ms", query,
+                      info.counts(), info.version, 1e3 * (t3 - t0))
+        return RelationalCypherResult(plans=plans, metrics=metrics)
+
+    def _execute_read_ast(self, graph: RelationalCypherGraph, read_ast,
+                          params: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """Plan + execute the synthesized read half of an update
+        statement on the pinned snapshot and materialize its rows (the
+        bindings and computed SET/CREATE values the staging step
+        consumes).  Uncached on purpose: the snapshot advances with
+        every commit, so a write's read half is almost never re-planned
+        against the same version."""
+        plan_params = PlanParams(params)
+        ir = IRBuilder(graph.schema, self._schema_resolver,
+                       plan_params).process(read_ast)
+        logical, _context, rel_planner, root, _t3 = self._plan_ir(
+            graph, ir, plan_params, params)
+        with self.tracer.span("execute", kind="phase", update_read=True):
+            header, table = root.result
+            records = RelationalCypherRecords(
+                self, header, table, logical.result_fields,
+                graph=rel_planner.current_graph)
+        return records.to_maps()
+
+    def create_versioned_graph(self, node_tables=(),
+                               rel_tables=()) -> VersionedGraph:
+        """A writable graph: an immutable base plus the versioned delta
+        store — ``CREATE``/``SET``/``DELETE`` and ``graph.apply(...)``
+        commit new snapshots; readers are isolated on the snapshot they
+        started with (relational/updates.py)."""
+        return VersionedGraph(self,
+                              self.create_graph(node_tables, rel_tables))
 
     # -- graph-returning statements -----------------------------------------
 

@@ -17,8 +17,9 @@ size on the device wherever the boundaries sit.
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Iterable, Mapping, Optional, Tuple
+
+from caps_tpu_torch.obs.lockgraph import make_lock
 
 #: the fixed ladder EngineConfig ships — the un-seeded default, so an
 #: un-adapted lattice buckets exactly like ``EngineConfig.bucket_for``
@@ -46,7 +47,7 @@ class ShapeBucketLattice:
         self.max_buckets = max(len(base), int(max_buckets))
         self._buckets: Tuple[int, ...] = tuple(sorted(
             {max(1, int(b)) for b in base}))
-        self._lock = threading.Lock()
+        self._lock = make_lock("shapes.ShapeBucketLattice._lock")
 
     def bucket(self, n: int) -> int:
         n = int(n)

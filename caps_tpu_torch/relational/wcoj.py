@@ -40,9 +40,9 @@ Where the port differs from the reference:
   collision), counted under ``wcoj.fallbacks`` with
   ``strategy="fallback-cascade"``; every other exception — a K2 launch
   error, a ``KernelSelfTestError`` — propagates.
-* **No compile ledger.**  The reference charges each step's first-seen
-  shape to its compile ledger; eager PyTorch compiles nothing, so
-  nothing is charged.
+* **Compile ledger.**  As in the reference, each step's first-seen
+  shape charges the ``wcoj`` kind (obs/compile.py): the host seconds of
+  its first run, since eager PyTorch compiles nothing.
 * No mesh and no cancellation checkpoints (nothing to guard yet).
 """
 from __future__ import annotations
@@ -54,6 +54,7 @@ import torch
 
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.ir.pattern import Direction
+from caps_tpu_torch.obs.compile import charged as _compile_charged
 from caps_tpu_torch.logical.optimizer import (
     CyclicSegment, EdgeRef, match_cyclic_segment,
 )
@@ -294,6 +295,20 @@ class MultiwayJoinOp(RelationalOperator):
         # whether its Pallas kernel is usable
         OPS.ensure_kernels("prefetch", dev)
 
+        def charged_shape(sig, fn):
+            """Compile-ledger seam: the FIRST run of a step at a new
+            shape charges its host seconds under the ``wcoj`` kind;
+            seen shapes (and every fused replay) charge nothing."""
+            seen = getattr(backend, "wcoj_compiled_shapes", None)
+            if seen is None:
+                seen = backend.wcoj_compiled_shapes = set()
+            if sig in seen:
+                return fn()
+            with _compile_charged("wcoj", shape=sig):
+                out = fn()
+            seen.add(sig)
+            return out
+
         # sorted structures, memoized on the scan columns: a static
         # graph sorts once; predicate-filtered scans rebuild per
         # execution on their fresh columns
@@ -305,8 +320,10 @@ class MultiwayJoinOp(RelationalOperator):
             if memo is not None and key in memo:
                 return memo[key]
             ok = src.valid & tgt.valid & t.row_ok
-            res = W.sorted_edges(frm_col.data, to_col.data, ok, n,
-                                 t._sort_perm)
+            res = charged_shape(
+                f"sort:b{t.capacity}",
+                lambda: W.sorted_edges(frm_col.data, to_col.data, ok, n,
+                                       t._sort_perm))
             if memo is None:
                 memo = frm_col._wcoj_edges = {}
             if len(memo) < 8:
@@ -320,7 +337,8 @@ class MultiwayJoinOp(RelationalOperator):
             if memo is not None and memo[0] == key:
                 return memo[1]
             keys = W.sorted_ids(col.data, col.valid & t.row_ok)
-            perm = t._sort_perm([keys])
+            perm = charged_shape(f"sort:b{t.capacity}",
+                                 lambda: t._sort_perm([keys]))
             ids_sorted = keys[perm]
             backend.syncs += 1  # the duplicate-id check reads the card
             dup = bool(((ids_sorted[:-1] == ids_sorted[1:])
@@ -349,7 +367,8 @@ class MultiwayJoinOp(RelationalOperator):
             nonlocal state, cap, n_rows, live
             n_rows, live = backend.consume_rows(K.mask_count(mask))
             out_cap = backend.bucket(n_rows)
-            idx = K.compact_indices(mask, out_cap)
+            idx = charged_shape(f"compact:b{cap}x{out_cap}",
+                                lambda: K.compact_indices(mask, out_cap))
             state = {k: v[idx] for k, v in state.items()}
             cap = out_cap
 
@@ -359,11 +378,15 @@ class MultiwayJoinOp(RelationalOperator):
             valid = prefix_mask()
             # the sizing probe feeds the extend, which never probes the
             # same adjacency twice
-            counts, lo_a = W.probe_adj(S, u_ids, valid, n)
+            counts, lo_a = charged_shape(
+                f"adj:e{S.shape[0]}xb{cap}",
+                lambda: W.probe_adj(S, u_ids, valid, n))
             total, t_live = backend.consume_rows(W.adj_total(counts))
             out_cap = backend.bucket(total)
-            l_idx, cand, erow, ok = W.extend(S, P, u_ids, valid, n, out_cap,
-                                             counts=counts, lo=lo_a)
+            l_idx, cand, erow, ok = charged_shape(
+                f"extend:e{S.shape[0]}b{cap}x{out_cap}",
+                lambda: W.extend(S, P, u_ids, valid, n, out_cap,
+                                 counts=counts, lo=lo_a))
             state = {k: v[l_idx] for k, v in state.items()}
             state[("erow", step.anchor.rel)] = erow
             cap, n_rows, live = out_cap, total, t_live
@@ -372,7 +395,9 @@ class MultiwayJoinOp(RelationalOperator):
             ids_sorted, perm_v, dup = node_structure(step.var)
             if dup:
                 raise _Unsuitable("duplicate node ids in scan")
-            cnt_v, lo_v = W.probe_id(ids_sorted, cand, ok)
+            cnt_v, lo_v = charged_shape(
+                f"nid:n{ids_sorted.shape[0]}xb{cap}",
+                lambda: W.probe_id(ids_sorted, cand, ok))
             keep = ok & (cnt_v > 0)
             state[("id", step.var)] = cand
             state[("row", step.var)] = perm_v[
@@ -381,8 +406,10 @@ class MultiwayJoinOp(RelationalOperator):
             # must have at least one instance between the bound pair
             for c in step.checks:
                 Sc, _Pc = edge_structure(c, True)
-                cntc, _ = W.probe_pair(Sc, state[("id", c.frm)],
-                                       state[("id", c.to)], keep, n)
+                cntc, _ = charged_shape(
+                    f"pair:e{Sc.shape[0]}xb{cap}",
+                    lambda: W.probe_pair(Sc, state[("id", c.frm)],
+                                         state[("id", c.to)], keep, n))
                 keep = keep & (cntc > 0)
             compact(keep)
 
@@ -390,13 +417,17 @@ class MultiwayJoinOp(RelationalOperator):
             e = step.edge
             S, P = edge_structure(e, True)
             valid = prefix_mask()
-            counts, lo_c = W.probe_pair(S, state[("id", e.frm)],
-                                        state[("id", e.to)], valid, n)
+            counts, lo_c = charged_shape(
+                f"pair:e{S.shape[0]}xb{cap}",
+                lambda: W.probe_pair(S, state[("id", e.frm)],
+                                     state[("id", e.to)], valid, n))
             total, t_live = backend.consume_rows(W.adj_total(counts))
             out_cap = backend.bucket(total)
-            l_idx, erow, _ok = W.close(S, P, state[("id", e.frm)],
-                                       state[("id", e.to)], valid, n,
-                                       out_cap, counts=counts, lo=lo_c)
+            l_idx, erow, _ok = charged_shape(
+                f"close:e{S.shape[0]}b{cap}x{out_cap}",
+                lambda: W.close(S, P, state[("id", e.frm)],
+                                state[("id", e.to)], valid, n, out_cap,
+                                counts=counts, lo=lo_c))
             state = {k: v[l_idx] for k, v in state.items()}
             state[("erow", e.rel)] = erow
             cap, n_rows, live = out_cap, total, t_live

@@ -12,18 +12,20 @@ This is how every acceptance test bootstraps its graph:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from caps_tpu_torch.frontend import ast
 from caps_tpu_torch.frontend.parser import parse_query
 from caps_tpu_torch.ir import exprs as E
-from caps_tpu_torch.okapi.types import (
-    CTInteger, CypherType, from_python, join_all,
-)
 from caps_tpu_torch.relational.entity_tables import (
-    NodeMapping, NodeTable, RelationshipMapping, RelationshipTable,
+    NodeTable, RelationshipTable,
 )
 from caps_tpu_torch.relational.graphs import ScanGraph
+# the record-grouping builders the delta store and compaction use, so
+# the factory, the write path and compaction agree on layout
+from caps_tpu_torch.relational.updates import (  # noqa: F401
+    build_node_tables, build_rel_tables,
+)
 
 
 class GraphFactoryError(Exception):
@@ -135,70 +137,10 @@ def parse_create(create_query: str,
     return g
 
 
-def build_node_tables(factory, nodes: Iterable[Tuple[int, Iterable[str],
-                                                     Mapping[str, Any]]]
-                      ) -> List[NodeTable]:
-    """Group ``(id, labels, props)`` records by exact label combination
-    and build one :class:`NodeTable` per combo through ``factory`` (the
-    JAX package keeps this function in ``relational/updates.py``, which
-    the port has not reached yet)."""
-    by_labels: Dict[Tuple[str, ...],
-                    List[Tuple[int, Mapping[str, Any]]]] = {}
-    for nid, labels, props in nodes:
-        by_labels.setdefault(tuple(sorted(labels)), []).append((nid, props))
-    out = []
-    for labels, rows in sorted(by_labels.items()):
-        keys = sorted({k for _, p in rows for k in p})
-        types: Dict[str, CypherType] = {"_id": CTInteger}
-        data: Dict[str, List[Any]] = {"_id": [nid for nid, _ in rows]}
-        for k in keys:
-            vals = [p.get(k) for _, p in rows]
-            t = join_all(from_python(v) for v in vals if v is not None)
-            if any(v is None for v in vals):
-                t = t.nullable
-            types[k] = t
-            data[k] = vals
-        mapping = NodeMapping.on("_id").with_implied_labels(*labels)
-        for k in keys:
-            mapping = mapping.with_property(k)
-        out.append(NodeTable(mapping, factory.from_columns(data, types)))
-    return out
-
-
-def build_rel_tables(factory, rels: Iterable[Tuple[int, int, int, str,
-                                                   Mapping[str, Any]]]
-                     ) -> List[RelationshipTable]:
-    """Group ``(id, src, tgt, type, props)`` records by relationship type
-    and build one :class:`RelationshipTable` per type."""
-    by_type: Dict[str, List[Tuple[int, int, int, Mapping[str, Any]]]] = {}
-    for rid, src, tgt, rel_type, props in rels:
-        by_type.setdefault(rel_type, []).append((rid, src, tgt, props))
-    out = []
-    for rel_type, rows in sorted(by_type.items()):
-        keys = sorted({k for *_, p in rows for k in p})
-        types: Dict[str, CypherType] = {"_id": CTInteger, "_src": CTInteger,
-                                        "_tgt": CTInteger}
-        data: Dict[str, List[Any]] = {
-            "_id": [r[0] for r in rows], "_src": [r[1] for r in rows],
-            "_tgt": [r[2] for r in rows]}
-        for k in keys:
-            vals = [r[3].get(k) for r in rows]
-            t = join_all(from_python(v) for v in vals if v is not None)
-            if any(v is None for v in vals):
-                t = t.nullable
-            types[k] = t
-            data[k] = vals
-        mapping = RelationshipMapping.on(rel_type)
-        for k in keys:
-            mapping = mapping.with_property(k)
-        out.append(RelationshipTable(mapping,
-                                     factory.from_columns(data, types)))
-    return out
-
-
 def tables_from_memory(session, g: InMemoryTestGraph
                        ) -> Tuple[List[NodeTable], List[RelationshipTable]]:
-    """Group in-memory records into scan tables."""
+    """Group in-memory records into scan tables (the builders of
+    relational/updates.py)."""
     factory = session.table_factory
     node_tables = build_node_tables(
         factory, [(nid, labels, props)

@@ -59,11 +59,38 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 its open rows stay at or under 16M (the card holds the
                 cascade's intermediate tables up to there), to the
                 forced cascade;
-  8. tck      — the 465 TCK scenarios on the card under the CPU tests'
+  8. profile  — on the slice's session: PROFILE of the grouped query
+                eager with per-operator sync (timing tag ``device``) and
+                on an exact replay without it (``dispatch`` and one
+                aggregate device span), each operator's profiled rows
+                equal to the run's; the plain query after it hits the
+                plan cache with no profile text and replays with 0 size
+                reads and no synchronizing call; device time by
+                ``caps_tpu_torch.<Op>`` range (``torch.profiler``); a
+                traced run exported as a Chrome trace; exact-replay
+                latency with tracing off, on and under PROFILE; the
+                ``compile.*`` and ``mem.*`` metrics;
+  9. updates  — the slice's graph wrapped by ``versioned`` (the base
+                never changes): the structures the write path reads over
+                the base, each timed on first use; 500 LDBC-SNB-Interactive-shaped
+                writes (edge inserts, person creates, property sets,
+                relationship and detaching node deletes) in an order
+                drawn from --seed, the grouped query after every 100
+                equal to a numpy oracle of the mutated arrays and a
+                snapshot pinned before the first write equal to the
+                base's answer; 5 exact replays on the final snapshot (0
+                size reads, no synchronizing call); an aborted write
+                (``testing/faults.py abort_write``) that changes neither
+                the version nor the string pool, and its retry; a
+                compaction, after which the query reads the same; write
+                latency by kind, the first commit, fresh and stable
+                snapshot reads, delta rows and bytes, tombstones,
+                compaction seconds, peak bytes and launches;
+ 10. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
-  9. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 11. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -71,17 +98,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 10. plan     — bench config 9 at its TPU size: the five query families
+ 12. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 11. selftest — the seconds each kernel family's self-test took, and a
+ 13. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 12. kernels  — each kernel wrapper against its plain PyTorch version on
+ 14. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
-                unwind queries, the multiway joins and IC12) and at edge
+                unwind queries, the multiway joins, the final snapshot
+                of the updates phase and IC12) and at edge
                 shapes (the segment
                 kernel: bit for bit, NaN and signed zeros included, and
                 two calls bitwise equal), with the median time of 20 launches (CUDA
@@ -90,7 +118,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 13. the ``{"kernels": [...]}`` line, the card line, and the last line
+ 15. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -207,6 +235,22 @@ CYCLIC_CUT = {("diamond", 16), ("cycle4", 16)}
 LDBC_SCALES = (11.0, 110.0)
 LDBC_SEED = 7
 LDBC_DRAWS = 3
+# The updates phase: 500 single-statement writes of the LDBC SNB
+# Interactive update shapes this graph's schema holds (IU-8-style edge
+# inserts, IU-1-style person creates, property sets, relationship and
+# node deletes), in an order drawn from --seed; the grouped query is
+# held to its oracle after every WRITE_CHECK_EVERY writes.
+WRITES = {"edge": 200, "person": 100, "set": 100, "delete_rel": 50,
+          "detach": 50}
+WRITE_CHECK_EVERY = 100
+UPDATE_QUERIES = {
+    "edge": ("MATCH (a:Person), (b:Person) WHERE id(a) = $a AND id(b) = $b "
+             "CREATE (a)-[:KNOWS]->(b)"),
+    "person": "CREATE (:Person {age: $age, city: $city})",
+    "set": "MATCH (a:Person) WHERE id(a) = $id SET a.age = $age",
+    "delete_rel": "MATCH ()-[r:KNOWS]->() WHERE id(r) = $id DELETE r",
+    "detach": "MATCH (a:Person) WHERE id(a) = $id DETACH DELETE a",
+}
 # the kernel wrappers a query calls, each with the size its Recorder
 # keeps the largest call by
 QUERY_KERNELS = (("segment", "dense_segment_agg_cuda",
@@ -541,9 +585,12 @@ def device_profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # the operators' ``caps_tpu_torch.<Op>`` ranges also appear on the
+    # device timeline, spanning their kernels and the gaps between
+    # them: they are not device work
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("caps_tpu_torch.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
         return {"wall_s": wall_s, "device_busy_s": "not measured"}
     busy, (lo, hi) = 0.0, spans[0]
@@ -555,10 +602,9 @@ def device_profile(torch, fn) -> dict:
             hi = max(hi, b)
     busy = (busy + hi - lo) / 1e6   # profiler times are microseconds
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_s": wall_s, "device_busy_s": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_s),
@@ -1500,6 +1546,431 @@ def run_plan(torch, np, args, card: str):
     emit(out)
 
 
+def walk_profile(tree):
+    yield tree
+    for c in tree["children"]:
+        yield from walk_profile(c)
+
+
+def check_profile(label, result, want, timing) -> list:
+    """A PROFILE result against the grouped query's oracle: each
+    executed operator's profiled rows equal the rows of the same run's
+    ``metrics["operators"]``, the root's equal the 20 result rows, and
+    every node carries the timing tag ``timing``.  Returns
+    [op, rows, seconds, device seconds] per executed operator."""
+    rows = result.records.to_maps()
+    expect(label, rows == want, "rows disagree with the oracle", "profile")
+    tree = result.profile
+    nodes = [n for n in walk_profile(tree) if n["executed"]]
+    profiled = {n["op_id"]: n["rows"] for n in nodes}
+    ran = {m["op_id"]: m["rows"] for m in result.metrics["operators"]}
+    expect(label, profiled == ran,
+           f"profiled rows {profiled} differ from the run's {ran}",
+           "profile")
+    expect(label, tree["rows"] == len(rows) == 20,
+           f"root rows {tree['rows']} for {len(rows)} result rows",
+           "profile")
+    tags = {n.get("timing") for n in walk_profile(tree)}
+    expect(label, tags == {timing}, f"timing tags {tags}, not {timing}",
+           "profile")
+    return [[n["op"], n["rows"], n["seconds"], n.get("device_s")]
+            for n in nodes]
+
+
+def range_device_ms(torch, fn) -> dict:
+    """Device time by ``caps_tpu_torch.<Op>`` range (``torch.profiler``)
+    over one run of ``fn``: per operator name, the ranges opened, their
+    device time including the operators they pulled (``device_ms``) and
+    excluding nested operator ranges (``own_device_ms``, the kernels
+    launched under the range and not under a nested one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        v = getattr(e, "device_time_total", None)
+        return getattr(e, "cuda_time_total", 0.0) if v is None else v
+
+    def own_us(e):
+        t = sum(k.duration for k in getattr(e, "kernels", ()))
+        for c in e.cpu_children:
+            if not c.name.startswith("caps_tpu_torch."):
+                t += own_us(c)
+        return t
+
+    out: dict = {}
+    for e in prof.events():
+        # the host-side range (each also has a device-side copy on the
+        # card's timeline, which launches nothing)
+        if not e.name.startswith("caps_tpu_torch.") \
+                or e.device_type != DeviceType.CPU:
+            continue
+        slot = out.setdefault(e.name.split(".", 1)[1], {
+            "ranges": 0, "device_ms": 0.0, "own_device_ms": 0.0,
+            "host_ms": 0.0})
+        slot["ranges"] += 1
+        slot["device_ms"] += device_us(e) / 1e3
+        slot["own_device_ms"] += own_us(e) / 1e3
+        slot["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def run_profile(torch, np, args, card: str, state):
+    """PROFILE and tracing on the slice's session: PROFILE of the
+    grouped query at ``$age = 30`` eager with per-operator sync (timing
+    tag ``device``) and on an exact replay without it (``dispatch``, one
+    aggregate device span), each operator's profiled rows equal to the
+    same run's; a plain run afterwards hits the plan cache with no
+    profile text and replays with 0 size reads and no synchronizing
+    call; device time by ``caps_tpu_torch.<Op>`` range; a traced run
+    exported as a Chrome trace; exact-replay latency with tracing off,
+    on and under PROFILE; the ``compile.*`` and ``mem.*`` metrics."""
+    import tempfile
+    from caps_tpu_torch.relational.session import degraded_execution
+    session, graph, nodes, rels, _ = state
+    params = {"age": AGE}
+    want = oracle(np, nodes, rels, AGE)[0]
+    out = {"phase": "profile", "card": card}
+    q_prof = "PROFILE " + QUERY_GROUPED
+
+    # PROFILE with per-operator sync, eager (no plan cache, no fusing),
+    # twice: the first run also pays the allocator's growth
+    eager_s = []
+    for _ in range(2):
+        with degraded_execution(no_plan_cache=True, no_fused=True):
+            _, res, s = timed_query(torch, graph, q_prof, params)
+        eager_s.append(s)
+        expect("eager", res.metrics["fused_mode"] == "eager",
+               res.metrics["fused_mode"], "profile")
+        operators = check_profile("eager", res, want, "device")
+    out["eager_sync"] = {"runs_s": eager_s, "operators": operators}
+
+    # PROFILE without it, on an exact replay of the cached plan
+    for _ in range(2):
+        timed_query(torch, graph, QUERY_GROUPED, params)
+    config = session.config
+    session.config = dataclasses.replace(config, profile_sync_each_op=False)
+    try:
+        _, res, s = timed_query(torch, graph, q_prof, params)
+    finally:
+        session.config = config
+    expect("replay", res.metrics["fused_mode"] == "replay"
+           and res.metrics["plan_cache"] == "hit"
+           and res.metrics["size_syncs"] == 0,
+           f"PROFILE did not replay: {run_info(session, res)}", "profile")
+    out["replay_dispatch"] = {
+        "s": s, "replay_device_s": res.metrics["replay_device_s"],
+        "operators": check_profile("replay", res, want, "dispatch")}
+
+    # the plain query afterwards: the cached plan and the fused memo are
+    # unpoisoned
+    entries = session.plan_cache.stats()["entries"]
+    res, sites = count_syncs(torch, lambda: graph.cypher(QUERY_GROUPED,
+                                                         params))
+    expect("after", res.records.to_maps() == want
+           and res.metrics["plan_cache"] == "hit"
+           and "profile" not in res.plans and res.profile is None
+           and session.fused.last_mode == "replay"
+           and res.metrics["size_syncs"] == 0 and not sites
+           and session.plan_cache.stats()["entries"] == entries,
+           f"the plain run after PROFILE: {run_info(session, res)}, "
+           f"plans {sorted(res.plans)}, synchronizing calls {sites}",
+           "profile")
+
+    def replay():
+        graph.cypher(QUERY_GROUPED, params).records.to_maps()
+
+    out["device_ms_by_operator_range"] = range_device_ms(torch, replay)
+    out["exact_replay_profile"] = device_profile(torch, replay)
+
+    # exact-replay latency: tracing off, on, PROFILE (sync off, then
+    # on), tracing off again — one call, in turns
+    def warm(query, n=5):
+        return [timed_query(torch, graph, query, params)[2]
+                for _ in range(n)]
+
+    lat = {"trace_off": warm(QUERY_GROUPED)}
+    session.tracer.enabled = True
+    session.tracer.clear()
+    try:
+        lat["trace_on"] = warm(QUERY_GROUPED)
+        expect("trace", session.fused.last_mode == "replay",
+               "a traced run did not replay", "profile")
+        spans = len(session.tracer.spans)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = session.export_trace(os.path.join(tmp, "trace.json"))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        session.tracer.enabled = False
+        session.tracer.clear()
+    op_events = sum(1 for e in events if e["name"].startswith("op."))
+    expect("trace", op_events > 0 and spans >= 5,
+           f"the trace has {len(events)} events, {spans} root spans",
+           "profile")
+    out["trace"] = {"root_spans": spans, "events": len(events),
+                    "operator_events": op_events}
+    session.config = dataclasses.replace(config, profile_sync_each_op=False)
+    try:
+        lat["profile_dispatch"] = warm(q_prof)
+    finally:
+        session.config = config
+    lat["profile_sync"] = warm(q_prof)
+    lat["trace_off_again"] = warm(QUERY_GROUPED)
+    out["exact_replay_s"] = {k: statistics.median(v) for k, v in lat.items()}
+    out["exact_replay_runs_s"] = lat
+    snap = session.metrics_snapshot()
+    out["metrics"] = {k: v for k, v in snap.items()
+                      if k.startswith(("compile.", "mem.", "tracer."))}
+    out["compile_summary"] = session.compile_ledger.summary(top=4)
+    out["memory"] = session.memory_ledger.report()["devices"]
+    emit(out)
+
+
+def live_oracle(np, people, edges, age: int):
+    """``oracle``'s grouped rows over the live persons and relationships
+    after writes: ids with gaps (deleted persons, ids allocated past the
+    base's), values as the writes left them."""
+    alive = people["alive"]
+    ids = people["_id"][alive]
+    ok = edges["alive"]
+    src, tgt = edges["_src"][ok], edges["_tgt"][ok]
+    dom = int(people["_id"].max()) + 1
+    seeds = np.zeros(dom)
+    seeds[ids[people["age"][alive] == age]] = 1.0
+    hop1 = np.bincount(tgt, weights=seeds[src], minlength=dom)
+    hop2 = np.bincount(tgt, weights=hop1[src], minlength=dom)
+    loops = src == tgt
+    hop2 -= np.bincount(tgt[loops], weights=seeds[src[loops]],
+                        minlength=dom)
+    return top_cities(np, {"Person": {"city": people["city"][alive]}},
+                      hop2[ids])
+
+
+def run_updates(torch, np, args, card: str, state):
+    """Live updates on the slice's graph, wrapped by ``versioned``; the
+    base itself is never changed.  The structures the write path reads
+    over the base (the id allocator's start, the node and relationship
+    lookups, the incidence index) are timed one by one on first use;
+    then 500 single-statement writes (WRITES) in an order drawn from
+    --seed, the grouped query after every WRITE_CHECK_EVERY writes equal
+    to a numpy oracle of the mutated arrays and a snapshot pinned before
+    the first write equal to the base's answer; 5 exact replays on the
+    final snapshot (0 size reads, no synchronizing call), whose K1–K3
+    calls the kernels phase holds against the plain versions; an
+    aborted write that leaves the version and the string pool as they
+    were and whose retry commits; a compaction, after which the grouped
+    query reads the same and the delta is empty."""
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.relational import updates as U
+    from caps_tpu_torch.testing.faults import abort_write
+    session, graph, nodes, rels, _ = state
+    params = {"age": AGE}
+    out = {"phase": "updates", "card": card}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    base_want = oracle(np, nodes, rels, AGE)[0]
+
+    # the structures the write path reads over the base, each timed on
+    # its first use: the id allocator's start (the largest id, from the
+    # id columns' sorted indexes), a node and a relationship lookup, an
+    # incidence lookup (the endpoint columns' indexes)
+    host = {}
+    t0 = time.perf_counter()
+    vg = U.versioned(session, graph)
+    host["versioned_s"] = time.perf_counter() - t0
+    first_rel = int(rels["KNOWS"]["_id"][0])
+    for name, fn in (("node_lookup_s", lambda: U._BaseNodes(graph)[0]),
+                     ("rel_lookup_s",
+                      lambda: U._BaseRels(graph)[first_rel]),
+                     ("incidence_s",
+                      lambda: U._BaseIncidence(graph).get(0))):
+        t0 = time.perf_counter()
+        fn()
+        host[name] = time.perf_counter() - t0
+    out["base_structures"] = host
+    pinned = vg.current()
+
+    # the numpy side of every write: the base arrays with room for the
+    # created entities behind them (a slot is live once written)
+    def with_room(cols, extra):
+        out = {k: np.concatenate([np.asarray(v), np.zeros(
+            extra, np.asarray(v).dtype)]) for k, v in cols.items()}
+        out["alive"] = np.arange(len(out["_id"])) < len(cols["_id"])
+        out["n"] = len(cols["_id"])
+        return out
+
+    person = with_room(dict(nodes["Person"], city=nodes["Person"]["city"]
+                            .astype("U32")), WRITES["person"] + 1)
+    knows = with_room(rels["KNOWS"], WRITES["edge"])
+    cities = np.unique(nodes["Person"]["city"])
+    rng = np.random.default_rng(args.seed + 2)
+    order = [k for k, n in WRITES.items() for _ in range(n)]
+    rng.shuffle(order)
+
+    def append(arrays, **vals):
+        i = arrays["n"]
+        for k, v in vals.items():
+            arrays[k][i] = v
+        arrays["alive"][i] = True
+        arrays["n"] += 1
+
+    def pick(arrays):
+        while True:
+            i = int(rng.integers(arrays["n"]))
+            if arrays["alive"][i]:
+                return i
+
+    latency = {k: [] for k in WRITES}
+    first_commit = None
+    checks = []
+    for n, kind in enumerate(order, 1):
+        if kind == "edge":
+            a, b = person["_id"][pick(person)], person["_id"][pick(person)]
+            p = {"a": int(a), "b": int(b)}
+        elif kind == "person":
+            p = {"age": int(rng.integers(18, 90)),
+                 "city": str(cities[rng.integers(len(cities))])}
+        elif kind == "set":
+            i = pick(person)
+            p = {"id": int(person["_id"][i]),
+                 "age": int(rng.integers(18, 90))}
+        elif kind == "delete_rel":
+            i = pick(knows)
+            p = {"id": int(knows["_id"][i])}
+        else:
+            i = pick(person)
+            p = {"id": int(person["_id"][i])}
+        new_id = vg._next_id
+        t0 = time.perf_counter()
+        res = vg.cypher(UPDATE_QUERIES[kind], p)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if first_commit is None:
+            first_commit = {"kind": kind, "s": dt}
+        latency[kind].append(dt)
+        counts = res.metrics["updates"]
+        if kind == "edge":
+            expect(kind, counts["created_rels"] == 1, counts, "updates")
+            append(knows, _id=new_id, _src=p["a"], _tgt=p["b"])
+        elif kind == "person":
+            expect(kind, counts["created_nodes"] == 1, counts, "updates")
+            append(person, _id=new_id, age=p["age"], city=p["city"])
+        elif kind == "set":
+            expect(kind, counts["props_set"] == 1, counts, "updates")
+            person["age"][i] = p["age"]
+        elif kind == "delete_rel":
+            expect(kind, counts["deleted_rels"] == 1, counts, "updates")
+            knows["alive"][i] = False
+        else:
+            gone = knows["alive"] & ((knows["_src"] == p["id"])
+                                     | (knows["_tgt"] == p["id"]))
+            expect(kind, counts["deleted_nodes"] == 1
+                   and counts["deleted_rels"] == int(gone.sum()),
+                   f"{counts}, {int(gone.sum())} incident", "updates")
+            knows["alive"] &= ~gone
+            person["alive"][i] = False
+        if n % WRITE_CHECK_EVERY == 0:
+            rows, r, s = timed_query(torch, vg, QUERY_GROUPED, params)
+            expect(f"after {n} writes", rows == live_oracle(
+                np, person, knows, AGE), "the grouped query disagrees "
+                "with the oracle of the mutated arrays", "updates")
+            checks.append({"writes": n, "s": s, **run_info(session, r),
+                           "version": vg.current().snapshot_version})
+    rows = pinned.cypher(QUERY_GROUPED, params).records.to_maps()
+    expect("pinned", rows == base_want, "the snapshot pinned before the "
+           "first write changed its answer", "updates")
+    final = live_oracle(np, person, knows, AGE)
+
+    # exact replays on the final snapshot; the kernel calls of one
+    recorders = query_recorders()
+    snap = vg.current()
+    rows, info, _ = pattern_runs(torch, session, snap, QUERY_GROUPED,
+                                 params, card, cold=False,
+                                 recorders=recorders)
+    expect("final", rows == final, "replays disagree with the oracle",
+           "updates")
+    expect_replays("final", info, 0, "updates")
+    check_query_launches("the final snapshot's replay",
+                         info["replay_launches"])
+    _, sites = count_syncs(torch, lambda: snap.cypher(QUERY_GROUPED,
+                                                      params))
+    expect("final", session.fused.last_mode == "replay" and not sites,
+           f"an exact replay of the final snapshot synchronized: {sites}",
+           "updates")
+    state_now = snap.state
+    out.update({
+        "checks": checks,
+        "snapshot_replay": {k: info[k] for k in (
+            "warm_s", "warm_runs_s", "warm_runs", "replay_launches")},
+        "delta_rows": vg.delta_rows(), "delta_bytes": vg.delta_nbytes(),
+        "tombstones": len(state_now.hidden_nodes)
+        + len(state_now.hidden_rels),
+        "delta_records": len(state_now.nodes) + len(state_now.rels)})
+
+    # an aborted write on the card, then its retry
+    version = vg.current().snapshot_version
+    pool = len(session.backend.pool)
+    p = {"age": 30, "city": "city_written_once"}
+    with abort_write(session, after_n_columns=1, n_times=1) as budget:
+        try:
+            vg.cypher(UPDATE_QUERIES["person"], p)
+        except RuntimeError as ex:
+            aborted = str(ex)
+        else:
+            raise RuntimeError("updates/abort: the write was not aborted")
+    expect("abort", budget.injected == 1
+           and vg.current().snapshot_version == version
+           and len(session.backend.pool) == pool,
+           "the aborted write changed the version or the string pool",
+           "updates")
+    new_id = vg._next_id
+    res = vg.cypher(UPDATE_QUERIES["person"], p)
+    expect("abort", res.metrics["snapshot_version"] == version + 1,
+           "the retry did not commit", "updates")
+    append(person, _id=new_id, age=p["age"], city=p["city"])
+    out["abort"] = {"error": aborted[:80], "retry_version": version + 1}
+
+    # compaction
+    want = live_oracle(np, person, knows, AGE)
+    before = vg.cypher(QUERY_GROUPED, params).records.to_maps()
+    t0 = time.perf_counter()
+    expect("compact", vg.compact(), "nothing to fold", "updates")
+    torch.cuda.synchronize()
+    out["compaction_s"] = time.perf_counter() - t0
+    rows, r, s = timed_query(torch, vg, QUERY_GROUPED, params)
+    expect("compact", before == want == rows and vg.delta_rows() == 0,
+           "the grouped query changed across the compaction or the delta "
+           "is not empty", "updates")
+    out["after_compaction"] = {"first_read_s": s, **run_info(session, r)}
+
+    def pct(v, q):
+        return float(np.percentile(np.asarray(v), q)) if v else None
+
+    out.update({
+        "writes": {k: {"n": len(v), "p50_s": pct(v, 50), "p99_s": pct(v, 99)}
+                   for k, v in latency.items()},
+        "first_commit": first_commit,
+        "fresh_snapshot_read_s": [c["s"] for c in checks],
+        "stable_snapshot_read_s": info["warm_s"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": ops.launches(),
+        "seconds": time.perf_counter() - t_phase,
+        "metrics": {k: v for k, v in session.metrics_snapshot().items()
+                    if k.startswith(("updates.", "compaction."))},
+        "oracle": "equal"})
+    emit(out)
+    del vg, pinned, snap
+    return ({"snapshot_replay": info["replay_launches"]},
+            {"snapshot": {r.name: r.calls for r in recorders}})
+
+
 def run_tck(torch, np, args, card: str) -> None:
     """The TCK corpus on the card, one session per feature file, under
     the CPU tests' strict list (``tck/blacklists/cuda.txt``): an
@@ -2152,6 +2623,10 @@ def main() -> int:
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)
+    run_profile(torch, np, args, card, state)
+    update_launches, update_calls = run_updates(torch, np, args, card, state)
+    launches.update(update_launches)
+    pattern_calls.update(update_calls)
     del state
     run_tck(torch, np, args, card)
     ldbc_launches, ldbc_calls = run_ldbc(torch, np, args, card)
@@ -2220,6 +2695,10 @@ def main() -> int:
             "launches_ldbc_ic12_replay": launches["ldbc_ic12"].get(name, 0),
             # one exact replay of the seeded triangle on the multiway join
             "launches_wcoj_triangle_replay": launches["wcoj_triangle"].get(
+                name, 0),
+            # one exact replay of the grouped query on the snapshot the
+            # updates phase's 500 writes left
+            "launches_snapshot_replay": launches["snapshot_replay"].get(
                 name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             # the sum over the calls of one exact replay, each timed

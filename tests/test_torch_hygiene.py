@@ -91,22 +91,35 @@ def test_expand_wrapper_rejects_non_integer_inputs(counts, lo):
     assert ops.launches() == before
 
 
-@pytest.mark.parametrize("query", [
-    # var-length patterns run; a graph built from their matches does not
-    "MATCH (a:Person)-[:KNOWS*1..2]->(b) CONSTRUCT NEW (b) RETURN GRAPH",
-    "CALL algo.pagerank() YIELD node, score RETURN node",
-    "CREATE (:Person {age: 1})",
-], ids=["construct_after_var_length", "procedure", "update"])
-def test_unported_features_raise(query):
+def _small_graph():
     s = caps_tpu_torch.local_session(device="cpu")
-    g = graph_from_numpy(
+    return graph_from_numpy(
         s, {"Person": {"_id": np.arange(3, dtype=np.int64),
                        "age": np.arange(3, dtype=np.int64)}},
         {"KNOWS": {"_id": np.arange(3, 5, dtype=np.int64),
                    "_src": np.array([0, 1], dtype=np.int64),
                    "_tgt": np.array([1, 2], dtype=np.int64)}})
+
+
+@pytest.mark.parametrize("query", [
+    # var-length patterns run; a graph built from their matches does not
+    "MATCH (a:Person)-[:KNOWS*1..2]->(b) CONSTRUCT NEW (b) RETURN GRAPH",
+    "CALL algo.pagerank() YIELD node, score RETURN node",
+], ids=["construct_after_var_length", "procedure"])
+def test_unported_features_raise(query):
     with pytest.raises(NotImplementedError, match="see ROADMAP"):
-        g.cypher(query)
+        _small_graph().cypher(query)
+
+
+def test_update_on_a_plain_graph_raises_update_error():
+    """Updates are ported: on a plain (not versioned) graph a write is
+    refused as in the JAX package, and nothing is created."""
+    from caps_tpu_torch.relational.updates import UpdateError
+    g = _small_graph()
+    with pytest.raises(UpdateError, match="versioned graph"):
+        g.cypher("CREATE (:Person {age: 1})")
+    assert g.cypher("MATCH (p:Person) RETURN count(*) AS c") \
+        .records.to_maps() == [{"c": 3}]
 
 
 def test_unported_config_flags_raise():
@@ -164,3 +177,53 @@ def test_cost_model_wcoj_and_replan_are_on_by_default():
     assert EngineConfig.UNPORTED_FLAGS == ("use_dist_join",)
     s = caps_tpu_torch.local_session(device="cpu")
     assert s.supports_wcoj
+
+
+# -- named locks --------------------------------------------------------------
+
+_LOCKGRAPH_CALLS = ("make_lock", "make_rlock", "make_condition")
+_PLAIN_LOCKS = ("Lock", "RLock", "Condition")
+
+
+def _reference_names_its_locks(port_path) -> bool:
+    ref = ROOT / "caps_tpu" / port_path.relative_to(ROOT / "caps_tpu_torch")
+    if not ref.exists():
+        return False
+    tree = ast.parse(ref.read_text(), filename=str(ref))
+    return any(isinstance(n, ast.Call) and (
+        getattr(n.func, "id", None) in _LOCKGRAPH_CALLS
+        or getattr(n.func, "attr", None) in _LOCKGRAPH_CALLS)
+        for n in ast.walk(tree))
+
+
+LOCKED_MODULES = [p for p in sorted((ROOT / "caps_tpu_torch").rglob("*.py"))
+                  if _reference_names_its_locks(p)]
+
+
+def test_lock_scan_covers_the_modules_with_locks():
+    names = {str(p.relative_to(ROOT)) for p in LOCKED_MODULES}
+    for module in ("okapi/catalog.py", "relational/plan_cache.py",
+                   "relational/shapes.py", "relational/updates.py",
+                   "obs/telemetry.py", "obs/metrics.py", "obs/tracer.py",
+                   "obs/compile.py", "obs/ledger.py", "testing/faults.py"):
+        assert f"caps_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("path", LOCKED_MODULES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_its_locks_where_the_reference_does(path):
+    """A module whose reference counterpart takes its locks from
+    ``obs/lockgraph.py`` creates no plain ``threading`` lock: every lock
+    there has the reference's name, so the lock-order graph sees it."""
+    def is_plain(node):
+        return (isinstance(node, ast.Attribute) and node.attr in _PLAIN_LOCKS
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "threading")
+
+    tree = ast.parse(path.read_text(), filename=str(path))
+    # a call, or a factory handed on (``default_factory=threading.Lock``);
+    # an annotation creates nothing
+    plain = [n.lineno for n in ast.walk(tree)
+             if (isinstance(n, ast.Call) and is_plain(n.func))
+             or (isinstance(n, ast.keyword) and is_plain(n.value))]
+    assert not plain, f"{path.relative_to(ROOT)}: plain locks at {plain}"

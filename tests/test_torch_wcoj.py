@@ -411,3 +411,23 @@ def test_exact_replay_reads_no_size(graphs):
         assert wcoj_strategy(again) == ["wcoj"]
         assert bag(again) == bag(first)
     assert bag(first) == bag(graphs[1].cypher(q, {"seed": "n3"}))
+
+
+def test_wcoj_charges_compile_kind_once_then_zero():
+    """As ``tests/test_wcoj.py``'s compile case: the first execution
+    charges the ``wcoj`` kind for its first-seen step shapes, a fused
+    replay charges nothing, and a second graph of the same shape
+    buckets charges no new ``wcoj`` shape."""
+    s = caps_tpu_torch.local_session(device="cpu")
+    g = graph_from_numpy(s, *random_graph())
+    r1 = g.cypher(TRIANGLE_ENUM)
+    kinds1 = {c["kind"] for c in r1.metrics.get("compile_charges", ())}
+    assert "wcoj" in kinds1
+    replays0 = s.fused.replays + s.fused.generic_replays
+    r2 = g.cypher(TRIANGLE_ENUM)
+    assert r2.metrics["compile_s_charged"] == 0.0
+    assert s.fused.replays + s.fused.generic_replays == replays0 + 1
+    g2 = graph_from_numpy(s, *random_graph(seed=9))
+    r3 = g2.cypher(TRIANGLE_ENUM)
+    assert [c for c in r3.metrics.get("compile_charges", ())
+            if c["kind"] == "wcoj"] == []
