@@ -39,6 +39,7 @@ from caps_tpu_torch.backends.cuda.table import (
     DeviceBackend, DeviceTable, FusedReplayMismatch,
 )
 from caps_tpu_torch.relational.ops import ENTITY_CTX_PARAM
+from caps_tpu_torch.serve.errors import CancellationError
 from caps_tpu_torch.serve.failure import TRANSIENT, classify
 
 _graph_epochs = itertools.count()
@@ -160,6 +161,9 @@ class FusedExecutor:
         self.replays = 0
         self.generic_replays = 0
         self.mismatches = 0
+        # serving micro-batches dispatched through batch() (serve/)
+        self.batches = 0
+        self.batch_members = 0
         # mode of the most recent run() — "record" | "replay" |
         # "replay_gen" | None (no key / nested)
         self.last_mode: Optional[str] = None
@@ -199,6 +203,12 @@ class FusedExecutor:
                 state["result"] = result
                 self.last_mode = state["mode"]
                 return result
+        except CancellationError:
+            # Deadline expiry / client cancel (serve/deadline.py) is not
+            # replay divergence: the recording is still sound, and a
+            # re-execution would run the query after its budget was
+            # already spent.
+            raise
         except Exception as ex:
             if state["mode"] not in ("replay", "replay_gen"):
                 # ambient/record-mode failures are genuine errors; a retry
@@ -244,6 +254,75 @@ class FusedExecutor:
             del self._memo[k]
             self._generic.pop(k[:2], None)
         return len(stale)
+
+    def export_streams(self, graph) -> Dict[str, Dict[str, Any]]:
+        """Warm-path export (relational/plan_store.py): the param-generic
+        size streams recorded for ``graph``, keyed by query text —
+        ``{query: {"pool_len": n, "entries": [...]}}``.  Only streams
+        that would replay now are returned: a pool-stale stream could
+        never replay, and a violation-disabled one is known to diverge
+        (re-installing it with a fresh count would make the warmed
+        process worse than a cold record)."""
+        gk = getattr(graph, "_fused_epoch", None)
+        out: Dict[str, Dict[str, Any]] = {}
+        if gk is None:
+            return out
+        pool_n = len(self.backend.pool)
+        for (g, query), ent in list(self._generic.items()):
+            if g != gk or ent[1] is None or ent[0] != pool_n \
+                    or ent[2] >= _GENERIC_VIOLATION_LIMIT:
+                continue
+            out[query] = {"pool_len": ent[0], "entries": list(ent[1])}
+        return out
+
+    def generic_state(self, graph, query: str) -> str:
+        """``"current"`` — the (graph, query) param-generic stream would
+        replay now; ``"stale"`` — a stream exists but the pool moved, so
+        the next execution pays a record run (what the warmup
+        convergence pass re-executes to pre-pay); ``"absent"`` — no
+        usable stream (never recorded, not fuseable, or
+        violation-disabled)."""
+        gk = getattr(graph, "_fused_epoch", None)
+        if gk is None:
+            return "absent"
+        g = self._generic.get((gk, query))
+        if g is None or g[1] is None or g[2] >= _GENERIC_VIOLATION_LIMIT:
+            return "absent"
+        return ("current" if g[0] == len(self.backend.pool)
+                else "stale")
+
+    def seed_generic(self, graph, query: str, pool_len: int,
+                     entries: List[Tuple]) -> bool:
+        """Warm-path seed (serve/warmup.py): install a persisted
+        param-generic size stream for (graph, query) so the FIRST
+        execution in this process replays instead of paying a record
+        run.  A stream learned in this process is never replaced.
+        Soundness does not rest on the store: the pool-size gate
+        (:meth:`_generic_entry`) ignores a stream recorded against
+        another string pool, and generic replay checks every served
+        size on the device — a wrong stream re-records."""
+        gk = _graph_key(graph)
+        if gk is None:
+            return False
+        gkey = (gk, query)
+        if gkey in self._generic:
+            return False
+        self._generic[gkey] = [int(pool_len), list(entries), 0]
+        while len(self._generic) > max(1, self.max_entries):
+            self._generic.pop(next(iter(self._generic)))
+        return True
+
+    @contextlib.contextmanager
+    def batch(self, n: int):
+        """Batched replay for the serving tier (serve/batcher.py): ``n``
+        compatible executions dispatched back to back as one
+        micro-batch.  Each member replays its own recorded size stream
+        with no size read, so with the rows read only after the last
+        member (the server does this) the whole batch is one
+        uninterrupted stream of launches on the card."""
+        self.batches += 1
+        self.batch_members += n
+        yield self
 
     def forget(self, graph, query: str) -> int:
         """Drop every size memo — exact and generic — recorded for

@@ -26,7 +26,7 @@ from caps_tpu_torch.relational.session import (
     RelationalCypherSession, degraded_state,
 )
 from caps_tpu_torch.relational.shapes import (
-    ShapeBucketLattice, param_shape_signature, signature_text,
+    param_shape_signature, signature_text,
 )
 from caps_tpu_torch.relational.updates import is_update_query
 
@@ -52,8 +52,9 @@ class CUDACypherSession(RelationalCypherSession):
         self.device = device
         self.backend = DeviceBackend(self.config, device)
         # one lattice: the session-level shape buckets
-        # (relational/shapes.py) ARE the device padding ladder
-        self.shape_lattice = ShapeBucketLattice(self.config.bucket_sizes)
+        # (relational/shapes.py) ARE the device padding ladder, so a seed
+        # from op_stats or the plan store adapts padding, compile-shape
+        # labels and the batch keys together
         self.backend.shapes = self.shape_lattice
         self._factory = DeviceTableFactory(self.backend)
         self.fused = FusedExecutor(self.backend,
@@ -62,6 +63,28 @@ class CUDACypherSession(RelationalCypherSession):
     @property
     def table_factory(self) -> DeviceTableFactory:
         return self._factory
+
+    def clone(self, device=None) -> "CUDACypherSession":
+        """A fresh session of the same config on this session's device,
+        or on ``device`` (a replica on another card — serve/devices.py).
+        A clone of a card session is never placed on the CPU."""
+        device = self.device if device is None else torch.device(device)
+        if self.device.type == "cuda" and device.type != "cuda":
+            raise ValueError(
+                f"a clone of a session on {self.device} must stay on a "
+                f"card, not {device}")
+        return type(self)(config=self.config, device=device)
+
+    def cypher_batch(self, graph, items, scopes=None):
+        """Serving micro-batch (relational/session.py): the members'
+        fused replays dispatch back to back under one ``fused.batch``
+        bracket — no size read per exact-replay member, and the server
+        reads the rows only after the last member, so the card's stream
+        stays busy across the whole batch."""
+        if self.config.use_fused and len(items) > 1:
+            with self.fused.batch(len(items)):
+                return super().cypher_batch(graph, items, scopes)
+        return super().cypher_batch(graph, items, scopes)
 
     def _cypher_on_graph(self, graph, query, parameters=None):
         """Route every read query through the fused executor: the first
@@ -171,6 +194,8 @@ class CUDACypherSession(RelationalCypherSession):
             "fused.replays": fused.replays,
             "fused.generic_replays": fused.generic_replays,
             "fused.mismatches": fused.mismatches,
+            "fused.batches": fused.batches,
+            "fused.batch_members": fused.batch_members,
             "fused.count_builds": self.backend.count_builds,
         })
         return snap

@@ -19,9 +19,9 @@ Design constraints:
   aggregate span (backends/cuda/session.py ``_annotate_profile``);
 * one clock — timestamps come from :mod:`caps_tpu_torch.obs.clock`.
 
-The event and slow-query logs (``obs/log.py``) and the serving half of
-``obs/telemetry.py`` come with the serving tier (ROADMAP Queue 1
-item 8).
+The serving tier (``serve/``) reads the event and slow-query logs
+(``obs/log.py``) and the windowed telemetry of ``obs/telemetry.py``
+(rolling counters and histograms, SLOs, the flight recorder).
 """
 from caps_tpu_torch.obs import clock, lockgraph
 from caps_tpu_torch.obs.compile import (CompileLedger, attributed as
@@ -33,11 +33,14 @@ from caps_tpu_torch.obs.export import (chrome_trace_events,
                                        write_chrome_trace, write_jsonl)
 from caps_tpu_torch.obs.ledger import (MemoryLedger, device_memory,
                                        snapshot_footprint)
+from caps_tpu_torch.obs.log import EventLog, SlowQueryLog
 from caps_tpu_torch.obs.metrics import (MetricsRegistry, diff_snapshots,
                                         global_registry)
 from caps_tpu_torch.obs.profile import (find_executed_rows, profile_tree,
                                         render_profile, tag_timing)
-from caps_tpu_torch.obs.telemetry import OpStatsStore
+from caps_tpu_torch.obs.telemetry import (FlightRecorder, OpStatsStore,
+                                          RollingCounter, RollingHistogram,
+                                          ServingTelemetry, SLOConfig)
 from caps_tpu_torch.obs.tracer import (NULL_SPAN, NullSpan, Span, Tracer,
                                        activate, active_tracer)
 
@@ -46,8 +49,10 @@ __all__ = [
     "activate", "active_tracer", "MetricsRegistry", "global_registry",
     "diff_snapshots", "write_jsonl", "write_chrome_trace",
     "chrome_trace_events", "profile_tree", "render_profile", "tag_timing",
-    "find_executed_rows", "OpStatsStore",
+    "find_executed_rows", "OpStatsStore", "SLOConfig", "ServingTelemetry",
+    "FlightRecorder", "RollingCounter", "RollingHistogram",
     "CompileLedger", "compile_attributed", "compile_charge",
     "compile_charged", "global_compile_ledger",
     "MemoryLedger", "device_memory", "snapshot_footprint",
+    "EventLog", "SlowQueryLog",
 ]

@@ -125,6 +125,8 @@ class MemoryLedger:
         self._lock = make_lock("ledger.MemoryLedger._lock")
         if registry is not None:
             registry.gauge("mem.plan_cache_bytes", fn=self.plan_cache_bytes)
+            registry.gauge("mem.result_cache_bytes",
+                           fn=self.result_cache_bytes)
             registry.gauge("mem.string_pool_bytes",
                            fn=self.string_pool_bytes)
             registry.gauge("mem.tracked_graph_bytes",
@@ -155,6 +157,22 @@ class MemoryLedger:
         with self._lock:
             self._graphs.pop(name, None)
 
+    def untrack_if(self, name: str, graph, owner=None) -> bool:
+        """Untrack ``owner``'s slot under ``name`` only while it still
+        refers to ``graph`` — other owners' slots (and a re-track that
+        replaced this one) are untouched."""
+        key = id(owner) if owner is not None else None
+        with self._lock:
+            slot = self._graphs.get(name)
+            if slot is not None:
+                ref = slot.get(key)
+                if ref is not None and ref() is graph:
+                    del slot[key]
+                    if not slot:
+                        del self._graphs[name]
+                    return True
+        return False
+
     def _live_graphs(self) -> Dict[str, Any]:
         with self._lock:
             slots = {name: list(slot.values())
@@ -176,6 +194,15 @@ class MemoryLedger:
             return 0
         try:
             return int(cache.stats()["bytes"])
+        except Exception:  # pragma: no cover — accounting must not fail
+            return 0
+
+    def result_cache_bytes(self) -> int:
+        cache = getattr(self._session(), "result_cache", None)
+        if cache is None:
+            return 0
+        try:
+            return int(cache.bytes)
         except Exception:  # pragma: no cover — accounting must not fail
             return 0
 
@@ -207,6 +234,7 @@ class MemoryLedger:
         devices = device_memory(self._device())
         return {
             "plan_cache_bytes": self.plan_cache_bytes(),
+            "result_cache_bytes": self.result_cache_bytes(),
             "string_pool_bytes": self.string_pool_bytes(),
             "graphs": graphs,
             "tracked_graph_bytes": sum(f["bytes"]

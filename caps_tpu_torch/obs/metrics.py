@@ -1,40 +1,69 @@
 """Metrics registry: counters, gauges, histograms.
 
 The counterpart of ``caps_tpu/obs/metrics.py``: the session's named
-counters (``cost.*``, ``wcoj.*``, ``replan.*``, ``stats.*``,
-``opstats.*``, ``updates.*``, ``compaction.*``, ``compile.*``), its
-gauges (``mem.*``) and its per-phase histograms, behind one snapshot API
-(``session.metrics_snapshot()``).
+counters (``plan_cache.*``, ``cost.*``, ``wcoj.*``, ``replan.*``,
+``stats.*``, ``opstats.*``, ``updates.*``, ``compaction.*``,
+``compile.*``, ``serve.*``), its gauges (``mem.*``, ``telemetry.*``,
+``slo.*``) and its histograms, behind one snapshot API
+(``session.metrics_snapshot()``) and the Prometheus text exposition
+(:meth:`MetricsRegistry.expose_text`).
 
 Two scopes:
 
-* each session owns a :class:`MetricsRegistry`;
+* each session owns a :class:`MetricsRegistry` (its plan cache routes
+  hits/misses/evictions/invalidations through it);
 * one process-global registry (:func:`global_registry`) collects
-  instrumentation that has no session handle (compile charges made
-  outside any query).
+  instrumentation that has no session handle (the fault injectors'
+  ``faults.injected.*``).
 
 Snapshots are flat ``{name: number}`` dicts; :func:`diff_snapshots`
 subtracts two of them so callers measure an interval without
 hand-rolling before/after counters.
 
 All instruments are thread-safe (fine-grained per-instrument locks,
-plus a registry lock for get-or-create).
+plus a registry lock for get-or-create): the serving tier
+(``serve/``) updates them from many threads at once.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+import re
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
 from caps_tpu_torch.obs.lockgraph import make_lock
 
 Number = Union[int, float]
 
+_EXPO_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _expo_name(name: str) -> str:
+    """A dotted registry name as a Prometheus metric name: the exposition
+    grammar allows ``[a-zA-Z_:][a-zA-Z0-9_:]*``, so dots (and anything
+    else) become underscores and a leading digit gets prefixed."""
+    n = _EXPO_BAD.sub("_", name)
+    if n and n[0].isdigit():
+        n = "_" + n
+    return n or "_"
+
+
+def _expo_num(v: Number) -> str:
+    """A sample value in exposition syntax (Go-style float parsing on the
+    scrape side accepts plain ints, decimals, and scientific notation)."""
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    return repr(float(v))
+
+
 class Counter:
     """Monotonically increasing value (int or float — ``saved_s``-style
     second counters are floats).
 
-    Thread-safe: ``inc`` is a read-modify-write, and a naked ``+=``
-    loses updates under thread switches, so each counter carries its
-    own lock (fine-grained: hot counters never contend with each
+    Thread-safe: ``inc`` is a read-modify-write, and serving threads
+    (serve/) increment shared counters concurrently — a naked
+    ``+=`` loses updates under thread switches, so each counter carries
+    its own lock (fine-grained: hot counters never contend with each
     other)."""
 
     __slots__ = ("name", "value", "_lock")
@@ -120,11 +149,17 @@ class Histogram:
                 out["mean"] = self.sum / self.count
             return out
 
+    def raw(self):
+        """``(bounds, per-bucket counts copy, count, sum)`` read under
+        the lock — the Prometheus exposition path's consistent view."""
+        with self._lock:
+            return self.buckets, list(self.counts), self.count, self.sum
+
 
 class MetricsRegistry:
     """Name → instrument map with get-or-create accessors.
 
-    Names are dotted (``plan_cache.hits``, ``updates.commits``);
+    Names are dotted (``plan_cache.hits``, ``collectives.ppermute.calls``);
     ``snapshot()`` flattens everything into one dict (histograms expand
     to ``name.count`` / ``name.sum`` / ...)."""
 
@@ -188,6 +223,51 @@ class MetricsRegistry:
                 out[f"{name}.{k}"] = v
         return out
 
+    def expose_text(self, extra: Optional[Mapping[str, Number]] = None
+                    ) -> str:
+        """The whole registry in Prometheus text exposition format
+        (version 0.0.4): counters and gauges as single samples,
+        histograms as cumulative ``_bucket{le=...}`` series plus
+        ``_sum``/``_count``.  Dotted names sanitize to underscore form
+        (``serve.completed`` → ``serve_completed``).  ``extra`` renders
+        additional ``{name: value}`` pairs as gauges — the serving
+        tier's windowed values ride this when they are not already
+        registered as live-callback gauges."""
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            histograms = sorted(self._histograms.items())
+        lines = []
+        for name, c in counters:
+            n = _expo_name(name)
+            lines.append(f"# TYPE {n} counter")
+            lines.append(f"{n} {_expo_num(c.value)}")
+        for name, g in gauges:
+            n = _expo_name(name)
+            v = g.value
+            if not isinstance(v, (int, float)) or isinstance(v, bool):
+                continue  # a callback gauge may surface non-numerics
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {_expo_num(v)}")
+        for name, h in histograms:
+            n = _expo_name(name)
+            bounds, counts, count, total = h.raw()
+            lines.append(f"# TYPE {n} histogram")
+            cum = 0
+            for le, cnt in zip(bounds, counts):
+                cum += cnt
+                lines.append(f'{n}_bucket{{le="{_expo_num(le)}"}} {cum}')
+            lines.append(f'{n}_bucket{{le="+Inf"}} {count}')
+            lines.append(f"{n}_sum {_expo_num(total)}")
+            lines.append(f"{n}_count {count}")
+        for name, v in sorted((extra or {}).items()):
+            if not isinstance(v, (int, float)) or isinstance(v, bool):
+                continue
+            n = _expo_name(name)
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {_expo_num(v)}")
+        return "\n".join(lines) + "\n"
+
     def clear(self) -> None:
         with self._lock:
             self._counters.clear()
@@ -216,4 +296,24 @@ def diff_snapshots(before: Dict[str, Any],
             out[k] = v - b
         else:
             out[k] = v
+    return out
+
+
+def merge_snapshots(snaps: Sequence[Dict[str, Any]]) -> Dict[str, Number]:
+    """Sum numeric keys across per-process snapshots — the fleet-wide
+    aggregation behind one Prometheus scrape (serve/router.py
+    ``metrics_text``).  Counters and gauges add; non-numeric values are
+    dropped (per-process detail stays on the per-process scrape)."""
+    out: Dict[str, Number] = {}
+    for snap in snaps:
+        for k, v in snap.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            out[k] = out.get(k, 0) + v
+    if "rescache.hit_ratio" in out:
+        # ratios don't sum: recompute the fleet-wide result-cache hit
+        # ratio from the summed hit/miss counters
+        h = out.get("rescache.hits", 0)
+        m = out.get("rescache.misses", 0)
+        out["rescache.hit_ratio"] = (h / (h + m)) if (h + m) else 0.0
     return out

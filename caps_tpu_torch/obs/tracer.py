@@ -28,6 +28,30 @@ from typing import Any, Dict, Iterator, List, Optional
 from caps_tpu_torch.obs import clock
 from caps_tpu_torch.obs.lockgraph import make_lock
 
+#: Optional provider of the executing device/replica index.  The serving
+#: tier installs ``serve.devices.executing_device_index`` here (obs/ must
+#: never import serve/, so the dependency is inverted): spans and events
+#: opened inside a replica's execution bracket then carry a ``device``
+#: attr, and the chrome exporter lays multi-replica traces on parallel
+#: ``pid`` lanes (obs/export.py).  None (the default) costs nothing.
+_device_index_provider = None
+
+
+def set_device_index_provider(fn) -> None:
+    """Install (or clear, with None) the thread-scoped device-index
+    provider consulted when spans open."""
+    global _device_index_provider
+    _device_index_provider = fn
+
+
+def _stamp_device(attrs: Dict[str, Any]) -> None:
+    provider = _device_index_provider
+    if provider is not None and "device" not in attrs:
+        idx = provider()
+        if idx is not None:
+            attrs["device"] = idx
+
+
 @dataclasses.dataclass
 class Span:
     """One timed region.  ``t0`` is on the :mod:`caps_tpu_torch.obs.clock`
@@ -159,6 +183,7 @@ class Tracer:
         """Open a span; use as a context manager.  Disabled → NULL_SPAN."""
         if not self.enabled:
             return NULL_SPAN
+        _stamp_device(attrs)
         return _SpanCtx(self, Span(name=name, kind=kind, attrs=attrs))
 
     def event(self, name: str, kind: str = "event", **attrs) -> None:
@@ -166,6 +191,7 @@ class Tracer:
         fired, a cache evicted)."""
         if not self.enabled:
             return
+        _stamp_device(attrs)
         sp = Span(name=name, kind=kind, t0=clock.now(), attrs=attrs)
         rows = attrs.pop("rows", None)
         nbytes = attrs.pop("bytes", None)

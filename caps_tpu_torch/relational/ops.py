@@ -25,6 +25,8 @@ from caps_tpu_torch.okapi.types import (
 )
 from caps_tpu_torch.relational.header import HeaderError, RecordHeader
 from caps_tpu_torch.relational.table import AggSpec, Table
+from caps_tpu_torch.serve.deadline import checkpoint as _cancel_checkpoint
+from caps_tpu_torch.serve.errors import CancellationError as _CancellationError
 
 
 ENTITY_CTX_PARAM = "__entity_ctx__"
@@ -196,6 +198,11 @@ class RelationalOperator(abc.ABC):
     @property
     def result(self) -> Tuple[RecordHeader, Table]:
         if self._result is None:
+            # Cooperative cancel/deadline boundary (serve/deadline.py): a
+            # served request with an expired budget stops HERE, before
+            # the next operator computes — one thread-local read when no
+            # scope is installed, and no synchronizing call
+            _cancel_checkpoint("execute")
             name = type(self).__name__.removesuffix("Op")
             tracer = self.context.tracer
             traced = tracer is not None and tracer.enabled
@@ -213,6 +220,8 @@ class RelationalOperator(abc.ABC):
                 with prof_range:
                     try:
                         self._result = self._compute()
+                    except _CancellationError:
+                        raise  # budget expiry, not an operator failure
                     except Exception as ex:
                         # only the op that ACTUALLY failed reports; the
                         # ancestors it unwinds through (parents evaluate
@@ -281,7 +290,8 @@ class RelationalOperator(abc.ABC):
                                None)
             if registry is not None:
                 registry.counter("ops.errors").inc()
-            ex.caps_failed_op = name
+            if getattr(ex, "caps_failed_op", None) is None:
+                ex.caps_failed_op = name
         except Exception:  # pragma: no cover — telemetry must not mask
             pass
 

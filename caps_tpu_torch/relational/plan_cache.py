@@ -297,10 +297,17 @@ class PlanCache:
     not per-key: each plan carries the dep tokens of the catalog graphs
     it resolved (``catalog_deps``), revalidated on lookup — so a catalog
     mutation invalidates exactly its dependents.  LRU order and the size
-    cap count individual plans.  The counters are plain attributes read
-    together by :meth:`stats`."""
+    cap count individual plans.
 
-    def __init__(self, max_size: int = 256, enabled: bool = True):
+    Counters live in a :class:`caps_tpu_torch.obs.metrics.MetricsRegistry`
+    (the session passes its own) under ``plan_cache.*``, so they show up
+    in ``session.metrics_snapshot()`` beside every other stat;
+    :meth:`stats` and the attribute reads (``.hits`` etc.) read the same
+    counters."""
+
+    def __init__(self, max_size: int = 256, enabled: bool = True,
+                 registry=None):
+        from caps_tpu_torch.obs.metrics import MetricsRegistry
         self.max_size = max(1, int(max_size))
         self.enabled = enabled
         self._entries: "OrderedDict[Tuple, List[CachedPlan]]" = OrderedDict()
@@ -310,15 +317,42 @@ class PlanCache:
         # eviction all mutate the OrderedDict and may run on different
         # threads.
         self._lock = make_rlock("plan_cache.PlanCache._lock")
-        self.hits = 0
-        self.misses = 0
-        self.evictions = 0
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._hits = self.metrics.counter("plan_cache.hits")
+        self._misses = self.metrics.counter("plan_cache.misses")
+        self._evictions = self.metrics.counter("plan_cache.evictions")
         # catalog-driven evictions (CATALOG CREATE/DROP, store/delete)
-        self.invalidations = 0
+        self._invalidations = self.metrics.counter("plan_cache.invalidations")
+        # plans retired by evict_family (the re-plan loop) and by
+        # quarantine (the serving tier's failure containment)
+        self._quarantined = self.metrics.counter("plan_cache.quarantined")
         # cold-phase seconds skipped by hits
-        self.saved_s = 0.0
-        # plans retired by evict_family (the re-plan loop)
-        self.quarantined = 0
+        self._saved_s = self.metrics.counter("plan_cache.saved_s")
+        self.metrics.gauge("plan_cache.entries", fn=lambda: self._count)
+
+    @property
+    def hits(self) -> int:
+        return self._hits.value
+
+    @property
+    def misses(self) -> int:
+        return self._misses.value
+
+    @property
+    def evictions(self) -> int:
+        return self._evictions.value
+
+    @property
+    def invalidations(self) -> int:
+        return self._invalidations.value
+
+    @property
+    def saved_s(self) -> float:
+        return self._saved_s.value
+
+    @property
+    def quarantined(self) -> int:
+        return self._quarantined.value
 
     def lookup(self, key: Tuple, params: Mapping[str, Any],
                catalog=None) -> Optional[CachedPlan]:
@@ -334,7 +368,7 @@ class PlanCache:
                         # this plan, the caller replans
                         plans.remove(plan)
                         self._count -= 1
-                        self.invalidations += 1
+                        self._invalidations.inc()
                         continue
                     if not plan.spec_key:
                         match = True
@@ -343,12 +377,12 @@ class PlanCache:
                             plan.spec_key, params) == plan.spec_key
                     if match:
                         self._entries.move_to_end(key)
-                        self.hits += 1
-                        self.saved_s += plan.cold_phase_s
+                        self._hits.inc()
+                        self._saved_s.inc(plan.cold_phase_s)
                         return plan
                 if not plans:
                     del self._entries[key]
-            self.misses += 1
+            self._misses.inc()
         return None
 
     def store(self, key: Tuple, plan: CachedPlan) -> None:
@@ -367,7 +401,20 @@ class PlanCache:
             while self._count > self.max_size and self._entries:
                 _, dropped = self._entries.popitem(last=False)
                 self._count -= len(dropped)
-                self.evictions += len(dropped)
+                self._evictions.inc(len(dropped))
+
+    def quarantine(self, key: Tuple) -> int:
+        """Failure containment (serve/): evict every plan under ``key``
+        because executions of it keep failing — a poisoned entry would
+        otherwise fail every later hit on its key.  Returns the number
+        of plans dropped; the next execution re-plans from scratch."""
+        with self._lock:
+            plans = self._entries.pop(key, None)
+            if not plans:
+                return 0
+            self._count -= len(plans)
+            self._quarantined.inc(len(plans))
+            return len(plans)
 
     def evict_family(self, family: str) -> List[CachedPlan]:
         """Divergence-triggered retirement (relational/session.py
@@ -382,7 +429,7 @@ class PlanCache:
             for k in [k for k in self._entries if k[0] == family]:
                 plans = self._entries.pop(k)
                 self._count -= len(plans)
-                self.quarantined += len(plans)
+                self._quarantined.inc(len(plans))
                 dropped.extend(plans)
         return dropped
 
@@ -403,7 +450,7 @@ class PlanCache:
                                  or any(q == qgn for q, _tok in deps)):
                         plans.remove(plan)
                         self._count -= 1
-                        self.invalidations += 1
+                        self._invalidations.inc()
                         dropped += 1
                 if not plans:
                     del self._entries[k]
@@ -420,8 +467,18 @@ class PlanCache:
             for k in [k for k in self._entries if k[1] == graph_token]:
                 n += len(self._entries.pop(k))
             self._count -= n
-            self.invalidations += n
+            if n:
+                self._invalidations.inc(n)
             return n
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._count = 0
+
+    @property
+    def size(self) -> int:
+        return self._count
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -407,7 +407,8 @@ class RelationalPlanner:
             self.current_graph = self.graph_resolver(op.qgn)
             return planned
         if isinstance(op, (L.ConstructGraph, L.ReturnGraph)):
-            raise not_ported("CONSTRUCT / RETURN GRAPH")
+            from caps_tpu_torch.relational.construct import plan_construct
+            return plan_construct(self, op)
         if isinstance(op, L.EmptyRecords):
             return R.StartOp(ctx)
         if isinstance(op, L.ProcedureCall):

@@ -11,16 +11,24 @@ observed-statistics store (obs/telemetry.py), and a family whose rows
 keep diverging from the model's estimates re-plans (``_maybe_replan``).
 Queries run under the session tracer (phase and operator spans, EXPLAIN
 and PROFILE — obs/), and CREATE / SET / DELETE commit through a
-versioned graph (relational/updates.py).  The deadline checkpoints of
-the JAX package come with the serving tier (ROADMAP).
+versioned graph (relational/updates.py).  A served request's deadline
+is checked at the phase boundaries (``serve/deadline.py checkpoint``):
+after parse, after planning, at every operator, after execution; the
+checks read the host clock only, so kernels a request already queued on
+the card still run after it is cancelled.  The serving tier's hooks are
+here too: ``clone`` (a replica session), ``cypher_batch`` (a
+micro-batch), the snapshot-keyed result cache's read sites, and the
+warm-path bindings the plan store persists.
 """
 from __future__ import annotations
 
 import abc
 import contextlib
 import hashlib
+import json
 import logging
 import threading
+from collections import OrderedDict
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 logger = logging.getLogger("caps_tpu_torch")
@@ -54,11 +62,13 @@ from caps_tpu_torch.relational.plan_cache import (
     graph_plan_token, param_signature, reset_plan,
 )
 from caps_tpu_torch.relational.planner import RelationalPlanner
+from caps_tpu_torch.relational.shapes import ShapeBucketLattice
 from caps_tpu_torch.relational.table import Table, TableFactory
 from caps_tpu_torch.relational.updates import (
     UpdateError, VersionedGraph, describe_plan, is_update_query,
     is_update_statement, plan_update, stage_rows,
 )
+from caps_tpu_torch.serve.deadline import cancel_scope, checkpoint
 
 
 class NondeterministicResultError(RuntimeError):
@@ -364,7 +374,14 @@ class RelationalCypherSession(CypherSession):
         # Prepared-statement plan cache (relational/plan_cache.py): keyed
         # value-independently; catalog mutations evict dependent entries.
         self.plan_cache = PlanCache(self.config.plan_cache_size,
-                                    enabled=self.config.use_plan_cache)
+                                    enabled=self.config.use_plan_cache,
+                                    registry=self.metrics_registry)
+        # Snapshot-keyed result cache (relational/result_cache.py):
+        # attached by the serving tier (ServerConfig.result_cache), which
+        # reads and fills it at admission and completion; None means
+        # every read runs on the device.  It holds host rows only, and
+        # exists before the memory ledger registers its gauge over it.
+        self.result_cache = None
         # Memory ledger (obs/ledger.py): live mem.* gauges over the plan
         # cache, string pool, tracked graphs and the card's allocator.
         self.memory_ledger = obs.MemoryLedger(
@@ -377,6 +394,23 @@ class RelationalCypherSession(CypherSession):
         # per-thread recorder of catalog graphs resolved while planning
         # (they become the cached plan's catalog_deps)
         self._deps_tls = threading.local()
+        # Shape-bucket lattice (relational/shapes.py): device backends
+        # adopt it as their padding ladder; ``seed_shape_buckets()`` folds
+        # observed op_stats sizes in, and the plan store
+        # (relational/plan_store.py) carries the boundaries across
+        # processes.
+        self.shape_lattice = ShapeBucketLattice(
+            self.config.bucket_sizes, registry=self.metrics_registry)
+        # Warm-path binding recorder: the JSON-able parameter bindings
+        # that crossed a compile boundary, per plan family, recorded on
+        # the cold path only.  The plan store persists them so a fresh
+        # process's warmup (serve/warmup.py) runs each hot family with a
+        # binding of the right shape.
+        from caps_tpu_torch.obs.lockgraph import make_lock
+        self._warm_bindings: "OrderedDict[str, Tuple[str, List, set]]" = \
+            OrderedDict()
+        self._warm_bindings_lock = make_lock("session._warm_bindings_lock")
+        self._warm_bindings_cap = 128
 
     def _evict_catalog_dependents(self, qgn) -> None:
         """Drop the cached state of every query that resolved the
@@ -401,6 +435,15 @@ class RelationalCypherSession(CypherSession):
                parameters: Optional[Mapping[str, Any]] = None) -> CypherResult:
         return self.cypher_on_graph(self._ambient, query, parameters)
 
+    def clone(self) -> "RelationalCypherSession":
+        """A fresh session of the same class and config — the serving
+        tier's per-device replica seam (serve/devices.py): the clone owns
+        its own plan cache, catalog, metrics registry, and (on device
+        backends) string pool and fused memos.  Nothing cached is shared
+        with this session, so one replica's quarantine never leaks into
+        another's.  Device backends keep the clone on their device."""
+        return type(self)(config=self.config)
+
     def prepare(self, query: str,
                 graph: Optional[RelationalCypherGraph] = None) -> PreparedQuery:
         """Prepare a query for repeated execution: parses (and validates)
@@ -408,6 +451,34 @@ class RelationalCypherSession(CypherSession):
         from the session plan cache — the steady state skips
         parse/IR/logical/relational planning entirely."""
         return PreparedQuery(self, query, graph)
+
+    def cypher_batch(self, graph: RelationalCypherGraph,
+                     items: List[Tuple[str, Mapping[str, Any]]],
+                     scopes: Optional[List] = None) -> List[Any]:
+        """Micro-batched execution (the serving tier's hot path —
+        serve/batcher.py): ``items`` is a list of ``(query, params)``
+        pairs of one plan-cache key family, run back to back as ONE
+        batch under a single tracer span; after the first member every
+        later one re-binds the same cached plan.
+
+        Returns a list aligned with ``items``; each element is the
+        member's CypherResult *or the exception it raised* — one
+        member's deadline expiry must not fail the rest of the batch.
+        ``scopes`` optionally installs a per-member
+        :class:`~caps_tpu_torch.serve.deadline.CancelScope`."""
+        out: List[Any] = []
+        with self._observed(), self.tracer.span("batch", kind="query",
+                                                n=len(items)):
+            for i, (query, params) in enumerate(items):
+                scope = scopes[i] if scopes is not None else None
+                try:
+                    with cancel_scope(scope):
+                        out.append(self.cypher_on_graph(graph, query,
+                                                        params))
+                except Exception as ex:
+                    out.append(ex)
+        self.metrics_registry.observe("session.batch_size", len(items))
+        return out
 
     def cypher_degraded(self, graph: RelationalCypherGraph, query: str,
                         parameters: Optional[Mapping[str, Any]] = None, *,
@@ -460,6 +531,12 @@ class RelationalCypherSession(CypherSession):
                         f"query produced different results on replay "
                         f"({d1[:12]} vs {d2[:12]}): {query!r}")
                 result.metrics["determinism_digest"] = d1
+        if charges:
+            # a binding that crossed a compile boundary (a cold plan, a
+            # fused record, a count-closure build) is one the warmup
+            # must cover: record it for the plan store
+            self._note_warm_binding(normalize_query(query), query,
+                                    dict(parameters or {}))
         self._stamp_compile_charges(result, charges)
         return result
 
@@ -659,6 +736,53 @@ class RelationalCypherSession(CypherSession):
             raise ValueError(f"unknown trace format {fmt!r}")
         return path
 
+    # -- warm path (serve/warmup.py + relational/plan_store.py) --------------
+
+    #: distinct compile-charging bindings kept per family — enough to
+    #: cover a per-value compile cache's rotation (the count-pushdown
+    #: closures) without letting ad-hoc values grow the store
+    _WARM_BINDINGS_PER_FAMILY = 4
+
+    def _note_warm_binding(self, family: str, query: str,
+                           params: Mapping[str, Any]) -> None:
+        """Record a compile-charging binding for the family — only when
+        the values are JSON-able (the store is plain JSON; anything else
+        is skipped, and warmup then cannot cover that binding).
+        Distinct bindings are kept up to a small per-family cap."""
+        try:
+            token = json.dumps(dict(params), sort_keys=True)
+            clean = json.loads(token)
+        except (TypeError, ValueError):
+            return
+        with self._warm_bindings_lock:
+            ent = self._warm_bindings.pop(family, None)
+            if ent is None:
+                ent = (query, [], set())
+            q, bindings, tokens = ent
+            if token not in tokens and \
+                    len(bindings) < self._WARM_BINDINGS_PER_FAMILY:
+                tokens.add(token)
+                bindings.append(clean)
+            self._warm_bindings[family] = (q, bindings, tokens)
+            while len(self._warm_bindings) > self._warm_bindings_cap:
+                self._warm_bindings.popitem(last=False)
+
+    def warmup_bindings(self) -> List[Dict[str, Any]]:
+        """Per hot plan family: the original query text and every kept
+        compile-charging binding — the plan store's family entries
+        (``relational/plan_store.py collect_warm_state``)."""
+        with self._warm_bindings_lock:
+            return [{"family": fam, "query": q,
+                     "params": dict(bs[0]) if bs else {},
+                     "bindings": [dict(b) for b in bs]}
+                    for fam, (q, bs, _toks) in self._warm_bindings.items()]
+
+    def seed_shape_buckets(self) -> int:
+        """Fold observed operator-launch sizes (``op_stats`` actual max
+        rows) into the session's shape-bucket lattice.  Returns how many
+        boundaries were added."""
+        return self.shape_lattice.seed_from_op_stats(self.op_stats)
+
     # -- execution -------------------------------------------------------------
 
     def _plan_cache_key(self, graph: RelationalCypherGraph, query: str,
@@ -696,6 +820,7 @@ class RelationalCypherSession(CypherSession):
         plan_params = PlanParams(params)
         with tracer.span("parse", kind="phase"):
             stmt = parse_query(query)
+        checkpoint("parse")
         if is_update_statement(stmt):
             # the write path: read on the current snapshot, stage,
             # commit atomically (relational/updates.py)
@@ -716,6 +841,7 @@ class RelationalCypherSession(CypherSession):
             logical, context, rel_planner, root, t3 = self._plan_ir(
                 graph, ir, plan_params, params, family=family)
         t4 = clock.now()
+        checkpoint("plan")
         # Compile ledger (obs/compile.py): the cold plan phase is a
         # compile boundary — a cache hit never pays it again, and a
         # re-plan of the same (family, signature) counts as a
@@ -750,6 +876,7 @@ class RelationalCypherSession(CypherSession):
                 records = RelationalCypherRecords(
                     self, header, table, logical.result_fields,
                     graph=rel_planner.current_graph)
+        checkpoint("execute")
         t5 = clock.now()
 
         metrics = {
@@ -828,9 +955,11 @@ class RelationalCypherSession(CypherSession):
             finally:
                 # the records object owns (header, table) now; the parked
                 # tree must not pin device buffers until its next
-                # execution — including when a run failed mid-tree with
-                # partial operator memos already computed
+                # execution — including when a deadline or a failure
+                # stopped the run mid-tree with partial operator memos
+                # already computed
                 reset_plan(plan.root)
+        checkpoint("execute")
         t2 = clock.now()
         self._print_plans(plan.plans)
         metrics = {
@@ -940,9 +1069,11 @@ class RelationalCypherSession(CypherSession):
         if plan.read_ast is not None:
             rows = self._execute_read_ast(snap, plan.read_ast, params)
         t2 = clock.now()
+        checkpoint("execute")
         staged = stage_rows(plan, rows, params)
         with self.tracer.span("apply", kind="phase"):
             info = graph.apply(staged)
+        checkpoint("execute")
         t3 = clock.now()
         metrics = {
             "parse_s": t1 - t0, "read_s": t2 - t1, "apply_s": t3 - t2,
@@ -969,6 +1100,7 @@ class RelationalCypherSession(CypherSession):
                        plan_params).process(read_ast)
         logical, _context, rel_planner, root, _t3 = self._plan_ir(
             graph, ir, plan_params, params)
+        checkpoint("plan")
         with self.tracer.span("execute", kind="phase", update_read=True):
             header, table = root.result
             records = RelationalCypherRecords(

@@ -42,12 +42,17 @@ class ShapeBucketLattice:
     by ``max_buckets``."""
 
     def __init__(self, buckets: Optional[Iterable[int]] = None,
-                 max_buckets: int = 64):
+                 max_buckets: int = 64, registry=None):
         base = tuple(buckets) if buckets else DEFAULT_BUCKETS
         self.max_buckets = max(len(base), int(max_buckets))
         self._buckets: Tuple[int, ...] = tuple(sorted(
             {max(1, int(b)) for b in base}))
         self._lock = make_lock("shapes.ShapeBucketLattice._lock")
+        self._seeded_c = (registry.counter("bucket.seeded")
+                          if registry is not None else None)
+        if registry is not None:
+            registry.gauge("bucket.boundaries",
+                           fn=lambda: len(self._buckets))
 
     def bucket(self, n: int) -> int:
         n = int(n)
@@ -83,7 +88,19 @@ class ShapeBucketLattice:
                 added += 1
             if added:
                 self._buckets = tuple(sorted(have))
+        if added and self._seeded_c is not None:
+            self._seeded_c.inc(added)
         return added
+
+    def seed_from_op_stats(self, op_stats) -> int:
+        """Seed from the observed-statistics store (obs/telemetry.py):
+        each (plan family, operator)'s actual max row count becomes a
+        candidate boundary — the sizes real traffic launches at."""
+        sizes = []
+        for ops in op_stats.stats().values():
+            for st in ops.values():
+                sizes.append(int(st.get("rows_max") or 0))
+        return self.seed(sizes)
 
 
 # -- parameter shape signatures ----------------------------------------------

@@ -505,6 +505,18 @@ class GraphSnapshot(RelationalCypherGraph):
                     pass
         return n
 
+    # -- replication (serve/devices.py) --------------------------------
+
+    def rebase(self, session, base_copy: ScanGraph) -> "GraphSnapshot":
+        """This snapshot's overlay re-anchored on another session's copy
+        of the base (replica serving): the host-level delta state is
+        device-independent, so only the small delta tables rebuild
+        through the target session's factory — the base is copied once
+        per replica and shared by every snapshot of the lineage."""
+        delta = build_delta_graph(session, self.state)
+        return GraphSnapshot(session, base_copy, delta, self.state,
+                             self.snapshot_version, handle=None)
+
 
 def build_delta_graph(session, state: DeltaState) -> Optional[ScanGraph]:
     """Materialize a delta state's appended records as a (small)
@@ -763,6 +775,7 @@ class VersionedGraph(RelationalCypherGraph):
                 raise
             new_snap = GraphSnapshot(self._session, snap.base, delta_graph,
                                      state, version, handle=self)
+            self._retire_superseded_results(version)
             if on_install is not None:
                 on_install(new_snap)
             self._current = new_snap
@@ -775,12 +788,24 @@ class VersionedGraph(RelationalCypherGraph):
         """Scoped eviction: only plans anchored on the superseded
         snapshot's token drop — an unrelated graph's cached plans (and
         other sessions' caches) are untouched.  Zero catalog fanout."""
+        self._retire_superseded_results(self._current.snapshot_version)
         tok = getattr(old_snap, "_plan_token", None)
         if tok is None:
             return  # never anchored a plan: nothing to evict
         cache = getattr(self._session, "plan_cache", None)
         if cache is not None:
             cache.evict_graph(tok)
+
+    def _retire_superseded_results(self, live_version: int) -> None:
+        """Result-cache retirement (relational/result_cache.py): drop
+        every cached result and intermediate of this lineage whose
+        version predates ``live_version`` — a dead version can never be
+        read again (readers resolve ``current()`` at admission).  A new
+        version never invalidates: its keys are new."""
+        rcache = getattr(self._session, "result_cache", None)
+        if rcache is not None:
+            rcache.retire_superseded(
+                getattr(self, "_rescache_scope", None), live_version)
 
     # -- compaction ----------------------------------------------------
 

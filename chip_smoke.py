@@ -86,11 +86,35 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 latency by kind, the first commit, fresh and stable
                 snapshot reads, delta rows and bytes, tombstones,
                 compaction seconds, peak bytes and launches;
- 10. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 10. construct — CONSTRUCT / RETURN GRAPH on the slice's graph, stored
+                as ``session.base``: a new graph of the seeds' clones and
+                one ``:MET`` per ``:KNOWS`` edge out of them (its grouped
+                query against numpy, its minted ids disjoint from the
+                base's), the same edges ON the base (a union: the grouped
+                2-hop query gives the base's answer), and the overlay
+                (SET on the base's persons: the grouped query at age +
+                100 gives the base's answer); each CONSTRUCT's seconds
+                split into the driving MATCH, the entity build and the
+                table build, warm latencies, peak bytes and launches;
+ 11. serve    — ``QueryServer`` on the card over the slice's graph: 8
+                closed-loop clients send 2,000 requests (80 % the grouped
+                query, 20 % its ``count(*)`` form on count pushdown,
+                ``$age`` over the warm phase's rotating ages), each equal
+                to its oracle, against the same requests from one thread;
+                latency and queue-wait percentiles, batch sizes, size
+                reads and launches a request, the card's idle share over
+                2 s of load; one ``cypher_batch`` of 8 exact replays with
+                no size read and no synchronizing call; the result cache;
+                an overload burst (``Overloaded`` with a retry hint); a
+                deadline expiring in the execute phase; a server warmed
+                from the first one's plan store against a cold one; and
+                failover between two replicas on the card (each on its
+                own stream) under ``device_loss(0)``;
+ 12. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 11. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 13. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -98,18 +122,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 12. plan     — bench config 9 at its TPU size: the five query families
+ 14. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 13. selftest — the seconds each kernel family's self-test took, and a
+ 15. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 14. kernels  — each kernel wrapper against its plain PyTorch version on
+ 16. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
                 unwind queries, the multiway joins, the final snapshot
-                of the updates phase and IC12) and at edge
+                of the updates phase, IC12 and a served batch) and at edge
                 shapes (the segment
                 kernel: bit for bit, NaN and signed zeros included, and
                 two calls bitwise equal), with the median time of 20 launches (CUDA
@@ -118,7 +142,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 15. the ``{"kernels": [...]}`` line, the card line, and the last line
+ 17. the ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -251,6 +275,30 @@ UPDATE_QUERIES = {
     "delete_rel": "MATCH ()-[r:KNOWS]->() WHERE id(r) = $id DELETE r",
     "detach": "MATCH (a:Person) WHERE id(a) = $id DETACH DELETE a",
 }
+# The construct phase: CONSTRUCT / RETURN GRAPH on the slice's graph,
+# stored in the catalog as ``session.base``.
+CONSTRUCT_MET = (
+    "CATALOG CREATE GRAPH session.met { MATCH (a:Person)-[:KNOWS]->"
+    "(b:Person) WHERE a.age = $age CONSTRUCT CLONE a, b "
+    "NEW (a)-[:MET {w: b.age}]->(b) RETURN GRAPH }")
+CONSTRUCT_UNION = (
+    "CATALOG CREATE GRAPH session.union { MATCH (a:Person)-[:KNOWS]->"
+    "(b:Person) WHERE a.age = $age CONSTRUCT ON session.base "
+    "NEW (a)-[:MET {w: b.age}]->(b) RETURN GRAPH }")
+CONSTRUCT_OVERLAY = (
+    "CATALOG CREATE GRAPH session.older { MATCH (a:Person) "
+    "WHERE a.age = $age CONSTRUCT ON session.base CLONE a "
+    "SET a.age = a.age + 100 RETURN GRAPH }")
+QUERY_MET = ("MATCH (a)-[m:MET]->(b) RETURN b.city AS city, count(*) AS n, "
+             "sum(m.w) AS w ORDER BY n DESC, city LIMIT 20")
+QUERY_MET_COUNT = "MATCH ()-[m:MET]->() RETURN count(*) AS c"
+# The serve phase: closed-loop clients, the requests each sends, every
+# request's deadline, and the requests sent while replica 0 is lost.
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 2000
+SERVE_DEADLINE_S = 10.0
+SERVE_FAILOVER_REQUESTS = 200
+SERVE_PROFILED = 400   # requests of the run the profiler watches for 2 s
 # the kernel wrappers a query calls, each with the size its Recorder
 # keeps the largest call by
 QUERY_KERNELS = (("segment", "dense_segment_agg_cuda",
@@ -356,9 +404,12 @@ def hop_counts(np, nodes, rels, seeds):
     return hop1, hop2
 
 
-def top_cities(np, nodes, per_node):
-    """``per_node`` summed by city: the top-20 rows, count descending."""
-    names, codes = np.unique(nodes["Person"]["city"], return_inverse=True)
+def top_cities(np, nodes, per_node, coded=None):
+    """``per_node`` summed by city: the top-20 rows, count descending.
+    ``coded`` is ``np.unique(city, return_inverse=True)`` when the caller
+    has it (it takes about a second at 1M persons)."""
+    names, codes = coded if coded is not None else np.unique(
+        nodes["Person"]["city"], return_inverse=True)
     per_city = np.rint(np.bincount(codes, weights=per_node,
                                    minlength=len(names))).astype(np.int64)
     rows = sorted(((str(c), int(v)) for c, v in zip(names, per_city) if v),
@@ -885,8 +936,11 @@ def run_patterns(torch, np, args, card: str, state) -> dict:
     cgraph2 = graph_from_numpy(cascade, nodes, rels2)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
-    # the cyclic phase compares its seeded triangle with this cascade
+    # the cyclic phase compares its seeded triangle with this cascade;
+    # the serve phase serves on the heuristic session (its count form
+    # runs on count pushdown there)
     slice_info["cascade"] = (cascade, cgraph)
+    slice_info["heuristic"] = (heur, hgraph)
     out = {"phase": "patterns", "card": card, "ingest_s": ingest_s,
            "self_loops_dropped": int((~no_loops).sum()),
            "session": "use_cost_model=False"}
@@ -1971,6 +2025,550 @@ def run_updates(torch, np, args, card: str, state):
             {"snapshot": {r.name: r.calls for r in recorders}})
 
 
+# -- phase construct: CONSTRUCT / RETURN GRAPH on the slice's graph ----------
+
+def met_oracle(np, nodes, rels, age: int):
+    """The :MET relationships step 1 builds: one per :KNOWS edge out of a
+    person aged ``age`` (self-loops included), weighted by the target's
+    age; grouped by the target's city (top 20 by count, then city), and
+    their number."""
+    p, k = nodes["Person"], rels["KNOWS"]
+    sel = p["age"][k["_src"]] == age
+    tgt = k["_tgt"][sel]
+    names, codes = np.unique(p["city"], return_inverse=True)
+    n = np.bincount(codes[tgt], minlength=len(names))
+    w = np.bincount(codes[tgt], weights=p["age"][tgt], minlength=len(names))
+    rows = sorted(((str(c), int(a), int(round(b)))
+                   for c, a, b in zip(names, n, w) if a),
+                  key=lambda r: (-r[1], r[0]))[:20]
+    return [{"city": c, "n": a, "w": b} for c, a, b in rows], int(sel.sum())
+
+
+def construct_run(torch, graph, query, params):
+    """One CATALOG CREATE GRAPH: (the stored graph, its seconds split —
+    the driving MATCH, the entity build, the table build — and what it
+    built)."""
+    t0 = time.perf_counter()
+    built = graph.cypher(query, params).graph
+    torch.cuda.synchronize()
+    return built, dict(built.construct_stats,
+                       total_s=time.perf_counter() - t0)
+
+
+def column_range(torch, table, col):
+    """(min, max) of an integer column's live values, on the card."""
+    c = table._cols[col]
+    live = c.data[:table._n][c.valid[:table._n]]
+    return int(live.min()), int(live.max())
+
+
+def run_construct(torch, np, args, card: str, state):
+    """CONSTRUCT / RETURN GRAPH on the slice's graph, stored in the
+    catalog as ``session.base``: (1) a new graph of the seeds' clones and
+    one :MET per :KNOWS edge out of them, held to a numpy oracle, its
+    minted ids disjoint from the base's; (2) the same :MET edges ON the
+    base (a union), where the grouped 2-hop query still gives the base's
+    answer, cold and 5 exact replays against the base's replays; (3)
+    the overlay (SET on the base's own persons), on which the grouped
+    query at age + 100 gives the base's answer and at
+    the old age none (the build copies every entity of the base into
+    Python dicts, ``_materialize_graph_into``, as the reference does).
+    Each CONSTRUCT's seconds split into the driving MATCH, the entity
+    build (the overlay's copy of the base, ``materialize_s``, apart) and
+    the table build; warm latencies, peak bytes and launches."""
+    from caps_tpu_torch import ops
+    session, graph, nodes, rels, _ = state
+    params = {"age": AGE}
+    out = {"phase": "construct", "card": card}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    session.catalog.store("base", graph)
+    want_rows = oracle(np, nodes, rels, AGE)[0]
+    met_rows, met_count = met_oracle(np, nodes, rels, AGE)
+    n_ids = args.persons + args.edges
+
+    # (1) a new graph: the seeds' clones and their :MET edges
+    met, out["met"] = construct_run(torch, graph, CONSTRUCT_MET, params)
+    rows, info, _ = pattern_runs(torch, session, met, QUERY_MET, {}, card)
+    expect("met", rows == met_rows, f"{rows} != oracle {met_rows}",
+           "construct")
+    expect_replays("met", info, 0, "construct")
+    met_table = [rt for rt in met.rel_tables if rt.rel_type == "MET"][0]
+    lo, hi = column_range(torch, met_table.table, met_table.mapping.id_col)
+    expect("met", lo >= n_ids and hi - lo + 1 == met_count,
+           f"minted ids {lo}..{hi} overlap the base's 0..{n_ids - 1} or "
+           f"miss some of {met_count}", "construct")
+    out["met"].update(query=info, minted_ids=[lo, hi], met_rels=met_count)
+
+    # (2) the same edges ON the base: a union graph
+    union, out["union"] = construct_run(torch, graph, CONSTRUCT_UNION,
+                                        params)
+    rows, info, _ = pattern_runs(torch, session, union, QUERY_GROUPED,
+                                 params, card)
+    expect("union", rows == want_rows, f"{rows} != the base's answer",
+           "construct")
+    expect_replays("union", info, 0, "construct")
+    counted = union.cypher(QUERY_MET_COUNT).records.to_maps()
+    expect("union", counted == [{"c": met_count}],
+           f"{counted} :MET != step 1's {met_count}", "construct")
+    _rows, base_info, _ = pattern_runs(torch, session, graph, QUERY_GROUPED,
+                                       params, card, cold=False)
+    out["union"].update(query=info, base_replay_s=base_info["warm_s"],
+                        base_replay_runs_s=base_info["warm_runs_s"])
+
+    # (3) the overlay: SET on the base's own persons
+    older, out["overlay"] = construct_run(torch, graph, CONSTRUCT_OVERLAY,
+                                          params)
+    rows, info, _ = pattern_runs(torch, session, older, QUERY_GROUPED,
+                                 {"age": AGE + 100}, card)
+    expect("overlay", rows == want_rows,
+           f"age {AGE + 100}: {rows} != the base's age-{AGE} answer",
+           "construct")
+    expect_replays("overlay", info, 0, "construct")
+    none = older.cypher(QUERY_GROUPED, params).records.to_maps()
+    expect("overlay", none == [], f"age {AGE} still matches: {none}",
+           "construct")
+    out["overlay"]["query"] = info
+    for name in ("met", "union", "older"):
+        session.catalog.delete(f"session.{name}")
+    out.update(phase_s=time.perf_counter() - t_phase,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=ops.launches(), oracle="equal")
+    emit(out)
+
+
+# -- phase serve: QueryServer on the card ------------------------------------
+
+def latency_summary(values) -> dict:
+    """p50 and p99 (nearest rank) of a list of seconds."""
+    v = sorted(values)
+    if not v:
+        return {"p50_s": None, "p99_s": None, "n": 0}
+    at = lambda q: v[min(len(v) - 1, int(q * len(v)))]  # noqa: E731
+    return {"p50_s": at(0.50), "p99_s": at(0.99), "n": len(v)}
+
+
+def profile_window(torch, seconds: float) -> dict:
+    """The card's busy time and idle share over ``seconds`` of whatever
+    the other threads run (``torch.profiler`` traces every kernel on the
+    card, whichever thread launched it)."""
+    return device_profile(torch, lambda: time.sleep(seconds))
+
+
+def serve_load(torch, server, graph, requests, want, threads: int,
+               window_s=None, deadline_s=SERVE_DEADLINE_S):
+    """``requests`` [(query, params, key)] from ``threads`` closed-loop
+    clients (each submits, waits for its rows, submits the next) through
+    ``server``, or, with ``server`` None, from one thread calling
+    ``graph.cypher`` in turn.  Every answer is held to ``want[key]``.
+    With ``window_s``, ``torch.profiler`` traces the card for that long
+    while the clients run (its trace is parsed on the calling thread,
+    which holds the interpreter for seconds: the latencies of such a run
+    are not the load's).  Returns the numbers and the handles' info
+    dicts."""
+    from caps_tpu_torch import ops
+    session = graph.session
+    syncs0 = session.backend.syncs
+    ops.reset_launches()
+    infos, errors = [None] * len(requests), []
+    profile = {}
+
+    def serve(i):
+        q, p, key = requests[i]
+        if server is None:
+            t0 = time.perf_counter()
+            rows = graph.cypher(q, p).records.to_maps()
+            info = {"latency_s": time.perf_counter() - t0,
+                    "queue_wait_s": 0.0}
+        else:
+            h = server.submit(q, p, deadline_s=deadline_s)
+            rows = h.rows(timeout=60)
+            info = h.info
+        if rows != want[key]:
+            errors.append((i, key, rows))
+        infos[i] = info
+
+    t0 = time.perf_counter()
+    if server is None:
+        for i in range(len(requests)):
+            serve(i)
+    else:
+        import threading
+        per = [list(range(t, len(requests), threads))
+               for t in range(threads)]
+
+        def client(mine):
+            try:
+                for i in mine:
+                    serve(i)
+            except Exception as ex:  # the run fails below
+                errors.append(ex)
+
+        workers = [threading.Thread(target=client, args=(m,)) for m in per]
+        for w in workers:
+            w.start()
+        if window_s:
+            time.sleep(0.5)
+            profile = profile_window(torch, window_s)
+        for w in workers:
+            w.join(timeout=600)
+        if any(w.is_alive() for w in workers):
+            raise RuntimeError("serve: a client thread did not finish")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if errors:
+        done = [i["latency_s"] for i in infos if i is not None]
+        raise RuntimeError(f"serve: {len(errors)} of {len(requests)} "
+                           f"requests failed or disagree with their "
+                           f"oracles, first {errors[0]!r}; answered "
+                           f"{len(done)} in {elapsed:.1f} s, latency "
+                           f"{latency_summary(done)}")
+    n = len(requests)
+    launches = ops.launches()
+    return {"requests": n, "seconds": elapsed, "requests_per_s": n / elapsed,
+            "latency": latency_summary([i["latency_s"] for i in infos]),
+            "queue_wait": latency_summary([i["queue_wait_s"]
+                                           for i in infos]),
+            "size_reads_per_request": (session.backend.syncs - syncs0) / n,
+            "launches_per_request": sum(launches.values()) / n,
+            "launches": launches, "profile": profile}, infos
+
+
+def batch_sizes(infos) -> dict:
+    sizes = [i.get("batch_size", 1) for i in infos if "batch_size" in i]
+    return {"mean": statistics.mean(sizes) if sizes else None,
+            "max": max(sizes) if sizes else None}
+
+
+def run_serve(torch, np, args, card: str, state):
+    """The serving tier on the card (``QueryServer``), over the slice's
+    graph on the heuristic session (``use_cost_model=False``: the count
+    form runs on count pushdown; the grouped query's plan is the
+    default session's, checked in the slice phase): 8 closed-loop
+    clients send SERVE_REQUESTS requests — 80 % the grouped 2-hop query,
+    20 % its ``count(*)`` form, ``$age`` drawn from --seed over the warm
+    phase's 24 rotating ages — each held to its oracle, then the same
+    requests from one thread; one ``cypher_batch`` of 8 exact replays
+    (no size read, no synchronizing call before its rows are read, its
+    K1–K3 calls kept for the kernels phase); the load again with the
+    result cache on; an overload burst; an expiring deadline; a second
+    and a third session, warmed from the plan store the first server
+    saved and cold; and failover between two replicas on the one card
+    under ``device_loss(0)``."""
+    import tempfile
+    import threading
+    import caps_tpu_torch
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.okapi.config import EngineConfig
+    from caps_tpu_torch.relational.plan_store import (PlanStore,
+                                                      collect_warm_state)
+    from caps_tpu_torch.relational.result_cache import (ResultCacheConfig,
+                                                        params_digest,
+                                                        result_cache_key)
+    from caps_tpu_torch.serve import (DeadlineExceeded, Overloaded,
+                                      QueryServer, RetryPolicy, ServerConfig,
+                                      WarmupConfig)
+    from caps_tpu_torch.testing.faults import device_loss, slow_operator
+    _s, _g, nodes, rels, slice_info = state
+    session, graph = slice_info["heuristic"]
+    out = {"phase": "serve", "card": card, "session": "use_cost_model=False"}
+    t_phase = time.perf_counter()
+
+    # the load: the warm phase's 24 rotating ages, kinds and ages from
+    # --seed; the oracles of every (kind, age)
+    ages = [int(a) for a in np.random.default_rng(args.seed + 1).integers(
+        18, 90, ROTATING)]
+    want = {}
+    coded = np.unique(nodes["Person"]["city"], return_inverse=True)
+    for a in sorted(set(ages)):
+        # oracle()'s answer, with the cities coded once for all ages
+        _hop1, hop2 = hop_counts(np, nodes, rels, (
+            nodes["Person"]["age"] == a).astype(np.int64))
+        want[("grouped", a)] = top_cities(np, nodes, hop2, coded)
+        want[("count", a)] = [{"c": int(round(hop2.sum()))}]
+    rng = np.random.default_rng(args.seed + 9)
+    grouped = rng.random(SERVE_REQUESTS) < 0.8
+    picks = rng.integers(0, len(ages), SERVE_REQUESTS)
+    requests = [(QUERY_GROUPED, {"age": ages[j]}, ("grouped", ages[j])) if g
+                else (QUERY_COUNT, {"age": ages[j]}, ("count", ages[j]))
+                for g, j in zip(grouped, picks)]
+    out["load"] = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+                   "grouped_share": float(grouped.mean()),
+                   "deadline_s": SERVE_DEADLINE_S}
+    # each query recorded at AGE before the load: the load's other ages
+    # then replay its generic stream, and AGE replays exactly
+    want_age = oracle(np, nodes, rels, AGE)
+    for q, rows in ((QUERY_GROUPED, want_age[0]),
+                    (QUERY_COUNT, [{"c": want_age[1]}])):
+        got = graph.cypher(q, {"age": AGE}).records.to_maps()
+        expect("record", got == rows, f"{q!r} disagrees with its oracle",
+               "serve")
+    store = os.path.join(tempfile.mkdtemp(prefix="caps-serve-"),
+                         "plans.json")
+
+    # the load through one server (one replica on the card), then from
+    # one thread calling graph.cypher
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        warmup=WarmupConfig(store_path=store, families=(),
+                            background=False)))
+    served, infos = serve_load(torch, server, graph, requests, want,
+                               SERVE_CLIENTS)
+    served["batch_size"] = batch_sizes(infos)
+    served["stats"] = {k: server.stats()[k] for k in ("batching",)}
+    # the worker's service time per member (a batch's time on its
+    # replica, inside the replica's lock, over its members), windowed
+    served["service_s_per_member_mean"] = server.telemetry.recent_service_s()
+    out["server"] = served
+    # the card's busy time and idle share over 2 s of the same load
+    # (a run of its own: the trace's parse stalls the clients)
+    profiled, _ = serve_load(torch, server, graph,
+                             requests[:SERVE_PROFILED], want, SERVE_CLIENTS,
+                             window_s=2.0, deadline_s=None)
+    out["server"]["profile"] = profiled["profile"]
+    one, _ = serve_load(torch, None, graph, requests, want, 1)
+    out["one_thread"] = one
+
+    # one served request's launches (an exact replay through the worker)
+    ops.reset_launches()
+    h = server.submit(QUERY_GROUPED, {"age": AGE})
+    expect("request", h.rows(timeout=60) == want_age[0],
+           "the served request disagrees with its oracle", "serve")
+    served_launches = ops.launches()
+    check_query_launches("one served request", served_launches)
+
+    # host work done per request (the result cache's key and its params
+    # digest, over the load's requests) and per plan-store save (the
+    # fused streams' export, the warm state, the file)
+    t0 = time.perf_counter()
+    digests = [params_digest(p) for _q, p, _k in requests]
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = [result_cache_key(graph, q, p) for q, p, _k in requests]
+    key_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streams = session.fused.export_streams(graph)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = collect_warm_state(session, graph=graph)
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saved = PlanStore(store).save(payload)
+    save_s = time.perf_counter() - t0
+    expect("host_work", None not in digests and None not in keys
+           and streams and saved,
+           f"digests {digests.count(None)} None, keys {keys.count(None)} "
+           f"None, {len(streams)} streams, saved {saved}", "serve")
+    out["host_work"] = {
+        "requests": len(requests),
+        "params_digest_s_per_request": digest_s / len(requests),
+        "result_cache_key_s_per_request": key_s / len(requests),
+        "export_streams_s": export_s, "streams": len(streams),
+        "collect_warm_state_s": collect_s, "plan_store_save_s": save_s,
+        "plan_store_bytes": os.path.getsize(store)}
+    server.shutdown(timeout=60)
+
+    # one micro-batch of 8 exact replays: no size read and no
+    # synchronizing call until its rows are read
+    batch_calls = query_recorders()
+    for r in batch_calls:
+        r.__enter__()
+    try:
+        results, sites = count_syncs(torch, lambda: session.cypher_batch(
+            graph, [(QUERY_GROUPED, {"age": AGE})] * 8))
+    finally:
+        for r in batch_calls:
+            r.__exit__()
+    bad = [r for r in results if isinstance(r, BaseException)]
+    expect("batch", not bad, f"members failed: {bad}", "serve")
+    reads = [r.metrics["size_syncs"] for r in results]
+    expect("batch", reads == [0] * 8 and not sites,
+           f"size reads {reads}, synchronizing calls at {sites}", "serve")
+    expect("batch", all(r.records.to_maps() == want_age[0]
+                        for r in results),
+           "a member's rows disagree with the oracle", "serve")
+    out["batch"] = {"members": 8, "size_reads": reads, "sync_calls": 0,
+                    "fused_batches": session.fused.batches}
+
+    # the load again with the result cache on
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        result_cache=ResultCacheConfig()))
+    cached, infos = serve_load(torch, server, graph, requests, want,
+                               SERVE_CLIENTS)
+    hits = [i for i in infos if i.get("cache") == "hit"]
+    cached.update(hit_ratio=len(hits) / len(infos),
+                  hit_latency=latency_summary([i["latency_s"]
+                                               for i in hits]),
+                  batch_size=batch_sizes(infos))
+    expect("result_cache", hits, "no result-cache hit", "serve")
+    server.shutdown(timeout=60)
+    out["result_cache"] = cached
+
+    # overload: a burst of 4 x max_queue from 16 threads
+    config = ServerConfig()
+    server = QueryServer(session, graph=graph, config=config)
+    burst = [requests[i % len(requests)]
+             for i in range(4 * config.max_queue)]
+    admitted, shed, errors = [], [], []
+
+    def burster(mine):
+        for q, p, key in mine:
+            try:
+                admitted.append((server.submit(q, p), key))
+            except Overloaded as ex:
+                shed.append(ex.retry_after_s)
+            except Exception as ex:
+                errors.append(ex)
+
+    threads = [threading.Thread(target=burster, args=(burst[t::16],))
+               for t in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    t_end = time.perf_counter()
+    healthy_after = None
+    while time.perf_counter() - t_end < 5.0:
+        if server.health() == "healthy":
+            healthy_after = time.perf_counter() - t_end
+            break
+        time.sleep(0.01)
+    wrong = [key for h, key in admitted if h.rows(timeout=60) != want[key]]
+    expect("overload", shed and all(r > 0 for r in shed) and not errors
+           and not wrong and healthy_after is not None,
+           f"shed {len(shed)} (retry_after {shed[:3]}), errors {errors[:2]},"
+           f" wrong {wrong[:3]}, healthy after {healthy_after}", "serve")
+    out["overload"] = {"burst": len(burst), "admitted": len(admitted),
+                       "shed": len(shed),
+                       "retry_after_s": latency_summary(shed),
+                       "healthy_after_s": healthy_after}
+
+    # a deadline that expires inside the execute phase, then a request
+    # served correctly
+    with slow_operator("Scan", 0.2):
+        h = server.submit(QUERY_GROUPED, {"age": AGE}, deadline_s=0.1)
+        try:
+            h.rows(timeout=60)
+            raise RuntimeError("serve: the slowed request met its deadline")
+        except DeadlineExceeded as ex:
+            phase = ex.phase
+    expect("deadline", phase == "execute", f"expired in {phase}", "serve")
+    h = server.submit(QUERY_GROUPED, {"age": AGE})
+    expect("deadline", h.rows(timeout=60) == oracle(np, nodes, rels,
+                                                    AGE)[0],
+           "the request after the deadline disagrees", "serve")
+    server.shutdown(timeout=60)
+    out["deadline"] = {"phase": phase, "next_request": "equal"}
+
+    # warmup: a fresh session and server warmed from the store the first
+    # server saved, beside a cold one; the first request of each family
+    firsts = (("grouped", QUERY_GROUPED), ("count", QUERY_COUNT))
+    out["warmup"] = {}
+    for label, warm in (("warmed", True), ("cold", False)):
+        fresh = caps_tpu_torch.local_session(
+            config=EngineConfig(use_cost_model=False))
+        t0 = time.perf_counter()
+        fgraph = graph_from_numpy(fresh, nodes, rels)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = QueryServer(fresh, graph=fgraph, config=ServerConfig(
+            warmup=WarmupConfig(store_path=store, background=False,
+                                save_on_shutdown=False)
+            if warm else None))
+        start_s = time.perf_counter() - t0
+        snap0 = fresh.metrics_snapshot()
+        first = {}
+        for family, q in firsts:
+            syncs0 = fresh.backend.syncs
+            t0 = time.perf_counter()
+            h = server.submit(q, {"age": AGE})
+            rows = h.rows(timeout=120)
+            first[family] = {"latency_s": time.perf_counter() - t0,
+                             "size_reads": fresh.backend.syncs - syncs0,
+                             "compile_s": h.info["ledger"]["compile_s"]}
+            expect("warmup", rows == (want_age[0] if family == "grouped"
+                                      else [{"c": want_age[1]}]),
+                   f"{label} {family} disagrees", "serve")
+        snap1 = fresh.metrics_snapshot()
+        out["warmup"][label] = {
+            "ingest_s": ingest_s, "server_start_s": start_s,
+            "first_request": first,
+            "warmup": server.warmer.report() if warm else None,
+            "compile": {k: snap1.get(k, 0) - snap0.get(k, 0)
+                        for k in snap1 if k.startswith("compile.")}}
+        server.shutdown(timeout=60)
+        del server, fgraph, fresh
+    torch.cuda.empty_cache()
+
+    # failover: two replicas on the one card, each on its own stream;
+    # replica 0 lost for 200 requests, then, after the fault lifts,
+    # reinstated by the probe where it was quarantined, and serving
+    t0 = time.perf_counter()
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        devices=2, device_cooldown_s=0.5,
+        retry=RetryPolicy(backoff_base_s=0.001)))
+    replicate_s = time.perf_counter() - t0
+    replicas = server.devices.replicas
+    streams = {id(r.stream) for r in replicas if r.stream is not None}
+    on_card = session.device.type == "cuda"
+    expect("failover", all(r.device.type == session.device.type
+                           for r in replicas)
+           and len(streams) == (2 if on_card else 0),
+           f"replicas on {[str(r.device) for r in replicas]}, "
+           f"{len(streams)} streams", "serve")
+    fault = requests[:SERVE_FAILOVER_REQUESTS]
+    with device_loss(0) as budget:
+        during, infos = serve_load(torch, server, graph, fault, want,
+                                   SERVE_CLIENTS)
+    at_lift = dict(server.stats()["devices"][0])
+    health_during = dict(server.device_health())
+    t_lift = time.perf_counter()
+    # after the lift: a replica quarantined at the lift needs a NEW
+    # reinstatement, and replica 0 must then answer a request right
+    reinstated_after = served_on_0_after = None
+    wrong_after = []
+    while time.perf_counter() - t_lift < 10.0 and served_on_0_after is None:
+        handles = [server.submit(QUERY_GROUPED, {"age": AGE})
+                   for _ in range(4)]
+        for h in handles:
+            if h.rows(timeout=60) != want_age[0]:
+                wrong_after.append(h.info.get("device"))
+            elif h.info.get("device") == 0 and served_on_0_after is None \
+                    and server.device_health()[0] == "healthy":
+                served_on_0_after = time.perf_counter() - t_lift
+        if reinstated_after is None and server.stats()["devices"][0][
+                "reinstates"] > at_lift["reinstates"]:
+            reinstated_after = time.perf_counter() - t_lift
+        time.sleep(0.05)
+    devs = server.stats()["devices"]
+    quarantined_at_lift = health_during[0] != "healthy"
+    expect("failover", budget.injected > 0 and devs[0]["quarantines"] >= 1
+           and not wrong_after and served_on_0_after is not None
+           and (reinstated_after is not None or not quarantined_at_lift),
+           f"injected {budget.injected}, health at lift {health_during}, "
+           f"reinstated after {reinstated_after}, served on 0 after "
+           f"{served_on_0_after}, wrong {wrong_after}, devices {devs}",
+           "serve")
+    server.shutdown(timeout=60)
+    out["failover"] = {"requests": len(fault), "all_correct": True,
+                       "replicate_s": replicate_s,
+                       "injected": budget.injected,
+                       "p99_during_fault_s": during["latency"]["p99_s"],
+                       "latency_during_fault": during["latency"],
+                       "health_during_fault": health_during,
+                       "replica0_at_lift": at_lift,
+                       "reinstated_after_lift_s": reinstated_after,
+                       "served_on_0_after_lift_s": served_on_0_after,
+                       "devices": devs}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return ({"served_request": served_launches},
+            {"served_batch": {r.name: r.calls for r in batch_calls}})
+
+
 def run_tck(torch, np, args, card: str) -> None:
     """The TCK corpus on the card, one session per feature file, under
     the CPU tests' strict list (``tck/blacklists/cuda.txt``): an
@@ -2627,6 +3225,10 @@ def main() -> int:
     update_launches, update_calls = run_updates(torch, np, args, card, state)
     launches.update(update_launches)
     pattern_calls.update(update_calls)
+    run_construct(torch, np, args, card, state)
+    serve_launches, serve_calls = run_serve(torch, np, args, card, state)
+    launches.update(serve_launches)
+    pattern_calls.update(serve_calls)
     del state
     run_tck(torch, np, args, card)
     ldbc_launches, ldbc_calls = run_ldbc(torch, np, args, card)
@@ -2638,7 +3240,8 @@ def main() -> int:
     def of_patterns(wrapper):
         """Every call of ``wrapper`` in one exact replay of each
         var-expand form, of each unwind-phase query, of each multiway
-        join of the cyclic phase and of IC12, labelled by query."""
+        join of the cyclic phase, of the final snapshot, of IC12 and of
+        the served batch's 8 exact replays, labelled by query."""
         return [(f"{form}_call_{i}", a)
                 for form, calls in pattern_calls.items()
                 for i, a in enumerate(calls[wrapper])]
@@ -2699,6 +3302,10 @@ def main() -> int:
             # one exact replay of the grouped query on the snapshot the
             # updates phase's 500 writes left
             "launches_snapshot_replay": launches["snapshot_replay"].get(
+                name, 0),
+            # one request of the grouped query (an exact replay) served
+            # through QueryServer's worker
+            "launches_served_request": launches["served_request"].get(
                 name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             # the sum over the calls of one exact replay, each timed

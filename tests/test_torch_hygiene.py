@@ -101,14 +101,39 @@ def _small_graph():
                    "_tgt": np.array([1, 2], dtype=np.int64)}})
 
 
-@pytest.mark.parametrize("query", [
-    # var-length patterns run; a graph built from their matches does not
-    "MATCH (a:Person)-[:KNOWS*1..2]->(b) CONSTRUCT NEW (b) RETURN GRAPH",
-    "CALL algo.pagerank() YIELD node, score RETURN node",
+_SMALL_CREATE = ("CREATE (a:Person {age: 0})-[:KNOWS]->(b:Person {age: 1}), "
+                 "(b)-[:KNOWS]->(c:Person {age: 2})")
+
+
+def _graph_bags(graph):
+    """(nodes, relationships) of a graph as sorted plain tuples."""
+    nodes = sorted((i, tuple(sorted(lbls)), tuple(sorted(p.items())))
+                   for i, (lbls, p) in graph.node_lookup().items())
+    rels = sorted((i, s, t, typ, tuple(sorted(p.items())))
+                  for i, (s, t, typ, p) in graph.rel_lookup().items())
+    return nodes, rels
+
+
+@pytest.mark.parametrize("query,ported", [
+    # var-length patterns run, and (since CONSTRUCT is ported) so does a
+    # graph built from their matches: it equals the JAX package's
+    ("MATCH (a:Person)-[:KNOWS*1..2]->(b) CONSTRUCT NEW (b) RETURN GRAPH",
+     True),
+    ("CALL algo.pagerank() YIELD node, score RETURN node", False),
 ], ids=["construct_after_var_length", "procedure"])
-def test_unported_features_raise(query):
-    with pytest.raises(NotImplementedError, match="see ROADMAP"):
-        _small_graph().cypher(query)
+def test_unported_features_raise(query, ported):
+    if not ported:
+        with pytest.raises(NotImplementedError, match="see ROADMAP"):
+            _small_graph().cypher(query)
+        return
+    from caps_tpu.backends.tpu.session import TPUCypherSession
+    from caps_tpu.testing.factory import create_graph as jax_create
+    from caps_tpu_torch.testing.factory import create_graph
+    port = create_graph(caps_tpu_torch.local_session(device="cpu"),
+                        _SMALL_CREATE).cypher(query).graph
+    ref = jax_create(TPUCypherSession(), _SMALL_CREATE).cypher(query).graph
+    assert _graph_bags(port) == _graph_bags(ref)
+    assert len(_graph_bags(port)[0]) == 2  # each matched b, cloned once
 
 
 def test_update_on_a_plain_graph_raises_update_error():
@@ -205,7 +230,9 @@ def test_lock_scan_covers_the_modules_with_locks():
     for module in ("okapi/catalog.py", "relational/plan_cache.py",
                    "relational/shapes.py", "relational/updates.py",
                    "obs/telemetry.py", "obs/metrics.py", "obs/tracer.py",
-                   "obs/compile.py", "obs/ledger.py", "testing/faults.py"):
+                   "obs/compile.py", "obs/ledger.py", "testing/faults.py",
+                   "obs/log.py", "relational/result_cache.py",
+                   "relational/session.py", *SERVE_LOCKED):
         assert f"caps_tpu_torch/{module}" in names
 
 
@@ -227,3 +254,60 @@ def test_port_names_its_locks_where_the_reference_does(path):
              if (isinstance(n, ast.Call) and is_plain(n.func))
              or (isinstance(n, ast.keyword) and is_plain(n.value))]
     assert not plain, f"{path.relative_to(ROOT)}: plain locks at {plain}"
+
+
+# -- the serving tier ---------------------------------------------------------
+
+SERVE_MODULES = (
+    "__init__.py", "admission.py", "batcher.py", "breaker.py",
+    "compaction.py", "deadline.py", "devices.py", "errors.py", "failure.py",
+    "request.py", "retry.py", "server.py", "warmup.py",
+)
+#: the serve modules whose reference takes locks from obs/lockgraph.py
+SERVE_LOCKED = ("serve/admission.py", "serve/breaker.py",
+                "serve/devices.py", "serve/server.py", "serve/warmup.py")
+SERVE_RELATIONAL = ("relational/construct.py", "relational/result_cache.py",
+                    "relational/plan_store.py", "obs/log.py")
+
+
+@pytest.mark.parametrize("module", [f"caps_tpu_torch/serve/{m}"
+                                    for m in SERVE_MODULES]
+                         + [f"caps_tpu_torch/{m}" for m in SERVE_RELATIONAL])
+def test_import_scan_covers_the_serving_modules(module):
+    assert ROOT / module in PORT_FILES
+
+
+_TIMERS = {("time", "perf_counter"), ("time", "time"), ("time", "sleep"),
+           ("time", "monotonic")}
+TIMED_DIRS = ("serve", "obs", "relational")
+TIMED_FILES = [p for d in TIMED_DIRS
+               for p in sorted((ROOT / "caps_tpu_torch" / d).rglob("*.py"))
+               if p.name != "clock.py" or d != "obs"]
+
+
+@pytest.mark.parametrize("path", TIMED_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_naked_timers_outside_the_clock(path):
+    """As ``scripts/check_no_naked_timers.py`` requires of the JAX
+    package: under ``serve/``, ``obs/`` and ``relational/`` time is read,
+    and waited for, only through ``obs/clock.py`` — so tests can drive
+    backoff, cooldown and window expiry on a fake clock."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value,
+                                                          ast.Name) \
+                and (node.value.id, node.attr) in _TIMERS:
+            bad.append(node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.module == "time":
+            bad.extend(node.lineno for a in node.names
+                       if ("time", a.name) in _TIMERS)
+    assert not bad, f"{path.relative_to(ROOT)}: naked timers at {bad}"
+
+
+def test_timer_scan_covers_the_serving_tier():
+    names = {str(p.relative_to(ROOT)) for p in TIMED_FILES}
+    assert {"caps_tpu_torch/serve/server.py", "caps_tpu_torch/serve/retry.py",
+            "caps_tpu_torch/obs/telemetry.py",
+            "caps_tpu_torch/relational/result_cache.py"} <= names
+    assert "caps_tpu_torch/obs/clock.py" not in names

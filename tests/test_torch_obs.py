@@ -87,16 +87,18 @@ def test_explain_executes_nothing(monkeypatch):
 
 
 def test_explain_catalog_statements_do_not_mutate():
-    """EXPLAIN of CATALOG CREATE GRAPH stores nothing.  Its inner query
-    (CONSTRUCT) is not ported yet, so the port raises naming ROADMAP —
-    still without touching the catalog."""
+    """EXPLAIN of CATALOG CREATE GRAPH (its inner query a CONSTRUCT)
+    plans and stores nothing, as in the JAX package
+    (``tests/test_obs.py``)."""
     session = port_session()
-    create_graph(session, CREATE)
+    graph = create_graph(session, CREATE)
     version0 = session.catalog.version
-    with pytest.raises(NotImplementedError, match="see ROADMAP"):
-        session.cypher(
-            "EXPLAIN CATALOG CREATE GRAPH session.obs_explain { "
-            "MATCH (n:Person) CONSTRUCT CLONE n RETURN GRAPH }")
+    res = graph.cypher(
+        "EXPLAIN CATALOG CREATE GRAPH session.obs_explain { "
+        "MATCH (n:Person) CONSTRUCT CLONE n RETURN GRAPH }")
+    assert res.records is None
+    assert "Construct" in res.plans["relational"]
+    # nothing stored, nothing evicted: the catalog fingerprint is unchanged
     assert session.catalog.version == version0
     with pytest.raises(Exception):
         session.cypher("FROM GRAPH session.obs_explain MATCH (n) "
