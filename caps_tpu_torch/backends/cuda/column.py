@@ -153,6 +153,8 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
             _check_id(int(values.min()))
         data_np[:n] = values
         valid_np[:n] = True
+    elif (fast := _ingest_native(values, kind, n)) is not None:
+        data_np[:n], valid_np[:n] = fast
     else:
         for i, v in enumerate(values):
             if v is None:
@@ -175,6 +177,39 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
                 data_np[i] = int(v)
     return Column(kind, _to(data_np, device), _to(valid_np, device), ctype,
                   host=(data_np, valid_np))
+
+
+def _ingest_native(values, kind: str, n: int):
+    """Bulk ingest of a Python sequence by the C++ host runtime
+    (native/csrc/host_runtime.cpp): (data, valid) numpy arrays of
+    length ``n``, or None for the Python loop — when the caller opted
+    out of the native runtime, for kinds it does not convert, and for
+    values its strict converters reject (numeric strings, say), so the
+    result never depends on which path ran."""
+    if kind not in ("int", "id", "float", "bool") or n == 0:
+        return None
+    from caps_tpu_torch import native
+    lib = native.runtime()
+    if lib is None:
+        return None
+    try:
+        if kind in ("int", "id"):
+            raw_d, raw_v = lib.ingest_i64(values)
+            d = np.frombuffer(raw_d, np.int64)
+        elif kind == "float":
+            raw_d, raw_v = lib.ingest_f64(values)
+            d = np.frombuffer(raw_d, np.float64)
+        else:
+            raw_d, raw_v = lib.ingest_bool(values)
+            d = np.frombuffer(raw_d, np.uint8).astype(bool)
+    except (TypeError, ValueError, OverflowError):
+        return None
+    valid = np.frombuffer(raw_v, np.uint8).astype(bool)
+    if kind == "id":
+        bad = np.flatnonzero(valid & ((d <= -2**31) | (d >= 2**31)))
+        if bad.size:
+            _check_id(int(d[bad[0]]))  # the first, as the loop raises
+    return d, valid
 
 
 def _to(arr: np.ndarray, device) -> torch.Tensor:

@@ -8,8 +8,11 @@ ORDER BY / < / > on strings stay on-device.  String predicates with literal
 arguments (STARTS WITH 'A', CONTAINS 'x', =~ regex) compile to boolean
 lookup tables over the pool, applied as a gather.
 
-The pure-Python pool of the JAX package; its native C++ pool is not
-ported yet (ROADMAP).
+Two implementations behave alike, code for code: :class:`StringPool`
+in pure Python, and :class:`NativeStringPool` over the C++ host runtime
+(``native/csrc/host_runtime.cpp``), which :func:`make_pool` gives unless
+the caller opted out (``CAPS_TPU_NO_NATIVE=1``).  A failed native build
+raises; it does not fall back to Python.
 """
 from __future__ import annotations
 
@@ -19,6 +22,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 NULL_CODE = -1
+
+
+def make_pool() -> "StringPool":
+    """The native pool (native/csrc/host_runtime.cpp), or the pure-Python
+    one when the caller opted out of the native runtime."""
+    from caps_tpu_torch import native
+    lib = native.runtime()
+    return StringPool() if lib is None else NativeStringPool(lib)
 
 
 class StringPool:
@@ -195,3 +206,81 @@ class StringPool:
             self._fn_luts[key] = np.array(
                 [len(s) for s in self._strings], dtype=np.int64)
         return self._fn_luts[key]
+
+
+class NativeStringPool(StringPool):
+    """StringPool over the C++ host runtime: encoding (one string, a
+    sequence, or a numpy ``<U`` array's raw buffer), the rank array and
+    rollback run natively.  The LUT builders and decoding reuse the
+    base class against ``_strings``, a list mirror of the native pool
+    that catches up on the codes added since it was last read (one
+    native call for all of them)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self._h = lib.pool_new()
+        self._mirror: List[str] = []
+        self._rank_version = -1
+        self._rank: Optional[np.ndarray] = None
+        self._fn_luts: Dict[tuple, Any] = {}
+
+    def __del__(self):  # pragma: no cover - interpreter teardown timing
+        try:
+            self._lib.pool_free(self._h)
+        except Exception:
+            pass
+
+    @property
+    def _strings(self) -> List[str]:
+        size = self._lib.pool_size(self._h)
+        if len(self._mirror) < size:
+            self._mirror.extend(self._lib.pool_get_range(
+                self._h, len(self._mirror), size))
+        return self._mirror
+
+    def __len__(self) -> int:
+        return self._lib.pool_size(self._h)
+
+    @property
+    def version(self) -> int:
+        return self._lib.pool_size(self._h)
+
+    def encode(self, s: Optional[str]) -> int:
+        return self._lib.pool_encode1(self._h, s)
+
+    def encode_many(self, values) -> np.ndarray:
+        """Codes for a sequence of strings (None -> NULL_CODE), in one
+        native call; a numpy ``<U`` array is encoded from its buffer."""
+        if isinstance(values, np.ndarray) and values.dtype.kind == "U":
+            arr = np.ascontiguousarray(values.reshape(-1))
+            width = arr.dtype.itemsize // 4
+            raw = self._lib.pool_encode_ucs4(
+                self._h, arr.view(np.uint8) if arr.size else b"",
+                arr.shape[0], width)
+            return np.frombuffer(raw, dtype=np.int32)
+        if isinstance(values, np.ndarray) and values.dtype.kind == "S":
+            # str() of each bytes value, as the Python pool's np.unique
+            # path encodes them
+            values = [str(v) for v in values.reshape(-1).tolist()]
+        elif not isinstance(values, (list, tuple)):
+            values = list(values)
+        raw = self._lib.pool_encode_many(self._h, values)
+        return np.frombuffer(raw, dtype=np.int32)
+
+    def rollback(self, mark: int) -> bool:
+        if mark >= self.version:
+            return True
+        self._lib.pool_truncate(self._h, mark)
+        del self._mirror[mark:]
+        self._rank_version = -1
+        self._rank = None
+        self._fn_luts.clear()
+        return True
+
+    def rank_array(self) -> np.ndarray:
+        if self._rank_version != self.version:
+            self._rank = np.frombuffer(self._lib.pool_rank(self._h),
+                                       dtype=np.int32).copy()
+            self._rank_version = self.version
+            self._fn_luts.clear()
+        return self._rank

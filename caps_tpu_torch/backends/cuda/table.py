@@ -37,7 +37,7 @@ from caps_tpu_torch.backends.cuda.column import (
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice,
 )
-from caps_tpu_torch.backends.cuda.pool import StringPool
+from caps_tpu_torch.backends.cuda.pool import make_pool
 from caps_tpu_torch.ir.exprs import Expr
 from caps_tpu_torch.okapi.config import EngineConfig
 from caps_tpu_torch.okapi.types import (
@@ -59,7 +59,7 @@ class DeviceBackend:
     record/replay routing of the fused executor."""
 
     def __init__(self, config: EngineConfig, device: torch.device):
-        self.pool = StringPool()
+        self.pool = make_pool()
         self.config = config
         self.device = device
         # Row-capacity bucket lattice (relational/shapes.py): defaults to
@@ -88,6 +88,11 @@ class DeviceBackend:
         # count closures built (a cache miss; each also charges the
         # session's compile ledger, obs/compile.py)
         self.count_builds = 0
+        # Graph-algorithm fixpoint programs (caps_tpu_torch/algo/): per
+        # (procedure, node capacity, edge capacity | "dense") closures; a
+        # miss builds and first-runs one and charges the compile
+        # ledger's ``algo`` kind.
+        self.algo_fns: Dict[tuple, Any] = {}
         # padded tombstone id arrays on the device (drop_in), keyed by
         # the id set's identity; the set is kept in the entry so its id
         # cannot be reused while the entry lives
@@ -167,6 +172,40 @@ class DeviceBackend:
                     f"consumed as {relation}")
             self._accumulate_violation(dev_scalar, v[1], relation)
         return v[1]
+
+    def consume_fixpoint(self, run) -> Tuple[int, bool]:
+        """An iterative fixpoint's iteration count and convergence flag
+        through the size stream (``algo/fixpoint.py``).  ``run(steps,
+        reads)`` runs the loop and returns its (iterations, done)
+        device scalars: with ``steps`` None the loop reads its ``done``
+        flag every few steps and counts the reads in ``reads``; with an
+        int it runs that many steps and reads nothing.  Eager and
+        record runs read both results in one transfer; replays run the
+        recorded number of steps and serve the recorded values, and a
+        generic replay checks on the device that the loop took
+        exactly that many (a loop stopped while still active counts one
+        more step, ``algo/fixpoint.py _loop``)."""
+        mode = self.count_mode
+        if mode is None or mode[0] == "record":
+            reads = [0]
+            it, done = run(None, reads)
+            iters, conv = torch.stack([it, done.to(torch.int64)]).tolist()
+            self.syncs += reads[0] + 1
+            if mode is not None:
+                mode[1].append(("size", iters, "exact"))
+                mode[1].append(("size", conv, "exact"))
+            return iters, bool(conv)
+        v_it = self._next_entry(mode, "size")
+        v_done = self._next_entry(mode, "size")
+        if v_it[2] != "exact" or v_done[2] != "exact":
+            raise FusedReplayMismatch(
+                "replay op sequence diverged: a fixpoint consumed "
+                f"{v_it[2]}/{v_done[2]} sizes")
+        it, done = run(v_it[1], None)
+        if mode[0] == "replay_gen":
+            self._accumulate_violation(it, v_it[1], "exact")
+            self._accumulate_violation(done, v_done[1], "exact")
+        return v_it[1], bool(v_done[1])
 
     @staticmethod
     def _next_entry(mode, tag: str):

@@ -166,9 +166,57 @@ def _check_single(q: ast.SingleQuery) -> Optional[Tuple[str, ...]]:
     return returned
 
 
+def _arg_is_driver_side(expr: E.Expr) -> bool:
+    """Procedure arguments must be host-evaluable at dispatch time:
+    literals, parameters, or negations thereof (mirrors SKIP/LIMIT)."""
+    if isinstance(expr, (E.Lit, E.Param)):
+        return True
+    if isinstance(expr, E.Negate):
+        return _arg_is_driver_side(expr.expr)
+    return False
+
+
 def _check_call(clause: ast.CallClause, scope: Set[str]):
-    from caps_tpu_torch._unported import not_ported
-    raise not_ported("CALL procedures (graph algorithms)")
+    """Resolve one CALL against the procedure registry: typed errors
+    for unknown names, arity/type mismatches, and bad YIELD columns —
+    each naming the procedure and its registered signature(s)."""
+    # imported lazily: the registry subclasses CypherSemanticError, so a
+    # module-level import here would be circular
+    from caps_tpu_torch.algo import registry
+    sig = registry.lookup(clause.procedure)
+    sig.check_arity(len(clause.args))
+    for pos, arg in enumerate(clause.args):
+        if not _arg_is_driver_side(arg):
+            raise registry.ProcedureArgumentError(
+                f"procedure {sig.name} argument {pos} must be a literal "
+                f"or parameter, got {arg.cypher_repr()}; "
+                f"signature: {sig.render()}")
+        if isinstance(arg, E.Lit):
+            sig.check_literal(pos, arg.value)
+        elif isinstance(arg, E.Negate) and isinstance(arg.expr, E.Lit):
+            sig.check_literal(pos, -arg.expr.value)
+    yields = clause.yields or tuple((n, None) for n in sig.yield_names)
+    names = []
+    for yname, alias in yields:
+        sig.yield_type(yname)  # unknown column -> ProcedureYieldError
+        names.append(alias or yname)
+    dupes = {n for n in names if names.count(n) > 1}
+    if dupes:
+        raise CypherSemanticError(
+            f"duplicate YIELD column name(s): {sorted(dupes)}")
+    rebound = set(names) & scope
+    if rebound:
+        raise CypherSemanticError(
+            f"YIELD would rebind variable(s) already in scope: "
+            f"{sorted(rebound)}; alias them with AS")
+    if clause.where is not None:
+        if not clause.yields:
+            raise CypherSemanticError(
+                "WHERE after CALL requires an explicit YIELD")
+        _check_expr_vars(clause.where, scope | set(names),
+                         "WHERE after YIELD")
+        _check_no_aggregation(clause.where, "WHERE after YIELD")
+    return names
 
 
 def _check_projection(body: ast.ProjectionBody, scope: Set[str], is_with: bool):

@@ -633,8 +633,19 @@ class _SingleQueryBuilder:
     # -- CALL ---------------------------------------------------------------
 
     def _add_call(self, clause: ast.CallClause) -> None:
-        from caps_tpu_torch._unported import not_ported
-        raise not_ported("CALL procedures (graph algorithms)")
+        """Resolve the procedure against the registry (the semantic pass
+        already validated it) and declare the YIELD outputs into scope
+        with the registered column types."""
+        from caps_tpu_torch.algo import registry
+        sig = registry.lookup(clause.procedure)
+        yields = clause.yields or tuple((n, None) for n in sig.yield_names)
+        resolved = tuple((y, a or y) for y, a in yields)
+        self.blocks.append(CallBlock(clause.procedure, tuple(clause.args),
+                                     resolved))
+        for yname, out in resolved:
+            self.env[out] = sig.yield_type(yname)
+        if clause.where is not None:
+            self.blocks.append(FilterBlock(self._resolve(clause.where)))
 
     # -- multiple graphs ----------------------------------------------------
 

@@ -204,8 +204,20 @@ class _QueryPlanner:
 
     def _plan_call(self, op: L.LogicalOperator, block: B.CallBlock
                    ) -> L.LogicalOperator:
-        from caps_tpu_torch._unported import not_ported
-        raise not_ported("CALL procedures (graph algorithms)")
+        """CALL composes like a scan of a fresh component: chained onto
+        an empty-row upstream, cross-producted onto populated rows (one
+        output row per (input row, yielded row) pair)."""
+        from caps_tpu_torch.algo import registry
+        sig = registry.lookup(block.procedure)
+        new_fields = tuple((out, sig.yield_type(y))
+                           for y, out in block.yields)
+        if not op.fields:
+            return L.ProcedureCall(op, block.procedure, block.args,
+                                   block.yields, fields=new_fields)
+        call = L.ProcedureCall(L.Start(self.current_graph, fields=()),
+                               block.procedure, block.args, block.yields,
+                               fields=new_fields)
+        return L.CartesianProduct(op, call, fields=op.fields + call.fields)
 
     def _select(self, op: L.LogicalOperator, names: Tuple[str, ...]) -> L.LogicalOperator:
         env = op.env

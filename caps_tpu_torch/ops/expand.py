@@ -194,9 +194,15 @@ _MIN_DOMAIN = 1 << 16
 def build_csr(keys: np.ndarray, ok: np.ndarray, capacity: int,
               device) -> Optional[DeviceCSR]:
     """CSR over the host arrays ``keys`` / ``ok`` (the live rows of a
-    column, rows with ``ok`` False excluded), built with numpy and moved
+    column, rows with ``ok`` False excluded), built on the host and moved
     to ``device``; ``perm`` is padded to ``capacity``.  Returns None when
-    the key domain is unsuitable (negative / too sparse)."""
+    the key domain is unsuitable (negative / too sparse).
+
+    The C++ host runtime's counting sort builds it
+    (native/csrc/host_runtime.cpp ``csr_build``); with the native
+    runtime opted out, numpy's stable argsort and a bincount do —
+    the same ``indptr`` and ``perm``, bit for bit (a counting sort is
+    stable)."""
     keys = np.asarray(keys).astype(np.int64, copy=False)
     live = np.asarray(ok).astype(bool, copy=False)
     if live.any() and int(keys[live].min()) < 0:
@@ -210,9 +216,18 @@ def build_csr(keys: np.ndarray, ok: np.ndarray, capacity: int,
         n_keys = mx + 1
     # masked rows go to a sentinel bucket past the real domain
     shunted = np.where(live, keys, n_keys)
-    perm = np.argsort(shunted, kind="stable")
-    indptr = np.zeros(n_keys + 2, np.int64)
-    np.cumsum(np.bincount(shunted, minlength=n_keys + 1), out=indptr[1:])
+    from caps_tpu_torch import native
+    lib = native.runtime()
+    if lib is not None:
+        off_b, perm_b = lib.csr_build(np.ascontiguousarray(shunted),
+                                      len(shunted), n_keys + 1)
+        indptr = np.frombuffer(off_b, np.int64)
+        perm = np.frombuffer(perm_b, np.int64)
+    else:
+        perm = np.argsort(shunted, kind="stable")
+        indptr = np.zeros(n_keys + 2, np.int64)
+        np.cumsum(np.bincount(shunted, minlength=n_keys + 1),
+                  out=indptr[1:])
     perm_pad = np.zeros(capacity, np.int32)
     perm_pad[:len(perm)] = perm
     return DeviceCSR(

@@ -41,9 +41,7 @@ Decision surfaces:
 The counterpart of ``caps_tpu/relational/cost.py``, host arithmetic
 throughout.  Nothing in this package calls :func:`choose_dist_strategy`
 or :meth:`CostModel.dist_strategy` yet (the sharded path is ROADMAP
-Queue 1 item 12); the graph algorithms' pricing (``algo_pushdown_wins``)
-and their branch of :func:`annotate_plan` come with their operator
-(item 9).  Counters go to the session's metrics registry
+Queue 1 item 12).  Counters go to the session's metrics registry
 (``obs/metrics.py``).
 """
 from __future__ import annotations
@@ -299,6 +297,28 @@ class CostModel:
                   cascade_cost=round(cascade_cost, 1))
         return decision
 
+    def algo_pushdown_wins(self, procedure: str,
+                           est_iterations: int = 1) -> bool:
+        """Device fixed-shape fixpoint vs the host NumPy kernel for one
+        ``CALL algo.*`` (algo/): the device pays one launch
+        plus per-iteration padded SpMV traffic over nodes + edges; the
+        host streams the same arrays through sequential NumPy at a
+        modeled per-byte penalty (no vector lanes, no overlap).  Tiny
+        graphs — where the pad-to-bucket waste dwarfs the work — stay on
+        the host; anything dense amortizes the launch in one iteration."""
+        nodes = float(max(1, self.stats.total_nodes))
+        edges = float(max(1, self.stats.total_rels))
+        iters = max(1, int(est_iterations))
+        device = LAUNCH_OVERHEAD_BYTES + iters * (
+            self.device_cost(edges) + self.device_cost(nodes))
+        host = iters * (edges + nodes) * ROW_BYTES * 8.0
+        decision = device <= host
+        self.note("algo_strategy", procedure=procedure,
+                  chosen="device-fixpoint" if decision else "host",
+                  device_cost=round(device, 1), host_cost=round(host, 1),
+                  est_iterations=iters)
+        return decision
+
     def closure_selectivity(self, rel_types: Iterable[str]) -> float:
         """Expected multiplicity of edges of these types between two
         SPECIFIC bound nodes — edge cardinality over the squared node
@@ -462,6 +482,7 @@ def annotate_plan(root, model: CostModel) -> Dict[str, Any]:
     statistics store measures *model* error and EXPLAIN renders
     estimated-vs-chosen with zero extra plumbing.  Returns a summary
     for the result metrics."""
+    from caps_tpu_torch.algo.op import AlgoProcedureOp
     from caps_tpu_torch.relational import ops as R
     from caps_tpu_torch.relational.count_pattern import CountPatternOp
     from caps_tpu_torch.relational.var_expand import VarExpandOp
@@ -522,8 +543,10 @@ def annotate_plan(root, model: CostModel) -> Dict[str, Any]:
             # never executes on the healthy path, so its estimates do
             # not flow up
             est = max(1.0, float(op.planned_rows))
-        # (the reference prices its graph-algorithm operator here, one
-        # row per node; CALL procedures are ROADMAP Queue 1 item 9)
+        elif isinstance(op, AlgoProcedureOp):
+            # one yielded row per snapshot node (BFS/SSSP emit fewer —
+            # reachable only — but the full population bounds it)
+            est = max(1.0, float(model.stats.total_nodes))
         elif isinstance(op, VarExpandOp):
             est, frontier = 0.0, l_est
             for length in range(1, op.upper + 1):

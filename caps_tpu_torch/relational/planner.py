@@ -16,7 +16,6 @@ from caps_tpu_torch.logical import ops as L
 from caps_tpu_torch.okapi.graph import QualifiedGraphName
 from caps_tpu_torch.okapi.types import CTNode, CTRelationship
 from caps_tpu_torch.relational import ops as R
-from caps_tpu_torch._unported import not_ported
 from caps_tpu_torch.relational.graphs import RelationalCypherGraph
 from caps_tpu_torch.relational.var_expand import VarExpandOp
 
@@ -412,8 +411,24 @@ class RelationalPlanner:
         if isinstance(op, L.EmptyRecords):
             return R.StartOp(ctx)
         if isinstance(op, L.ProcedureCall):
-            raise not_ported("CALL procedures (graph algorithms)")
+            return self._plan_procedure(op)
         raise RelationalPlanningError(f"cannot plan {type(op).__name__}")
+
+    def _plan_procedure(self, op: L.ProcedureCall) -> R.RelationalOperator:
+        from caps_tpu_torch.algo import registry
+        from caps_tpu_torch.algo.op import AlgoProcedureOp
+        parent = self.plan_op(op.parent)
+        sig = registry.lookup(op.procedure)
+        prefer_host = False
+        if self.cost_model is not None:
+            try:
+                prefer_host = not self.cost_model.algo_pushdown_wins(
+                    sig.name, sig.est_iterations)
+            except Exception:  # pragma: no cover — pricing must not fail
+                prefer_host = False
+        return AlgoProcedureOp(self.context, parent, self.current_graph,
+                               sig, op.args, op.yields,
+                               prefer_host=prefer_host)
 
     def _pushdown_wins(self, pushed) -> bool:
         """Price the matched count chain both ways (relational/cost.py

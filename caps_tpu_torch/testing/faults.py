@@ -431,6 +431,47 @@ def failing_wcoj(exc: ExcSpec = None, n_times: Optional[int] = 1):
             MultiwayJoinOp._compute_wcoj = orig
 
 
+@contextlib.contextmanager
+def failing_algo(exc: ExcSpec = None, n_times: Optional[int] = 1):
+    """Fail the graph-algorithm procedure's DEVICE fixpoint path
+    (algo/op.py ``AlgoProcedureOp._compute_device``).  The port's
+    operator does not answer a fault from its NumPy kernels (the host
+    strategy is a plan decision only — ROADMAP "Differences"), so the
+    fault propagates; under the server the retry ladder contains it,
+    and the request is answered by a later execution once the budget
+    is spent.
+
+    A FRESH exception per injection (``exc`` semantics as
+    :func:`failing_operator`; default a realistic device OOM), stamped
+    ``caps_algo_fault`` first-writer-wins at construction so assertions
+    can attribute what they caught.  ``n_times=1`` fails exactly the
+    next device fixpoint then heals; ``n_times=None`` is permanent.
+    Installed/restored on the shared fault lock like every other patch
+    point; injections count ``faults.injected.algo``.  Yields the
+    budget (``.injected``)."""
+    from caps_tpu_torch.algo.op import AlgoProcedureOp
+    budget = _Budget(n_times)
+
+    with OPERATOR_PATCH._lock:
+        orig = AlgoProcedureOp._compute_device
+
+        def faulted(op_self, data, bound):
+            if budget.take():
+                _count_injection("algo")
+                e = _fresh_exception(exc)
+                if getattr(e, "caps_algo_fault", None) is None:
+                    e.caps_algo_fault = True
+                raise e
+            return orig(op_self, data, bound)
+
+        AlgoProcedureOp._compute_device = faulted
+    try:
+        yield budget
+    finally:
+        with OPERATOR_PATCH._lock:
+            AlgoProcedureOp._compute_device = orig
+
+
 def _make_device_down(device_index: int) -> BaseException:
     """A fresh CUDA runtime error in the shape a lost card raises it
     (``torch.AcceleratorError``: serve/failure.py classifies it

@@ -85,7 +85,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 compaction, after which the query reads the same; write
                 latency by kind, the first commit, fresh and stable
                 snapshot reads, delta rows and bytes, tombstones,
-                compaction seconds, peak bytes and launches;
+                compaction seconds, peak bytes and launches; and
+                ``algo.degree()`` on the final snapshot against the
+                mutated arrays;
  10. construct — CONSTRUCT / RETURN GRAPH on the slice's graph, stored
                 as ``session.base``: a new graph of the seeds' clones and
                 one ``:MET`` per ``:KNOWS`` edge out of them (its grouped
@@ -96,7 +98,21 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 100 gives the base's answer); each CONSTRUCT's seconds
                 split into the driving MATCH, the entity build and the
                 table build, warm latencies, peak bytes and launches;
- 11. serve    — ``QueryServer`` on the card over the slice's graph: 8
+ 11. algo     — ``CALL algo.*`` on the slice's graph ingested once more
+                with a float ``w`` per edge (uniform 1-10 from --seed),
+                with the native host runtime and with it opted out
+                (string encode, CSR build and upload timed apart); the
+                five procedures each cold and 5 warm (exact replays),
+                every run equal to the numpy kernels of
+                ``caps_tpu_torch/algo/kernels.py`` with their iteration
+                counts, on ``device-fixpoint`` / ``edge-list``: per call
+                the latency, the operator's split (graph arrays,
+                fixpoint, emit), synchronizing calls, size reads, peak
+                bytes and compile charges; two PageRank runs with one
+                digest; the top 20 by PageRank with their cities; then
+                each procedure on a 2,000-node graph of 600,000 edges on
+                the ``dense-tile`` layout;
+ 12. serve    — ``QueryServer`` on the card over the slice's graph: 8
                 closed-loop clients send 2,000 requests (80 % the grouped
                 query, 20 % its ``count(*)`` form on count pushdown,
                 ``$age`` over the warm phase's rotating ages), each equal
@@ -110,11 +126,11 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 from the first one's plan store against a cold one; and
                 failover between two replicas on the card (each on its
                 own stream) under ``device_loss(0)``;
- 12. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 13. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 13. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 14. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -122,14 +138,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 14. plan     — bench config 9 at its TPU size: the five query families
+ 15. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 15. selftest — the seconds each kernel family's self-test took, and a
+ 16. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 16. kernels  — each kernel wrapper against its plain PyTorch version on
+ 17. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
                 unwind queries, the multiway joins, the final snapshot
@@ -142,7 +158,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 17. the ``{"kernels": [...]}`` line, the card line, and the last line
+ 18. the script's seconds, the ``{"kernels": [...]}`` line, the card
+     line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one card; without CUDA, or outside the repository, it exits
@@ -2004,6 +2021,30 @@ def run_updates(torch, np, args, card: str, state):
            "is not empty", "updates")
     out["after_compaction"] = {"first_read_s": s, **run_info(session, r)}
 
+    # algo.degree() on the final snapshot against the mutated arrays
+    alive = person["alive"]
+    ids = np.sort(person["_id"][alive])
+    ok = knows["alive"]
+    si = np.minimum(np.searchsorted(ids, knows["_src"][ok]), len(ids) - 1)
+    ti = np.minimum(np.searchsorted(ids, knows["_tgt"][ok]), len(ids) - 1)
+    live = (ids[si] == knows["_src"][ok]) & (ids[ti] == knows["_tgt"][ok])
+    want_deg = (np.bincount(si[live], minlength=len(ids))
+                + np.bincount(ti[live], minlength=len(ids)))
+    t0 = time.perf_counter()
+    res = vg.cypher("CALL algo.degree() YIELD node, degree "
+                    "RETURN node, degree")
+    got = result_arrays(np, res, ["node", "degree"])
+    torch.cuda.synchronize()
+    (op,) = [m for m in res.metrics["operators"]
+             if m["op"] == "AlgoProcedure"]
+    expect("algo.degree", np.array_equal(got[0], ids)
+           and np.array_equal(got[1], want_deg),
+           "algo.degree() on the final snapshot disagrees with the "
+           "mutated arrays", "updates")
+    out["algo_degree"] = {"s": time.perf_counter() - t0,
+                          "strategy": op["strategy"], "layout": op["layout"],
+                          "nodes": int(len(ids)), "edges": int(live.sum())}
+
     def pct(v, q):
         return float(np.percentile(np.asarray(v), q)) if v else None
 
@@ -2136,6 +2177,305 @@ def run_construct(torch, np, args, card: str, state):
     out.update(phase_s=time.perf_counter() - t_phase,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=ops.launches(), oracle="equal")
+    emit(out)
+
+
+# -- phase algo: CALL algo.* on the slice's graph ----------------------------
+
+# the dense-tile graph: nodes and edges.  Its session's bucket lattice
+# is seeded with the node count (relational/shapes.py ``seed``, as the
+# serving tier's warmup seeds it), so 2,000 nodes pad to 2,048 and the
+# graph is dense-eligible (600,000 * 8 >= 2048^2); the unseeded ladder
+# (256, 1024, 4096, ...) pads them to 4,096, past DENSE_MAX_NODES
+ALGO_DENSE = (2_000, 600_000)
+ALGO_WARM = 5
+# the composed query: PageRank's top 20, then their cities through a
+# MATCH (the plan joins 20 rows with the 1M persons at most)
+QUERY_ALGO_TOP = ("CALL algo.pagerank() YIELD node, score "
+                  "WITH node, score ORDER BY score DESC, node LIMIT 20 "
+                  "MATCH (p:Person) WHERE id(p) = node "
+                  "RETURN node, score, p.city AS city "
+                  "ORDER BY score DESC, node")
+
+
+def algo_queries(source: int):
+    """(label, query, procedure, bound arguments of the oracle, value
+    column) of the five procedures; ``source`` is the BFS/SSSP seed's
+    id (node ids are 0..n-1, so it is also its index)."""
+    return [
+        ("degree", "CALL algo.degree('both') YIELD node, degree "
+         "RETURN node, degree", "algo.degree", {"direction": "both"},
+         "degree"),
+        ("pagerank", "CALL algo.pagerank() YIELD node, score "
+         "RETURN node, score", "algo.pagerank",
+         {"damping": 0.85, "max_iterations": 20, "tolerance": 1e-6},
+         "score"),
+        ("wcc", "CALL algo.wcc() YIELD node, component "
+         "RETURN node, component", "algo.wcc", {"max_iterations": 100},
+         "component"),
+        ("bfs", f"CALL algo.bfs({source}) YIELD node, dist "
+         "RETURN node, dist", "algo.bfs",
+         {"source_index": source, "max_depth": -1}, "dist"),
+        ("sssp", f"CALL algo.sssp({source}, 'w') YIELD node, dist "
+         "RETURN node, dist", "algo.sssp",
+         {"source_index": source, "max_iterations": -1}, "dist"),
+    ]
+
+
+def algo_oracle(np, name, n, src, tgt, w, bound):
+    """The numpy kernel's answer as the operator emits it: (node ids,
+    values) in id order (ids are 0..n-1), reachable nodes only for
+    BFS/SSSP; and (iterations, converged)."""
+    from caps_tpu_torch.algo import kernels
+    out, iters, conv = kernels.run_host(name, n, src, tgt, w, bound)
+    ids = np.arange(n, dtype=np.int64)
+    keep = np.ones(n, bool)
+    if name == "algo.bfs":
+        keep = out != kernels.UNREACHED
+    elif name == "algo.sssp":
+        keep = np.isfinite(out)
+    return (ids[keep], out[keep]), (int(iters), bool(conv))
+
+
+def result_arrays(np, result, names):
+    """The first rows of a result's columns as numpy arrays (one read
+    each), ordered by the first column."""
+    from caps_tpu_torch.ir import exprs as E
+    rec = result.records
+    table, header = rec.table, rec.header
+    n = table.exact_size()
+    cols = []
+    for name in names:
+        col = table._cols[header.column(E.Var(name))]
+        if not bool(col.valid[:n].all()):
+            raise RuntimeError(f"algo: null in column {name}")
+        cols.append(col.data[:n].cpu().numpy())
+    order = np.argsort(cols[0], kind="stable")
+    return [c[order] for c in cols]
+
+
+def algo_runs(torch, np, session, graph, query, names, want, stats,
+              layout, label, warm=ALGO_WARM):
+    """One CALL's cold run and ``warm`` repeats (re-plans handled as in
+    ``pattern_runs``), each equal to the oracle ``want`` (arrays, bit
+    for bit) with its ``stats`` (iterations, converged), on strategy
+    device-fixpoint and ``layout``.  Per run: host seconds to the
+    fetched columns, the operator's split, size reads; the cold run's
+    synchronizing calls ("file:line" each; the fetch of the two result
+    columns makes four) and compile charges, a warm run's again."""
+    def one():
+        t0 = time.perf_counter()
+        res = graph.cypher(query)
+        got = result_arrays(np, res, names)
+        torch.cuda.synchronize()
+        return res, got, time.perf_counter() - t0
+
+    def checked(res, got):
+        (op,) = [m for m in res.metrics["operators"]
+                 if m["op"] == "AlgoProcedure"]
+        expect(label, all(np.array_equal(g, w) for g, w in zip(got, want)),
+               "the rows disagree with the numpy oracle", "algo")
+        expect(label, (op["iterations"], op["converged"]) == stats,
+               f"iterations/converged {op['iterations']}/"
+               f"{op['converged']} != the oracle's {stats}", "algo")
+        expect(label, op["strategy"] == "device-fixpoint"
+               and op["layout"] == layout,
+               f"ran {op['strategy']}/{op['layout']}", "algo")
+        return {"s": None, "strategy": op["strategy"],
+                "layout": op["layout"],
+                "graph_arrays_s": op["graph_arrays_s"],
+                "fixpoint_s": op["fixpoint_s"], "emit_s": op["emit_s"],
+                "size_syncs": res.metrics["size_syncs"],
+                "mode": session.fused.last_mode,
+                "plan_cache": res.metrics["plan_cache"],
+                "algo_compile_s": sum(
+                    c["seconds"] for c in res.metrics.get(
+                        "compile_charges", ()) if c["kind"] == "algo"),
+                "compile_s_charged": res.metrics["compile_s_charged"]}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (res, got, s), sites = count_syncs(torch, one)
+    cold = dict(checked(res, got), s=s, sync_sites=sites,
+                iterations=stats[0], converged=stats[1])
+    expect(label, cold["algo_compile_s"] > 0, "the cold run charged no "
+           "algo compile", "algo")
+    runs, replan_runs, seen = [], [], replans(session)
+    while len(runs) < warm or replans(session) != seen:
+        if len(replan_runs) > 2:
+            raise RuntimeError(f"algo/{label}: keeps re-planning")
+        res, got, s = one()
+        info = dict(checked(res, got), s=s)
+        if replans(session) != seen and info["mode"] == "record":
+            seen = replans(session)
+            replan_runs.append(info)
+            runs = []
+            continue
+        expect(label, info["algo_compile_s"] == 0, "a warm run charged the "
+               "algo kind", "algo")
+        runs.append(info)
+    (res, got, s), sites = count_syncs(torch, one)
+    synced = dict(checked(res, got), s=s, sync_sites=sites)
+    return {"cold": cold, "warm_s": statistics.median(r["s"] for r in runs),
+            "warm_runs": runs, "replan_runs": replan_runs,
+            "warm_sync_run": synced,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}, got
+
+
+def timed_ingest(torch, np, nodes, rels, native: bool):
+    """A fresh default session and the slice's graph ingested into it,
+    with the native host runtime or with it opted out
+    (``CAPS_TPU_NO_NATIVE=1``): total seconds, split into string encode
+    (the pool's ``encode_many``), CSR build (``ops.build_csr``, its
+    upload included) and column upload (``column._to``, synchronized)."""
+    import caps_tpu_torch
+    from caps_tpu_torch import native as N
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.backends.cuda import column, pool
+    from caps_tpu_torch.interop import graph_from_numpy
+    spent = {"encode_s": 0.0, "csr_s": 0.0, "upload_s": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    patches = [(pool.StringPool, "encode_many"),
+               (pool.NativeStringPool, "encode_many"),
+               (ops, "build_csr"), (column, "_to")]
+    saved = [(o, a, o.__dict__[a]) for o, a in patches]
+    before = os.environ.get(N.OPT_OUT_ENV)
+    try:
+        for o, a, fn in saved:
+            key = {"encode_many": "encode_s", "build_csr": "csr_s",
+                   "_to": "upload_s"}[a]
+            setattr(o, a, timed(key, fn))
+        if native:
+            os.environ.pop(N.OPT_OUT_ENV, None)
+        else:
+            os.environ[N.OPT_OUT_ENV] = "1"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session = caps_tpu_torch.local_session()
+        graph = graph_from_numpy(session, nodes, rels)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+        if before is None:
+            os.environ.pop(N.OPT_OUT_ENV, None)
+        else:
+            os.environ[N.OPT_OUT_ENV] = before
+    return session, graph, {"native": native, "seconds": total,
+                            "pool": type(session.backend.pool).__name__,
+                            **spent}
+
+
+def run_algo(torch, np, args, card: str, state):
+    """``CALL algo.*`` on the slice's graph ingested once more with a
+    float ``w`` on each :KNOWS edge (uniform integers 1-10 from --seed):
+    the ingest timed with the native host runtime and with it opted
+    out; each procedure cold and 5 warm runs, every one equal to the
+    numpy kernels of ``algo/kernels.py`` with their iteration counts, on
+    the edge-list layout; two PageRank runs with one digest; the
+    composed top-20 query; then each procedure on a 2,000-node graph of
+    600,000 edges on the dense-tile layout."""
+    import hashlib
+    _session, _graph, nodes, rels, _ = state
+    out = {"phase": "algo", "card": card}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 3)
+    knows = dict(rels["KNOWS"])
+    knows["w"] = rng.integers(1, 11, len(knows["_id"])).astype(np.float64)
+    rels_w = {"KNOWS": knows}
+    ingest = []
+    for native in (True, False, True):
+        session, graph, info = timed_ingest(torch, np, nodes, rels_w,
+                                            native)
+        ingest.append(info)
+        if not native:
+            del session, graph
+    out["ingest"] = ingest
+    expect("ingest", [i["pool"] for i in ingest] == [
+        "NativeStringPool", "StringPool", "NativeStringPool"],
+           f"pools {[i['pool'] for i in ingest]}", "algo")
+
+    n = args.persons
+    src, tgt, w = knows["_src"], knows["_tgt"], knows["w"]
+    source = int(rng.integers(n))
+    out["source"] = source
+    calls, scores = {}, None
+    for label, query, name, bound, col in algo_queries(source):
+        t0 = time.perf_counter()
+        want, stats = algo_oracle(np, name, n, src, tgt, w, bound)
+        oracle_s = time.perf_counter() - t0
+        info, got = algo_runs(torch, np, session, graph, query,
+                              ["node", col], want, stats, "edge-list",
+                              label)
+        info["oracle_s"] = oracle_s
+        info["rows"] = int(len(want[0]))
+        if label == "pagerank":
+            # the last warm run's scores, then one more run's
+            scores = want
+            again = result_arrays(np, graph.cypher(query), ["node", col])
+            digests = [hashlib.sha256(a[1].tobytes()).hexdigest()
+                       for a in (got, again)]
+            expect("pagerank", digests[0] == digests[1],
+                   f"two runs on the card differ: {digests}", "algo")
+            info["digests"] = digests
+        calls[label] = info
+        emit({"phase": "algo", "part": label, "card": card, **info})
+
+    # the composed query: top 20 by score, then their cities
+    order = np.lexsort((scores[0], -scores[1]))[:20]
+    city = nodes["Person"]["city"]
+    want_top = [{"node": int(scores[0][i]), "score": float(scores[1][i]),
+                 "city": str(city[scores[0][i]])} for i in order]
+    rows, info, result = pattern_runs(torch, session, graph, QUERY_ALGO_TOP,
+                                      {}, card)
+    expect("top20", rows == want_top, f"{rows[:3]} != {want_top[:3]}",
+           "algo")
+    joined = max((m["rows"] for m in result.metrics["operators"]
+                  if m["op"] in ("Join", "CartesianProduct", "Filter")),
+                 default=0)
+    expect("top20", joined <= 20 * n, f"{joined} rows in a join", "algo")
+    info["operators"] = [[m["op"], m["rows"]]
+                         for m in result.metrics["operators"]]
+    calls["top20"] = info
+
+    # the dense-tile family
+    dn, de = ALGO_DENSE
+    rng = np.random.default_rng(args.seed + 4)
+    dsrc = rng.integers(0, dn, de, dtype=np.int64)
+    dtgt = rng.integers(0, dn, de, dtype=np.int64)
+    dw = rng.integers(1, 11, de).astype(np.float64)
+    dnodes = {"Person": {"_id": np.arange(dn, dtype=np.int64)}}
+    drels = {"KNOWS": {"_id": np.arange(dn, dn + de, dtype=np.int64),
+                       "_src": dsrc, "_tgt": dtgt, "w": dw}}
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    dsession = caps_tpu_torch.local_session()
+    dsession.shape_lattice.seed([dn])
+    dgraph = graph_from_numpy(dsession, dnodes, drels)
+    dsource = int(rng.integers(dn))
+    dense = {}
+    for label, query, name, bound, col in algo_queries(dsource):
+        want, stats = algo_oracle(np, name, dn, dsrc, dtgt, dw, bound)
+        info, _got = algo_runs(torch, np, dsession, dgraph, query,
+                               ["node", col], want, stats, "dense-tile",
+                               f"dense/{label}")
+        dense[label] = info
+    out.update(calls={k: {"cold_s": v["cold"]["s"] if "cold" in v
+                          else v["cold_s"], "warm_s": v["warm_s"]}
+                      for k, v in calls.items()},
+               dense=dense, nodes=n, edges=int(len(src)),
+               dense_graph=list(ALGO_DENSE),
+               phase_s=time.perf_counter() - t_phase, oracle="equal")
     emit(out)
 
 
@@ -3184,6 +3524,7 @@ def main() -> int:
     ap.add_argument("--persons", type=int, default=1_000_000)
     ap.add_argument("--edges", type=int, default=10_000_000)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not os.path.isdir(os.path.join(ROOT, "caps_tpu_torch")):
         print("chip_smoke.py: caps_tpu_torch/ not found beside this script",
@@ -3226,6 +3567,7 @@ def main() -> int:
     launches.update(update_launches)
     pattern_calls.update(update_calls)
     run_construct(torch, np, args, card, state)
+    run_algo(torch, np, args, card, state)
     serve_launches, serve_calls = run_serve(torch, np, args, card, state)
     launches.update(serve_launches)
     pattern_calls.update(serve_calls)
@@ -3312,6 +3654,7 @@ def main() -> int:
             "ms_per_query": c["ms_per_query"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -119,7 +119,9 @@ def _graph_bags(graph):
     # graph built from their matches: it equals the JAX package's
     ("MATCH (a:Person)-[:KNOWS*1..2]->(b) CONSTRUCT NEW (b) RETURN GRAPH",
      True),
-    ("CALL algo.pagerank() YIELD node, score RETURN node", False),
+    # CALL procedures are ported too: the rows equal the JAX package's
+    ("CALL algo.pagerank() YIELD node, score RETURN node, score "
+     "ORDER BY node", True),
 ], ids=["construct_after_var_length", "procedure"])
 def test_unported_features_raise(query, ported):
     if not ported:
@@ -130,10 +132,14 @@ def test_unported_features_raise(query, ported):
     from caps_tpu.testing.factory import create_graph as jax_create
     from caps_tpu_torch.testing.factory import create_graph
     port = create_graph(caps_tpu_torch.local_session(device="cpu"),
-                        _SMALL_CREATE).cypher(query).graph
-    ref = jax_create(TPUCypherSession(), _SMALL_CREATE).cypher(query).graph
-    assert _graph_bags(port) == _graph_bags(ref)
-    assert len(_graph_bags(port)[0]) == 2  # each matched b, cloned once
+                        _SMALL_CREATE).cypher(query)
+    ref = jax_create(TPUCypherSession(), _SMALL_CREATE).cypher(query)
+    if query.startswith("CALL"):
+        rows = port.records.to_maps()
+        assert rows == ref.records.to_maps() and len(rows) == 3
+        return
+    assert _graph_bags(port.graph) == _graph_bags(ref.graph)
+    assert len(_graph_bags(port.graph)[0]) == 2  # each matched b, once
 
 
 def test_update_on_a_plain_graph_raises_update_error():
@@ -189,6 +195,37 @@ SLICE_MODULES = (
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_import_scan_covers_the_cost_model_and_wcoj_modules(module):
     assert ROOT / module in PORT_FILES
+
+
+ALGO_NATIVE_MODULES = (
+    "caps_tpu_torch/algo/__init__.py", "caps_tpu_torch/algo/registry.py",
+    "caps_tpu_torch/algo/kernels.py", "caps_tpu_torch/algo/fixpoint.py",
+    "caps_tpu_torch/algo/op.py", "caps_tpu_torch/native/__init__.py",
+)
+
+
+@pytest.mark.parametrize("module", ALGO_NATIVE_MODULES)
+def test_import_scan_covers_the_algo_and_native_modules(module):
+    assert ROOT / module in PORT_FILES
+
+
+def test_native_source_is_the_ports_own_copy():
+    """The C++ host runtime the port builds lives under the port's tree
+    (not a link to the JAX package's), builds its own module name, and
+    builds into the port's gitignored ``_build``."""
+    from caps_tpu_torch import native
+    src = pathlib.Path(native._SRC)
+    own = ROOT / "caps_tpu_torch" / "native" / "csrc" / "host_runtime.cpp"
+    assert src == own and not src.is_symlink()
+    assert src.resolve().parent.parent == (ROOT / "caps_tpu_torch" /
+                                           "native").resolve()
+    text = src.read_text()
+    assert "PyInit__caps_torch_host" in text
+    assert "caps_tpu/backends" not in text
+    assert pathlib.Path(native.so_path()).parent == \
+        ROOT / "caps_tpu_torch" / "native" / "_build"
+    assert "caps_tpu_torch/native/_build/" in \
+        (ROOT / ".gitignore").read_text().split()
 
 
 def test_cost_model_wcoj_and_replan_are_on_by_default():
@@ -279,7 +316,7 @@ def test_import_scan_covers_the_serving_modules(module):
 
 _TIMERS = {("time", "perf_counter"), ("time", "time"), ("time", "sleep"),
            ("time", "monotonic")}
-TIMED_DIRS = ("serve", "obs", "relational")
+TIMED_DIRS = ("serve", "obs", "relational", "algo")
 TIMED_FILES = [p for d in TIMED_DIRS
                for p in sorted((ROOT / "caps_tpu_torch" / d).rglob("*.py"))
                if p.name != "clock.py" or d != "obs"]
