@@ -1,2 +1,2 @@
 """Expansion schedules over the node domain (single device; the
-multi-GPU schedules wait for ROADMAP Queue 1 item 9)."""
+multi-GPU schedules wait for ROADMAP Queue 1 item 12)."""

@@ -12,7 +12,7 @@ with relationship isomorphism restored per length by closed-form
 corrections (see :func:`ring_varexpand3_reference`).  On a TPU mesh the
 JAX package rotates frontier blocks around a ``ppermute`` ring; the
 ring schedule (``make_ring_*``, ``*_cached``, ``ring_khop_*``) needs a
-device mesh and waits for the multi-GPU slice (ROADMAP Queue 1 item 9).
+device mesh and waits for the multi-GPU slice (ROADMAP Queue 1 item 12).
 
 Each hop's scatter is ``index_add_`` into the destination axis: a
 native atomic add on the card, exact for the int64 counts.

@@ -28,7 +28,7 @@ leaving them on the join path.
 
 One card, no mesh: the JAX package's ring and edge-sharded strategies
 (``_try_ring``, "spmv-sharded") have no counterpart until the multi-GPU
-slice (ROADMAP Queue 1 item 9).  Counts are int64 throughout; ids are
+slice (ROADMAP Queue 1 item 12).  Counts are int64 throughout; ids are
 cast to int32 only under ``_MAX_DOMAIN``.
 """
 from __future__ import annotations
@@ -81,6 +81,28 @@ class HopSpec:
 
 class _Unsuitable(Exception):
     """Runtime bail-out: compute via the fallback join plan instead."""
+
+
+def _host_domain(scans, rels) -> Opt[int]:
+    """The dense id domain N of the fused closures from the cached host
+    copies: ``scans`` are (ids, ok) node arrays, ``rels`` (src, tgt, ok)
+    edge arrays.  None when a live id is negative (the vectors index by
+    id) or N exceeds :data:`_MAX_DOMAIN`; the eager path then refuses
+    the same graph with :class:`_Unsuitable`."""
+    mx, mn = -1, 0
+    for ids, ok in scans:
+        if ids.shape[0] and ok.any():
+            live = ids[ok]
+            mx, mn = max(mx, int(live.max())), min(mn, int(live.min()))
+    for src, tgt, ok in rels:
+        if src.shape[0] and ok.any():
+            s, t = src[ok], tgt[ok]
+            mx = max(mx, int(s.max()), int(t.max()))
+            mn = min(mn, int(s.min()), int(t.min()))
+    n = max(mx + 1, 1)
+    if mn < 0 or n > _MAX_DOMAIN:
+        return None
+    return n
 
 
 def _dense_bool_vec(okps: torch.Tensor, ends: torch.Tensor,
@@ -694,17 +716,9 @@ class CountPatternOp(RelationalOperator):
 
         # id domain over everything this chain touches (host-side — the
         # scan host copies were read once when cached)
-        mx = -1
-        for _, _, _ok, host_ids, host_ok in [seed_scan] + mask_scans:
-            if host_ids.shape[0] and host_ok.any():
-                mx = max(mx, int(host_ids[host_ok].max()))
-        for src, tgt, ok in rels.values():
-            if src.shape[0] and ok.any():
-                mx = max(mx, int(src[ok].max()), int(tgt[ok].max()))
-        n = mx + 1
-        if n <= 0:
-            n = 1
-        if n > _MAX_DOMAIN:
+        n = _host_domain([scan[3:5] for scan in [seed_scan] + mask_scans],
+                         rels.values())
+        if n is None:
             return None  # let the eager path raise _Unsuitable
 
         seed_ids = self._fused_ids(st, self.seed.labels, n)
@@ -1063,19 +1077,26 @@ class CountPatternOp(RelationalOperator):
 
     def _domain(self, parts) -> int:
         """Smallest N covering every id seen (consume_count, so a fused
-        replay serves it with no read)."""
+        replay serves it with no read).  A negative live id folds into
+        the same read as an oversized domain: the dense vectors index
+        by id, so such a graph takes the join fallback."""
         backend = self._backend
         mx = torch.full((), -1, dtype=torch.int64, device=backend.device)
+        mn = torch.zeros((), dtype=torch.int64, device=backend.device)
         for vals, ok in parts:
             if vals.shape[0]:
                 v = vals.to(torch.int64)
                 mx = torch.maximum(mx, torch.where(
                     ok, v, torch.full_like(v, -1)).max())
-        n = backend.consume_count(mx, relation="cap") + 1
+                mn = torch.minimum(mn, torch.where(
+                    ok, v, torch.zeros_like(v)).min())
+        n = backend.consume_count(
+            torch.where(mn < 0, torch.full_like(mx, _MAX_DOMAIN), mx),
+            relation="cap") + 1
         if n <= 0:
             n = 1
         if n > _MAX_DOMAIN:
-            raise _Unsuitable(f"node-id domain {n} too large")
+            raise _Unsuitable(f"node-id domain {n} too large or negative")
         return n
 
     @staticmethod
@@ -1303,18 +1324,11 @@ class CountCycleOp(CountPatternOp):
                 self._fused_scan(st, h2.target.labels) is None:
             return None
 
-        mx = -1
-        for labels in (self.seed.labels, h1.target.labels, h2.target.labels):
-            _h, _t, _ok, host_ids, host_ok = st["scans"][("node", labels)]
-            if host_ids.shape[0] and host_ok.any():
-                mx = max(mx, int(host_ids[host_ok].max()))
-        for src, tgt, ok in rels:
-            if src.shape[0] and ok.any():
-                mx = max(mx, int(src[ok].max()), int(tgt[ok].max()))
-        n = mx + 1
-        if n <= 0:
-            n = 1
-        if n > _MAX_DOMAIN:
+        n = _host_domain(
+            [st["scans"][("node", labels)][3:5]
+             for labels in (self.seed.labels, h1.target.labels,
+                            h2.target.labels)], rels)
+        if n is None:
             return None
 
         def oriented(rel, direction):

@@ -273,24 +273,28 @@ class MultiwayJoinOp(RelationalOperator):
                 t._cols[header.column(E.EndNode(v))],
                 t._cols[header.column(v)])
 
-        # id domain over everything the pattern touches
+        # id domain over everything the pattern touches; a negative
+        # live id (the composite keys are frm*n + to) folds into the same
+        # read as an oversized domain and takes the cascade
         minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
-        mx = minus1
-        for _h, t, col in node_parts.values():
-            ids = torch.where(col.valid & t.row_ok,
-                              col.data.to(torch.int64), minus1)
-            mx = torch.maximum(mx, ids.max())
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        mx, mn = minus1, zero
+        live = [(col.data, col.valid & t.row_ok)
+                for _h, t, col in node_parts.values()]
         for _h, t, src, tgt, _idc in rel_parts.values():
             ok = src.valid & tgt.valid & t.row_ok
-            mx = torch.maximum(mx, torch.where(
-                ok, src.data.to(torch.int64), minus1).max())
-            mx = torch.maximum(mx, torch.where(
-                ok, tgt.data.to(torch.int64), minus1).max())
-        n = backend.consume_count(mx, relation="cap") + 1
+            live += [(src.data, ok), (tgt.data, ok)]
+        for data, ok in live:
+            ids = data.to(torch.int64)
+            mx = torch.maximum(mx, torch.where(ok, ids, minus1).max())
+            mn = torch.minimum(mn, torch.where(ok, ids, zero).min())
+        n = backend.consume_count(
+            torch.where(mn < 0, torch.full_like(mx, _MAX_DOMAIN), mx),
+            relation="cap") + 1
         if n <= 0:
             n = 1
         if n > _MAX_DOMAIN:
-            raise _Unsuitable(f"node-id domain {n} too large")
+            raise _Unsuitable(f"node-id domain {n} too large or negative")
         # the expand kernel's self-test, where the reference asks
         # whether its Pallas kernel is usable
         OPS.ensure_kernels("prefetch", dev)

@@ -33,9 +33,23 @@ threads and one engine session whose graph lives on the card:
                         start (explicit list or persistent plan store —
                         relational/plan_store.py), outcome in
                         stats()["warmup"] / health_report()
+    serve/wire.py       fleet wire protocol: length-prefixed JSON
+                        frames, typed-error round trip, WireClient
+    serve/fleet.py      fleet backends: one QueryServer per process
+                        behind a socket listener (in-process threads or
+                        spawned interpreters, each with its own CUDA
+                        context), snapshot export/install, the WAL and
+                        write lease of durable fleets (durability/)
+    serve/router.py     stateless consistent-hash router: plan-family
+                        affinity, load-aware spill, ring-degrading
+                        failover, snapshot shipping, fleet-wide scrape,
+                        end-to-end deadline budgets, hedged reads
+    serve/ha.py         router high availability: epoch-fenced
+                        active/standby routers on a second lease
+                        namespace, zombie-router fencing, the
+                        RouterSet client facade
 
-Not ported yet (ROADMAP): shard groups (``serve/shards.py``, item 12)
-and the fleet (``wire``, ``fleet``, ``router``, ``ha``, item 11).
+Not ported yet (ROADMAP): shard groups (``serve/shards.py``, item 12).
 
 Engine hooks this package owns: ``RelationalCypherSession.cypher_batch``
 (one batched pass over a cached plan), the deadline checkpoints in
@@ -78,6 +92,26 @@ _LAZY = {
     "DeviceReplica": "caps_tpu_torch.serve.devices",
     "replicate_graph": "caps_tpu_torch.serve.devices",
     "executing_device_index": "caps_tpu_torch.serve.devices",
+    # fleet serving (serve/wire.py, serve/fleet.py, serve/router.py):
+    # multi-process scale-out behind a consistent-hash router
+    "WireError": "caps_tpu_torch.serve.errors",
+    "FleetUnavailable": "caps_tpu_torch.serve.errors",
+    "StaleEpoch": "caps_tpu_torch.serve.errors",
+    "WalWriteError": "caps_tpu_torch.serve.errors",
+    "error_from_payload": "caps_tpu_torch.serve.errors",
+    "WireClient": "caps_tpu_torch.serve.wire",
+    "BackendSpec": "caps_tpu_torch.serve.fleet",
+    "FleetBackend": "caps_tpu_torch.serve.fleet",
+    "spawn_backend": "caps_tpu_torch.serve.fleet",
+    "rows_digest": "caps_tpu_torch.serve.fleet",
+    "HashRing": "caps_tpu_torch.serve.router",
+    "RouterConfig": "caps_tpu_torch.serve.router",
+    "FleetRouter": "caps_tpu_torch.serve.router",
+    # router HA (serve/ha.py): replicated routers behind one lease
+    "HARouter": "caps_tpu_torch.serve.ha",
+    "RouterSet": "caps_tpu_torch.serve.ha",
+    "RouterSpec": "caps_tpu_torch.serve.ha",
+    "spawn_router": "caps_tpu_torch.serve.ha",
 }
 
 __all__ = [

@@ -287,7 +287,7 @@ class FleetUnavailable(ServeError):
 
 class WalWriteError(ServeError):
     """A write-ahead-log append (or its fsync) failed BEFORE the commit
-    acknowledged (the write-ahead log, not ported yet).  The commit rolls back
+    acknowledged (caps_tpu_torch/durability/wal.py).  The commit rolls back
     through the string-pool mark and this error surfaces to the writer —
     a durability failure is NEVER a silent ack.  Marked
     ``caps_transient``: disk pressure and injected fsync faults are
@@ -299,7 +299,7 @@ class WalWriteError(ServeError):
 
 
 class StaleEpoch(ServeError):
-    """An epoch-fenced write frame was refused (durability, not ported yet):
+    """An epoch-fenced write frame was refused (caps_tpu_torch/durability):
     the backend no longer holds the write lease, or the frame carries an
     epoch older than the lease's.  This is the split-brain fence — a
     zombie owner (or a router with a stale ownership view) learns who

@@ -34,12 +34,19 @@ faults it can practice against.  This module provides them:
 * :func:`stale_cache` — forge a wrong-version result-cache entry
   (relational/result_cache.py) at the load seam, proving the
   snapshot-version check rejects it;
+* :func:`flaky_ingest` — fail the next device column placements of an
+  ingest (the string pool must roll back);
+* :func:`stale_statistics` — a graph reports a scaled statistics sketch
+  (the cost model's divergence → re-plan loop);
+* :func:`slow_network` / :func:`drop_connection` — slow or drop fleet
+  wire sends (serve/wire.py ``send_frame``);
+* :func:`torn_wal` / :func:`failing_fsync` — tear a commit-log frame or
+  fail its fsync (durability/wal.py ``_write_frame`` / ``_fsync``);
 * :class:`FaultPlan` — compose any of the above into one context
   manager.
 
-The injectors of the tiers not ported yet (the fleet's connections and
-network, shard groups, the write-ahead log, ingest, statistics) come
-with them (ROADMAP).
+The injectors of shard groups (``corrupt_shard``, ``shard_loss``,
+``sick_shard``) come with that tier (ROADMAP item 12).
 
 All operator-level faults route through ONE locked patch point
 (:class:`_OperatorPatch`): each operator class is monkey-patched at most
@@ -203,20 +210,25 @@ def _count_injection(name: str) -> None:
 
 
 @contextlib.contextmanager
-def _patched_place_column(backend, wrap: Callable[[Callable], Callable]):
-    """The ONE install/restore path for placement faults (abort_write,
-    flaky_compaction, device_oom at ingest): replaces ``backend.place_column``
-    with ``wrap(original)`` under the shared fault lock and restores the
-    captured original on exit.  Nesting is LIFO (each context captures
-    whatever is installed when it enters, like the operator hooks)."""
+def _patched(owner, name: str, wrap: Callable[[Callable], Callable]):
+    """The ONE install/restore path for the attribute faults: replaces
+    ``owner.<name>`` with ``wrap(original)`` under the shared fault lock
+    and restores the captured original on exit.  The owners: a
+    backend's ``place_column`` (abort_write, flaky_compaction,
+    flaky_ingest, device_oom at ingest), ``serve/wire.py send_frame``
+    (the wire faults here and in testing/chaos.py: the backend's reply
+    path and the client's request path both resolve it at call time),
+    and ``durability/wal.py _write_frame`` / ``_fsync``.  Nesting is
+    LIFO (each context captures whatever is installed when it enters,
+    like the operator hooks)."""
     with OPERATOR_PATCH._lock:
-        orig = backend.place_column
-        backend.place_column = wrap(orig)
+        orig = getattr(owner, name)
+        setattr(owner, name, wrap(orig))
     try:
         yield
     finally:
         with OPERATOR_PATCH._lock:
-            backend.place_column = orig
+            setattr(owner, name, orig)
 
 
 def _placement_backend(session, who: str):
@@ -573,7 +585,7 @@ def device_oom(phase: str = "execute", op_name: str = "Scan",
             return orig(col)
         return poisoned
 
-    with _patched_place_column(backend, wrap):
+    with _patched(backend, "place_column", wrap):
         yield budget
 
 
@@ -617,7 +629,7 @@ def abort_write(session, after_n_columns: int = 1,
             return orig(col)
         return poisoned
 
-    with _patched_place_column(backend, wrap):
+    with _patched(backend, "place_column", wrap):
         yield budget
 
 
@@ -644,7 +656,197 @@ def flaky_compaction(session, error_rate: float = 0.5,
             return orig(col)
         return poisoned
 
-    with _patched_place_column(backend, wrap):
+    with _patched(backend, "place_column", wrap):
+        yield budget
+
+
+@contextlib.contextmanager
+def flaky_ingest(session, n_times: Optional[int] = 1, exc: ExcSpec = None):
+    """Fail the session's next ``n_times`` device column placements with
+    a transient device error (default: the realistic OOM).  The engine's
+    containment obligations under this fault: the ingest raises cleanly,
+    and the string pool rolls back to its pre-ingest size so fused
+    replayability is not silently invalidated (backends/cuda/table.py
+    ``from_columns``).  Yields the injection budget."""
+    backend = _placement_backend(session, "flaky_ingest")
+    budget = _Budget(n_times)
+
+    def wrap(orig):
+        def poisoned(col):
+            if budget.take():
+                _count_injection("flaky_ingest")
+                raise _fresh_exception(exc)
+            return orig(col)
+        return poisoned
+
+    with _patched(backend, "place_column", wrap):
+        yield budget
+
+
+@contextlib.contextmanager
+def stale_statistics(graph, scale: float = 0.001):
+    """While active, ``graph`` reports a statistics sketch whose node
+    and relationship cardinalities are scaled by ``scale`` — the
+    deterministic stats-violating workload.  The cost model
+    (relational/cost.py) prices plans from the distorted prior while
+    executions observe the TRUE cardinalities, so ``opstats``
+    divergence fires on real model error and the divergence →
+    quarantine → re-plan loop can be asserted end-to-end.  Exiting
+    restores the honest sketch.  Statistics are advisory by contract:
+    results must stay exact throughout.
+
+    Works on any graph exposing ``statistics()`` (ScanGraph,
+    GraphSnapshot, VersionedGraph); raises for graphs without a sketch
+    — a fault test that distorts nothing must fail loudly."""
+    import dataclasses as _dc
+
+    from caps_tpu_torch.relational.stats import GraphStatistics
+
+    real = graph.statistics()
+    if not isinstance(real, GraphStatistics) or not real.total_nodes:
+        raise ValueError("stale_statistics needs a graph with a "
+                         "non-empty statistics sketch")
+    scale = float(scale)
+    distorted = GraphStatistics(
+        {combo: max(1, int(n * scale))
+         for combo, n in real.node_combos.items()},
+        {t: _dc.replace(r, rows=max(1, int(r.rows * scale)))
+         for t, r in real.rels.items()},
+        real.property_distinct, version=real.version)
+    _count_injection("stale_statistics")
+    # instance attribute shadows the class method; VersionedGraph
+    # delegates to its current snapshot, so the shadow covers every
+    # snapshot resolved while the fault is active
+    graph.statistics = lambda: distorted
+    try:
+        yield distorted
+    finally:
+        del graph.statistics
+
+
+@contextlib.contextmanager
+def slow_network(delay_s: float, n_times: Optional[int] = None,
+                 every_n: int = 1):
+    """While active, fleet wire sends (``serve/wire.py send_frame``) are
+    deterministically slow: each eligible send sleeps ``delay_s``
+    through ``obs.clock`` before hitting the socket — on a fake clock a
+    "congested fleet link" costs zero real time, and router latency /
+    snapshot-lag assertions become exact.  Injections count
+    ``faults.injected.slow_network``.  Yields the budget
+    (``.injected``)."""
+    budget = _Budget(n_times, every_n)
+
+    def wrap(orig):
+        def slowed(sock, obj):
+            if budget.take():
+                _count_injection("slow_network")
+                clock.sleep(delay_s)
+            return orig(sock, obj)
+        return slowed
+
+    from caps_tpu_torch.serve import wire
+    with _patched(wire, "send_frame", wrap):
+        yield budget
+
+
+@contextlib.contextmanager
+def drop_connection(exc: ExcSpec = None, n_times: Optional[int] = 1,
+                    every_n: int = 1):
+    """While active, eligible fleet wire sends fail with a FRESH
+    connection-level error (default: ``ConnectionResetError``) instead
+    of reaching the socket — the deterministic stand-in for a backend
+    process dying mid-call.
+
+    The injected OSError surfaces exactly as the real path would —
+    wrapped into a transient :class:`~caps_tpu_torch.serve.errors.WireError`
+    (what ``send_frame`` raises when ``sendall`` fails), counting a
+    ``wire.drops`` — so the router's next steps (degrade the ring
+    segment, retry on the next node) run without killing a real
+    process.  Yields the budget (``.injected``); injections count
+    ``faults.injected.drop_connection``."""
+    from caps_tpu_torch.serve.errors import ServeError, WireError
+    if exc is None:
+        exc = ConnectionResetError("injected: connection dropped")
+    budget = _Budget(n_times, every_n)
+
+    def wrap(orig):
+        def dropping(sock, obj):
+            if budget.take():
+                _count_injection("drop_connection")
+                err = _fresh_exception(exc)
+                if isinstance(err, ServeError):
+                    raise err
+                # the patch point sits where send_frame's own OSError
+                # conversion lives — surface the same typed shape
+                global_registry().counter("wire.drops").inc()
+                raise WireError(
+                    f"send failed: {type(err).__name__}: {err}")
+            return orig(sock, obj)
+        return dropping
+
+    from caps_tpu_torch.serve import wire
+    with _patched(wire, "send_frame", wrap):
+        yield budget
+
+
+@contextlib.contextmanager
+def torn_wal(n_bytes: int = 6, n_times: Optional[int] = 1):
+    """While active, the next ``n_times`` commit-log frame writes TEAR:
+    only the first ``n_bytes`` bytes of the frame reach the file (then
+    a flush, then a fresh ``caps_wal_fault``-marked RuntimeError) — the
+    on-disk image a SIGKILL mid-write leaves.  Deliberately NOT an
+    OSError: ``CommitLog.append``'s OSError path truncates the partial
+    frame away, and this injector proves RECOVERY drops a torn tail, so
+    the torn bytes must survive on disk.  Patches the
+    ``durability/wal.py`` module attribute under the shared fault lock;
+    injections count ``faults.injected.torn_wal``.  Yields the
+    budget."""
+    from caps_tpu_torch.durability import wal
+    budget = _Budget(n_times)
+
+    def wrap(orig):
+        def tearing(f, body):
+            if budget.take():
+                _count_injection("torn_wal")
+                frame = wal.frame_bytes(body)
+                f.write(frame[:max(0, int(n_bytes))])
+                f.flush()
+                ex = RuntimeError(
+                    f"injected torn WAL write ({n_bytes} of "
+                    f"{len(frame)} bytes reached disk)")
+                ex.caps_wal_fault = True
+                raise ex
+            return orig(f, body)
+        return tearing
+
+    with _patched(wal, "_write_frame", wrap):
+        yield budget
+
+
+@contextlib.contextmanager
+def failing_fsync(n_times: Optional[int] = 1):
+    """While active, the next ``n_times`` commit-log fsyncs fail with a
+    fresh ``caps_wal_fault``-marked OSError.  The commit must abort
+    with a typed TRANSIENT
+    :class:`~caps_tpu_torch.serve.errors.WalWriteError` — never a silent
+    acknowledgement — with the graph unchanged, and a retried write
+    must succeed once the disk heals.  Patches the ``durability/wal.py``
+    module attribute under the shared fault lock; injections count
+    ``faults.injected.failing_fsync``.  Yields the budget."""
+    from caps_tpu_torch.durability import wal
+    budget = _Budget(n_times)
+
+    def wrap(orig):
+        def failing(f):
+            if budget.take():
+                _count_injection("failing_fsync")
+                ex = OSError("injected fsync failure")
+                ex.caps_wal_fault = True
+                raise ex
+            return orig(f)
+        return failing
+
+    with _patched(wal, "_fsync", wrap):
         yield budget
 
 

@@ -54,8 +54,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 synchronizing call), the 24 rotating ages, each against a
                 numpy oracle, and the cascade; then bench config 10 at its
                 TPU size (100,000 :Person, uniform :KNOWS at densities 4,
-                8 and 16): the triangle, diamond and 4-cycle enumerated,
-                each a bag of id rows equal to a numpy oracle and, where
+                8 and 16): the triangle, diamond and 4-cycle enumerated
+                (cold and 3 exact replays), each a bag of id rows equal
+                to a numpy oracle and, where
                 its open rows stay at or under 16M (the card holds the
                 cascade's intermediate tables up to there), to the
                 forced cascade;
@@ -126,11 +127,30 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 from the first one's plan store against a cold one; and
                 failover between two replicas on the card (each on its
                 own stream) under ``device_loss(0)``;
- 13. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 13. fleet    — durability and the fleet with backend processes on the
+                card, each a new interpreter with its own CUDA context
+                building the same ``foaf`` graph (1M people, 10M edge
+                draws) from one spec: the grouped query through one
+                backend and through a router over three (one closed-loop
+                client per ``$age`` family, every reply equal to a numpy
+                oracle; requests/s, router latency, requests per backend,
+                ``utilization.gpu`` every 100 ms, each child's card
+                memory and kernel launches), the soak again with a
+                non-owner SIGKILLed (availability 1.0), a shipped write
+                read back with one digest everywhere; three durable
+                backends on one store (WAL ``always``) through a write
+                soak with the owner SIGKILLed (recovery seconds, no
+                acknowledged write lost, the WAL's append latency under
+                each fsync policy, the restarted owner's start and its
+                refused write frames); two routers behind a
+                ``RouterSet`` under a seeded ``ChaosSchedule`` that kills
+                the active one (takeover, availability, the dead
+                router's epoch fenced, every invariant green);
+ 14. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 14. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 15. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -138,14 +158,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 15. plan     — bench config 9 at its TPU size: the five query families
+ 16. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 16. selftest — the seconds each kernel family's self-test took, and a
+ 17. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 17. kernels  — each kernel wrapper against its plain PyTorch version on
+ 18. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
                 unwind queries, the multiway joins, the final snapshot
@@ -158,7 +178,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 18. the script's seconds, the ``{"kernels": [...]}`` line, the card
+ 19. the script's seconds, the ``{"kernels": [...]}`` line, the card
      line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -172,6 +192,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -271,6 +292,9 @@ CYCLIC_NODES = 100_000
 CYCLIC_DENSITIES = (4, 8, 16)
 CASCADE_MAX_OPEN = 16_000_000
 CYCLIC_CUT = {("diamond", 16), ("cycle4", 16)}
+# warm repeats of each config-10 query (each materializes and compares
+# up to tens of millions of rows on the host; the seeded triangle keeps 5)
+CYCLIC_WARM = 3
 # The LDBC phase's scales: 11 is about LDBC SF1 (11k persons, 150k
 # nodes), 110 about SF10 (BASELINE.md configs 2 and 3).
 LDBC_SCALES = (11.0, 110.0)
@@ -1346,8 +1370,8 @@ def run_cyclic(torch, np, args, card: str, state):
     replays), each against a numpy oracle and the port's cascade.  Then
     bench config 10 at its TPU size: 100,000 :Person and uniform :KNOWS
     at densities 4, 8 and 16, the triangle, diamond and 4-cycle
-    enumerated on the multiway join against a numpy oracle (bags of id
-    rows) and, wherever its open rows stay at or under
+    enumerated on the multiway join (cold and CYCLIC_WARM exact
+    replays) against a numpy oracle (bags of id rows) and, wherever its open rows stay at or under
     CASCADE_MAX_OPEN, against the forced cascade.  Records the K2 calls
     of one exact replay of each."""
     import caps_tpu_torch
@@ -1483,7 +1507,8 @@ def run_cyclic(torch, np, args, card: str, state):
                    f"{check}", "cyclic")
             recorders = query_recorders()
             rows, info, res = pattern_runs(torch, wsession, wgraph, query,
-                                           {}, card, recorders=recorders)
+                                           {}, card, warm=CYCLIC_WARM,
+                                           recorders=recorders)
             expect(label, np.array_equal(rows_bag(np, rows, cols), want),
                    f"{len(rows)} rows disagree with the oracle's "
                    f"{len(want)}", "cyclic")
@@ -2909,6 +2934,722 @@ def run_serve(torch, np, args, card: str, state):
             {"served_batch": {r.name: r.calls for r in batch_calls}})
 
 
+# -- phase fleet: durability and the fleet, backend processes on the card ----
+
+QUERY_FLEET = (
+    "MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) WHERE a.age = $age "
+    "RETURN c.age AS age, count(*) AS n ORDER BY n DESC, age LIMIT 20")
+QUERY_FLEET_SET = "MATCH (p:Person {name: $name}) SET p.v = $v"
+QUERY_FLEET_WRITTEN = ("MATCH (p:Person) WHERE p.v IS NOT NULL "
+                       "RETURN p.name AS name, p.v AS v")
+FLEET_BACKEND = "cuda"      # the children's sessions ("cpu" to rehearse)
+FLEET_PER_BACKEND = 3       # read families (one $age each) per backend
+FLEET_SOAK_S = 10.0         # each read soak: 1 backend, 3, 3 with a kill
+FLEET_WRITE_SOAK_S = 8.0    # the durable write soak; the owner dies at 1/3
+FLEET_HA_SOAK_S = 8.0       # the router HA soak under a chaos schedule
+FLEET_NAMES = 16            # persons the idempotent SETs rotate over
+FLEET_LEASE_TTL_S = 2.0
+FLEET_ROUTER_TTL_S = 1.0
+FLEET_WAL_APPENDS = 200     # appends timed per fsync policy
+
+
+def nvidia_smi(*query) -> list:
+    """Rows of ``nvidia-smi <query> --format=csv,noheader,nounits``."""
+    out = subprocess.run(["nvidia-smi", *query,
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=20).stdout
+    return [[c.strip() for c in line.split(",")]
+            for line in out.strip().splitlines() if line.strip()]
+
+
+class UtilSampler:
+    """``utilization.gpu`` every ``period_s`` while the block runs: the
+    driver's share of the last sample period in which a kernel ran on
+    the card (a coarse measure: a tiny kernel counts as a busy period)."""
+
+    def __init__(self, period_s: float = 0.1):
+        import threading
+        self.period_s, self.samples = period_s, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            self.samples.append(float(nvidia_smi(
+                "--query-gpu=utilization.gpu")[0][0]))
+            self._stop.wait(max(0.0, self.period_s
+                                - (time.perf_counter() - t0)))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def summary(self) -> dict:
+        v = sorted(self.samples)
+        if not v:
+            return {"samples": 0}
+        return {"samples": len(v), "period_s": self.period_s,
+                "mean_pct": statistics.mean(v), "p50_pct": v[len(v) // 2],
+                "max_pct": v[-1],
+                "note": "nvidia-smi utilization.gpu: the share of each "
+                        "sample period with a kernel running, coarse"}
+
+
+def fleet_oracle(np, a, age: int) -> list:
+    """QUERY_FLEET's rows from the foaf arrays: 2-hop paths from the
+    persons of ``age``, counted per end person, summed per end age."""
+    ages, src, tgt = a["age"], a["src"], a["tgt"]
+    n = ages.shape[0]
+    hop1 = np.bincount(tgt[ages[src] == age], minlength=n)
+    hop2 = np.bincount(tgt, weights=hop1[src], minlength=n)
+    per_age = np.bincount(ages, weights=hop2)
+    rows = [{"age": int(x), "n": int(round(per_age[x]))}
+            for x in np.nonzero(per_age)[0]]
+    rows.sort(key=lambda r: (-r["n"], r["age"]))
+    return rows[:20]
+
+
+class Fleet:
+    """The phase's child processes: each one's name, process, port, and
+    whether the script killed it.  A child that dies unasked fails the
+    run with its stderr's tail."""
+
+    def __init__(self):
+        self.procs, self.ports, self.killed = {}, {}, set()
+        self.spawn_s, self.replaced = {}, []
+
+    def spawn(self, specs, spawn):
+        """Start every spec at once (a thread each); returns when all
+        report their ports, or raises with the first failure."""
+        import threading
+        errors = []
+
+        def one(spec):
+            t0 = time.perf_counter()
+            try:
+                proc, port = spawn(spec)
+            except Exception as ex:
+                errors.append(ex)
+                return
+            if spec.name in self.procs:   # a restart: keep the old one
+                self.replaced.append(self.procs[spec.name])
+            self.procs[spec.name], self.ports[spec.name] = proc, port
+            self.spawn_s[spec.name] = time.perf_counter() - t0
+            self.killed.discard(spec.name)
+
+        threads = [threading.Thread(target=one, args=(s,)) for s in specs]
+        for t in threads:
+            t.start()
+        return threads, errors
+
+    @staticmethod
+    def join(started):
+        threads, errors = started
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    def addr(self, name):
+        return ("127.0.0.1", self.ports[name])
+
+    def kill(self, name):
+        self.killed.add(name)
+        self.procs[name].kill()
+        self.procs[name].wait()
+
+    def check_alive(self, where: str):
+        from caps_tpu_torch.serve.fleet import stderr_tail
+        for name, proc in self.procs.items():
+            if name not in self.killed and proc.poll() is not None:
+                raise RuntimeError(
+                    f"fleet/{where}: child {name} exited unasked (code "
+                    f"{proc.returncode}); its stderr ends:\n"
+                    f"{stderr_tail(proc)}")
+
+    def stop_all(self):
+        for proc in [*self.procs.values(), *self.replaced]:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            try:
+                os.unlink(proc.caps_stderr_path)
+            except OSError:
+                pass
+
+
+def fleet_read_soak(router, families, want, seconds, kill=None):
+    """One closed-loop client thread per family through ``router`` for
+    ``seconds``; every reply is held to its oracle.  ``kill`` is
+    ``(after_s, fn)``: ``fn`` runs once that far into the soak."""
+    import collections
+    import threading
+    lock = threading.Lock()
+    lat, per_backend, failed, wrong = [], collections.Counter(), [], []
+    t_start = time.perf_counter()
+    stop_at = t_start + seconds
+
+    def client(fam, params):
+        while time.perf_counter() < stop_at:
+            t0 = time.perf_counter()
+            try:
+                out = router.query(QUERY_FLEET, params, family=fam)
+            except Exception as ex:
+                with lock:
+                    failed.append(f"{type(ex).__name__}: {ex}")
+                continue
+            dt = time.perf_counter() - t0
+            with lock:
+                if out["rows"] != want[params["age"]]:
+                    wrong.append((fam, out.get("backend")))
+                lat.append(dt)
+                per_backend[out["backend"]] += 1
+
+    threads = [threading.Thread(target=client, args=(f, p), daemon=True)
+               for f, p in families]
+    for t in threads:
+        t.start()
+    killed_at = None
+    if kill is not None:
+        time.sleep(kill[0])
+        killed_at = time.perf_counter() - t_start
+        kill[1]()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    elapsed = time.perf_counter() - t_start
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("fleet: a read client did not finish")
+    n = len(lat)
+    return {"requests": n, "failed": len(failed), "wrong": len(wrong),
+            "availability": n / (n + len(failed)) if n + len(failed)
+            else 0.0, "seconds": elapsed, "requests_per_s": n / elapsed,
+            "latency": latency_summary(lat),
+            "per_backend": dict(sorted(per_backend.items())),
+            "killed_at_s": killed_at, "first_failure":
+            failed[0] if failed else None,
+            "first_wrong": wrong[0] if wrong else None}
+
+
+def wal_append_latency(payload, policies=("always", "rotate", "never")):
+    """Seconds per ``CommitLog.append`` of ``payload`` (the soak's
+    cumulative delta) under each fsync policy, FLEET_WAL_APPENDS each,
+    in a log beside the fleet's store."""
+    import tempfile
+    from caps_tpu_torch.durability import CommitLog
+    from caps_tpu_torch.obs.metrics import MetricsRegistry
+    out = {}
+    for policy in policies:
+        reg = MetricsRegistry()
+        log = CommitLog(tempfile.mkdtemp(prefix=f"caps-wal-{policy}-"),
+                        fsync=policy, registry=reg)
+        times = []
+        for v in range(1, FLEET_WAL_APPENDS + 1):
+            t0 = time.perf_counter()
+            log.append(v, payload)
+            times.append(time.perf_counter() - t0)
+        log.close()
+        shutil.rmtree(log.dir_path, ignore_errors=True)
+        snap = reg.snapshot()
+        out[policy] = {**latency_summary(times),
+                       "mean_s": statistics.mean(times),
+                       "bytes_per_append": snap["wal.append_bytes"]
+                       / FLEET_WAL_APPENDS,
+                       "fsyncs": snap.get("wal.fsyncs", 0),
+                       "rotations": snap.get("wal.rotations", 0)}
+    return out
+
+
+def run_fleet(torch, np, args, card: str) -> dict:
+    """Durability and the fleet with backend processes on the card, all
+    built from one ``foaf`` spec (``--persons`` people, ``--edges`` edge
+    draws, ``--seed``):
+
+    1. read scaling: 3 backends (``spawn_backend``, ``versioned``,
+       ``workers=2``), FLEET_PER_BACKEND families per backend (one $age
+       each, balanced on the ring), one closed-loop client per family
+       for FLEET_SOAK_S through a solo router over ``p0``, then through
+       the router over all 3; every reply equal to the numpy oracle;
+       requests/s, router latency, requests per backend, card
+       utilization sampled every 100 ms, each child's card memory;
+    2. the soak again with a non-owner SIGKILLed a third of the way in:
+       availability 1.0;
+    3. a write through the owner, its ship lag, equal read-back digests
+       on every live backend;
+    4. 3 durable backends on one store (fsync ``always``), a write soak
+       of idempotent SETs with 2 readers, the owner SIGKILLed: recovery
+       seconds, no acknowledged write lost on any live backend, WAL
+       append latency per fsync policy, the restarted owner's start and
+       its write frames refused (stale epoch, no epoch);
+    5. 2 routers (``spawn_router``) behind a ``RouterSet`` over the
+       durable fleet, a seeded ``ChaosSchedule`` whose headline kills
+       the active router: takeover seconds, read availability, the dead
+       router's epoch fenced, every ``ChaosInvariants`` check green.
+
+    The children are new interpreters: each builds the graph from the
+    spec into its own CUDA context.  Returns the kernel launches the
+    3-backend soak made in the children."""
+    import tempfile
+    import threading
+    import caps_tpu_torch
+    from caps_tpu_torch import native
+    from caps_tpu_torch.obs.metrics import MetricsRegistry
+    from caps_tpu_torch.serve.errors import ServeError, StaleEpoch
+    from caps_tpu_torch.serve.fleet import (BackendSpec, foaf_arrays,
+                                            rows_digest, spawn_backend)
+    from caps_tpu_torch.serve.ha import RouterSet, RouterSpec, spawn_router
+    from caps_tpu_torch.serve.router import FleetRouter, RouterConfig
+    from caps_tpu_torch.serve.wire import WireClient
+    from caps_tpu_torch.testing.chaos import (ChaosInvariants, ChaosRunner,
+                                              ChaosSchedule)
+    t_phase = time.perf_counter()
+    out = {"phase": "fleet", "card": card, "backend": FLEET_BACKEND}
+    gspec = {"kind": "foaf", "n_people": args.persons,
+             "n_edges": args.edges, "seed": args.seed}
+    store = tempfile.mkdtemp(prefix="caps-fleet-")
+    out["graph"] = gspec
+    out["durable_dir_fs"] = subprocess.run(
+        ["df", "-T", store], capture_output=True, text=True
+    ).stdout.strip().splitlines()[-1].split()[1]
+    # every kernel and the native runtime are built (atomically, keyed by
+    # source hash) before a child starts: the children load them
+    native.runtime()
+    torch.cuda.empty_cache()
+
+    def spec(name, **kw):
+        return BackendSpec(name=name, backend=FLEET_BACKEND, graph=gspec,
+                           versioned=True, workers=2, max_queue=512, **kw)
+
+    def durable(name):
+        return spec(name, durable_dir=store, wal_fsync="always",
+                    lease_ttl_s=FLEET_LEASE_TTL_S)
+
+    fleet = Fleet()
+    routers = []
+    try:
+        # the read fleet and the durable fleet start together; the
+        # script builds the same arrays once for its oracle meanwhile
+        started = fleet.spawn([spec(f"p{i}") for i in range(3)]
+                              + [durable(f"d{i}") for i in range(3)],
+                              spawn_backend)
+        t0 = time.perf_counter()
+        arrays = foaf_arrays(args.persons, args.edges, args.seed)
+        oracle_s = time.perf_counter() - t0
+        fleet.join(started)
+        out["start"] = {"spawn_s": dict(fleet.spawn_s),
+                        "oracle_arrays_s": oracle_s,
+                        "edges_kept": int(arrays["src"].shape[0])}
+        pnames = ["p0", "p1", "p2"]
+        router = FleetRouter({n: fleet.addr(n) for n in pnames}, owner="p0",
+                             config=RouterConfig(max_attempts=3),
+                             registry=MetricsRegistry())
+        solo = FleetRouter({"p0": fleet.addr("p0")},
+                           registry=MetricsRegistry())
+        routers += [router, solo]
+
+        # a balanced family set: FLEET_PER_BACKEND ages homed per backend
+        rng = np.random.default_rng(args.seed + 11)
+        groups = {n: [] for n in pnames}
+        for age in [int(a) for a in rng.permutation(np.arange(20, 70))]:
+            fam = f"age-{age}"
+            home = router.ring.preference(
+                FleetRouter.routing_key("default", fam, QUERY_FLEET))[0]
+            if len(groups[home]) < FLEET_PER_BACKEND:
+                groups[home].append((fam, {"age": age}))
+        families = [fp for g in groups.values() for fp in g]
+        if len(families) != FLEET_PER_BACKEND * len(pnames):
+            raise RuntimeError(f"fleet: unbalanced family set {groups}")
+        want = {p["age"]: fleet_oracle(np, arrays, p["age"])
+                for _f, p in families}
+        # warm every family on its home backend and on p0 (record, then
+        # a replay), each reply held to its oracle
+        t0 = time.perf_counter()
+        for fam, params in families:
+            for r in (router, solo, router, solo):
+                got = r.query(QUERY_FLEET, params, family=fam)["rows"]
+                expect(fam, got == want[params["age"]],
+                       f"{got[:3]} != {want[params['age']][:3]}", "fleet")
+        out["warm_s"] = time.perf_counter() - t0
+
+        # every child is on the card: its session's device, its own
+        # allocator's memory there, and nvidia-smi's list of processes
+        clients = {n: WireClient(*fleet.addr(n)) for n in fleet.procs}
+        devices = {n: c.call("device") for n, c in clients.items()}
+        for n, d in devices.items():
+            expect(f"{n}_device", d["device"].startswith(FLEET_BACKEND),
+                   f"child {n} runs on {d['device']}", "fleet")
+            if FLEET_BACKEND == "cuda":
+                expect(f"{n}_memory", d["memory_reserved"] > 0,
+                       f"child {n} holds no memory on the card", "fleet")
+        apps = {int(r[0]): float(r[1]) for r in nvidia_smi(
+            "--query-compute-apps=pid,used_memory")}
+        pids = {n: d["pid"] for n, d in devices.items()}
+        listed = {n: apps.get(p) for n, p in pids.items()}
+        if any(v is not None for v in listed.values()):
+            # the listing shows this machine's pids: every child in it
+            missing = [n for n, v in listed.items() if not v]
+            expect("smi_pids", not missing,
+                   f"children not listed on the card: {missing}", "fleet")
+        out["card_memory"] = {
+            "nvidia_smi_mib_by_child": listed,
+            "nvidia_smi_apps": {str(p): m for p, m in apps.items()},
+            "child_pids": pids, "script_pid": os.getpid(),
+            "reserved_bytes_by_child": {n: d.get("memory_reserved")
+                                        for n, d in devices.items()},
+            "script_reserved_bytes": int(torch.cuda.memory_reserved())}
+        # K4 ran in each child's self-test; zero the counts for the soaks
+        selftest = {n: clients[n].call("launches", reset=True)
+                    for n in pnames}
+        # (a CPU rehearsal launches no kernel: the checks are the card's)
+        on_card = FLEET_BACKEND == "cuda"
+        expect("selftest", not on_card or all(
+            s.get("prefetch_gather", 0) >= 1 for s in selftest.values()),
+               f"a child ran no kernel self-test: {selftest}", "fleet")
+        out["launches_since_start"] = selftest
+        fleet.check_alive("warm")
+
+        # 1. read scaling: the same clients through 1 backend, then 3
+        with UtilSampler() as util:
+            solo_run = fleet_read_soak(solo, families, want, FLEET_SOAK_S)
+        solo_run["utilization"] = util.summary()
+        for n in pnames:
+            clients[n].call("launches", reset=True)
+        with UtilSampler() as util:
+            fleet_run = fleet_read_soak(router, families, want,
+                                        FLEET_SOAK_S)
+        fleet_run["utilization"] = util.summary()
+        launches = {n: clients[n].call("launches") for n in pnames}
+        total = {}
+        for counts in launches.values():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        fleet_run["launches"] = launches
+        for label, run in (("solo", solo_run), ("three", fleet_run)):
+            expect(label, run["failed"] == 0 and run["wrong"] == 0,
+                   f"{run['failed']} failed, {run['wrong']} wrong: "
+                   f"{run['first_failure'] or run['first_wrong']}", "fleet")
+        expect("spread", len(fleet_run["per_backend"]) == 3,
+               f"requests reached {fleet_run['per_backend']}", "fleet")
+        for k in ("expand_positions", "bitonic_sort"):
+            expect(f"launches_{k}", not on_card or all(
+                launches[n].get(k, 0) > 0 for n in pnames),
+                   f"a backend never launched {k}: {launches}", "fleet")
+        fleet_run["speedup_vs_solo"] = (fleet_run["requests_per_s"]
+                                        / solo_run["requests_per_s"])
+        out["read"] = {"families": len(families), "solo": solo_run,
+                       "three": fleet_run}
+        fleet.check_alive("read")
+
+        # 2. a non-owner SIGKILLed a third of the way into the soak
+        victim = "p2"
+        kill_run = fleet_read_soak(
+            router, families, want, FLEET_SOAK_S,
+            kill=(FLEET_SOAK_S / 3, lambda: fleet.kill(victim)))
+        expect("kill", kill_run["availability"] == 1.0
+               and kill_run["wrong"] == 0,
+               f"availability {kill_run['availability']}, "
+               f"{kill_run['wrong']} wrong: {kill_run['first_failure']}",
+               "fleet")
+        kill_run["victim"] = victim
+        kill_run["router"] = {k: v for k, v in
+                              router.registry.snapshot().items()
+                              if k.startswith(("router.", "fleet."))}
+        out["kill"] = kill_run
+        fleet.check_alive("kill")
+
+        # 3. read-your-writes across the live backends
+        w = router.write(QUERY_FLEET_SET, {"name": "p7", "v": 1})
+        digests = {}
+        for n in ("p0", "p1"):
+            rep = clients[n].call(
+                "query", query="MATCH (p:Person {name: 'p7'}) "
+                               "RETURN p.name AS name, p.v AS v",
+                params={}, digest=True)
+            expect(f"ryw_{n}", rep["rows"] == [{"name": "p7", "v": 1}],
+                   f"{n} reads {rep['rows']}", "fleet")
+            digests[n] = rep["digest"]
+        expect("ryw", len(set(digests.values())) == 1,
+               f"digests differ: {digests}", "fleet")
+        out["read_your_writes"] = {
+            "version": w["version"], "ship": w["ship"],
+            "snapshot_lag_s": router.registry.snapshot()[
+                "fleet.snapshot_lag_s"], "digests_equal": True}
+        for n in pnames:
+            if n != victim:
+                fleet.kill(n)
+        for c in (router, solo):
+            c.close()
+
+        # 4. durability: write soak over the durable fleet, owner killed
+        dnames = ["d0", "d1", "d2"]
+        dreg = MetricsRegistry()
+        drouter = FleetRouter({n: fleet.addr(n) for n in dnames},
+                              owner="d0", config=RouterConfig(
+                                  max_attempts=3, failover_wait_s=30.0),
+                              registry=dreg)
+        routers.append(drouter)
+        readers = families[:2]
+        for fam, params in readers:
+            for n in dnames:
+                got = clients[n].call("query", query=QUERY_FLEET,
+                                      params=params)["rows"]
+                expect(f"warm_{n}", got == want[params["age"]],
+                       "durable backend disagrees with the oracle", "fleet")
+        acked = {}
+        seq = [0]
+
+        def write_soak(write, read, seconds, kill=None):
+            """Idempotent SETs through ``write`` (each retried until
+            acknowledged) with 2 readers through ``read``; ``kill`` is
+            ``(after_s, fn)``.  Returns the reads' outcomes, the acks
+            and the seconds from the kill to the next acknowledged write
+            and served read."""
+            stop = threading.Event()
+            reads = {"ok": 0, "fail": 0, "wrong": 0, "after_kill": None,
+                     "first_failure": None}
+            t_kill = [None]
+
+            def reader(fam, params):
+                while not stop.is_set():
+                    try:
+                        got = read(fam, params)
+                    except Exception as ex:
+                        reads["fail"] += 1
+                        reads["first_failure"] = reads["first_failure"] \
+                            or f"{type(ex).__name__}: {ex}"
+                        continue
+                    reads["ok"] += 1
+                    if got != want[params["age"]]:
+                        reads["wrong"] += 1
+                    if t_kill[0] is not None and reads["after_kill"] is None:
+                        reads["after_kill"] = time.perf_counter() - t_kill[0]
+
+            ts = [threading.Thread(target=reader, args=fp, daemon=True)
+                  for fp in readers]
+            for t in ts:
+                t.start()
+            t0 = time.perf_counter()
+            n_acked, recovered, write_s = 0, None, []
+            while time.perf_counter() - t0 < seconds:
+                if kill is not None and t_kill[0] is None and \
+                        time.perf_counter() - t0 >= kill[0]:
+                    kill[1]()
+                    t_kill[0] = time.perf_counter()
+                params = {"name": f"p{1 + seq[0] % FLEET_NAMES}",
+                          "v": seq[0]}
+                tw = time.perf_counter()
+                try:
+                    write(params)
+                except ServeError:
+                    time.sleep(0.02)
+                    continue   # the SAME idempotent write, until acked
+                write_s.append(time.perf_counter() - tw)
+                acked[params["name"]] = params["v"]
+                n_acked += 1
+                if t_kill[0] is not None and recovered is None:
+                    recovered = time.perf_counter() - t_kill[0]
+                seq[0] += 1
+            stop.set()
+            for t in ts:
+                t.join(timeout=120)
+            return {"acked": n_acked, "write_latency":
+                    latency_summary(write_s), "reads": reads,
+                    "recovery_s": recovered}
+
+        owner_proc = fleet.procs["d0"]
+        dsoak = write_soak(
+            lambda p: drouter.write(QUERY_FLEET_SET, p, ship=False),
+            lambda fam, p: drouter.query(QUERY_FLEET, p,
+                                         family=fam)["rows"],
+            FLEET_WRITE_SOAK_S,
+            kill=(FLEET_WRITE_SOAK_S / 3, lambda: fleet.kill("d0")))
+        expect("recovery", dsoak["recovery_s"] is not None,
+               "no write was acknowledged after the owner died", "fleet")
+        expect("durable_reads", dsoak["reads"]["fail"] == 0
+               and dsoak["reads"]["wrong"] == 0,
+               f"reads through the owner's loss: {dsoak['reads']}", "fleet")
+        # the restarted owner starts while the router tier is measured
+        zombie_started = fleet.spawn([durable("d0")], spawn_backend)
+        drouter.ship_snapshots()
+        expected = sorted(({"name": k, "v": v} for k, v in acked.items()),
+                          key=lambda r: r["name"])
+        live = [n for n in dnames if n != "d0"]
+        for n in live:
+            got = sorted(clients[n].call(
+                "query", query=QUERY_FLEET_WRITTEN, params={})["rows"],
+                key=lambda r: r["name"])
+            expect(f"acked_{n}", got == expected,
+                   f"{n} lost acknowledged writes: {len(got)} rows vs "
+                   f"{len(expected)}", "fleet")
+        wal_metrics = {n: {k: v for k, v in clients[n].call(
+            "metrics_snapshot").items() if k.startswith("wal.")}
+            for n in live}
+        out["durability"] = {
+            "fsync": "always", "lease_ttl_s": FLEET_LEASE_TTL_S,
+            "killed": "d0", "killed_pid": owner_proc.pid,
+            "new_owner": drouter.owner,
+            "owner_epoch": drouter._owner_epoch, **dsoak,
+            "acked_names": len(acked), "acked_write_loss": 0,
+            "failovers": dreg.snapshot().get("router.failovers", 0),
+            "wal_metrics": wal_metrics,
+            "wal_append": wal_append_latency(clients[drouter.owner].call(
+                "export_delta")["state"])}
+        fleet.check_alive("durability")
+
+        # 5. router HA over the durable fleet: 2 routers, a RouterSet, a
+        #    seeded chaos schedule whose headline kills the active router
+        rspecs = [RouterSpec(name=f"r{i}",
+                             backends={n: fleet.addr(n) for n in dnames},
+                             durable_dir=store, owner=drouter.owner,
+                             lease_ttl_s=FLEET_ROUTER_TTL_S, poll_s=0.1,
+                             failover_wait_s=30.0) for i in range(2)]
+        drouter.close()
+        rfleet = Fleet()
+        fleet.join(rfleet.spawn(rspecs, spawn_router))
+        rset = RouterSet({n: rfleet.addr(n) for n in rfleet.procs},
+                         wait_s=10.0, registry=MetricsRegistry())
+        routers.append(rset)
+        t0 = time.perf_counter()
+        while rset.active() is None:
+            expect("active", time.perf_counter() - t0 < 10.0,
+                   "no router became active", "fleet")
+            time.sleep(0.05)
+        schedule = ChaosSchedule.compose(
+            args.seed, FLEET_HA_SOAK_S, n_events=6,
+            headline="kill_router_active")
+        expect("digest", schedule.digest() == ChaosSchedule.compose(
+            args.seed, FLEET_HA_SOAK_S, n_events=6,
+            headline="kill_router_active").digest(),
+            "the same seed composed two schedules", "fleet")
+        invariants = ChaosInvariants()
+        dead = {}
+
+        def kill_active(_ev):
+            name = rset.active()
+            dead["epoch"] = rset._clients[name].call("ping")["epoch"]
+            dead["name"] = name
+            rfleet.kill(name)
+            dead["t"] = time.perf_counter()
+
+        def ha_read(fam, params):
+            rep = rset.query(QUERY_FLEET, params, family=fam, wait_s=10.0)
+            invariants.note_read(f"{fam}@{rep.get('backend')}", True,
+                                 version=rep.get("snapshot_version"))
+            if "t" in dead and "read_after_s" not in dead:
+                dead["read_after_s"] = time.perf_counter() - dead["t"]
+            return rep["rows"]
+
+        def ha_write(p):
+            rset.write(QUERY_FLEET_SET, p, ship=True, wait_s=10.0)
+            invariants.note_write_ack()
+            if "t" in dead and "write_after_s" not in dead:
+                dead["write_after_s"] = time.perf_counter() - dead["t"]
+
+        runner = ChaosRunner(schedule,
+                             actions={"kill_router_active": kill_active})
+        with runner:
+            def polled(p):
+                runner.poll(time.perf_counter() - t_soak)
+                ha_write(p)
+            t_soak = time.perf_counter()
+            hsoak = write_soak(polled, ha_read, FLEET_HA_SOAK_S)
+            runner.poll(FLEET_HA_SOAK_S)
+        for _ in range(hsoak["reads"]["fail"]):
+            invariants.note_read("failed", False)
+        expect("killed_router", "name" in dead,
+               "the schedule's headline never fired", "fleet")
+        new_active = rset.active()
+        takeover = {"killed": dead["name"], "killed_epoch": dead["epoch"],
+                    "new_active": new_active,
+                    "first_read_after_kill_s": dead.get("read_after_s"),
+                    "first_write_after_kill_s": dead.get("write_after_s")}
+        expect("takeover", new_active not in (None, dead["name"])
+               and dead.get("write_after_s") is not None,
+               f"no takeover: {takeover}", "fleet")
+        # the zombie-ROUTER fence at the owner: frames stamped with the
+        # dead active's epoch, with and without the owner's epoch
+        stats = rset.stats()
+        owner = stats["owner"]
+        with open(os.path.join(store, "lease.json")) as f:
+            owner_epoch = int(json.load(f)["epoch"])
+        with WireClient(*fleet.addr(owner)) as oc:
+            v0 = oc.call("ping")["snapshot_version"]
+            fence = []
+            for fields in ({"router_epoch": dead["epoch"]},
+                           {"router_epoch": dead["epoch"],
+                            "epoch": owner_epoch}):
+                try:
+                    oc.call("write", query=QUERY_FLEET_SET,
+                            params={"name": "p1", "v": -1}, **fields)
+                    fence.append("APPLIED")
+                except StaleEpoch:
+                    fence.append("StaleEpoch")
+            v1 = oc.call("ping")["snapshot_version"]
+        router_fenced = fence == ["StaleEpoch", "StaleEpoch"] and v0 == v1
+        invariants.note_fence(router_fenced)
+        takeover.update(fence=fence, stats_epoch=stats.get("epoch"))
+
+        # the restarted owner: its write frames are refused, nothing
+        # applied (one write through the HA tier renews the lease first)
+        fleet.join(zombie_started)
+        ha_write({"name": "p1", "v": seq[0]})
+        acked["p1"] = seq[0]
+        with WireClient(*fleet.addr("d0")) as zc:
+            zinfo = zc.call("ping")
+            zfence = []
+            for fields in ({"epoch": 1}, {}):
+                try:
+                    zc.call("write", query=QUERY_FLEET_SET,
+                            params={"name": "p2", "v": -1}, **fields)
+                    zfence.append("APPLIED")
+                except StaleEpoch:
+                    zfence.append("StaleEpoch")
+            zversion = zc.call("ping")["snapshot_version"]
+        zombie_fenced = (zfence == ["StaleEpoch", "StaleEpoch"]
+                         and zversion == zinfo["snapshot_version"])
+        invariants.note_fence(zombie_fenced)
+        with WireClient(*fleet.addr(owner)) as oc:
+            observed = rows_digest(oc.call("query", query=QUERY_FLEET_WRITTEN,
+                                           params={})["rows"])
+        oracle_digest = rows_digest([{"name": k, "v": v}
+                                     for k, v in acked.items()])
+        report = invariants.report(availability_floor=0.5,
+                                   oracle_digest=oracle_digest,
+                                   observed_digest=observed)
+        expect("router_fence", router_fenced,
+               f"the dead router's frames: {fence}, version {v0} -> {v1}",
+               "fleet")
+        expect("zombie_fence", zombie_fenced,
+               f"the restarted owner's frames: {zfence}", "fleet")
+        expect("invariants", report["ok"], f"{report}", "fleet")
+        out["ha"] = {**hsoak, "takeover": takeover,
+                     "schedule_digest": schedule.digest(),
+                     "schedule_events": [e.as_dict()
+                                         for e in schedule.events],
+                     "invariants": report}
+        out["zombie_owner"] = {"fence": zfence, "startup": zinfo["startup"],
+                               "spawn_s": fleet.spawn_s["d0"],
+                               "recovered_version":
+                                   zinfo["snapshot_version"]}
+        fleet.check_alive("ha")
+        for c in clients.values():
+            c.close()
+        rfleet.check_alive("ha")
+        rfleet.stop_all()
+    finally:
+        for r in routers:
+            r.close()
+        fleet.stop_all()
+        shutil.rmtree(store, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return total
+
+
 def run_tck(torch, np, args, card: str) -> None:
     """The TCK corpus on the card, one session per feature file, under
     the CPU tests' strict list (``tck/blacklists/cuda.txt``): an
@@ -3572,6 +4313,7 @@ def main() -> int:
     launches.update(serve_launches)
     pattern_calls.update(serve_calls)
     del state
+    launches["fleet_soak"] = run_fleet(torch, np, args, card)
     run_tck(torch, np, args, card)
     ldbc_launches, ldbc_calls = run_ldbc(torch, np, args, card)
     launches.update(ldbc_launches)
@@ -3649,6 +4391,9 @@ def main() -> int:
             # through QueryServer's worker
             "launches_served_request": launches["served_request"].get(
                 name, 0),
+            # the 3-backend read soak of the fleet phase, summed over the
+            # backend processes (each counts its own launches)
+            "launches_fleet_soak": launches["fleet_soak"].get(name, 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             # the sum over the calls of one exact replay, each timed
             "ms_per_query": c["ms_per_query"],

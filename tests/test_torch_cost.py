@@ -13,8 +13,6 @@ loop mirror ``tests/test_cost.py``.
 """
 from __future__ import annotations
 
-import contextlib
-import dataclasses
 import types
 
 import numpy as np
@@ -44,6 +42,7 @@ from caps_tpu_torch.relational import cost as port_cost
 from caps_tpu_torch.relational import stats as port_stats
 from caps_tpu_torch.relational.entity_tables import NodeMapping, NodeTable
 from caps_tpu_torch.relational.shapes import ShapeBucketLattice
+from caps_tpu_torch.testing.faults import stale_statistics
 from tests.test_torch_count_pushdown import jax_graph
 
 
@@ -81,24 +80,6 @@ def bag(result):
 def ops_and_strategies(result):
     return [(m["op"], m.get("strategy"), m.get("est_rows"))
             for m in result.metrics["operators"]]
-
-
-@contextlib.contextmanager
-def stale_statistics(graph, scale):
-    """``caps_tpu.testing.faults.stale_statistics`` for a port graph:
-    while active the graph reports its sketch with node and relationship
-    cardinalities scaled by ``scale``."""
-    real = graph.statistics()
-    distorted = port_stats.GraphStatistics(
-        {c: max(1, int(n * scale)) for c, n in real.node_combos.items()},
-        {t: dataclasses.replace(r, rows=max(1, int(r.rows * scale)))
-         for t, r in real.rels.items()},
-        real.property_distinct, version=real.version)
-    graph.statistics = lambda: distorted
-    try:
-        yield distorted
-    finally:
-        del graph.statistics
 
 
 # -- statistics sketches -----------------------------------------------------

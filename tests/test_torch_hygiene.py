@@ -299,12 +299,15 @@ SERVE_MODULES = (
     "__init__.py", "admission.py", "batcher.py", "breaker.py",
     "compaction.py", "deadline.py", "devices.py", "errors.py", "failure.py",
     "request.py", "retry.py", "server.py", "warmup.py",
+    "wire.py", "fleet.py", "router.py", "ha.py",
 )
 #: the serve modules whose reference takes locks from obs/lockgraph.py
 SERVE_LOCKED = ("serve/admission.py", "serve/breaker.py",
                 "serve/devices.py", "serve/server.py", "serve/warmup.py")
 SERVE_RELATIONAL = ("relational/construct.py", "relational/result_cache.py",
-                    "relational/plan_store.py", "obs/log.py")
+                    "relational/plan_store.py", "obs/log.py",
+                    "durability/__init__.py", "durability/wal.py",
+                    "durability/lease.py", "testing/chaos.py")
 
 
 @pytest.mark.parametrize("module", [f"caps_tpu_torch/serve/{m}"
@@ -316,7 +319,7 @@ def test_import_scan_covers_the_serving_modules(module):
 
 _TIMERS = {("time", "perf_counter"), ("time", "time"), ("time", "sleep"),
            ("time", "monotonic")}
-TIMED_DIRS = ("serve", "obs", "relational", "algo")
+TIMED_DIRS = ("serve", "obs", "relational", "algo", "durability")
 TIMED_FILES = [p for d in TIMED_DIRS
                for p in sorted((ROOT / "caps_tpu_torch" / d).rglob("*.py"))
                if p.name != "clock.py" or d != "obs"]
@@ -346,5 +349,7 @@ def test_timer_scan_covers_the_serving_tier():
     names = {str(p.relative_to(ROOT)) for p in TIMED_FILES}
     assert {"caps_tpu_torch/serve/server.py", "caps_tpu_torch/serve/retry.py",
             "caps_tpu_torch/obs/telemetry.py",
-            "caps_tpu_torch/relational/result_cache.py"} <= names
+            "caps_tpu_torch/relational/result_cache.py",
+            "caps_tpu_torch/serve/fleet.py",
+            "caps_tpu_torch/durability/lease.py"} <= names
     assert "caps_tpu_torch/obs/clock.py" not in names
