@@ -16,7 +16,10 @@ filter, compacted in edge order.  Then it dispatches:
   warmed shape charges zero;
 * **host** — the NumPy kernel (``algo/kernels.py``), chosen up front
   when the cost model priced the device program out (``prefer_host``)
-  or the graph is empty: the only time the arrays go to the host.
+  or the graph is empty: the only time the arrays go to the host.  A
+  session with no device backend (the pure-Python oracle,
+  ``backends/local``) always takes it, over the host arrays its tables
+  give, as the reference's local session does.
 
 There is no degraded ``fallback-host``: a fault in the device program
 propagates to the caller (the serving tier's retry ladder answers it on
@@ -103,10 +106,15 @@ class AlgoProcedureOp(RelationalOperator):
         registry = self._registry()
         values = [host_eval(a, self.context.parameters) for a in self.args]
         bound = self.signature.bind(values)
-        t0 = clock.now()
+        if getattr(self.context.factory, "backend", None) is None:
+            return self._compute_local(bound, registry)
+        # the clock reads below time the three parts for the operator's
+        # metrics only; no value they give reaches the computation, so a
+        # replay gives the recorded rows whatever they read
+        t0 = clock.now()  # capslint: disable=tracer-purity
         data = self._graph_arrays(bound)
         self._resolve_source(bound, data)
-        t1 = clock.now()
+        t1 = clock.now()  # capslint: disable=tracer-purity
         if self.prefer_host or data.n == 0:
             out, iters, converged = self._compute_host(data, bound)
             self.strategy = "host"
@@ -114,7 +122,7 @@ class AlgoProcedureOp(RelationalOperator):
         else:
             out, iters, converged = self._compute_device(data, bound)
             self.strategy = "device-fixpoint"
-        t2 = clock.now()
+        t2 = clock.now()  # capslint: disable=tracer-purity
         if registry is not None:
             registry.counter("algo.executions").inc()
             registry.counter("algo.iterations").inc(int(iters))
@@ -126,11 +134,11 @@ class AlgoProcedureOp(RelationalOperator):
             "converged": bool(converged),
         }
         result = self._emit(data, out)
+        t3 = clock.now()  # capslint: disable=tracer-purity
         # host seconds of the three parts (each ends in a read of the
         # card in eager and record runs; a replay's are enqueue times)
         self._metric_extra.update(graph_arrays_s=t1 - t0,
-                                  fixpoint_s=t2 - t1,
-                                  emit_s=clock.now() - t2)
+                                  fixpoint_s=t2 - t1, emit_s=t3 - t2)
         return result
 
     def _registry(self):
@@ -289,6 +297,108 @@ class AlgoProcedureOp(RelationalOperator):
             bound = dict(bound, source_index=idx if found else -1)
         return kernels.run_host(self.signature.name, data.n, src, tgt,
                                 weights, bound)
+
+    # -- a session with no device backend (backends/local) ---------------
+
+    def _compute_local(self, bound: Dict[str, Any], registry):
+        """The reference's host path over host tables: the graph arrays
+        from ``column_values``, the NumPy kernel, the YIELD columns as
+        host value columns."""
+        ids, src, tgt, weights = self._local_arrays(bound)
+        n = int(ids.shape[0])
+        if "source" in bound:
+            sid = bound["source"]
+            idx = int(np.searchsorted(ids, sid)) if n else 0
+            found = n and idx < n and int(ids[idx]) == sid
+            bound["source_index"] = idx if found else -1
+        out, iters, converged = kernels.run_host(
+            self.signature.name, n, src, tgt, weights, bound)
+        self.strategy = "host"
+        self._layout = "host"
+        if registry is not None:
+            registry.counter("algo.executions").inc()
+            registry.counter("algo.iterations").inc(int(iters))
+        self._metric_extra = {
+            "strategy": self.strategy,
+            "procedure": self.signature.name,
+            "layout": self._layout,
+            "iterations": int(iters),
+            "converged": bool(converged),
+        }
+        return self._emit_local(ids, out)
+
+    @staticmethod
+    def _local_ints(table, col: str) -> Tuple[np.ndarray, np.ndarray]:
+        raw = table.column_values(col)
+        ok = np.array([v is not None for v in raw], dtype=bool)
+        vals = np.array([0 if v is None else v for v in raw])
+        if vals.shape[0] == 0:
+            vals = vals.astype(np.int64)
+        return vals, ok
+
+    def _local_arrays(self, bound: Dict[str, Any]):
+        """(ids, src, tgt, weights): sorted unique node ids, the live
+        edges' endpoint indices and weights."""
+        nvar, rvar = "__algo_n", "__algo_r"
+        n_header, n_table = self.graph.scan_node(nvar, ())
+        ids, ok = self._local_ints(n_table, n_header.column(E.Var(nvar)))
+        ids = np.unique(ids[ok]).astype(np.int64)
+        n = int(ids.shape[0])
+        r_header, r_table = self.graph.scan_rel(rvar, ())
+        rv = E.Var(rvar)
+        src, sok = self._local_ints(r_table,
+                                    r_header.column(E.StartNode(rv)))
+        tgt, tok = self._local_ints(r_table,
+                                    r_header.column(E.EndNode(rv)))
+        eok = sok & tok
+        src = src.astype(np.int64)[eok]
+        tgt = tgt.astype(np.int64)[eok]
+        weights = np.ones(src.shape[0], dtype=np.float64)
+        key = bound.get("weight")
+        if key:
+            try:
+                wcol = r_header.column(E.Property(rv, key))
+            except HeaderError:
+                wcol = None  # unknown property: unit weights
+            if wcol is not None:
+                w, wok = self._local_ints(r_table, wcol)
+                w = np.where(wok, w.astype(np.float64), 1.0)[eok]
+                if w.shape[0] == src.shape[0]:
+                    weights = w
+        if n == 0:
+            empty = np.zeros(0, dtype=np.int64)
+            return ids, empty, empty, np.zeros(0, dtype=np.float64)
+        si = np.minimum(np.searchsorted(ids, src), n - 1)
+        ti = np.minimum(np.searchsorted(ids, tgt), n - 1)
+        live = (ids[si] == src) & (ids[ti] == tgt)
+        return ids, si[live], ti[live], weights[live]
+
+    def _emit_local(self, ids: np.ndarray, out: np.ndarray):
+        name = self.signature.name
+        n = int(ids.shape[0])
+        if name == "algo.wcc":
+            out = ids[out] if n else out
+        keep = np.ones(n, dtype=bool)
+        if name == "algo.bfs":
+            keep = out != kernels.UNREACHED
+        elif name == "algo.sssp":
+            keep = np.isfinite(out)
+        ids, out = ids[keep], out[keep]
+        columns: Dict[str, list] = {}
+        types: Dict[str, Any] = {}
+        header = RecordHeader.empty()
+        for yield_name, out_name in self.yields:
+            ctype = self.signature.yield_type(yield_name)
+            if yield_name == "node":
+                vals = [int(v) for v in ids]
+            elif ctype == CTFloat:
+                vals = [float(v) for v in out]
+            else:
+                vals = [int(v) for v in out]
+            columns[out_name] = vals
+            types[out_name] = ctype
+            header = header.concat(RecordHeader.for_value(out_name, ctype))
+        return header, self.context.factory.from_columns(columns, types)
 
     # -- output assembly ---------------------------------------------------
 

@@ -1258,6 +1258,22 @@ class DeviceTable(Table):
         return d, v & (np.arange(c.capacity) < self._exact_n())
 
 
+    def host_values(self, col: str):
+        """(values, ok) numpy arrays of the exact rows of a numeric or
+        boolean column (int64, float64 or bool; ``ok`` False on a null):
+        what ``column_values`` gives, without a Python value per row
+        (``io/fs.py`` stores through it).  None for any other kind."""
+        c = self._cols.get(col)
+        if c is None or c.kind not in ("id", "int", "float", "bool"):
+            return None
+        n = self._exact_n()
+        d, v, read = c.host_arrays()
+        if read:
+            self.backend.syncs += 1
+        dtype = np.int64 if c.kind in ("id", "int") else d.dtype
+        return d[:n].astype(dtype, copy=False), np.asarray(v[:n], bool)
+
+
 class ExprEvalError(Exception):
     """A per-row runtime error of an expression (division by zero)."""
 

@@ -46,7 +46,9 @@ def _library():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.expand_positions.restype = ctypes.c_int
-        _lib = lib
+        # the built library, loaded once a process: no run reads or
+        # writes it after that, so a replay finds it as recorded
+        _lib = lib  # capslint: disable=tracer-purity
     return _lib
 
 

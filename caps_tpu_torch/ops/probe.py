@@ -31,12 +31,13 @@ nothing for a CPU device, as ``pallas_usable`` returns True off a TPU.
 from __future__ import annotations
 
 import threading
-import time
 from collections import Counter
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from caps_tpu_torch.obs import clock
 
 FEATURES = ("basic", "prefetch", "sort")
 
@@ -69,10 +70,10 @@ def ensure_kernels(feature: str, device) -> None:
             return
         from caps_tpu_torch import ops
         before = Counter(ops.launches())
-        t0 = time.perf_counter()
+        t0 = clock.now()
         _SELFTESTS[feature](device)
         torch.cuda.synchronize(device)
-        _DONE[key] = time.perf_counter() - t0
+        _DONE[key] = clock.now() - t0
         _LAUNCHED.update(Counter(ops.launches()) - before)
 
 

@@ -154,7 +154,7 @@ class ConstructOp(R.RelationalOperator):
         # Base for freshly-allocated ids: beyond everything visible.
         max_id = 0
         for var in header.entity_vars:
-            max_id = max(max_id, table.max_int(header.column(E.Var(var)))
+            max_id = max(max_id, _max_int(table, header.column(E.Var(var)))
                          or 0)
         for g in self.on_graphs + ((self.working_graph,)
                                    if self.working_graph else ()):
@@ -356,12 +356,24 @@ def _max_graph_id(graph) -> int:
     out = 0
     for et in (tuple(getattr(graph, "node_tables", ()))
                + tuple(getattr(graph, "rel_tables", ()))):
-        v = et.table.max_int(et.mapping.id_col)
+        v = _max_int(et.table, et.mapping.id_col)
         if v is not None and v > out:
             out = v
     for sub in getattr(graph, "graphs", ()):
         out = max(out, _max_graph_id(sub))
     return out
+
+
+def _max_int(table, col: str):
+    """The largest value of an integer column (None when it has none):
+    ``Table.max_int`` on a device table; on a host table (a session with
+    no device backend, ``backends/local``) the reference's walk over its
+    values."""
+    max_int = getattr(table, "max_int", None)
+    if max_int is not None:
+        return max_int(col)
+    return max((v for v in table.column_values(col) if v is not None),
+               default=None)
 
 
 def _tables_from_entities(session, nodes, rels):

@@ -311,6 +311,23 @@ def _host_ints(table, col: str) -> Optional[np.ndarray]:
     return np.array([v for v in vals if v is not None], dtype=np.int64)
 
 
+def _distinct_counts(table, cols) -> List[Optional[int]]:
+    """Distinct non-null values per column: ``DeviceTable.distinct_counts``
+    on the card; on a host table (``backends/local``) the reference's
+    Python set over the column's values."""
+    fn = getattr(table, "distinct_counts", None)
+    if fn is not None:
+        return fn(cols)
+    out: List[Optional[int]] = []
+    for col in cols:
+        try:
+            out.append(len({v for v in table.column_values(col)
+                            if v is not None}))
+        except Exception:  # pragma: no cover — advisory only
+            out.append(None)
+    return out
+
+
 def compute_graph_statistics(graph, version: int = 0) -> GraphStatistics:
     """Host-side sketch of a ScanGraph's entity tables.  One pass at
     ingest (lazy, cached by the graph); failure degrades to
@@ -325,7 +342,7 @@ def compute_graph_statistics(graph, version: int = 0) -> GraphStatistics:
             node_combos[combo] = node_combos.get(combo, 0) + n
             if 0 < n <= _MAX_DISTINCT_ROWS:
                 props = list(nt.mapping.property_cols.items())
-                counts = nt.table.distinct_counts([c for _k, c in props])
+                counts = _distinct_counts(nt.table, [c for _k, c in props])
                 for (key, _col), cnt in zip(props, counts):
                     if cnt is None:  # no count for this column
                         continue

@@ -860,6 +860,8 @@ class VersionedGraph(RelationalCypherGraph):
                        None)
         mark = pool.mark() if pool is not None else None
         try:
+            if not _device_base(snap.base):
+                return self._fold_base_host(snap)
             delta = snap.delta_graph
             state = snap.state
             node_tables = _fold_tables(
@@ -879,6 +881,18 @@ class VersionedGraph(RelationalCypherGraph):
                         pool.rollback(mark)
             self._rolled_back.inc()
             raise
+
+    def _fold_base_host(self, snap: GraphSnapshot) -> ScanGraph:
+        """A session with no device backend (``backends/local``): the
+        reference's fold, every live entity re-ingested host-side."""
+        factory = self._session.table_factory
+        nodes = [(nid, labels, props)
+                 for nid, (labels, props) in snap.node_lookup().items()]
+        rels = [(rid, src, tgt, typ, props)
+                for rid, (src, tgt, typ, props)
+                in snap.rel_lookup().items()]
+        return ScanGraph(self._session, build_node_tables(factory, nodes),
+                         build_rel_tables(factory, rels))
 
 
 # -- compaction on the card ----------------------------------------------------
@@ -953,10 +967,23 @@ def _fold_tables(base_tables, delta_tables, hidden, key_of, make):
 # indexes on the card (``DeviceTable._id_index``), one binary search and
 # one read per lookup: the same answers at any graph size.
 
+def _device_base(base: ScanGraph) -> bool:
+    """Whether the base's tables are device tables; those of a session
+    with no device backend (``backends/local``) take the reference's
+    host structures below."""
+    return all(hasattr(et.table, "rows_where")
+               for et in tuple(base.node_tables) + tuple(base.rel_tables))
+
+
 def _max_entity_id(base: ScanGraph) -> int:
     hi = -1
+    device = _device_base(base)
     for et in tuple(base.node_tables) + tuple(base.rel_tables):
-        v = et.table.max_int(et.mapping.id_col)
+        if device:
+            v = et.table.max_int(et.mapping.id_col)
+        else:  # the reference's walk over every id
+            v = max((x for x in et.table.column_values(et.mapping.id_col)
+                     if x is not None), default=None)
         if v is not None and v > hi:
             hi = v
     return hi
@@ -1020,6 +1047,21 @@ class _BaseRels(_BaseNodes):
         return self._seen[rid]
 
 
+def _base_incidence(base: ScanGraph) -> Dict[int, List[int]]:
+    """The reference's incidence dict (node id -> incident base rel ids),
+    built once per base and cached on it: the host-table counterpart of
+    :class:`_BaseIncidence`."""
+    idx = getattr(base, "_caps_incidence", None)
+    if idx is None:
+        idx = {}
+        for rid, (src, tgt, _typ, _props) in base.rel_lookup().items():
+            idx.setdefault(src, []).append(rid)
+            if tgt != src:
+                idx.setdefault(tgt, []).append(rid)
+        base._caps_incidence = idx
+    return idx
+
+
 class _BaseIncidence:
     """The reference's ``_base_incidence`` dict's answers (the DETACH
     DELETE / delete-constraint index): ``.get(nid, ())`` → the base
@@ -1063,8 +1105,12 @@ def _fold(snap: GraphSnapshot, ops: Sequence[UpdateOp], next_id: int
         for r in state.rels}
     hidden_nodes = set(state.hidden_nodes)
     hidden_rels = set(state.hidden_rels)
-    base_nodes = _BaseNodes(snap.base)
-    base_rels = _BaseRels(snap.base)
+    device = _device_base(snap.base)
+    base_nodes = _BaseNodes(snap.base) if device \
+        else snap.base.node_lookup()
+    base_rels = _BaseRels(snap.base) if device else snap.base.rel_lookup()
+    incidence = _BaseIncidence(snap.base) if device \
+        else _base_incidence(snap.base)
     counts = {"created_nodes": 0, "created_rels": 0, "deleted_nodes": 0,
               "deleted_rels": 0, "props_set": 0}
     tmp_ids: Dict[int, int] = {}  # id(CreateNode/CreateRel) -> entity id
@@ -1114,7 +1160,7 @@ def _fold(snap: GraphSnapshot, ops: Sequence[UpdateOp], next_id: int
     def live_incident(nid: int) -> List[int]:
         out = [rid for rid, rec in rels.items()
                if rec[0] == nid or rec[1] == nid]
-        out.extend(rid for rid in _BaseIncidence(snap.base).get(nid, ())
+        out.extend(rid for rid in incidence.get(nid, ())
                    if rid not in hidden_rels)
         return out
 

@@ -45,14 +45,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from caps_tpu_torch._unported import not_ported
 from caps_tpu_torch.durability.lease import ROUTER_LEASE_NAME, LeaseStore
 from caps_tpu_torch.durability.wal import (CommitLog, compose_delta_payloads,
                                            empty_payload, scan_durable_dir)
 from caps_tpu_torch.obs import clock
 from caps_tpu_torch.obs.lockgraph import make_lock
 from caps_tpu_torch.serve import wire
-from caps_tpu_torch.serve.errors import (NotPorted, QueryFailed,
+from caps_tpu_torch.serve.errors import (QueryFailed,
                                          ReplicationUnsupported, StaleEpoch,
                                          WalWriteError)
 from caps_tpu_torch.serve.server import QueryServer, ServerConfig
@@ -239,13 +238,14 @@ def build_graph_from_spec(session, gspec: Optional[Dict[str, Any]],
 def make_backend_session(backend: str):
     """The session a spec's ``backend`` names: on the card for
     ``"cuda"`` (raises where there is none — a backend never serves
-    from the CPU unasked), the plain versions for ``"cpu"``."""
+    from the CPU unasked), the plain versions for ``"cpu"``, the
+    pure-Python oracle (``backends/local``) for ``"local"``."""
     import caps_tpu_torch
     if backend == "local":
-        raise NotPorted(str(not_ported("backends/local")))
+        return caps_tpu_torch.local_session(backend="local")
     if backend not in ("cuda", "cpu"):
         raise QueryFailed(f"unknown fleet backend {backend!r} "
-                          f"(one of 'cuda', 'cpu')")
+                          f"(one of 'cuda', 'cpu', 'local')")
     return caps_tpu_torch.local_session(device=backend)
 
 
@@ -701,11 +701,12 @@ class FleetBackend:
     def _op_device(self, msg) -> Dict[str, Any]:
         """Where this backend runs: its session's device and, on a card,
         the card's name and the memory this process's allocator holds
-        there."""
+        there.  A local (pure-Python) backend runs on the host."""
         import torch
-        dev = self.session.device
-        out: Dict[str, Any] = {"device": str(dev), "pid": os.getpid()}
-        if dev.type == "cuda":
+        dev = getattr(self.session, "device", None)
+        out: Dict[str, Any] = {"device": str(dev or "host"),
+                               "pid": os.getpid()}
+        if dev is not None and dev.type == "cuda":
             out.update(name=torch.cuda.get_device_name(dev),
                        memory_reserved=int(torch.cuda.memory_reserved(dev)),
                        memory_allocated=int(

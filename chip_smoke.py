@@ -99,7 +99,26 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 100 gives the base's answer); each CONSTRUCT's seconds
                 split into the driving MATCH, the entity build and the
                 table build, warm latencies, peak bytes and launches;
- 11. algo     — ``CALL algo.*`` on the slice's graph ingested once more
+ 11. fs       — the slice's graph stored through the port's
+                ``FSGraphSource`` as parquet (a temporary directory
+                outside the repository, removed at the end) and loaded
+                by a fresh session from the ``fs`` namespace: the
+                grouped query on it cold, 5 exact replays (0 size reads)
+                and the 24 rotating ages, each equal to the numpy oracle,
+                its replay's kernel calls held in the kernels phase; the
+                federated MATCH of BASELINE config 5 across
+                ``session.base`` and ``fs.social`` against numpy; store
+                and load seconds (the Arrow read, the column build, the
+                upload), bytes on disk, peak card memory;
+ 12. graph500 — BASELINE config 4: ``rmat_edges(20, 16, seed=1)``
+                canonicalized (15,701,303 edges over 2^20 vertices; scale
+                22 cut to 20) and the triangle count on the default
+                session (``CountCycle`` / ``cycle-probe``), cold and 3
+                exact replays against a scipy oracle run in a child
+                process meanwhile; edges joined per second, peak bytes,
+                size reads, the launches and idle share of one replay
+                under the profiler (none of the hand-written kernels);
+ 13. algo     — ``CALL algo.*`` on the slice's graph ingested once more
                 with a float ``w`` per edge (uniform 1-10 from --seed),
                 with the native host runtime and with it opted out
                 (string encode, CSR build and upload timed apart); the
@@ -113,7 +132,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 digest; the top 20 by PageRank with their cities; then
                 each procedure on a 2,000-node graph of 600,000 edges on
                 the ``dense-tile`` layout;
- 12. serve    — ``QueryServer`` on the card over the slice's graph: 8
+ 14. serve    — ``QueryServer`` on the card over the slice's graph: 8
                 closed-loop clients send 2,000 requests (80 % the grouped
                 query, 20 % its ``count(*)`` form on count pushdown,
                 ``$age`` over the warm phase's rotating ages), each equal
@@ -127,7 +146,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 from the first one's plan store against a cold one; and
                 failover between two replicas on the card (each on its
                 own stream) under ``device_loss(0)``;
- 13. fleet    — durability and the fleet with backend processes on the
+ 15. fleet    — durability and the fleet with backend processes on the
                 card, each a new interpreter with its own CUDA context
                 building the same ``foaf`` graph (1M people, 10M edge
                 draws) from one spec: the grouped query through one
@@ -146,11 +165,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``RouterSet`` under a seeded ``ChaosSchedule`` that kills
                 the active one (takeover, availability, the dead
                 router's epoch fenced, every invariant green);
- 14. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 16. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 15. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 17. acceptance — the 117 behaviour tests of ``tests/acceptance`` against
+                a session on the card, every query's rows equal to the
+                port's pure-Python oracle on the same graph, the strict
+                list's tests raising their causes; counts by suite;
+ 18. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -158,14 +181,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 16. plan     — bench config 9 at its TPU size: the five query families
+ 19. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 17. selftest — the seconds each kernel family's self-test took, and a
+ 20. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 18. kernels  — each kernel wrapper against its plain PyTorch version on
+ 21. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
                 unwind queries, the multiway joins, the final snapshot
@@ -178,7 +201,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 19. the script's seconds, the ``{"kernels": [...]}`` line, the card
+ 22. the script's seconds, the ``{"kernels": [...]}`` line, the card
      line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -445,12 +468,22 @@ def hop_counts(np, nodes, rels, seeds):
     return hop1, hop2
 
 
+# (city array, its np.unique(..., return_inverse=True)) of the last
+# top_cities call: the oracles of one graph's rotating ages share it
+_CODED = [None, None]
+
+
 def top_cities(np, nodes, per_node, coded=None):
     """``per_node`` summed by city: the top-20 rows, count descending.
     ``coded`` is ``np.unique(city, return_inverse=True)`` when the caller
-    has it (it takes about a second at 1M persons)."""
-    names, codes = coded if coded is not None else np.unique(
-        nodes["Person"]["city"], return_inverse=True)
+    has it (it takes about a second at 1M persons); otherwise the last
+    call's, when the city array is the same object."""
+    if coded is None:
+        city = nodes["Person"]["city"]
+        if _CODED[0] is not city:
+            _CODED[:] = [city, np.unique(city, return_inverse=True)]
+        coded = _CODED[1]
+    names, codes = coded
     per_city = np.rint(np.bincount(codes, weights=per_node,
                                    minlength=len(names))).astype(np.int64)
     rows = sorted(((str(c), int(v)) for c, v in zip(names, per_city) if v),
@@ -679,10 +712,25 @@ def device_profile(torch, fn) -> dict:
         wall_s = time.perf_counter() - t0
     # the operators' ``caps_tpu_torch.<Op>`` ranges also appear on the
     # device timeline, spanning their kernels and the gaps between
-    # them: they are not device work
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("caps_tpu_torch.")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    # them: they are not device work.  The profiler's raw event list
+    # (nanoseconds) is read where it exists: building ``prof.events()``
+    # takes minutes for a run of a few hundred thousand launches.
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    kernels = None
+    if raw is not None:
+        try:
+            kernels = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+                       for e in raw.events()
+                       if e.device_type() == DeviceType.CUDA
+                       and not e.name().startswith("caps_tpu_torch.")]
+        except (AttributeError, TypeError):
+            kernels = None
+    if kernels is None:
+        kernels = [(e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("caps_tpu_torch.")]
+    spans = sorted((a, b) for _n, a, b in kernels)
     if not spans:
         return {"wall_s": wall_s, "device_busy_s": "not measured"}
     busy, (lo, hi) = 0.0, spans[0]
@@ -692,11 +740,10 @@ def device_profile(torch, fn) -> dict:
             lo, hi = a, b
         else:
             hi = max(hi, b)
-    busy = (busy + hi - lo) / 1e6   # profiler times are microseconds
+    busy = (busy + hi - lo) / 1e6   # microseconds
     by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
+    for name, a, b in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_s": wall_s, "device_busy_s": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_s),
@@ -1294,12 +1341,36 @@ def np_expand(np, starts, counts):
     return idx, np.repeat(starts, counts) + within
 
 
+# the last edge list's sorted indexes: (src, tgt, n, {name: arrays});
+# the seeded triangle's oracle runs once per rotating age on one graph
+_EDGE_INDEX = [None, None, None, {}]
+
+
+def edge_index(np, src, tgt, n: int, name: str):
+    """Sorted indexes of an edge list, built once per (src, tgt, n):
+    ``"by_src"`` (the stable order of ``src`` and its CSR offsets) and
+    ``"keys"`` (the stable order of ``src * n + tgt`` and the sorted
+    keys)."""
+    if _EDGE_INDEX[0] is not src or _EDGE_INDEX[1] is not tgt \
+            or _EDGE_INDEX[2] != n:
+        _EDGE_INDEX[:] = [src, tgt, n, {}]
+    cache = _EDGE_INDEX[3]
+    if name not in cache:
+        if name == "by_src":
+            indptr = np.zeros(n + 1, np.int64)
+            np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+            cache[name] = (np.argsort(src, kind="stable"), indptr)
+        else:
+            keys = src * n + tgt
+            order = np.argsort(keys, kind="stable")
+            cache[name] = (order, keys[order])
+    return cache[name]
+
+
 def np_two_paths(np, src, tgt, n, first=None):
     """(e1, e2) of every 2-path -e1-> -e2-> with e1 != e2, e1 drawn from
     ``first`` (every edge when None)."""
-    order = np.argsort(src, kind="stable")
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    order, indptr = edge_index(np, src, tgt, n, "by_src")
     e1 = np.arange(len(src)) if first is None else first
     mid = tgt[e1]
     i, pos = np_expand(np, indptr[mid], indptr[mid + 1] - indptr[mid])
@@ -1308,10 +1379,13 @@ def np_two_paths(np, src, tgt, n, first=None):
     return e1[keep], e2[keep]
 
 
-def np_match(np, k1, k2):
-    """Every (i, j) with k1[i] == k2[j]."""
-    order = np.argsort(k2, kind="stable")
-    ks = k2[order]
+def np_match(np, k1, k2, sorted_k2=None):
+    """Every (i, j) with k1[i] == k2[j]; ``sorted_k2`` is k2's stable
+    order and its sorted values when the caller has them."""
+    order, ks = sorted_k2 if sorted_k2 is not None else (
+        np.argsort(k2, kind="stable"), None)
+    if ks is None:
+        ks = k2[order]
     lo = np.searchsorted(ks, k1, "left")
     i, pos = np_expand(np, lo, np.searchsorted(ks, k1, "right") - lo)
     return i, order[pos]
@@ -1338,7 +1412,8 @@ def cyclic_oracle(np, name, src, tgt, n, first=None):
     a, b, c = src[e1], tgt[e1], tgt[e2]
     out_deg = np.bincount(src, minlength=n)
     if name == "triangle":
-        i, e3 = np_match(np, a * n + c, src * n + tgt)
+        i, e3 = np_match(np, a * n + c, None,
+                         edge_index(np, src, tgt, n, "keys"))
         keep = (e3 != e1[i]) & (e3 != e2[i])
         i = i[keep]
         return np_bag(np, [a[i], b[i], c[i]]), len(e1)
@@ -2203,6 +2278,125 @@ def run_construct(torch, np, args, card: str, state):
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=ops.launches(), oracle="equal")
     emit(out)
+
+
+# -- phase fs: the slice's graph through the filesystem source --------------
+
+QUERY_FEDERATED = (
+    "FROM GRAPH session.base MATCH (a:Person) WHERE a.age = $age "
+    "WITH a.city AS city, count(*) AS k "
+    "FROM GRAPH fs.social MATCH (p:Person) "
+    "WHERE p.city = city AND p.age = $age2 "
+    "RETURN city, k, count(p) AS n ORDER BY city")
+FEDERATED_AGE2 = AGE + 10
+
+
+def federated_oracle(np, nodes, age: int, age2: int) -> list:
+    """Per city: the base's persons of ``age`` (k) and the stored
+    graph's persons of ``age2`` (n), for the cities that have both."""
+    person = nodes["Person"]
+    names, codes = np.unique(person["city"], return_inverse=True)
+    k = np.bincount(codes[person["age"] == age], minlength=len(names))
+    n = np.bincount(codes[person["age"] == age2], minlength=len(names))
+    return [{"city": str(c), "k": int(a), "n": int(b)}
+            for c, a, b in zip(names, k, n) if a and b]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(path) for f in files)
+
+
+def run_fs(torch, np, args, card: str, state):
+    """BASELINE config 5's data source on the card: the slice's graph
+    stored through the port's ``FSGraphSource`` as parquet (a temporary
+    directory outside the repository, removed at the end), loaded by a
+    fresh session from the ``fs`` namespace, the grouped 2-hop query on
+    it (cold, 5 exact replays with 0 size reads, the warm phase's 24
+    rotating ages), each equal to the numpy oracle; then the federated
+    MATCH across ``session.base`` (the same arrays ingested in memory)
+    and ``fs.social`` against numpy.  Store seconds, load seconds by
+    part (the Arrow read, the column build, the upload), bytes on disk,
+    peak card memory, and the launches and kernel calls of one exact
+    replay."""
+    import tempfile
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.io.fs import FSGraphSource
+    from caps_tpu_torch.okapi.graph import GraphName, Namespace
+    session, graph, nodes, rels, _ = state
+    out = {"phase": "fs", "card": card, "format": "parquet"}
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="caps_fs_")
+    try:
+        src = FSGraphSource(session, root)
+        t0 = time.perf_counter()
+        src.store(GraphName("social"), graph)
+        out["store_s"] = time.perf_counter() - t0
+        out["store_parts_s"] = src.last_store_s
+        out["bytes_on_disk"] = dir_bytes(root)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs_session = caps_tpu_torch.local_session()
+        fs_src = FSGraphSource(fs_session, root)
+        fs_session.catalog.register_source(Namespace("fs"), fs_src)
+        t0 = time.perf_counter()
+        loaded = fs_session.catalog.graph("fs.social")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_parts_s"] = fs_src.last_load_s
+
+        params = {"age": AGE}
+        want = oracle(np, nodes, rels, AGE)[0]
+        recorders = query_recorders()
+        rows, info, _result = pattern_runs(torch, fs_session, loaded,
+                                           QUERY_GROUPED, params, card,
+                                           recorders=recorders)
+        expect("grouped", rows == want, f"{rows} != oracle {want}", "fs")
+        expect_replays("grouped", info, 0, "fs")
+        check_query_launches("the fs graph's exact replay",
+                             info["replay_launches"])
+        out["grouped"] = info
+        rng = np.random.default_rng(args.seed + 1)   # the warm phase's ages
+        ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+        times, modes, got = [], [], []
+        for a in ages:
+            r, res, t = timed_query(torch, loaded, QUERY_GROUPED, {"age": a})
+            times.append(t)
+            modes.append(run_info(fs_session, res))
+            got.append(r)
+        for a, r in zip(ages, got):
+            expect("rotating", r == oracle(np, nodes, rels, a)[0],
+                   f"age {a} disagrees with the oracle", "fs")
+        out["rotating"] = {"ages": ages, "median_s": statistics.median(times),
+                           "runs_s": times,
+                           "modes": [m["mode"] for m in modes],
+                           "size_syncs": [m["size_syncs"] for m in modes]}
+
+        t0 = time.perf_counter()
+        base = graph_from_numpy(fs_session, nodes, rels)
+        fs_session.catalog.store("base", base)
+        torch.cuda.synchronize()
+        out["federated_base_ingest_s"] = time.perf_counter() - t0
+        fparams = {"age": AGE, "age2": FEDERATED_AGE2}
+        fed_rows, fed_info, _res = pattern_runs(
+            torch, fs_session, fs_session, QUERY_FEDERATED, fparams, card,
+            warm=3)
+        fed_want = federated_oracle(np, nodes, AGE, FEDERATED_AGE2)
+        expect("federated", fed_rows == fed_want and fed_rows,
+               f"{fed_rows[:5]} != oracle {fed_want[:5]}", "fs")
+        out["federated"] = dict(fed_info, rows=len(fed_rows))
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        fs_session.catalog.delete("session.base")
+        del loaded, base, fs_session
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out.update(phase_s=time.perf_counter() - t_phase, oracle="equal")
+    emit(out)
+    return ({"fs_replay": info["replay_launches"]},
+            {"fs_grouped": {r.name: r.calls for r in recorders}})
 
 
 # -- phase algo: CALL algo.* on the slice's graph ----------------------------
@@ -3845,6 +4039,230 @@ def run_ldbc(torch, np, args, card: str):
     return {"ldbc_ic12": ic12_launches}, {"ldbc_ic12": ic12_calls}
 
 
+# -- phase graph500: BASELINE config 4 --------------------------------------
+
+GRAPH500_SCALE = 20          # BASELINE.md's scale 22, cut (PERF.md §4)
+GRAPH500_EDGEFACTOR = 16
+GRAPH500_SEED = 1
+GRAPH500_WARM = 3
+GRAPH500_CHUNK = 1 << 16     # rows of the oracle's product at a time
+
+
+def triangle_oracle(np, lo, hi, n: int, chunk: int = GRAPH500_CHUNK) -> int:
+    """Triangles of the undirected simple graph with edges (lo, hi): each
+    edge oriented from the endpoint of lower (degree, id) rank to the
+    higher, L the n x n adjacency of that orientation, and the count the
+    sum over row chunks R of ``(L[R] @ L).multiply(L[R])`` (a path
+    x -> y -> z closed by x -> z, each triangle once).  scipy is imported
+    here only: the package never uses it."""
+    import scipy.sparse as sp
+    lo = np.asarray(lo, np.int64)
+    hi = np.asarray(hi, np.int64)
+    if lo.shape[0] == 0:
+        return 0
+    deg = np.bincount(lo, minlength=n) + np.bincount(hi, minlength=n)
+    rank = np.empty(n, np.int64)
+    rank[np.lexsort((np.arange(n), deg))] = np.arange(n)
+    a, b = rank[lo], rank[hi]
+    u, v = np.minimum(a, b), np.maximum(a, b)
+    L = sp.csr_matrix((np.ones(u.shape[0], np.int64), (u, v)), shape=(n, n))
+    total = 0
+    for s in range(0, n, chunk):
+        rows = L[s:s + chunk]
+        total += int((rows @ L).multiply(rows).sum())
+    return total
+
+
+def run_graph500(torch, np, args, card: str) -> None:
+    """BASELINE config 4 on the card: ``rmat_edges(20, 16, seed=1)``
+    canonicalized by ``triangle_graph`` (15,701,303 edges over 2^20
+    vertices) on the default session, ``TRIANGLE_QUERY`` cold and 3
+    exact replays, each equal to a host oracle (:func:`triangle_oracle`
+    in a child process that draws the same edge list, run while this
+    process builds the graph and the card works); the plan's strategy,
+    build seconds (the RMAT draw included), peak bytes, size reads,
+    edges joined per second (3 |E| / median, as ``bench.py``'s triangle
+    mode reckons it), and the device time, idle share and launches of
+    one replay under the profiler.  The path launches none of the
+    hand-written kernels: it is measured as a path."""
+    import caps_tpu_torch
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.datasets import graph500 as g500
+    out = {"phase": "graph500", "card": card, "scale": GRAPH500_SCALE,
+           "edgefactor": GRAPH500_EDGEFACTOR, "seed": GRAPH500_SEED,
+           "cut": "BASELINE.md scale 22 -> 20"}
+    t_phase = time.perf_counter()
+    # the oracle in a child process, from the edge list it draws itself,
+    # while this process builds the graph and the card counts
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time, json; sys.path.insert(0, sys.argv[1]); "
+         "import numpy as np, chip_smoke; "
+         "from caps_tpu_torch.datasets import graph500 as g; "
+         "t = time.perf_counter(); "
+         "s, ef, seed = (int(a) for a in sys.argv[2:5]); "
+         "lo, hi = g.canonical_edges(s, ef, seed); "
+         "c = chip_smoke.triangle_oracle(np, lo, hi, 1 << s); "
+         "print(json.dumps([c, int(lo.shape[0]), int(lo.sum()), "
+         "int(hi.sum()), time.perf_counter() - t]))",
+         ROOT, str(GRAPH500_SCALE), str(GRAPH500_EDGEFACTOR),
+         str(GRAPH500_SEED)], stdout=subprocess.PIPE, text=True)
+    try:
+        session = caps_tpu_torch.local_session()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        graph, lo, hi = g500.triangle_graph(
+            session, GRAPH500_SCALE, GRAPH500_EDGEFACTOR, GRAPH500_SEED)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        n = 1 << GRAPH500_SCALE
+        deg = np.bincount(lo, minlength=n) + np.bincount(hi, minlength=n)
+        out.update(vertices=n, edges=int(lo.shape[0]),
+                   max_degree=int(deg.max()))
+        ops.reset_launches()
+        rows, result, cold_s = timed_query(torch, graph, g500.TRIANGLE_QUERY,
+                                           {})
+        cold = run_info(session, result)
+        strategies = [[m["op"], m.get("strategy")]
+                      for m in result.metrics["operators"]]
+        warm, warm_runs = [], []
+        for _ in range(GRAPH500_WARM):
+            r, res, t = timed_query(torch, graph, g500.TRIANGLE_QUERY, {})
+            expect("replay", r == rows, f"{r} != the cold run's {rows}",
+                   "graph500")
+            warm.append(t)
+            warm_runs.append(run_info(session, res))
+        launches = ops.launches()
+        profile = device_profile(torch, lambda: graph.cypher(
+            g500.TRIANGLE_QUERY).records.to_maps())
+        peak = torch.cuda.max_memory_allocated()
+        stdout, _ = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise RuntimeError(f"graph500: the oracle's process exited "
+                           f"{child.returncode}")
+    want, n_edges, lo_sum, hi_sum, oracle_s = json.loads(
+        stdout.strip().splitlines()[-1])
+    expect("edges", [n_edges, lo_sum, hi_sum] == [
+        int(lo.shape[0]), int(lo.sum()), int(hi.sum())],
+           "the oracle's edge list is not the graph's", "graph500")
+    expect("count", rows == [{"triangles": want}],
+           f"{rows} != oracle {want}", "graph500")
+    expect("strategy", ["CountCycle", "cycle-probe"] in strategies,
+           f"not planned to the cycle probe: {strategies}", "graph500")
+    expect("launches", not any(launches.get(k, 0) for k in KERNELS),
+           f"the triangle count launched a hand-written kernel: {launches}",
+           "graph500")
+    med = statistics.median(warm)
+    out.update(triangles=want, strategies=strategies, cold_s=cold_s,
+               cold_run=cold, warm_s=med, warm_runs_s=warm,
+               warm_runs=warm_runs,
+               size_syncs=[r["size_syncs"] for r in warm_runs],
+               edges_joined_per_s=3 * int(lo.shape[0]) / med,
+               kernel_launches=launches, profile_replay=profile,
+               peak_mem_bytes=peak, oracle_s=oracle_s,
+               phase_s=time.perf_counter() - t_phase, oracle="equal")
+    del graph, session
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+# -- phase acceptance: the reference's behaviour suites on the card -----------
+
+def acceptance_rows_agree(query: str, got, want) -> bool:
+    """Equal as multisets (in order under ORDER BY), floats within 4
+    ulp."""
+    from caps_tpu_torch.testing.bag import Bag
+    if "ORDER BY" in query:
+        if got == want:
+            return True
+    elif Bag(got) == want:
+        return True
+
+    def key(row):
+        return repr(sorted((k, round(v, 9) if isinstance(v, float) else v)
+                           for k, v in row.items()))
+    if "ORDER BY" not in query:
+        got, want = sorted(got, key=key), sorted(want, key=key)
+    return rows_equal(got, want, 4)
+
+
+class _GraphPair:
+    """One CREATE text built on the card's session and on the port's
+    local backend."""
+
+    def __init__(self, cuda, local):
+        self.cuda, self.local = cuda, local
+
+
+def run_acceptance(torch, np, args, card: str) -> None:
+    """The 117 behaviour tests of ``tests/acceptance`` (loaded with
+    ``caps_tpu`` rewritten to ``caps_tpu_torch``, as the CPU tests load
+    them) against a session on the card: every ``init_graph`` builds
+    its graph on the card and on the port's pure-Python oracle
+    (``local_session(backend="local")``), and every ``run`` must give
+    the oracle's rows; a test on the strict list
+    (``caps_tpu_torch/tck/blacklists/acceptance_cuda.txt``) must raise
+    the cause it names.  Counts by suite."""
+    import caps_tpu_torch
+    from caps_tpu_torch.testing import suites
+    from caps_tpu_torch.testing.bag import Bag
+    from caps_tpu_torch.testing.factory import create_graph
+    t0 = time.perf_counter()
+    gaps = suites.load_acceptance_gaps()
+    cuda = caps_tpu_torch.local_session()
+    local = caps_tpu_torch.local_session(backend="local")
+    compared = {"queries": 0}
+
+    def init_graph(create_query: str, **params):
+        return _GraphPair(create_graph(cuda, create_query, params),
+                          create_graph(local, create_query, params))
+
+    def run(pair, query, **params):
+        rows = pair.cuda.cypher(query, params).records.to_maps()
+        want = pair.local.cypher(query, params).records.to_maps()
+        if not acceptance_rows_agree(query, rows, want):
+            raise AssertionError(f"{query!r}: the card's rows {rows} != "
+                                 f"the local backend's {want}")
+        compared["queries"] += 1
+        return rows
+
+    fixtures = {"session": cuda, "init_graph": init_graph, "run": run,
+                "bag": Bag}
+    counts, failures = {}, []
+    for suite, name, fn in suites.suite_tests():
+        c = counts.setdefault(suite, {"tests": 0, "passed": 0,
+                                      "raised_as_listed": 0})
+        c["tests"] += 1
+        key = f"{suite}::{name}"
+        kwargs = suites.fn_kwargs(fn, fixtures)
+        try:
+            if key in gaps:
+                suites.call_listed(fn, kwargs, gaps[key])
+                c["raised_as_listed"] += 1
+            else:
+                fn(**kwargs)
+                c["passed"] += 1
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as ex:   # pytest.raises' Failed included
+            failures.append(f"{key}: {type(ex).__name__}: {ex}")
+    if failures:
+        raise RuntimeError(f"acceptance: {len(failures)} tests failed on "
+                           f"the card:\n" + "\n".join(failures[:20]))
+    total = {k: sum(c[k] for c in counts.values())
+             for k in ("tests", "passed", "raised_as_listed")}
+    expect("counts", total["tests"] == 117 and total["raised_as_listed"]
+           == len(gaps), f"{total} with {len(gaps)} listed", "acceptance")
+    emit({"phase": "acceptance", "card": card, "by_suite": counts, **total,
+          "listed": len(gaps), "queries_compared": compared["queries"],
+          "phase_s": time.perf_counter() - t0})
+
+
 def run_selftest(card: str) -> None:
     """Seconds of each family's first self-test (in the slice's first
     query); a second request must launch nothing."""
@@ -4308,6 +4726,10 @@ def main() -> int:
     launches.update(update_launches)
     pattern_calls.update(update_calls)
     run_construct(torch, np, args, card, state)
+    fs_launches, fs_calls = run_fs(torch, np, args, card, state)
+    launches.update(fs_launches)
+    pattern_calls.update(fs_calls)
+    run_graph500(torch, np, args, card)
     run_algo(torch, np, args, card, state)
     serve_launches, serve_calls = run_serve(torch, np, args, card, state)
     launches.update(serve_launches)
@@ -4315,6 +4737,7 @@ def main() -> int:
     del state
     launches["fleet_soak"] = run_fleet(torch, np, args, card)
     run_tck(torch, np, args, card)
+    run_acceptance(torch, np, args, card)
     ldbc_launches, ldbc_calls = run_ldbc(torch, np, args, card)
     launches.update(ldbc_launches)
     pattern_calls.update(ldbc_calls)
@@ -4324,8 +4747,9 @@ def main() -> int:
     def of_patterns(wrapper):
         """Every call of ``wrapper`` in one exact replay of each
         var-expand form, of each unwind-phase query, of each multiway
-        join of the cyclic phase, of the final snapshot, of IC12 and of
-        the served batch's 8 exact replays, labelled by query."""
+        join of the cyclic phase, of the final snapshot, of the graph
+        the fs phase loaded, of IC12 and of the served batch's 8 exact
+        replays, labelled by query."""
         return [(f"{form}_call_{i}", a)
                 for form, calls in pattern_calls.items()
                 for i, a in enumerate(calls[wrapper])]
@@ -4391,6 +4815,9 @@ def main() -> int:
             # through QueryServer's worker
             "launches_served_request": launches["served_request"].get(
                 name, 0),
+            # one exact replay of the grouped query on the graph the fs
+            # phase loaded from parquet
+            "launches_fs_replay": launches["fs_replay"].get(name, 0),
             # the 3-backend read soak of the fleet phase, summed over the
             # backend processes (each counts its own launches)
             "launches_fleet_soak": launches["fleet_soak"].get(name, 0),

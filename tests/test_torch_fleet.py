@@ -408,9 +408,27 @@ def test_rows_digest_is_order_insensitive():
     assert rows_digest(rows) != rows_digest(rows[:1])
 
 
-def test_local_backend_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="backends/local"):
-        FleetBackend(BackendSpec(name="l0", backend="local"), start=False)
+def test_local_backend_answers_as_a_cpu_one():
+    """A ``backend="local"`` fleet backend (the port's pure-Python
+    oracle) gives the grouped query's rows equal to a ``"cpu"`` one."""
+    gspec = PARITY_GRAPHS["foaf"]
+    local = FleetBackend(BackendSpec(name="l0", backend="local",
+                                     graph=gspec))
+    cpu = FleetBackend(BackendSpec(name="c0", backend="cpu", graph=gspec))
+    try:
+        with WireClient("127.0.0.1", local.port) as lc, \
+                WireClient("127.0.0.1", cpu.port) as cc:
+            for age in (27, 40, 62):
+                got = lc.call("query", query=FOAF_QUERY,
+                              params={"age": age}, digest=True)
+                want = cc.call("query", query=FOAF_QUERY,
+                               params={"age": age}, digest=True)
+                assert got["rows"] == want["rows"] and got["rows"]
+                assert got["digest"] == want["digest"]
+            assert lc.call("device")["device"] == "host"
+    finally:
+        local.shutdown(drain=False)
+        cpu.shutdown(drain=False)
 
 
 # -- against the JAX package -------------------------------------------------

@@ -45,6 +45,78 @@ def test_local_session_defaults_to_the_card():
         .parameters["device"].default == "cuda"
 
 
+def test_the_local_backend_takes_no_device():
+    """``backend="local"`` is the pure-Python oracle: it runs on the host
+    and refuses a device, named or not; with no arguments the entry
+    point still means the card."""
+    from caps_tpu_torch.backends.local.session import LocalCypherSession
+    for device in ("cuda", "cpu", torch.device("cpu")):
+        for backend in ("local", "oracle"):
+            with pytest.raises(ValueError, match="takes no device"):
+                caps_tpu_torch.local_session(backend=backend, device=device)
+    assert isinstance(caps_tpu_torch.local_session(backend="local"),
+                      LocalCypherSession)
+    if torch.cuda.is_available():
+        assert caps_tpu_torch.local_session().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            caps_tpu_torch.local_session()
+
+
+def test_the_cuda_backend_never_reaches_the_local_one():
+    """No module of the device backend, the planner or the operators
+    imports ``backends/local``: the CUDA backend has no host fallback.
+    The modules that may are the local backend's own, its entry points
+    and the test harness."""
+    allowed = {"caps_tpu_torch/__init__.py",
+               "caps_tpu_torch/testing/sessions.py"}
+    for path in PORT_FILES:
+        rel = str(path.relative_to(ROOT))
+        if rel.startswith("caps_tpu_torch/backends/local/") or rel in allowed:
+            continue
+        for mod in _imported_modules(path):
+            assert not mod.startswith("caps_tpu_torch.backends.local"), \
+                f"{rel} imports {mod}"
+
+
+def _imports_in_functions_only(path, top):
+    """Line numbers of imports of ``top`` outside every function (an
+    import inside a function is allowed)."""
+    bad = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.Import, ast.ImportFrom)) \
+                    and not in_function:
+                names = [a.name for a in child.names] \
+                    if isinstance(child, ast.Import) else [child.module or ""]
+                if any(n.split(".")[0] == top for n in names):
+                    bad.append(child.lineno)
+            visit(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    visit(ast.parse(path.read_text(), filename=str(path)), False)
+    return bad
+
+
+def test_pyarrow_only_in_io_fs_and_only_inside_functions():
+    """The one exception to the package's torch / numpy / standard
+    library rule (ROADMAP): ``pyarrow``, imported lazily by
+    ``io/fs.py`` alone.  ``scipy`` is imported by ``chip_smoke.py``'s
+    oracle only, inside a function."""
+    fs = ROOT / "caps_tpu_torch" / "io" / "fs.py"
+    for path in PORT_FILES:
+        mods = {m.split(".")[0] for m in _imported_modules(path)}
+        if path == fs:
+            assert "pyarrow" in mods
+        else:
+            assert "pyarrow" not in mods, path.relative_to(ROOT)
+        if path.name != "chip_smoke.py":
+            assert "scipy" not in mods, path.relative_to(ROOT)
+    assert _imports_in_functions_only(fs, "pyarrow") == []
+    assert _imports_in_functions_only(ROOT / "chip_smoke.py", "scipy") == []
+
+
 def test_cuda_session_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the session would start")
@@ -206,6 +278,30 @@ ALGO_NATIVE_MODULES = (
 
 @pytest.mark.parametrize("module", ALGO_NATIVE_MODULES)
 def test_import_scan_covers_the_algo_and_native_modules(module):
+    assert ROOT / module in PORT_FILES
+
+
+TOOLING_MODULES = (
+    "caps_tpu_torch/backends/local/__init__.py",
+    "caps_tpu_torch/backends/local/table.py",
+    "caps_tpu_torch/backends/local/expr.py",
+    "caps_tpu_torch/backends/local/session.py",
+    "caps_tpu_torch/io/__init__.py", "caps_tpu_torch/io/fs.py",
+    "caps_tpu_torch/datasets/graph500.py",
+    "caps_tpu_torch/testing/sessions.py", "caps_tpu_torch/testing/suites.py",
+    "caps_tpu_torch/analysis/__init__.py",
+    "caps_tpu_torch/analysis/__main__.py",
+    "caps_tpu_torch/analysis/core.py", "caps_tpu_torch/analysis/locks.py",
+    "caps_tpu_torch/analysis/purity.py",
+    "caps_tpu_torch/analysis/taxonomy.py",
+    "caps_tpu_torch/analysis/clocks.py",
+    "caps_tpu_torch/analysis/metric_names.py",
+    "caps_tpu_torch/analysis/structlog.py",
+)
+
+
+@pytest.mark.parametrize("module", TOOLING_MODULES)
+def test_import_scan_covers_the_oracle_io_and_tooling_modules(module):
     assert ROOT / module in PORT_FILES
 
 

@@ -10,8 +10,9 @@ domain: the fused closures return None, the eager paths raise
 the same consumed size so an exact replay still reads nothing.
 
 Every answer is held against the JAX package's ``LocalCypherSession``
-(its device backend has the same fault, so it is no oracle here) and the
-port's own join cascade (``use_count_pushdown=False, use_wcoj=False``).
+(its device backend has the same fault, so it is no oracle here), the
+port's own pure-Python oracle (``local_session(backend="local")``) and
+the port's join cascade (``use_count_pushdown=False, use_wcoj=False``).
 The graphs: 60 ``:P {k: i % 7}`` nodes and 300 uniform ``:K`` edge draws
 over them (numpy ``RandomState(4)``, self-loops dropped), once with the
 ids -180, -177, ..., -3 and once with the mixed ids -5, -1, 0, 2, 4,
@@ -73,7 +74,9 @@ def engines(request):
     cascade = port_make_graph(caps_tpu_torch.local_session(
         device="cpu", config=EngineConfig(use_count_pushdown=False,
                                           use_wcoj=False)), nodes, rels)
-    return request.param, local, port, cascade
+    own = port_make_graph(caps_tpu_torch.local_session(backend="local"),
+                          nodes, rels)
+    return request.param, local, port, cascade, own
 
 
 def strategy(result, op):
@@ -85,11 +88,12 @@ def strategy(result, op):
 
 @pytest.mark.parametrize("name", sorted(QUERIES))
 def test_answers_equal_the_local_oracle_and_the_cascade(engines, name):
-    ids, local, port, cascade = engines
+    ids, local, port, cascade, own = engines
     q = QUERIES[name]
     want = local.cypher(q).records.to_maps()
     assert want and (name != "triangle_rows" or len(want) == 96)
     assert cascade.cypher(q).records.to_maps() == want
+    assert own.cypher(q).records.to_maps() == want
     op, refused, fast = PLANNED[name]
     for run in ("record", "replay"):
         res = port.cypher(q)

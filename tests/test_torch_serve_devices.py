@@ -681,18 +681,10 @@ def test_soak_device_killed_mid_run(monkeypatch):
     # static/dynamic agreement: every statically predicted edge that was
     # observed at runtime was observed in the SAME direction — the
     # reverse direction appearing would be a cycle between the graphs
-    # capslint (the JAX package's static analysis) pointed at the port
-    import dataclasses
-    import os
-    from caps_tpu.analysis.core import AnalysisConfig, load_project
-    from caps_tpu.analysis.locks import static_lock_graph
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = dataclasses.replace(
-        AnalysisConfig(), package_dir="caps_tpu_torch",
-        lock_dirs=("caps_tpu_torch/serve", "caps_tpu_torch/obs",
-                   "caps_tpu_torch/relational", "caps_tpu_torch/okapi",
-                   "caps_tpu_torch/testing/faults.py"))
-    static_edges, _index, _info = static_lock_graph(load_project(root, cfg))
+    # the port's capslint (caps_tpu_torch/analysis), on its defaults
+    from caps_tpu_torch.analysis.core import load_project
+    from caps_tpu_torch.analysis.locks import static_lock_graph
+    static_edges, _index, _info = static_lock_graph(load_project())
     assert static_edges
     for a, b in static_edges:
         assert (b, a) not in edges, (

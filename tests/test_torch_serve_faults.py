@@ -690,23 +690,19 @@ def test_soak_transient_faults_eight_clients():
 
 def test_serve_error_lint_is_clean():
     """``scripts/check_serve_errors.py``'s lint (capslint's
-    error-taxonomy pass, the JAX package's tool) over the port's
-    ``serve/``: every error raised there is a ServeError, exceptions are
-    stamped first-writer-wins, and the worker path reaches classify."""
-    import dataclasses
+    error-taxonomy pass, the port's copy in ``caps_tpu_torch/analysis``)
+    over the port's ``serve/``: every error raised there is a
+    ServeError, exceptions are stamped first-writer-wins, and the worker
+    path reaches classify."""
     import os
-    from caps_tpu.analysis.core import (AnalysisConfig, load_project,
-                                        run_passes)
+    from caps_tpu_torch.analysis.core import (AnalysisConfig, load_project,
+                                              run_passes)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     serve = os.path.join(root, "caps_tpu_torch", "serve")
-    cfg = dataclasses.replace(
-        AnalysisConfig(), package_dir="caps_tpu_torch",
-        serve_dir="caps_tpu_torch/serve",
-        errors_rel="caps_tpu_torch/serve/errors.py",
-        expected_serve_modules=frozenset(
-            f for f in os.listdir(serve) if f.endswith(".py")),
-        worker_roots=(("caps_tpu_torch/serve/server.py",
-                       "QueryServer._worker_loop"),))
+    cfg = AnalysisConfig()
+    assert cfg.serve_dir == "caps_tpu_torch/serve"
+    assert cfg.expected_serve_modules == frozenset(
+        f for f in os.listdir(serve) if f.endswith(".py"))
     assert {"server.py", "devices.py", "failure.py"} \
         <= cfg.expected_serve_modules
     assert run_passes(load_project(root, cfg),

@@ -7,6 +7,10 @@ an unlisted scenario must match its expected table (or raise, where it
 expects an error), and a listed one must raise the port's "not ported
 yet" error with the message the list gives.  A listed scenario that
 starts to pass fails here until it is taken off the list.
+
+The same scenarios run on the port's pure-Python oracle
+(``local_session(backend="local")``) with no list, as the reference's
+local backend runs them (``test_tck_local``).
 """
 import pytest
 
@@ -28,10 +32,13 @@ PORTED_OPERATORS = ("explode", "collect", "cross join", "DISTINCT",
 _SESSIONS = {}
 
 
-def _session(feature):
-    if feature not in _SESSIONS:
-        _SESSIONS[feature] = caps_tpu_torch.local_session(device="cpu")
-    return _SESSIONS[feature]
+def _session(feature, backend="cuda"):
+    key = (backend, feature)
+    if key not in _SESSIONS:
+        _SESSIONS[key] = caps_tpu_torch.local_session(backend="local") \
+            if backend == "local" else \
+            caps_tpu_torch.local_session(device="cpu")
+    return _SESSIONS[key]
 
 
 def test_corpus_and_list_size():
@@ -60,6 +67,11 @@ def test_tck(scenario):
         run_scenario(session, scenario)
     assert cause in str(info.value), \
         f"listed for {cause!r}, raised {info.value}"
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda s: s.key)
+def test_tck_local(scenario):
+    run_scenario(_session(scenario.feature, "local"), scenario)
 
 
 class _RaisingGraph:
