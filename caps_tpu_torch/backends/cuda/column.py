@@ -11,7 +11,10 @@ Kinds:
     bool   bool
     str    int32   dictionary codes into the session StringPool
     date / datetime  int64  epoch days / epoch microseconds
-    list   int32 2D (capacity, max_len) + lens
+    list   2D (capacity, max_len) + lens (+ elem_valid): the element
+           kind's dtype — int32 for ids and string codes, int64 for
+           ints, float64 for floats, bool for booleans; a list of lists
+           is 3D (capacity, max_len, inner max_len) + inner_lens
     object —       host-only values; no device path
 """
 from __future__ import annotations
@@ -33,7 +36,6 @@ _DTYPES = {
     "float": torch.float64,
     "bool": torch.bool,
     "str": torch.int32,
-    "list": torch.int32,
     "date": torch.int64,
     "datetime": torch.int64,
 }
@@ -44,9 +46,10 @@ _NP_DTYPES = {
 
 
 def list_elem_kind(ctype: CypherType) -> Optional[str]:
-    """Element kind of a device-representable list type (values are packed
-    into the int32 list matrix): rel/node ids, int (int32-range), str
-    codes, bool.  None = no device representation."""
+    """Element kind of a device-representable list type: rel/node ids,
+    int, float, str codes, bool (the list matrix takes the kind's
+    dtype).  None = no device representation (CTNumber, CTAny, maps,
+    temporal values, nested lists)."""
     m = ctype.material
     if not isinstance(m, _CTList):
         return None
@@ -55,6 +58,8 @@ def list_elem_kind(ctype: CypherType) -> Optional[str]:
         return "id"
     if inner == CTInteger:
         return "int"
+    if inner == CTFloat:
+        return "float"
     if inner == CTString:
         return "str"
     if inner == CTBoolean:
@@ -85,6 +90,10 @@ def kind_for(ctype: CypherType) -> str:
     return "object"
 
 
+_BY_DTYPE = {torch.int32: "id", torch.int64: "int", torch.float64: "float",
+             torch.bool: "bool"}
+
+
 @dataclasses.dataclass
 class Column:
     kind: str
@@ -97,6 +106,53 @@ class Column:
     # CSR at ingest) never read graph columns back from the device.
     # Derived columns drop it.
     host: Optional[tuple] = None
+    # bool (capacity, max_len) for kind="list": False marks a null
+    # element.  None where no element can be null (collect drops nulls,
+    # a path's hop ids are never null).
+    elem_valid: Optional[torch.Tensor] = None
+    # for a list of lists: int32 (capacity, max_len), each inner list's
+    # length, and bool (capacity, max_len, inner max_len), False on a
+    # null element of an inner list (None where there is none)
+    inner_lens: Optional[torch.Tensor] = None
+    inner_valid: Optional[torch.Tensor] = None
+
+    @property
+    def elem_kind(self) -> str:
+        """A list column's (innermost) element kind: its type's, else
+        its dtype's (a list of no element type, or ids mixed with
+        ints)."""
+        m = self.ctype.material
+        if self.data.dim() == 3 and isinstance(m, _CTList) \
+                and m.inner is not None:
+            m = m.inner
+        return list_elem_kind(m) or _BY_DTYPE[self.data.dtype]
+
+    def take(self, idx: torch.Tensor) -> "Column":
+        """The rows ``idx`` of this column (every per-row tensor)."""
+        return Column(
+            self.kind, self.data[idx], self.valid[idx], self.ctype,
+            None if self.lens is None else self.lens[idx],
+            elem_valid=(None if self.elem_valid is None
+                        else self.elem_valid[idx]),
+            inner_lens=(None if self.inner_lens is None
+                        else self.inner_lens[idx]),
+            inner_valid=(None if self.inner_valid is None
+                         else self.inner_valid[idx]))
+
+    def valid_elems(self) -> torch.Tensor:
+        """bool (capacity, max_len): False on a null element of a list
+        column, True elsewhere."""
+        if self.elem_valid is not None:
+            return self.elem_valid
+        return torch.ones(self.data.shape[:2], dtype=torch.bool,
+                          device=self.data.device)
+
+    def elem_ok(self) -> torch.Tensor:
+        """bool (capacity, max_len): the elements each row holds (within
+        its length, non-null), False on a null list."""
+        j = torch.arange(self.data.shape[1], device=self.data.device)
+        ok = (j[None, :] < self.lens[:, None]) & self.valid[:, None]
+        return ok if self.elem_valid is None else ok & self.elem_valid
 
     @property
     def capacity(self) -> int:
@@ -113,7 +169,14 @@ class Column:
         if kind == self.kind:
             return self
         return Column(kind, self.data.to(_DTYPES[kind]), self.valid,
-                      self.ctype, self.lens)
+                      self.ctype, self.lens, elem_valid=self.elem_valid,
+                      inner_lens=self.inner_lens,
+                      inner_valid=self.inner_valid)
+
+
+def list_dtype(elem_kind: str) -> torch.dtype:
+    """The list matrix's dtype for an element kind."""
+    return _DTYPES[elem_kind]
 
 
 def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
@@ -129,7 +192,9 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
     if kind == "list":
         ek = list_elem_kind(ctype) or "id"
         max_len = max((len(v) for v in values if v is not None), default=0)
-        data_np = np.zeros((capacity, max(1, max_len)), dtype=np.int32)
+        width = max(1, max_len)
+        data_np = np.zeros((capacity, width), dtype=_NP_DTYPES[ek])
+        ev_np = np.ones((capacity, width), dtype=bool)
         lens_np = np.zeros(capacity, dtype=np.int32)
         for i, v in enumerate(values):
             if v is None:
@@ -137,9 +202,13 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
             valid_np[i] = True
             lens_np[i] = len(v)
             for j, x in enumerate(v):
-                data_np[i, j] = encode_list_elem(x, ek, pool)
+                if x is None:
+                    ev_np[i, j] = False
+                else:
+                    data_np[i, j] = encode_list_elem(x, ek, pool)
         return Column(kind, _to(data_np, device), _to(valid_np, device),
-                      ctype, _to(lens_np, device))
+                      ctype, _to(lens_np, device),
+                      elem_valid=None if ev_np.all() else _to(ev_np, device))
     data_np = np.zeros(capacity, dtype=_NP_DTYPES[kind])
     if kind == "str":
         codes = np.asarray(pool.encode_many(values), dtype=np.int32)
@@ -223,56 +292,81 @@ def _check_id(iv: int) -> int:
     return iv
 
 
-def encode_list_elem(x: Any, elem_kind: str, pool) -> int:
-    """Pack one list element into the int32 list matrix."""
-    if x is None:
-        raise ValueError("null list elements have no device representation")
+def encode_list_elem(x: Any, elem_kind: str, pool):
+    """One non-null list element as a value of the list matrix's dtype."""
     if elem_kind == "str":
         return pool.encode(x)
     if elem_kind == "bool":
-        return int(bool(x))
+        return bool(x)
+    if elem_kind == "float":
+        return float(x)
     iv = int(x if not hasattr(x, "id") else x.id)
-    return _check_id(iv)
-
-
-def decode_list_elem(code: int, elem_kind: str, pool) -> Any:
-    if elem_kind == "str":
-        return pool.decode(int(code))
-    if elem_kind == "bool":
-        return bool(code)
-    return int(code)
+    return _check_id(iv) if elem_kind == "id" else iv
 
 
 def column_to_host(col: Column, n: int, pool) -> List[Any]:
-    """Device column → host Python values (None for null)."""
-    valid = col.valid[:n].cpu().numpy()
-    if col.kind == "list":
-        ek = list_elem_kind(col.ctype) or "id"
-        data = col.data[:n].cpu().numpy()
-        lens = col.lens[:n].cpu().numpy()
-        return [[decode_list_elem(x, ek, pool) for x in data[i, :lens[i]]]
-                if valid[i] else None
-                for i in range(n)]
-    data = col.data[:n].cpu().numpy()
+    """Device column → host Python values (None for null): one copy of
+    each tensor, converted by ``tolist``."""
+    valid = col.valid[:n].cpu().tolist()
+    conv = _converter(col.elem_kind if col.kind == "list" else col.kind,
+                      pool)
+    vals = col.data[:n].cpu().tolist()
+    if col.kind != "list":
+        if conv is None:
+            return [v if ok else None for v, ok in zip(vals, valid)]
+        return [conv(v) if ok else None for v, ok in zip(vals, valid)]
+    lens = col.lens[:n].cpu().tolist()
+    ev = None if col.elem_valid is None else col.elem_valid[:n].cpu().tolist()
+    nested = col.data.dim() == 3
+    if nested:
+        inner = col.inner_lens[:n].cpu().tolist()
+        iv = (None if col.inner_valid is None
+              else col.inner_valid[:n].cpu().tolist())
+
+    def items(row, k, oks):
+        # (a null element's code is no string: decode only the others)
+        row = row[:k]
+        if oks is not None:
+            return [(x if conv is None else conv(x)) if ok else None
+                    for x, ok in zip(row, oks)]
+        return row if conv is None else [conv(x) for x in row]
+
     out: List[Any] = []
     for i in range(n):
         if not valid[i]:
             out.append(None)
-        elif col.kind == "str":
-            out.append(pool.decode(int(data[i])))
-        elif col.kind == "bool":
-            out.append(bool(data[i]))
-        elif col.kind == "float":
-            out.append(float(data[i]))
-        elif col.kind == "date":
-            from caps_tpu_torch.okapi.values import CypherDate
-            out.append(CypherDate(int(data[i])))
-        elif col.kind == "datetime":
-            from caps_tpu_torch.okapi.values import CypherDateTime
-            out.append(CypherDateTime(int(data[i])))
+            continue
+        if nested:
+            oks = ev[i] if ev is not None else [True] * lens[i]
+            out.append([items(r, inner[i][j], None if iv is None
+                              else iv[i][j]) if ok else None
+                        for j, (r, ok) in enumerate(
+                            zip(vals[i][:lens[i]], oks))])
         else:
-            out.append(int(data[i]))
+            out.append(items(vals[i], lens[i],
+                             None if ev is None else ev[i]))
     return out
+
+
+def _converter(kind: str, pool):
+    """The host value of one ``tolist`` element of a kind (None: the
+    element is its value)."""
+    if kind == "str":
+        memo: dict = {}
+
+        def decode(code):
+            s = memo.get(code)
+            if s is None:
+                s = memo[code] = pool.decode(code)
+            return s
+        return decode
+    if kind == "date":
+        from caps_tpu_torch.okapi.values import CypherDate
+        return CypherDate
+    if kind == "datetime":
+        from caps_tpu_torch.okapi.values import CypherDateTime
+        return CypherDateTime
+    return None
 
 
 def literal_column(value: Any, ctype: CypherType, capacity: int,
@@ -283,8 +377,8 @@ def literal_column(value: Any, ctype: CypherType, capacity: int,
     if value is None:
         if kind == "list":
             return Column(kind,
-                          torch.zeros((capacity, 1), dtype=torch.int32,
-                                      device=device),
+                          torch.zeros((capacity, 1), dtype=list_dtype(
+                              list_elem_kind(ctype)), device=device),
                           torch.zeros(capacity, dtype=torch.bool,
                                       device=device), ctype,
                           torch.zeros(capacity, dtype=torch.int32,

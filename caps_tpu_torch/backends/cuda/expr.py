@@ -6,8 +6,11 @@ expressions to (data, valid) column computations in torch with
 3-valued null logic carried in validity masks.  String semantics ride the
 StringPool: equality on codes, ordering via the rank array, literal string
 predicates via per-pool lookup tables, unary string functions via mapping
-LUTs.  Anything without a device representation raises
-:class:`UnsupportedOnDevice`; there is no host fallback.
+LUTs.  List expressions (comprehensions, quantifiers, reduce, list
+literals of columns, entity access inside a lambda) run in
+:mod:`caps_tpu_torch.backends.cuda.lists`.  Anything without a device
+representation raises :class:`UnsupportedOnDevice`; there is no host
+fallback.
 """
 from __future__ import annotations
 
@@ -15,12 +18,15 @@ from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from caps_tpu_torch.backends.cuda import kernels as K
-from caps_tpu_torch.backends.cuda.column import Column, kind_for
+from caps_tpu_torch.backends.cuda.column import (
+    _DTYPES, Column, list_elem_kind,
+)
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.okapi.types import (
-    CTBoolean, CTFloat, CTInteger, CTNull, CTString, CypherType,
+    CTBoolean, CTFloat, CTInteger, CTNull, CTString, CypherType, _CTList,
 )
 from caps_tpu_torch.relational.header import RecordHeader
 
@@ -33,14 +39,25 @@ class UnsupportedOnDevice(Exception):
 class DeviceExprCompiler:
     def __init__(self, columns: Mapping[str, Column], capacity: int,
                  header: RecordHeader, params: Mapping[str, Any], pool,
-                 row_ok: torch.Tensor):
+                 row_ok: torch.Tensor, backend=None, entity_ctx=None):
+        from caps_tpu_torch.relational.ops import ENTITY_CTX_PARAM
         self.columns = columns
         self.capacity = capacity
         self.header = header
         self.params = dict(params)
+        # the graph's entities, for property and label access on lambda
+        # variables (lists.py EntityIndex)
+        self.entity_ctx = self.params.pop(ENTITY_CTX_PARAM, entity_ctx)
         self.pool = pool
         self.row_ok = row_ok
         self.device = row_ok.device
+        self.backend = backend
+        # lambda variables in scope (lists.py Bound), by name: a child
+        # compiler over a list's elements binds them; they shadow the
+        # header's columns of the same name
+        self.bound: Dict[str, Any] = {}
+        # index lookups of id columns, by the column's data tensor
+        self.lookups: Dict[tuple, Any] = {}
         # per-row runtime-error mask: dense
         # vectorized execution can't raise mid-kernel, so error sites OR
         # their row conditions here; the table syncs ONCE after compile —
@@ -55,10 +72,26 @@ class DeviceExprCompiler:
             else (self.error_mask | rows)
         self.error_what = self.error_what or what
 
+    def child(self, columns: Mapping[str, Column], capacity: int,
+              row_ok: torch.Tensor, bound: Dict[str, Any]
+              ) -> "DeviceExprCompiler":
+        """A compiler over a lambda's rows (a list's elements, or one
+        step of a reduce) with ``bound`` in scope."""
+        c = DeviceExprCompiler(columns, capacity, self.header, self.params,
+                               self.pool, row_ok, backend=self.backend,
+                               entity_ctx=self.entity_ctx)
+        c.bound = bound
+        return c
+
     # ------------------------------------------------------------------
 
     def compile(self, e: E.Expr) -> Column:  # noqa: C901
-        if self.header.has(e):
+        if self.bound:
+            hit = L.bound_access(self, e)
+            if hit is not None:
+                return hit
+        if self.header.has(e) and not (
+                self.bound and L.mentions(e, self.bound)):
             col = self.columns[self.header.column(e)]
             return col
 
@@ -74,15 +107,21 @@ class DeviceExprCompiler:
                 raise UnsupportedOnDevice("map parameter value")
             return self._literal(v)
         if isinstance(e, E.ListLit):
-            values = []
-            for item in e.items:
-                if isinstance(item, E.Lit):
-                    values.append(item.value)
-                elif isinstance(item, E.Param):
-                    values.append(self.params.get(item.name))
-                else:
-                    raise UnsupportedOnDevice("non-constant list literal")
-            return self._const_list(values)
+            if not all(isinstance(i, (E.Lit, E.Param)) for i in e.items):
+                return L.list_literal(self, e)
+            return self._const_list([self._constant(i) for i in e.items])
+        if isinstance(e, E.ListComprehension):
+            return L.comprehension(self, e)
+        if isinstance(e, E.QuantifiedPredicate):
+            return L.quantify(self, e)
+        if isinstance(e, E.Reduce):
+            return L.reduce(self, e)
+        if isinstance(e, (E.Labels, E.Keys)):
+            return L.labels_or_keys(self, e)
+        if isinstance(e, E.PathNodes):
+            return L.path_nodes(self, e)
+        if isinstance(e, E.Disjoint):
+            return L.disjoint(self, e)
         if isinstance(e, E.Index):
             return self._index(e)
         if isinstance(e, E.Slice):
@@ -142,9 +181,7 @@ class DeviceExprCompiler:
             out = cols[-1]
             for c in reversed(cols[:-1]):
                 c2, o2 = self._promote(c, out)
-                out = Column(c2.kind,
-                             torch.where(c2.valid, c2.data, o2.data),
-                             c2.valid | o2.valid, c2.ctype)
+                out = self._choose(c2.valid, c2, o2)
             return out
         if isinstance(e, E.FunctionExpr):
             return self._function(e)
@@ -182,37 +219,91 @@ class DeviceExprCompiler:
 
     def _const_list(self, values) -> Column:
         """A constant list value broadcast to every row (literal lists and
-        list parameters)."""
-        from caps_tpu_torch.backends.cuda.column import encode_list_elem
+        list parameters); a null element is marked in ``elem_valid``."""
+        from caps_tpu_torch.backends.cuda.column import (
+            _NP_DTYPES, encode_list_elem,
+        )
         from caps_tpu_torch.okapi.types import CTList, from_python, join_all
-        if any(v is None for v in values):
-            raise UnsupportedOnDevice("null list elements")
         inner = join_all(from_python(v) for v in values) if values \
             else CTInteger
         ctype = CTList(inner)
-        from caps_tpu_torch.backends.cuda.column import list_elem_kind
+        if isinstance(inner.material, _CTList):
+            return self._const_nested(values, ctype)
         ek = list_elem_kind(ctype)
+        if ek is None and all(v is None for v in values):
+            ek = "int"  # only nulls: no value to type the elements
         if ek is None:
             raise UnsupportedOnDevice(f"list of {inner!r} on device")
+        width = max(1, len(values))
+        codes = np.zeros(width, dtype=_NP_DTYPES[ek])
+        ok = np.ones(width, dtype=bool)
         try:
-            codes = np.array([encode_list_elem(v, ek, self.pool)
-                              for v in values], dtype=np.int32)
+            for i, v in enumerate(values):
+                if v is None:
+                    ok[i] = False
+                else:
+                    codes[i] = encode_list_elem(v, ek, self.pool)
         except (ValueError, OverflowError) as ex:
             raise UnsupportedOnDevice(str(ex))
-        L = max(1, len(values))
-        data = self._lut(np.resize(codes, L) if len(values) else
-                         np.zeros(L, np.int32))[None, :].expand(
-                             self.capacity, L)
+        data = self._lut(codes)[None, :].expand(self.capacity, width)
         lens = torch.full((self.capacity,), len(values), dtype=torch.int32,
                           device=self.device)
-        return Column("list", data, self._full(True), ctype,
-                      lens)
+        ev = None if ok.all() else \
+            self._lut(ok)[None, :].expand(self.capacity, width)
+        return Column("list", data, self._full(True), ctype, lens,
+                      elem_valid=ev)
+
+    def _const_nested(self, values, ctype) -> Column:
+        """A constant list of lists broadcast to every row (a null inner
+        list is a null element, a null in an inner list a null inner
+        element)."""
+        from caps_tpu_torch.backends.cuda.column import (
+            _NP_DTYPES, encode_list_elem,
+        )
+        inner = ctype.material.inner
+        ek = list_elem_kind(inner)
+        if ek is None and all(x is None for v in values if v is not None
+                              for x in v):
+            ek = "int"  # only nulls: no value to type the elements
+        if ek is None:
+            raise UnsupportedOnDevice(f"list of {inner!r} on device")
+        width = max(1, len(values))
+        deep = max([1] + [len(v) for v in values if v is not None])
+        data = np.zeros((width, deep), dtype=_NP_DTYPES[ek])
+        ok = np.ones(width, dtype=bool)
+        inner_ok = np.ones((width, deep), dtype=bool)
+        inner_lens = np.zeros(width, dtype=np.int32)
+        try:
+            for i, v in enumerate(values):
+                if v is None:
+                    ok[i] = False
+                    continue
+                inner_lens[i] = len(v)
+                for j, x in enumerate(v):
+                    if x is None:
+                        inner_ok[i, j] = False
+                    else:
+                        data[i, j] = encode_list_elem(x, ek, self.pool)
+        except (ValueError, OverflowError) as ex:
+            raise UnsupportedOnDevice(str(ex))
+
+        def rows(a):
+            return self._lut(a)[None].expand(self.capacity, *a.shape)
+
+        lens = torch.full((self.capacity,), len(values), dtype=torch.int32,
+                          device=self.device)
+        return Column("list", rows(data), self._full(True), ctype, lens,
+                      elem_valid=None if ok.all() else rows(ok),
+                      inner_lens=rows(inner_lens),
+                      inner_valid=None if inner_ok.all() else rows(inner_ok))
 
     def _index(self, e) -> Column:
         base = self.compile(e.expr)
         if base.kind != "list":
             raise UnsupportedOnDevice(f"indexing kind {base.kind}")
         idx = self.compile(e.idx)
+        if _is_null(idx):
+            return self._null()
         if idx.kind not in ("int", "id"):
             raise UnsupportedOnDevice("non-integer list index")
         i = idx.data.to(torch.int32)
@@ -224,17 +315,19 @@ class DeviceExprCompiler:
                  valid: torch.Tensor) -> Column:
         """Each row's element ``i`` of a list column (``valid`` says
         where ``i`` is in range), as a column of the element kind."""
-        from caps_tpu_torch.backends.cuda.column import _DTYPES, list_elem_kind
-        ek = list_elem_kind(base.ctype)
-        if ek is None:
-            raise UnsupportedOnDevice("indexing host-only list")
+        ek = base.elem_kind
         inner = base.ctype.material.inner
         safe = i.clamp(0, base.data.shape[1] - 1).to(torch.int64)
-        vals = base.data[torch.arange(self.capacity, device=self.device),
-                         safe]
+        rows = torch.arange(self.capacity, device=self.device)
+        vals = base.data[rows, safe]
         valid = base.valid & valid
-        if ek == "bool":
-            return Column("bool", vals != 0, valid, inner)
+        if base.elem_valid is not None:
+            valid = valid & base.elem_valid[rows, safe]
+        if base.data.dim() == 3:  # an inner list
+            return Column("list", vals, valid, inner,
+                          base.inner_lens[rows, safe],
+                          elem_valid=(None if base.inner_valid is None
+                                      else base.inner_valid[rows, safe]))
         return Column(ek, vals.to(_DTYPES[ek]), valid, inner)
 
     def _list_function(self, name: str, c: Column) -> Column:
@@ -259,10 +352,13 @@ class DeviceExprCompiler:
         width = max(1, base.data.shape[1])
         j = torch.arange(width, device=self.device)[None, :]
         src = (start.to(torch.int64)[:, None] + step * j).clamp(0, width - 1)
-        data = torch.gather(base.data, 1, src.expand(self.capacity, width))
+        src = src.expand(self.capacity, width)
+        data = torch.gather(base.data, 1, src)
         data = torch.where(j < length[:, None], data, torch.zeros_like(data))
+        ev = None if base.elem_valid is None else \
+            torch.gather(base.elem_valid, 1, src)
         return Column("list", data, base.valid & valid, base.ctype,
-                      length.to(torch.int32))
+                      length.to(torch.int32), elem_valid=ev)
 
     def _slice(self, e) -> Column:
         """``list[lower..upper]``: from ``lower`` up to but not including
@@ -299,30 +395,35 @@ class DeviceExprCompiler:
     def _concat_lists(self, l: Column, r: Column) -> Column:
         """``a + b`` of two list columns of one element kind: each row's
         elements of ``a`` then those of ``b``."""
-        from caps_tpu_torch.backends.cuda.column import list_elem_kind
         from caps_tpu_torch.okapi.types import CTList
-        ek = list_elem_kind(l.ctype)
-        if ek is None or ek != list_elem_kind(r.ctype):
+        if l.elem_kind != r.elem_kind:
             raise UnsupportedOnDevice("concatenation of lists of different "
                                       "element kinds")
         wl, wr = l.data.shape[1], r.data.shape[1]
         width = wl + wr
         jl = torch.arange(wl, device=self.device)[None, :]
         jr = torch.arange(wr, device=self.device)[None, :]
-        data = torch.zeros((self.capacity, width + 1), dtype=torch.int32,
-                           device=self.device)
-        data[:, :wl] = torch.where(jl < l.lens[:, None], l.data,
-                                   torch.zeros_like(l.data))
         # the right side's elements go after each row's left elements;
         # those past its length go to a spare last column
         dest = torch.where(jr < r.lens[:, None],
                            l.lens[:, None].to(torch.int64) + jr,
                            torch.full_like(jr, width))
-        data.scatter_(1, dest.expand(self.capacity, wr),
-                      r.data.expand(self.capacity, wr).to(torch.int32))
+        dest = dest.expand(self.capacity, wr)
+
+        def concat(a, b, fill):
+            out = torch.full((self.capacity, width + 1), fill,
+                             dtype=a.dtype, device=self.device)
+            out[:, :wl] = torch.where(jl < l.lens[:, None], a,
+                                      torch.full_like(a, fill))
+            return out.scatter_(1, dest, b.expand(self.capacity, wr))[
+                :, :width]
+
+        ev = None
+        if l.elem_valid is not None or r.elem_valid is not None:
+            ev = concat(l.valid_elems(), r.valid_elems(), True)
         inner = l.ctype.material.inner.join(r.ctype.material.inner)
-        return Column("list", data[:, :width], l.valid & r.valid,
-                      CTList(inner), l.lens + r.lens)
+        return Column("list", concat(l.data, r.data, 0), l.valid & r.valid,
+                      CTList(inner), l.lens + r.lens, elem_valid=ev)
 
     def _concat_strings(self, e, l: Column, r: Column) -> Column:
         """``a + b`` of two strings, one of them a literal or parameter."""
@@ -470,7 +571,8 @@ class DeviceExprCompiler:
         r = self.compile(e.rhs)
         valid = l.valid & r.valid
         if l.kind == "list" or r.kind == "list":
-            eq = self._list_equal(l, r)
+            eq, known = self._list_equal(l, r)
+            valid = valid & known
         else:
             try:
                 l2, r2 = self._promote(l, r)
@@ -482,34 +584,35 @@ class DeviceExprCompiler:
             eq = ~eq
         return Column("bool", eq, valid, CTBoolean)
 
-    def _list_equal(self, l: Column, r: Column) -> torch.Tensor:
-        """Elementwise list equality: lengths match and every in-range
-        element matches.  Device list elements are int32 codes; code
-        spaces are only comparable within the same element kind (ids and
-        ints share the numeric space)."""
-        from caps_tpu_torch.backends.cuda.column import list_elem_kind
+    def _list_equal(self, l: Column, r: Column):
+        """Elementwise list equality as (equal, known): lengths match and
+        every in-range element matches; a null element pair makes the
+        answer null (``known`` False) unless another pair differs, as
+        the oracle's ``cypher_equals``.  Elements compare within one
+        element kind (ints and floats numerically); 'id' lists hold
+        entities, which never equal integers in openCypher."""
         if l.kind != "list" or r.kind != "list":
-            return self._full(False)
-        ekl = list_elem_kind(l.ctype)
-        ekr = list_elem_kind(r.ctype)
-        # code spaces only align within one element kind — and 'id' lists
-        # hold entities, which never equal integers in openCypher
-        if ekl != ekr:
-            return self._full(False)
+            return self._full(False), self._full(True)
+        if l.data.dim() == 3 or r.data.dim() == 3:
+            raise UnsupportedOnDevice("comparing lists of lists")
+        ekl, ekr = l.elem_kind, r.elem_kind
+        if ekl != ekr and {ekl, ekr} != {"int", "float"}:
+            return self._full(False), self._full(True)
         W = max(l.data.shape[1], r.data.shape[1], 1)
+        dtype = torch.float64 if "float" in (ekl, ekr) else l.data.dtype
 
-        def pad(d):
-            if d.shape[1] == W:
-                return d
-            return torch.cat(
-                [d, torch.zeros((d.shape[0], W - d.shape[1]), dtype=d.dtype,
-                                device=d.device)], dim=1)
+        def pad(d, fill):
+            return F.pad(d, (0, W - d.shape[1]), value=fill)
 
-        ld, rd = pad(l.data), pad(r.data)
+        ld, rd = pad(l.data.to(dtype), 0), pad(r.data.to(dtype), 0)
+        both = pad(l.valid_elems(), True) & pad(r.valid_elems(), True)
         pos = torch.arange(W, device=self.device)[None, :]
         within = pos < l.lens[:, None]
-        elems_eq = (ld == rd) | ~within
-        return (l.lens == r.lens) & elems_eq.all(dim=1)
+        same_len = l.lens == r.lens
+        differ = (within & both & (ld != rd)).any(dim=1)
+        unknown = (within & ~both).any(dim=1)
+        eq = same_len & ~differ & ~unknown
+        return eq, ~same_len | differ | ~unknown
 
     def _ordering(self, e) -> Column:
         l = self.compile(e.lhs)
@@ -621,23 +724,27 @@ class DeviceExprCompiler:
 
     def _in_list_column(self, l: Column, rhs: Column) -> Column:
         """``x IN list`` against a list column, row by row (e.g. a hop's
-        relationship id against a var-length path's list).  Device list
-        elements are never null: a hit is true, a miss false, except
-        that a null ``x`` against a non-empty list and a null list give
-        null."""
-        from caps_tpu_torch.backends.cuda.column import list_elem_kind
-        ek = list_elem_kind(rhs.ctype)
-        kinds = {"id": ("id", "int"), "int": ("id", "int"),
-                 "str": ("str",), "bool": ("bool",)}.get(ek, ())
+        relationship id against a var-length path's list): a hit is
+        true; a miss is null where the list holds a null element, else
+        false; a null ``x`` gives null against a non-empty list and a
+        null list gives null."""
+        if rhs.data.dim() == 3:
+            raise UnsupportedOnDevice("IN a list of lists")
+        ek = rhs.elem_kind
+        numeric = ("id", "int", "float")
+        kinds = {"str": ("str",), "bool": ("bool",)}.get(ek, numeric)
         if l.kind not in kinds:
             raise UnsupportedOnDevice(f"{l.kind} IN list of {ek}")
+        dtype = torch.float64 if "float" in (l.kind, ek) else torch.int64
         width = rhs.data.shape[1]
         in_len = (torch.arange(width, device=self.device)[None, :]
                   < rhs.lens[:, None])
-        hit = (rhs.data.to(torch.int64)
-               == l.data.to(torch.int64)[:, None]) & in_len
+        ev = rhs.valid_elems()
+        hit = (rhs.data.to(dtype) == l.data.to(dtype)[:, None]) & in_len & ev
         found = hit.any(dim=1) & l.valid
-        valid = rhs.valid & (l.valid | (rhs.lens == 0))
+        has_null = (in_len & ~ev).any(dim=1)
+        valid = rhs.valid & ((l.valid & (found | ~has_null))
+                             | (rhs.lens == 0))
         return Column("bool", found, valid, CTBoolean)
 
     def _arith(self, e) -> Column:
@@ -704,13 +811,37 @@ class DeviceExprCompiler:
         if out is None:
             proto = vals[0]
             out = Column(proto.kind, torch.zeros_like(proto.data),
-                         self._full(False), proto.ctype)
+                         self._full(False), proto.ctype,
+                         None if proto.lens is None
+                         else torch.zeros_like(proto.lens))
         for c, v in zip(reversed(conds), reversed(vals)):
             v2, o2 = self._promote(v, out)
-            take = c.valid & c.data
-            out = Column(v2.kind, torch.where(take, v2.data, o2.data),
-                         torch.where(take, v2.valid, o2.valid), v2.ctype)
+            out = self._choose(c.valid & c.data, v2, o2)
         return out
+
+    def _choose(self, take: torch.Tensor, a: Column, b: Column) -> Column:
+        """Per row ``a`` where ``take`` holds, else ``b`` (two columns of
+        one kind; of two lists the narrower is padded)."""
+        if a.kind != "list":
+            return Column(a.kind, torch.where(take, a.data, b.data),
+                          torch.where(take, a.valid, b.valid), a.ctype)
+        if a.data.dim() == 3 or b.data.dim() == 3 \
+                or a.data.dtype != b.data.dtype:
+            raise UnsupportedOnDevice("choosing between lists of different "
+                                      "kinds")
+        width = max(a.data.shape[1], b.data.shape[1])
+
+        def pick(x, y, fill):
+            x = F.pad(x, (0, width - x.shape[1]), value=fill)
+            y = F.pad(y, (0, width - y.shape[1]), value=fill)
+            return torch.where(take[:, None], x, y)
+
+        ev = None
+        if a.elem_valid is not None or b.elem_valid is not None:
+            ev = pick(a.valid_elems(), b.valid_elems(), True)
+        return Column("list", pick(a.data, b.data, 0),
+                      torch.where(take, a.valid, b.valid), a.ctype,
+                      torch.where(take, a.lens, b.lens), elem_valid=ev)
 
     def _function(self, e: E.FunctionExpr) -> Column:  # noqa: C901
         name = e.name
@@ -895,3 +1026,6 @@ def _gather(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """``table[codes]`` with codes clamped into range (padding rows carry
     code 0 and are masked by validity)."""
     return table[codes.clamp(0, table.shape[0] - 1).to(torch.int64)]
+
+
+from caps_tpu_torch.backends.cuda import lists as L  # noqa: E402

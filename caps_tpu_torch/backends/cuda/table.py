@@ -22,6 +22,7 @@ replay them with no device→host reads.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,8 +32,8 @@ import torch.nn.functional as F
 from caps_tpu_torch import ops as OPS
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    _DTYPES, Column, column_to_host, kind_for, list_elem_kind, literal_column,
-    make_column,
+    _DTYPES, Column, column_to_host, kind_for, list_dtype, list_elem_kind,
+    literal_column, make_column,
 )
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice,
@@ -401,6 +402,9 @@ class DeviceTable(Table):
             total += col.data.nbytes + col.valid.nbytes
             if col.lens is not None:
                 total += col.lens.nbytes
+            for t in (col.elem_valid, col.inner_lens, col.inner_valid):
+                if t is not None:
+                    total += t.nbytes
         return total
 
     # -- column ops ------------------------------------------------------
@@ -447,7 +451,8 @@ class DeviceTable(Table):
     def _compiler(self, header: RecordHeader, parameters
                   ) -> DeviceExprCompiler:
         return DeviceExprCompiler(self._cols, self.capacity, header,
-                                  parameters, self.backend.pool, self.row_ok)
+                                  parameters, self.backend.pool, self.row_ok,
+                                  backend=self.backend)
 
     def with_column(self, name, expr: Expr, header: RecordHeader,
                     parameters, ctype) -> "DeviceTable":
@@ -644,8 +649,8 @@ class DeviceTable(Table):
         out_cols = _gather_cols(self._cols, l_idx)
         right = _gather_cols(other._cols, r_idx)
         for c, col in right.items():
-            out_cols[c] = Column(col.kind, col.data, col.valid & r_matched,
-                                 col.ctype, col.lens)
+            out_cols[c] = dataclasses.replace(col,
+                                              valid=col.valid & r_matched)
         out = DeviceTable(self.backend, out_cols, total, live=live)
         return out._extra_pair_filter(pairs, left_join)
 
@@ -837,11 +842,7 @@ class DeviceTable(Table):
 
         out: Dict[str, Column] = {}
         for c in by:
-            col = sorted_cols[c]
-            out[c] = Column(col.kind, col.data[start_idx],
-                            col.valid[start_idx], col.ctype,
-                            col.lens[start_idx] if col.lens is not None
-                            else None)
+            out[c] = sorted_cols[c].take(start_idx)
 
         # DISTINCT aggregation: one extra stable sort by the group keys
         # plus the value marks the FIRST occurrence of each (group,
@@ -1027,7 +1028,16 @@ class DeviceTable(Table):
             return self._collect_agg(a, col, ok, seg_id, num_segments,
                                      group_live, start_idx)
         if col.kind == "list":
-            raise UnsupportedOnDevice(f"group: {a.kind} over list column")
+            if a.kind != "first":
+                raise UnsupportedOnDevice(f"group: {a.kind} over list column")
+            # the first kept row of each group, whole (a list property
+            # carried through a grouping by its entity)
+            rows = torch.arange(col.capacity, device=dev)
+            first = K.segment_agg(rows, ok, seg_id, num_segments, "min")
+            has = K.segment_agg(rows, ok, seg_id, num_segments, "count") > 0
+            out = col.take(first.clamp(0, col.capacity - 1))
+            out.valid = out.valid & has & group_live
+            return out
         if a.kind == "first":
             data, has = K.segment_agg(col.data, ok, seg_id, num_segments,
                                       "first")
@@ -1083,10 +1093,11 @@ class DeviceTable(Table):
     def _collect_agg(self, a: AggSpec, col: Column, ok, seg_id,
                      num_segments: int, group_live, start_idx) -> Column:
         """collect(x): each group's values as one row of a (groups, L)
-        int32 list matrix, written by one flat scatter.  The kept rows
-        are in group-sorted (stable) order, so each list holds its
-        values in row order: the oracle's collect order."""
-        if col.kind not in ("id", "int", "str", "bool"):
+        list matrix of the element kind's dtype, written by one flat
+        scatter.  The kept rows are in group-sorted (stable) order, so
+        each list holds its values in row order: the oracle's collect
+        order.  Nulls are dropped, so no element is null."""
+        if col.kind not in ("id", "int", "float", "str", "bool"):
             raise UnsupportedOnDevice(f"group: collect over kind {col.kind}")
         if a.result_type is None or (
                 list_elem_kind(a.result_type) is None
@@ -1098,16 +1109,7 @@ class DeviceTable(Table):
                 f"group: collect to {a.result_type!r}, a list type with no "
                 f"device representation")
         dev = self.backend.device
-        if col.kind == "int":
-            # list elements are int32: collect values that fit only
-            zero = torch.zeros_like(col.data)
-            lo = self.backend.consume_count(
-                torch.where(ok, col.data, zero).min(), relation="lo")
-            hi = self.backend.consume_count(
-                torch.where(ok, col.data, zero).max(), relation="cap")
-            if not (-2**31 < lo and hi < 2**31):
-                raise UnsupportedOnDevice("group: collect of int64-range "
-                                          "values")
+        dtype = list_dtype(list_elem_kind(a.result_type) or col.kind)
         counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
         # the row width: the longest list rounded up to a power of two on
         # the card, so a param-generic replay whose longest list grows a
@@ -1125,9 +1127,8 @@ class DeviceTable(Table):
         sentinel = num_segments * L
         flat_idx = torch.where(ok, seg_id.to(torch.int64) * L + within,
                                torch.full_like(within, sentinel))
-        vals32 = col.data.to(torch.int32)
-        flat = torch.zeros(sentinel + 1, dtype=torch.int32, device=dev)
-        flat.scatter_(0, flat_idx, vals32)
+        flat = torch.zeros(sentinel + 1, dtype=dtype, device=dev)
+        flat.scatter_(0, flat_idx, col.data.to(dtype))
         data = flat[:-1].reshape(num_segments, L)
         return Column("list", data, group_live, a.result_type,
                       counts.to(torch.int32))
@@ -1137,7 +1138,8 @@ class DeviceTable(Table):
     def explode(self, list_col: str, out_col: str,
                 out_type: CypherType) -> "DeviceTable":
         """UNWIND: one output row per element of ``list_col``, in row
-        order then element order; null and empty lists give no row."""
+        order then element order; null and empty lists give no row, a
+        null element a row holding null."""
         col = self._cols[list_col]
         rest = {c: v for c, v in self._cols.items() if c != list_col}
         if col.kind != "list":
@@ -1148,26 +1150,34 @@ class DeviceTable(Table):
             return self._with_cols(rest)._compact(col.valid & self.row_ok)
         out_kind = kind_for(out_type)
         if out_kind == "object":
-            if out_type.material not in (CTVoid, CTNull):
-                raise UnsupportedOnDevice(
-                    f"explode: element type {out_type!r} has no device "
-                    f"representation")
-            # a list of no element type holds no element (every list is
-            # empty or null), so no row comes out; the column takes the
-            # device list's element kind, or a null literal's
-            out_kind = list_elem_kind(col.ctype) or "bool"
+            # a list of no element type (only nulls, or nothing), or the
+            # planner's CTAny id of an entity it joins back: the column
+            # takes the device list's element kind
+            out_kind = col.elem_kind
         ok = col.valid & self.row_ok
         lens = torch.where(ok, col.lens, torch.zeros_like(col.lens))
         total, live = self.backend.consume_rows(lens.sum())
         out_cap = self.backend.bucket(total)
         row, within, out_valid, _ = K.explode_expand(col.lens, ok, out_cap)
         out_cols = _gather_cols(rest, row)
-        values = col.data[row, within.clamp(0, col.data.shape[1] - 1)]
-        if out_kind == "bool":
-            values = values != 0
-        else:
-            values = values.to(_DTYPES[out_kind])
-        out_cols[out_col] = Column(out_kind, values, out_valid, out_type)
+        at = within.clamp(0, col.data.shape[1] - 1)
+        if col.data.dim() == 3:
+            # a list of lists: one list a row
+            if col.elem_valid is not None:
+                out_valid = out_valid & col.elem_valid[row, at]
+            out_cols[out_col] = Column(
+                "list", col.data[row, at], out_valid, out_type,
+                col.inner_lens[row, at],
+                elem_valid=(None if col.inner_valid is None
+                            else col.inner_valid[row, at]))
+            return DeviceTable(self.backend, out_cols, total, live=live)
+        values = col.data[row, at].to(_DTYPES[out_kind])
+        if col.elem_valid is not None:
+            out_valid = out_valid & col.elem_valid[row, at]
+        # elements of no type (an empty list's) are nulls to what reads
+        # them: the rows hold none
+        ctype = CTNull if out_type.material == CTVoid else out_type
+        out_cols[out_col] = Column(out_kind, values, out_valid, ctype)
         return DeviceTable(self.backend, out_cols, total, live=live)
 
     def pack_list(self, cols: Sequence[str], out_col: str,
@@ -1176,8 +1186,9 @@ class DeviceTable(Table):
         per row the valid entries, left-aligned, and their count."""
         cap = self.capacity
         dev = self.backend.device
+        dtype = list_dtype(list_elem_kind(out_type) or "id")
         if not cols:
-            data = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+            data = torch.zeros((cap, 1), dtype=dtype, device=dev)
             lens = torch.zeros(cap, dtype=torch.int32, device=dev)
         else:
             parts, valids = [], []
@@ -1186,7 +1197,7 @@ class DeviceTable(Table):
                 if col.kind not in ("id", "int"):
                     raise UnsupportedOnDevice(
                         f"pack_list: column {c!r} of kind {col.kind}")
-                parts.append(col.data.to(torch.int32))
+                parts.append(col.data.to(dtype))
                 valids.append(col.valid)
             # valid entries to the left of each row, in column order: a
             # running count over the k columns places them (the JAX
@@ -1198,7 +1209,7 @@ class DeviceTable(Table):
             for v in valids:
                 dest.append(torch.where(v, count, torch.full_like(count, k)))
                 count = count + v
-            data = torch.zeros((cap, k + 1), dtype=torch.int32, device=dev)
+            data = torch.zeros((cap, k + 1), dtype=dtype, device=dev)
             data = data.scatter_(1, torch.stack(dest, dim=1),
                                  torch.stack(parts, dim=1))[:, :k]
             lens = count.to(torch.int32)
@@ -1289,11 +1300,7 @@ def _named(compile_fn, op: str, expr: Expr):
 
 def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
                  ) -> Dict[str, Column]:
-    out = {}
-    for c, col in cols.items():
-        out[c] = Column(col.kind, col.data[idx], col.valid[idx], col.ctype,
-                        col.lens[idx] if col.lens is not None else None)
-    return out
+    return {c: col.take(idx) for c, col in cols.items()}
 
 
 def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
@@ -1302,24 +1309,89 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
     padded to ``out_cap``; list columns widen to the wider of the two."""
     pad = out_cap - n_a - n_b
     if a.kind == "list":
+        if a.data.dim() == 3 or b.data.dim() == 3:
+            raise UnsupportedOnDevice("union of lists of lists")
+        if a.data.dtype != b.data.dtype:
+            if a.data.dtype in (torch.int32, torch.int64) and \
+                    b.data.dtype in (torch.int32, torch.int64):
+                a = dataclasses.replace(a, data=a.data.long())
+                b = dataclasses.replace(b, data=b.data.long())
+            else:
+                raise UnsupportedOnDevice(
+                    f"union of lists of {a.elem_kind} and of {b.elem_kind}")
         width = max(a.data.shape[1], b.data.shape[1])
-        da = F.pad(a.data[:n_a], (0, width - a.data.shape[1]))
-        db = F.pad(b.data[:n_b], (0, width - b.data.shape[1]))
-        data = F.pad(torch.cat([da, db]), (0, 0, 0, pad))
+
+        def rows(m, n, fill):
+            return F.pad(m[:n], (0, width - m.shape[1]), value=fill)
+
+        data = F.pad(torch.cat([rows(a.data, n_a, 0), rows(b.data, n_b, 0)]),
+                     (0, 0, 0, pad))
         lens = F.pad(torch.cat([a.lens[:n_a], b.lens[:n_b]]), (0, pad))
         valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
-        return Column("list", data, valid, ctype, lens)
+        ev = None
+        if a.elem_valid is not None or b.elem_valid is not None:
+            ev = F.pad(torch.cat([rows(a.valid_elems(), n_a, True),
+                                  rows(b.valid_elems(), n_b, True)]),
+                       (0, 0, 0, pad), value=True)
+        return Column("list", data, valid, ctype, lens, elem_valid=ev)
     data = F.pad(torch.cat([a.data[:n_a], b.data[:n_b]]), (0, pad))
     valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
     return Column(a.kind, data, valid, ctype)
 
 
+# A list element's key where one int64 plane holds it (ids, string
+# ranks, booleans): past the row's length below every value, a null
+# element above every value (openCypher: a prefix sorts first, and a
+# null element takes null's place after the values).
+_LIST_ABSENT = -(1 << 40)
+_LIST_NULL = 1 << 40
+
+
+def _list_sort_keys(col: Column, ascending: bool, nulls_last: bool,
+                    backend: DeviceBackend) -> List[torch.Tensor]:
+    """A list column's sort planes in openCypher list order (the
+    oracle's ``okapi/values.py order_key``): the list's null key, then
+    element by element.  Elements of ids, strings (by the pool's rank)
+    and booleans take one plane each; ints and floats, whose values
+    span their dtype, a tag plane (0 past the length, 1 a value, 2 a
+    null element) and a value plane."""
+    null_key = (~col.valid).to(torch.int64)
+    if not nulls_last:
+        null_key = -null_key
+    sign = 1 if ascending else -1
+    W = col.data.shape[1]
+    j = torch.arange(W, device=col.data.device)[None, :]
+    inside = (j < col.lens[:, None]) & col.valid[:, None]
+    ev = col.valid_elems()
+    data = col.data
+    ek = col.elem_kind
+    if ek == "str":
+        rank = backend.rank_tensor()
+        if rank.shape[0]:
+            data = rank[data.clamp(0, rank.shape[0] - 1).long()]
+    keys = [null_key]
+    if ek in ("int", "float"):
+        tag = torch.where(inside, torch.where(ev, 1, 2), 0).to(torch.int64)
+        val = torch.where(inside & ev, data, torch.zeros_like(data))
+        for i in range(W):
+            keys.append(sign * tag[:, i])
+            keys.append(val[:, i] if ascending else -val[:, i])
+        return keys
+    v = data.to(torch.int64)
+    v = torch.where(inside, torch.where(ev, v, _LIST_NULL), _LIST_ABSENT)
+    keys.extend(sign * v[:, i] for i in range(W))
+    return keys
+
+
 def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
                backend: DeviceBackend, op: str) -> List[torch.Tensor]:
     """Transform one column into (null_key, data_key) int64/float64 arrays
-    for an ascending lexicographic sort."""
+    for an ascending lexicographic sort (a list column into its planes,
+    :func:`_list_sort_keys`)."""
     if col.kind == "list":
-        raise UnsupportedOnDevice(f"{op}: sorting by list column")
+        if col.data.dim() == 3:
+            raise UnsupportedOnDevice(f"{op}: sorting by a list of lists")
+        return _list_sort_keys(col, ascending, nulls_last, backend)
     null_key = (~col.valid).to(torch.int64)
     if not nulls_last:
         null_key = -null_key

@@ -48,6 +48,22 @@ class EntityContext:
         self._graph = graph
         self._nodes: Optional[Dict] = None
         self._rels: Optional[Dict] = None
+        self._indexes: Dict[Any, Any] = {}
+
+    def index(self, key, build):
+        """A backend's index of this context's graph (the device
+        backend's sorted entity ids, ``backends/cuda/lists.py``), built
+        by ``build(graph)`` on first use and kept with the graph, as a
+        relationship table keeps its CSR: every plan over an immutable
+        graph shares it (a versioned handle's data changes, so its
+        index stays with this context)."""
+        g = self._graph
+        store = self._indexes
+        if g is not None and not getattr(g, "plan_token_unstable", False):
+            store = g.__dict__.setdefault("_entity_indexes", {})
+        if key not in store:
+            store[key] = build(g)
+        return store[key]
 
     def node(self, nid) -> Optional[Tuple[Tuple[str, ...], Dict[str, Any]]]:
         if self._nodes is None:

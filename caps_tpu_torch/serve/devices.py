@@ -144,7 +144,9 @@ def _copy_device_table(backend, table):
             col.kind, col.data.to(dev, copy=True),
             col.valid.to(dev, copy=True), col.ctype,
             None if col.lens is None else col.lens.to(dev, copy=True),
-            host=col.host))
+            host=col.host,
+            elem_valid=(None if col.elem_valid is None
+                        else col.elem_valid.to(dev, copy=True))))
     return DeviceTable(backend, cols, table._n)
 
 

@@ -8,8 +8,8 @@ then run from the repository root:
     git archive <commit> | tar -x -C chipcalls/parent
     python3 chip_compare.py --parent chipcalls/parent --out OUT_DIR
 
-Four parts, each printing one JSON line per result (``--parts``
-picks some; all four by default):
+Five parts, each printing one JSON line per result (``--parts``
+picks some; the first four by default):
 
   1. expand      — the slice of ``chip_smoke.py`` runs once with this tree
                    to record the arguments of every kernel call one exact
@@ -40,7 +40,14 @@ picks some; all four by default):
   4. smoke       — ``chip_smoke.py`` of earlier, this, this, earlier, each
                    in a process of its own with its output in ``--out``:
                    warm latencies, device busy time and kernel times of
-                   each run.
+                   each run;
+  5. unwind      — the ``slice`` and ``unwind`` phases of each tree's
+                   ``chip_smoke.py`` (and its ``lists`` phase, where the
+                   tree has one), earlier, this, this, earlier, each in a
+                   process of its own with its log in ``--out``: per
+                   query of the unwind phase its cold, exact-replay and
+                   generic-replay latency, size reads, peak bytes and one
+                   exact replay's device busy time.
 
 Needs one card; exits nonzero on any failure.
 """
@@ -291,6 +298,70 @@ def compare_smoke(smoke, parent_dir: str, out_dir: str, card: str) -> bool:
     return ok
 
 
+# One tree's slice and unwind phases (and lists, where it has them), run
+# from that tree's root.
+PHASES_CHILD = """
+import argparse, sys
+sys.path.insert(0, '.')
+import numpy as np
+import torch
+import chip_smoke as s
+from caps_tpu_torch.ops import build
+build.build()
+card = s.card_line()
+args = argparse.Namespace(seed=0, persons=1_000_000, edges=10_000_000)
+state = s.run_slice(torch, np, args, card)[3]
+s.run_unwind(torch, np, args, card, state)
+if hasattr(s, 'run_lists'):
+    s.run_lists(torch, np, args, card, state)
+print('{"ok": true}', flush=True)
+"""
+
+
+def phases_summary(path: str) -> dict:
+    """Per unwind-phase query (and lists-phase query) of one log: cold,
+    exact and generic latency, size reads, peak bytes, busy time."""
+    out = {}
+    for line in open(path):
+        if not line.startswith("{"):
+            continue
+        d = json.loads(line)
+        if d.get("phase") in ("unwind", "lists"):
+            for label, info in d.items():
+                if isinstance(info, dict) and "warm_s" in info:
+                    prof = info.get("profile_exact_replay", {})
+                    out[f"{d['phase']}/{label}"] = {
+                        "cold_s": info.get("cold_s"),
+                        "warm_s": info["warm_s"],
+                        "generic_s": info.get("generic_s"),
+                        "size_syncs": info["size_syncs"],
+                        "cold_size_syncs": info.get(
+                            "cold_run", {}).get("size_syncs"),
+                        "peak_mem_bytes": info.get("peak_mem_bytes"),
+                        "busy_s": prof.get("device_busy_s"),
+                        "idle_share": prof.get("device_idle_share")}
+            out[f"{d['phase']}_s"] = d.get("phase_s")
+        elif d.get("ok"):
+            out["ok"] = True
+    return out
+
+
+def compare_phases(smoke, parent_dir: str, out_dir: str, card: str) -> bool:
+    ok = True
+    for i, who in enumerate(("parent", "change", "change", "parent"), 1):
+        log = os.path.join(out_dir, f"unwind_{i}_{who}.log")
+        with open(log, "w") as f:
+            rc = subprocess.run(
+                [sys.executable, "-c", PHASES_CHILD], stdout=f,
+                stderr=subprocess.STDOUT, timeout=900,
+                cwd=parent_dir if who == "parent" else ROOT).returncode
+        ok = ok and rc == 0
+        smoke.emit({"part": "unwind", "card": card, "run": i, "tree": who,
+                    "rc": rc, "log": os.path.relpath(log, ROOT),
+                    **phases_summary(log)})
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True,
@@ -332,6 +403,8 @@ def main() -> int:
     ok = True
     if "smoke" in parts:
         ok = compare_smoke(smoke, parent_dir, out_dir, card)
+    if "unwind" in parts:
+        ok = compare_phases(smoke, parent_dir, out_dir, card) and ok
     print(smoke.card_line(), flush=True)
     return 0 if ok else 1
 

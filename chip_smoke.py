@@ -48,7 +48,20 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``$age`` values, each against its numpy oracle, with
                 launches, size reads, peak allocated bytes and the
                 device busy time of one exact replay (``torch.profiler``);
-  7. cyclic   — the seeded triangle on the slice's graph through the
+  7. lists    — list expressions on the slice's session and graph: a
+                seeded query whose lambdas range over collected friends
+                (a comprehension, ``all``, ``single`` and ``reduce`` over
+                their properties, ``labels`` and ``keys``), the whole
+                graph's collected ages folded by comprehension, ``any``
+                and ``reduce`` then grouped by city, and var-length paths
+                ordered by two list keys (``nodes(p)`` through the
+                relationship index; with a city filter too, whose few
+                rows sort on K3); each cold, 5 exact replays (0 size
+                reads) and, for the first, the 24 rotating ages, every
+                run against a numpy oracle, with launches, size reads,
+                peak allocated bytes and one exact replay's device busy
+                time (``torch.profiler``);
+  8. cyclic   — the seeded triangle on the slice's graph through the
                 multiway join (MultiwayJoinOp, K2 for every extend and
                 close): cold, 5 exact replays (0 size reads, no
                 synchronizing call), the 24 rotating ages, each against a
@@ -60,7 +73,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 its open rows stay at or under 16M (the card holds the
                 cascade's intermediate tables up to there), to the
                 forced cascade;
-  8. profile  — on the slice's session: PROFILE of the grouped query
+  9. profile  — on the slice's session: PROFILE of the grouped query
                 eager with per-operator sync (timing tag ``device``) and
                 on an exact replay without it (``dispatch`` and one
                 aggregate device span), each operator's profiled rows
@@ -71,7 +84,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 traced run exported as a Chrome trace; exact-replay
                 latency with tracing off, on and under PROFILE; the
                 ``compile.*`` and ``mem.*`` metrics;
-  9. updates  — the slice's graph wrapped by ``versioned`` (the base
+ 10. updates  — the slice's graph wrapped by ``versioned`` (the base
                 never changes): the structures the write path reads over
                 the base, each timed on first use; 500 LDBC-SNB-Interactive-shaped
                 writes (edge inserts, person creates, property sets,
@@ -89,7 +102,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 compaction seconds, peak bytes and launches; and
                 ``algo.degree()`` on the final snapshot against the
                 mutated arrays;
- 10. construct — CONSTRUCT / RETURN GRAPH on the slice's graph, stored
+ 11. construct — CONSTRUCT / RETURN GRAPH on the slice's graph, stored
                 as ``session.base``: a new graph of the seeds' clones and
                 one ``:MET`` per ``:KNOWS`` edge out of them (its grouped
                 query against numpy, its minted ids disjoint from the
@@ -99,7 +112,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 100 gives the base's answer); each CONSTRUCT's seconds
                 split into the driving MATCH, the entity build and the
                 table build, warm latencies, peak bytes and launches;
- 11. fs       — the slice's graph stored through the port's
+ 12. fs       — the slice's graph stored through the port's
                 ``FSGraphSource`` as parquet (a temporary directory
                 outside the repository, removed at the end) and loaded
                 by a fresh session from the ``fs`` namespace: the
@@ -110,7 +123,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``session.base`` and ``fs.social`` against numpy; store
                 and load seconds (the Arrow read, the column build, the
                 upload), bytes on disk, peak card memory;
- 12. graph500 — BASELINE config 4: ``rmat_edges(20, 16, seed=1)``
+ 13. graph500 — BASELINE config 4: ``rmat_edges(20, 16, seed=1)``
                 canonicalized (15,701,303 edges over 2^20 vertices; scale
                 22 cut to 20) and the triangle count on the default
                 session (``CountCycle`` / ``cycle-probe``), cold and 3
@@ -118,7 +131,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 process meanwhile; edges joined per second, peak bytes,
                 size reads, the launches and idle share of one replay
                 under the profiler (none of the hand-written kernels);
- 13. algo     — ``CALL algo.*`` on the slice's graph ingested once more
+ 14. algo     — ``CALL algo.*`` on the slice's graph ingested once more
                 with a float ``w`` per edge (uniform 1-10 from --seed),
                 with the native host runtime and with it opted out
                 (string encode, CSR build and upload timed apart); the
@@ -132,7 +145,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 digest; the top 20 by PageRank with their cities; then
                 each procedure on a 2,000-node graph of 600,000 edges on
                 the ``dense-tile`` layout;
- 14. serve    — ``QueryServer`` on the card over the slice's graph: 8
+ 15. serve    — ``QueryServer`` on the card over the slice's graph: 8
                 closed-loop clients send 2,000 requests (80 % the grouped
                 query, 20 % its ``count(*)`` form on count pushdown,
                 ``$age`` over the warm phase's rotating ages), each equal
@@ -146,7 +159,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 from the first one's plan store against a cold one; and
                 failover between two replicas on the card (each on its
                 own stream) under ``device_loss(0)``;
- 15. fleet    — durability and the fleet with backend processes on the
+ 16. fleet    — durability and the fleet with backend processes on the
                 card, each a new interpreter with its own CUDA context
                 building the same ``foaf`` graph (1M people, 10M edge
                 draws) from one spec: the grouped query through one
@@ -165,15 +178,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``RouterSet`` under a seeded ``ChaosSchedule`` that kills
                 the active one (takeover, availability, the dead
                 router's epoch fenced, every invariant green);
- 16. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 17. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 17. acceptance — the 117 behaviour tests of ``tests/acceptance`` against
+ 18. acceptance — the 117 behaviour tests of ``tests/acceptance`` against
                 a session on the card, every query's rows equal to the
                 port's pure-Python oracle on the same graph, the strict
                 list's tests raising their causes; counts by suite;
- 18. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 19. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -181,18 +194,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 19. plan     — bench config 9 at its TPU size: the five query families
+ 20. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 20. selftest — the seconds each kernel family's self-test took, and a
+ 21. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 21. kernels  — each kernel wrapper against its plain PyTorch version on
+ 22. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
-                unwind queries, the multiway joins, the final snapshot
-                of the updates phase, IC12 and a served batch) and at edge
+                unwind and lists queries, the multiway joins, the final
+                snapshot of the updates phase, IC12 and a served batch)
+                and at edge
                 shapes (the segment
                 kernel: bit for bit, NaN and signed zeros included, and
                 two calls bitwise equal), with the median time of 20 launches (CUDA
@@ -201,7 +215,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 22. the script's seconds, the ``{"kernels": [...]}`` line, the card
+ 23. the script's seconds, the ``{"kernels": [...]}`` line, the card
      line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -257,6 +271,31 @@ QUERY_PERCENTILES = (
     "ORDER BY city LIMIT 20")
 QUERY_CROSS = ("MATCH (a:Person), (b:Person) WHERE a.age = $age "
                "AND b.city = $city RETURN count(*) AS n")
+# The lists phase: lambdas over collected friends (L1), the whole graph's
+# collected ages folded per person and grouped by city (L2), and
+# var-length paths ordered by two list keys (L3, and with a city filter;
+# its end cities are aliased ``cities``: ``ends`` is the keyword of ENDS
+# WITH to the parser).
+QUERY_LISTS_L1 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age "
+    "WITH a, collect(b) AS fs RETURN id(a) AS a, "
+    "[f IN fs WHERE f.age > $age | f.age] AS older, "
+    "all(f IN fs WHERE f.age >= 18) AS adults, "
+    "single(f IN fs WHERE f.city = a.city) AS one_local, "
+    "reduce(s = 0, f IN fs | s + f.age) AS total, labels(a) AS l, "
+    "keys(a) AS k")
+QUERY_LISTS_L2 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WITH a, collect(b.age) AS ages "
+    "RETURN a.city AS city, sum(size([x IN ages WHERE x > 60])) AS old, "
+    "count(CASE WHEN any(x IN ages WHERE x < 20) THEN 1 END) AS young, "
+    "max(reduce(m = 0, x IN ages | CASE WHEN x > m THEN x ELSE m END)) "
+    "AS oldest ORDER BY city")
+QUERY_LISTS_L3 = (
+    "MATCH p = (a:Person)-[:KNOWS*1..2]->(c:Person) WHERE a.age = $age "
+    "RETURN [n IN nodes(p) | n.age] AS ages, [a.city, c.city] AS cities "
+    "ORDER BY ages, cities LIMIT 1000")
+QUERY_LISTS_L3_CITY = QUERY_LISTS_L3.replace(
+    "WHERE a.age = $age", "WHERE a.age = $age AND a.city = $city")
 # The cyclic phase on the slice's graph: the seeded triangle, enumerated
 # (the multiway join, MultiwayJoinOp over K2).
 QUERY_TRIANGLE = ("MATCH (a:Person)-[r1:KNOWS]->(b)-[r2:KNOWS]->(c), "
@@ -299,6 +338,13 @@ MIN_MATRIX_LAUNCHES = {"segment_agg": 1, "expand_positions": 2,
 # grouped rows (K3).
 MIN_UNWIND_LAUNCHES = {"segment_agg": 1, "expand_positions": 1,
                        "bitonic_sort": 1}
+# The same for one exact replay of each lists-phase query: L1 and L2 join
+# each edge to its endpoints (K2 twice), L3's var-length expand joins
+# (K2), and L3 with the city filter sorts its few hundred rows on K3.
+MIN_LISTS_LAUNCHES = {"L1": {"expand_positions": 2},
+                      "L2": {"expand_positions": 2},
+                      "L3": {"expand_positions": 2},
+                      "L3_city": {"expand_positions": 1, "bitonic_sort": 1}}
 # The same for one run of the seeded triangle on the multiway join: two
 # extends and one close, each through K2.
 MIN_TRIANGLE_LAUNCHES = {"expand_positions": 3}
@@ -1330,6 +1376,173 @@ def run_unwind(torch, np, args, card: str, state):
     emit(out)
     return ({"unwind": launches["collect_unwind"]},
             {f"unwind_{k}": v for k, v in calls.items()})
+
+
+def city_codes(np, nodes):
+    """``np.unique(city, return_inverse=True)`` of the persons' cities,
+    shared with :func:`top_cities`'s cache (the codes follow the names'
+    order, the string order the card sorts by)."""
+    city = nodes["Person"]["city"]
+    if _CODED[0] is not city:
+        _CODED[:] = [city, np.unique(city, return_inverse=True)]
+    return _CODED[1]
+
+
+def lists_l1_oracle(np, nodes, rels, age: int) -> list:
+    """L1 per seed with an out-edge: its friends' ages above ``age``
+    (sorted: collect's order is the engine's), whether all are adults,
+    whether exactly one lives in its city, the sum of their ages, its
+    labels and keys; rows by id."""
+    person, knows = nodes["Person"], rels["KNOWS"]
+    p_age, p_city = person["age"], city_codes(np, nodes)[1]
+    src, tgt = knows["_src"], knows["_tgt"]
+    sel = np.flatnonzero(p_age[src] == age)
+    order = np.argsort(src[sel], kind="stable")
+    s, t = src[sel][order], tgt[sel][order]
+    if not len(s):
+        return []
+    heads = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    ends = np.r_[heads[1:], len(s)]
+    ages = p_age[t]
+    local = np.add.reduceat((p_city[t] == p_city[s]).astype(np.int64),
+                            heads)
+    totals = np.add.reduceat(ages, heads)
+    adults = np.minimum.reduceat(ages, heads) >= 18
+    return [{"a": int(s[h]),
+             "older": sorted(int(x) for x in ages[h:e] if x > age),
+             "adults": bool(ad), "one_local": int(nl) == 1,
+             "total": int(tot), "l": ["Person"], "k": ["age", "city"]}
+            for h, e, nl, tot, ad in zip(heads, ends, local, totals, adults)]
+
+
+def lists_l2_oracle(np, nodes, rels) -> list:
+    """L2: per person with an out-edge, its friends' ages over 60
+    counted, whether one is under 20, and the oldest; per city the sum,
+    the count of such persons and the maximum, in city order."""
+    person, knows = nodes["Person"], rels["KNOWS"]
+    n = len(person["age"])
+    src, tgt = knows["_src"], knows["_tgt"]
+    order, indptr = edge_index(np, src, tgt, n, "by_src")
+    ages = person["age"][tgt[order]]
+    has = indptr[1:] > indptr[:-1]
+    heads = indptr[:-1][has]
+    old = np.add.reduceat((ages > 60).astype(np.int64), heads)
+    young = np.add.reduceat((ages < 20).astype(np.int64), heads) > 0
+    oldest = np.maximum.reduceat(ages, heads)
+    names, codes = city_codes(np, nodes)
+    c = codes[np.flatnonzero(has)]
+    k = len(names)
+    old_c = np.bincount(c, weights=old, minlength=k)
+    young_c = np.bincount(c, weights=young, minlength=k)
+    oldest_c = np.zeros(k, np.int64)
+    np.maximum.at(oldest_c, c, oldest)
+    present = np.bincount(c, minlength=k) > 0
+    return [{"city": str(names[i]), "old": int(round(old_c[i])),
+             "young": int(round(young_c[i])), "oldest": int(oldest_c[i])}
+            for i in np.flatnonzero(present)]
+
+
+def lists_l3_oracle(np, nodes, rels, age: int, city=None) -> list:
+    """L3: every 1- and 2-hop path out of a seed (no relationship twice),
+    its node ages and end cities, in openCypher list order (a shorter
+    prefix first), the first 1,000."""
+    person, knows = nodes["Person"], rels["KNOWS"]
+    p_age = person["age"]
+    names, codes = city_codes(np, nodes)
+    src, tgt = knows["_src"], knows["_tgt"]
+    seed = p_age[src] == age
+    if city is not None:
+        seed &= person["city"][src] == city
+    first = np.flatnonzero(seed)
+    e1, e2 = np_two_paths(np, src, tgt, len(p_age), first)
+    start = np.r_[src[first], src[e1]]
+    mid = np.r_[tgt[first], tgt[e1]]
+    last = np.r_[tgt[first], tgt[e2]]
+    third = np.r_[np.full(len(first), -1), p_age[tgt[e2]]]
+    keys = (codes[last], codes[start], third, p_age[mid], p_age[start])
+    top = np.lexsort(keys)[:1000]
+    return [{"ages": [int(p_age[start[i]]), int(p_age[mid[i]])]
+             + ([int(third[i])] if third[i] >= 0 else []),
+             "cities": [str(names[codes[start[i]]]),
+                        str(names[codes[last[i]]])]} for i in top]
+
+
+def run_lists(torch, np, args, card: str, state):
+    """List expressions on the slice's session and graph: each query's
+    cold run and 5 exact replays, L1 also over the warm phase's 24
+    rotating ages (param-generic replays), every run against its numpy
+    oracle; the kernel calls and launches of the last exact replay of
+    each, and one more exact replay under the profiler."""
+    session, graph, nodes, rels, _ = state
+    rng = np.random.default_rng(args.seed + 1)   # the warm phase's ages
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    t0 = time.perf_counter()
+    out = {"phase": "lists", "card": card, "age": AGE, "city": CITY,
+           "ages": ages}
+
+    def l1_rows(rows):
+        return sorted(({**r, "older": sorted(r["older"])} for r in rows),
+                      key=lambda r: r["a"])
+
+    queries = {
+        "L1": (QUERY_LISTS_L1, lambda a: {"age": a},
+               lambda a: lists_l1_oracle(np, nodes, rels, a), l1_rows),
+        "L2": (QUERY_LISTS_L2, lambda a: {},
+               lambda a: lists_l2_oracle(np, nodes, rels), list),
+        "L3": (QUERY_LISTS_L3, lambda a: {"age": a},
+               lambda a: lists_l3_oracle(np, nodes, rels, a), list),
+        "L3_city": (QUERY_LISTS_L3_CITY,
+                    lambda a: {"age": a, "city": CITY},
+                    lambda a: lists_l3_oracle(np, nodes, rels, a, CITY),
+                    list),
+    }
+    launches, calls = {}, {}
+    for label, (query, params, want, norm) in queries.items():
+        recorders = query_recorders()
+        t1 = time.perf_counter()
+        expected = want(AGE)
+        oracle_s = time.perf_counter() - t1
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params(AGE), card,
+                                          recorders=recorders)
+        expect(label, norm(rows) == expected,
+               f"disagrees with numpy ({len(rows)} rows, {len(expected)} "
+               f"expected):\ngot  {norm(rows)[:3]}\nwant {expected[:3]}",
+               "lists")
+        expect_replays(label, info, 0, "lists")
+        check_query_launches(f"the lists query {label}'s replay",
+                             info["replay_launches"],
+                             MIN_LISTS_LAUNCHES[label])
+        info.update({
+            "rows": len(rows), "oracle_s": oracle_s,
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(
+                    query, params(AGE)).records.to_maps()),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]]})
+        if label == "L1":
+            gen_times, gen_runs = [], []
+            for a in ages:
+                r, res, t = timed_query(torch, graph, query, params(a))
+                gen_runs.append(run_info(session, res))
+                if gen_runs[-1]["mode"] == "replay_gen":
+                    gen_times.append(t)
+                expect(label, norm(r) == want(a),
+                       f"age {a}: {len(r)} rows disagree with numpy", "lists")
+            expect(label, gen_times, f"no generic replay: {gen_runs}",
+                   "lists")
+            info.update({
+                "generic_s": statistics.median(gen_times),
+                "generic_runs_s": gen_times,
+                "generic_size_syncs": [r["size_syncs"] for r in gen_runs],
+                "generic_modes": [r["mode"] for r in gen_runs]})
+        launches[label] = info["replay_launches"]
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"lists": launches["L1"]},
+            {f"lists_{k}": v for k, v in calls.items()})
 
 
 def np_expand(np, starts, counts):
@@ -4718,6 +4931,9 @@ def main() -> int:
     unwind_launches, unwind_calls = run_unwind(torch, np, args, card, state)
     launches.update(unwind_launches)
     pattern_calls.update(unwind_calls)
+    lists_launches, lists_calls = run_lists(torch, np, args, card, state)
+    launches.update(lists_launches)
+    pattern_calls.update(lists_calls)
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)
@@ -4746,10 +4962,10 @@ def main() -> int:
 
     def of_patterns(wrapper):
         """Every call of ``wrapper`` in one exact replay of each
-        var-expand form, of each unwind-phase query, of each multiway
-        join of the cyclic phase, of the final snapshot, of the graph
-        the fs phase loaded, of IC12 and of the served batch's 8 exact
-        replays, labelled by query."""
+        var-expand form, of each unwind- and lists-phase query, of each
+        multiway join of the cyclic phase, of the final snapshot, of the
+        graph the fs phase loaded, of IC12 and of the served batch's 8
+        exact replays, labelled by query."""
         return [(f"{form}_call_{i}", a)
                 for form, calls in pattern_calls.items()
                 for i, a in enumerate(calls[wrapper])]
@@ -4804,6 +5020,8 @@ def main() -> int:
             # the large LDBC scale
             "launches_unwind_replay": launches["unwind"].get(name, 0),
             "launches_ldbc_ic12_replay": launches["ldbc_ic12"].get(name, 0),
+            # one exact replay of the lists phase's first query (L1)
+            "launches_lists_replay": launches["lists"].get(name, 0),
             # one exact replay of the seeded triangle on the multiway join
             "launches_wcoj_triangle_replay": launches["wcoj_triangle"].get(
                 name, 0),

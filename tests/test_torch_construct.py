@@ -198,25 +198,23 @@ def test_construct_on_set_clone_replaces_original():
 
 def test_union_branches_rehydrate_from_their_own_graph():
     """Each UNION branch materializes its entities from the graph it
-    matched.  The reference reads them through a list comprehension,
-    which has no device path in the port (it raises naming the
-    expression); returning the entity itself exercises the same
-    per-branch rehydration."""
+    matched: returning the entity itself, and reading it through a list
+    comprehension, whose lambda variable looks the entity up in the
+    branch's own graph (the device index of that graph)."""
     def scenario(s, create):
         s.catalog.store("g1", create(s, "CREATE (:A {v: 'g1'})"))
         s.catalog.store("g2", create(s, "CREATE (:A {v: 'g2'})"))
         out = s.cypher(
             "FROM GRAPH session.g1 MATCH (n:A) RETURN n AS v "
             "UNION ALL FROM GRAPH session.g2 MATCH (m:A) RETURN m AS v")
-        return sorted(r["v"].properties["v"] for r in out.to_maps())
+        lam = s.cypher(
+            "FROM GRAPH session.g1 MATCH (n:A) RETURN [x IN [n] | x.v] AS v "
+            "UNION ALL FROM GRAPH session.g2 MATCH (m:A) "
+            "RETURN [x IN [m] | x.v] AS v")
+        return (sorted(r["v"].properties["v"] for r in out.to_maps()),
+                sorted(r["v"][0] for r in lam.to_maps()))
     port, ref = Both().run(scenario)
-    assert port == ref == ["g1", "g2"]
-    from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
-    s = port_session()
-    s.catalog.store("g1", create_graph(s, "CREATE (:A {v: 'g1'})"))
-    with pytest.raises(UnsupportedOnDevice):
-        s.cypher("FROM GRAPH session.g1 MATCH (n:A) "
-                 "RETURN [x IN [n] | x.v] AS v").to_maps()
+    assert port == ref == (["g1", "g2"], ["g1", "g2"])
 
 
 # -- the port's own cases ----------------------------------------------------
@@ -253,9 +251,10 @@ def test_new_property_expressions_are_computed_on_the_device_path():
 def test_an_expression_without_a_device_path_raises_naming_it():
     from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
     g = create_graph(port_session(), SOCIAL)
-    with pytest.raises(UnsupportedOnDevice):
+    with pytest.raises(UnsupportedOnDevice,
+                       match="concatenation of two string columns"):
         g.cypher("MATCH (a:Person) CONSTRUCT NEW "
-                 "(:C {v: [x IN [a.age] | x + 1]}) RETURN GRAPH")
+                 "(:C {v: a.name + a.name}) RETURN GRAPH")
 
 
 def test_two_parameter_values_build_two_graphs():

@@ -5,9 +5,9 @@ The 23 cases are loaded from their source with ``caps_tpu`` rewritten
 to ``caps_tpu_torch`` and ``tests.util`` to the port's copy of it
 (``caps_tpu_torch/testing/suites.py``), and run unedited on the
 SocialNetworkExample graph of a ``local`` session and of a ``cuda`` one
-on the CPU.  On ``cuda`` the one case that reaches an expression with no
-device path (``labels``, ROADMAP item 2) must raise it, strictly, as the
-acceptance suites' listed tests do.
+on the CPU.  On ``cuda`` a case that reaches an expression with no
+device path (ROADMAP item 2) must raise it, strictly, as the acceptance
+suites' listed tests do; none does since ``labels`` has one.
 """
 import pytest
 
@@ -21,7 +21,7 @@ _E2E = load_module("test_e2e_local.py",
                    renames={"tests.util": "_ported_tests_util"})
 _TESTS = collect_tests(_E2E)
 # the CUDA backend's gaps: test name -> the cause it must raise
-CUDA_GAPS = {"test_functions_in_projection": "no device rule for Labels"}
+CUDA_GAPS: dict = {}
 
 
 @pytest.fixture(params=BACKENDS)
