@@ -11,23 +11,32 @@ Kinds:
     bool   bool
     str    int32   dictionary codes into the session StringPool
     date / datetime  int64  epoch days / epoch microseconds
+    duration int64 (capacity, 3): months, days, seconds
+    any    int64 payload + ``tags`` int8: a value of one of ANY_TAGS per
+           row (CTAny, and CTNumber elements): string code, 0/1, the
+           int, the float's bits, epoch µs, epoch days
+    map    bool (capacity, K) presence of each key + ``fields``: key →
+           child column (keys sorted; a key may be present and null)
     list   2D (capacity, max_len) + lens (+ elem_valid): the element
            kind's dtype — int32 for ids and string codes, int64 for
-           ints, float64 for floats, bool for booleans; a list of lists
-           is 3D (capacity, max_len, inner max_len) + inner_lens
+           ints, dates, datetimes and "any" payloads (+ ``tags``),
+           float64 for floats, bool for booleans; a list of lists is 3D
+           (capacity, max_len, inner max_len) + inner_lens; a list of
+           maps is presence (capacity, max_len, K) + ``fields`` of lists
     object —       host-only values; no device path
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from caps_tpu_torch.okapi.types import (
-    CTBoolean, CTDate, CTDateTime, CTFloat, CTInteger, CTNumber, CTString,
-    CypherType, _CTList, _CTNode, _CTRelationship,
+    CTBoolean, CTDate, CTDateTime, CTDuration, CTFloat, CTInteger, CTMap,
+    CTNumber, CTString, CypherType, _CTAny, _CTList, _CTNode,
+    _CTRelationship,
 )
 
 _DTYPES = {
@@ -38,33 +47,37 @@ _DTYPES = {
     "str": torch.int32,
     "date": torch.int64,
     "datetime": torch.int64,
+    "duration": torch.int64,
+    "any": torch.int64,
+    "map": torch.bool,
 }
 _NP_DTYPES = {
     "id": np.int32, "int": np.int64, "float": np.float64, "bool": np.bool_,
     "str": np.int32, "date": np.int64, "datetime": np.int64,
+    "any": np.int64,
 }
+
+# The kinds an "any" value may hold, by tag (int8).
+ANY_TAGS = ("str", "bool", "int", "float", "datetime", "date")
+TAG = {k: i for i, k in enumerate(ANY_TAGS)}
 
 
 def list_elem_kind(ctype: CypherType) -> Optional[str]:
     """Element kind of a device-representable list type: rel/node ids,
-    int, float, str codes, bool (the list matrix takes the kind's
-    dtype).  None = no device representation (CTNumber, CTAny, maps,
-    temporal values, nested lists)."""
+    int, float, str codes, bool, date, datetime, "any" (CTNumber and
+    CTAny elements), map.  None = no device representation (durations,
+    nested lists, an element type not known)."""
     m = ctype.material
     if not isinstance(m, _CTList):
         return None
     inner = m.inner.material if m.inner is not None else None
     if isinstance(inner, (_CTRelationship, _CTNode)):
         return "id"
-    if inner == CTInteger:
-        return "int"
-    if inner == CTFloat:
-        return "float"
-    if inner == CTString:
-        return "str"
-    if inner == CTBoolean:
-        return "bool"
-    return None
+    if isinstance(inner, _CTAny) or inner == CTNumber:
+        return "any"
+    return {CTInteger: "int", CTFloat: "float", CTString: "str",
+            CTBoolean: "bool", CTDate: "date", CTDateTime: "datetime",
+            CTMap: "map"}.get(inner)
 
 
 def kind_for(ctype: CypherType) -> str:
@@ -75,19 +88,15 @@ def kind_for(ctype: CypherType) -> str:
         if list_elem_kind(ctype) is not None:
             return "list"
         return "object"
+    if isinstance(m, _CTAny):
+        return "any"
     if m == CTInteger:
         return "int"
     if m in (CTFloat, CTNumber):
         return "float"
-    if m == CTBoolean:
-        return "bool"
-    if m == CTString:
-        return "str"
-    if m == CTDate:
-        return "date"
-    if m == CTDateTime:
-        return "datetime"
-    return "object"
+    return {CTBoolean: "bool", CTString: "str", CTDate: "date",
+            CTDateTime: "datetime", CTDuration: "duration",
+            CTMap: "map"}.get(m, "object")
 
 
 _BY_DTYPE = {torch.int32: "id", torch.int64: "int", torch.float64: "float",
@@ -115,29 +124,56 @@ class Column:
     # null element of an inner list (None where there is none)
     inner_lens: Optional[torch.Tensor] = None
     inner_valid: Optional[torch.Tensor] = None
+    # int8, the shape of ``data``: each "any" value's kind (ANY_TAGS)
+    tags: Optional[torch.Tensor] = None
+    # a map's (or a list of maps') key → child column (a list column of
+    # the list's shape for a list of maps), keys sorted
+    fields: Optional[Dict[str, "Column"]] = None
+
+    @property
+    def nested(self) -> bool:
+        """A list of lists."""
+        return self.inner_lens is not None
 
     @property
     def elem_kind(self) -> str:
         """A list column's (innermost) element kind: its type's, else
         its dtype's (a list of no element type, or ids mixed with
         ints)."""
+        if self.tags is not None:
+            return "any"
+        if self.fields is not None:
+            return "map"
         m = self.ctype.material
-        if self.data.dim() == 3 and isinstance(m, _CTList) \
-                and m.inner is not None:
+        if self.nested and isinstance(m, _CTList) and m.inner is not None:
             m = m.inner
-        return list_elem_kind(m) or _BY_DTYPE[self.data.dtype]
+        k = list_elem_kind(m)
+        return _BY_DTYPE[self.data.dtype] if k in (None, "any", "map") else k
 
     def take(self, idx: torch.Tensor) -> "Column":
         """The rows ``idx`` of this column (every per-row tensor)."""
+        def t(x):
+            return None if x is None else x[idx]
         return Column(
             self.kind, self.data[idx], self.valid[idx], self.ctype,
-            None if self.lens is None else self.lens[idx],
-            elem_valid=(None if self.elem_valid is None
-                        else self.elem_valid[idx]),
-            inner_lens=(None if self.inner_lens is None
-                        else self.inner_lens[idx]),
-            inner_valid=(None if self.inner_valid is None
-                         else self.inner_valid[idx]))
+            t(self.lens), elem_valid=t(self.elem_valid),
+            inner_lens=t(self.inner_lens), inner_valid=t(self.inner_valid),
+            tags=t(self.tags),
+            fields=(None if self.fields is None else
+                    {k: c.take(idx) for k, c in self.fields.items()}))
+
+    def to_device(self, device) -> "Column":
+        """A copy of this column's tensors on ``device`` (the ingest-time
+        host mirror shared)."""
+        def t(x):
+            return None if x is None else x.to(device, copy=True)
+        return Column(
+            self.kind, t(self.data), t(self.valid), self.ctype, t(self.lens),
+            host=self.host, elem_valid=t(self.elem_valid),
+            inner_lens=t(self.inner_lens), inner_valid=t(self.inner_valid),
+            tags=t(self.tags),
+            fields=(None if self.fields is None else
+                    {k: c.to_device(device) for k, c in self.fields.items()}))
 
     def valid_elems(self) -> torch.Tensor:
         """bool (capacity, max_len): False on a null element of a list
@@ -174,46 +210,118 @@ class Column:
                       inner_valid=self.inner_valid)
 
 
+def null_like(col: Column, valid: torch.Tensor) -> Column:
+    """A column of ``col``'s kind, type and shape holding only zeros,
+    with validity ``valid`` (all False: a null of that kind)."""
+    def z(x):
+        return None if x is None else torch.zeros_like(x)
+    return Column(col.kind, torch.zeros_like(col.data), valid, col.ctype,
+                  z(col.lens), elem_valid=None,
+                  inner_lens=z(col.inner_lens), tags=z(col.tags),
+                  fields=(None if col.fields is None else
+                          {k: null_like(c, torch.zeros_like(c.valid))
+                           for k, c in col.fields.items()}))
+
+
+def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
+            ok: torch.Tensor) -> Column:
+    """The elements ``lst[row, j]`` (index tensors of one shape) as a
+    column of the element kind over those positions, valid where ``ok``
+    and the element is not null."""
+    valid = ok & lst.valid_elems()[row, j]
+    m = lst.ctype.material
+    inner = m.inner if isinstance(m, _CTList) and m.inner is not None \
+        else CTInteger
+    if lst.nested:
+        return Column("list", lst.data[row, j], valid, inner,
+                      lst.inner_lens[row, j],
+                      elem_valid=(None if lst.inner_valid is None
+                                  else lst.inner_valid[row, j]))
+    if lst.fields is not None:
+        return Column("map", lst.data[row, j], valid, CTMap, fields={
+            k: elem_at(c, row, j, ok) for k, c in lst.fields.items()})
+    ek = lst.elem_kind
+    return Column(ek, lst.data[row, j].to(_DTYPES[ek]), valid, inner,
+                  tags=None if lst.tags is None else lst.tags[row, j])
+
+
 def list_dtype(elem_kind: str) -> torch.dtype:
     """The list matrix's dtype for an element kind."""
     return _DTYPES[elem_kind]
 
 
+def encode_any(x: Any, pool) -> Tuple[int, int]:
+    """(tag, int64 payload) of one non-null host value of an "any"
+    column; ValueError for a value no tag holds."""
+    from caps_tpu_torch.okapi.values import CypherDate, CypherDateTime
+    if isinstance(x, bool):
+        return TAG["bool"], int(x)
+    if isinstance(x, int):
+        if not -2**63 <= x < 2**63:
+            raise ValueError(f"integer {x} exceeds int64")
+        return TAG["int"], x
+    if isinstance(x, float):
+        return TAG["float"], int(np.float64(x).view(np.int64))
+    if isinstance(x, str):
+        return TAG["str"], pool.encode(x)
+    if isinstance(x, CypherDate):
+        return TAG["date"], x.days
+    if isinstance(x, CypherDateTime):
+        return TAG["datetime"], x.micros
+    raise ValueError(f"a value of type {type(x).__name__} among values "
+                     f"of other types has no device representation")
+
+
+def _host_temporal(x: Any, kind: str) -> int:
+    if kind == "date":
+        return x.days if hasattr(x, "days") else int(x)
+    return x.micros if hasattr(x, "micros") else int(x)
+
+
 def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
                 capacity: int, pool, device) -> Column:
     """Host values → device column (padded to capacity).  A numpy array
-    of a numeric kind is copied in bulk (no per-row Python work); a list
-    may hold None for nulls."""
+    of a numeric kind (or ``datetime64`` for dates and datetimes) is
+    copied in bulk (no per-row Python work); a list may hold None for
+    nulls."""
     kind = kind_for(ctype)
     n = len(values)
     valid_np = np.zeros(capacity, dtype=bool)
     if kind == "object":
         raise ValueError(f"type {ctype!r} has no device representation")
     if kind == "list":
-        ek = list_elem_kind(ctype) or "id"
-        max_len = max((len(v) for v in values if v is not None), default=0)
-        width = max(1, max_len)
-        data_np = np.zeros((capacity, width), dtype=_NP_DTYPES[ek])
-        ev_np = np.ones((capacity, width), dtype=bool)
-        lens_np = np.zeros(capacity, dtype=np.int32)
+        return _make_list(values, ctype, capacity, pool, device)
+    if kind == "map":
+        return _make_map(values, capacity, pool, device)
+    if kind == "duration":
+        data_np = np.zeros((capacity, 3), dtype=np.int64)
         for i, v in enumerate(values):
-            if v is None:
-                continue
-            valid_np[i] = True
-            lens_np[i] = len(v)
-            for j, x in enumerate(v):
-                if x is None:
-                    ev_np[i, j] = False
-                else:
-                    data_np[i, j] = encode_list_elem(x, ek, pool)
+            if v is not None:
+                valid_np[i] = True
+                data_np[i] = (v.months, v.days, v.seconds)
         return Column(kind, _to(data_np, device), _to(valid_np, device),
-                      ctype, _to(lens_np, device),
-                      elem_valid=None if ev_np.all() else _to(ev_np, device))
+                      ctype)
     data_np = np.zeros(capacity, dtype=_NP_DTYPES[kind])
+    if kind == "any":
+        tags_np = np.zeros(capacity, dtype=np.int8)
+        for i, v in enumerate(values):
+            if v is not None:
+                valid_np[i] = True
+                tags_np[i], data_np[i] = encode_any(v, pool)
+        return Column(kind, _to(data_np, device), _to(valid_np, device),
+                      ctype, tags=_to(tags_np, device))
     if kind == "str":
         codes = np.asarray(pool.encode_many(values), dtype=np.int32)
         data_np[:n] = np.where(codes >= 0, codes, 0)
         valid_np[:n] = codes >= 0
+    elif (isinstance(values, np.ndarray) and values.dtype.kind == "M"
+          and kind in ("date", "datetime")):
+        # numpy datetime64: days or microseconds since the epoch in
+        # bulk, NaT a null
+        unit = "datetime64[D]" if kind == "date" else "datetime64[us]"
+        data_np[:n] = values.astype(unit).view(np.int64)
+        valid_np[:n] = ~np.isnat(values)
+        data_np[:n][~valid_np[:n]] = 0
     elif (isinstance(values, np.ndarray) and values.dtype.kind in "biuf"
           and kind in ("id", "int", "float", "bool")):
         # numpy fast path: every row valid, one bulk conversion
@@ -235,17 +343,62 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
                 data_np[i] = _check_id(int(v))
             elif kind == "float":
                 data_np[i] = float(v)
-            elif kind == "date":
-                from caps_tpu_torch.okapi.values import CypherDate
-                data_np[i] = v.days if isinstance(v, CypherDate) else int(v)
-            elif kind == "datetime":
-                from caps_tpu_torch.okapi.values import CypherDateTime
-                data_np[i] = v.micros if isinstance(v, CypherDateTime) \
-                    else int(v)
+            elif kind in ("date", "datetime"):
+                data_np[i] = _host_temporal(v, kind)
             else:
                 data_np[i] = int(v)
     return Column(kind, _to(data_np, device), _to(valid_np, device), ctype,
                   host=(data_np, valid_np))
+
+
+def _make_list(values, ctype, capacity: int, pool, device) -> Column:
+    ek = list_elem_kind(ctype) or "id"
+    if ek == "map":
+        raise ValueError("list of maps from host values")
+    max_len = max((len(v) for v in values if v is not None), default=0)
+    width = max(1, max_len)
+    valid_np = np.zeros(capacity, dtype=bool)
+    data_np = np.zeros((capacity, width), dtype=_NP_DTYPES[ek])
+    tags_np = np.zeros((capacity, width), dtype=np.int8) \
+        if ek == "any" else None
+    ev_np = np.ones((capacity, width), dtype=bool)
+    lens_np = np.zeros(capacity, dtype=np.int32)
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        valid_np[i] = True
+        lens_np[i] = len(v)
+        for j, x in enumerate(v):
+            if x is None:
+                ev_np[i, j] = False
+            elif ek == "any":
+                tags_np[i, j], data_np[i, j] = encode_any(x, pool)
+            else:
+                data_np[i, j] = encode_list_elem(x, ek, pool)
+    return Column("list", _to(data_np, device), _to(valid_np, device),
+                  ctype, _to(lens_np, device),
+                  elem_valid=None if ev_np.all() else _to(ev_np, device),
+                  tags=None if tags_np is None else _to(tags_np, device))
+
+
+def _make_map(values, capacity: int, pool, device) -> Column:
+    """Host maps (dicts, or None) → a map column over the union of their
+    keys; each key's child column of its values' joined type."""
+    from caps_tpu_torch.okapi.types import from_python, join_all
+    keys = sorted({k for v in values if v is not None for k in v})
+    valid_np = np.zeros(capacity, dtype=bool)
+    present = np.zeros((capacity, len(keys)), dtype=bool)
+    fields = {}
+    for j, k in enumerate(keys):
+        vals = [None if v is None else v.get(k) for v in values]
+        present[:len(values), j] = [v is not None and k in v for v in values]
+        child_t = join_all(from_python(x) for x in vals)
+        if child_t.material == from_python(None).material:
+            child_t = CTInteger
+        fields[k] = make_column(vals, child_t, capacity, pool, device)
+    valid_np[:len(values)] = [v is not None for v in values]
+    return Column("map", _to(present, device), _to(valid_np, device), CTMap,
+                  fields=fields)
 
 
 def _ingest_native(values, kind: str, n: int):
@@ -293,13 +446,18 @@ def _check_id(iv: int) -> int:
 
 
 def encode_list_elem(x: Any, elem_kind: str, pool):
-    """One non-null list element as a value of the list matrix's dtype."""
+    """One non-null list element as a value of the list matrix's dtype
+    (an "any" element's payload: its tag goes to ``tags``)."""
     if elem_kind == "str":
         return pool.encode(x)
     if elem_kind == "bool":
         return bool(x)
     if elem_kind == "float":
         return float(x)
+    if elem_kind in ("date", "datetime"):
+        return _host_temporal(x, elem_kind)
+    if elem_kind == "any":
+        return encode_any(x, pool)[1]
     iv = int(x if not hasattr(x, "id") else x.id)
     return _check_id(iv) if elem_kind == "id" else iv
 
@@ -308,6 +466,10 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
     """Device column → host Python values (None for null): one copy of
     each tensor, converted by ``tolist``."""
     valid = col.valid[:n].cpu().tolist()
+    if col.kind in ("any", "map", "duration") or (
+            col.kind == "list" and col.elem_kind in ("any", "map")):
+        vals = _decoded(col, n, pool)
+        return [v if ok else None for v, ok in zip(vals, valid)]
     conv = _converter(col.elem_kind if col.kind == "list" else col.kind,
                       pool)
     vals = col.data[:n].cpu().tolist()
@@ -317,7 +479,7 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
         return [conv(v) if ok else None for v, ok in zip(vals, valid)]
     lens = col.lens[:n].cpu().tolist()
     ev = None if col.elem_valid is None else col.elem_valid[:n].cpu().tolist()
-    nested = col.data.dim() == 3
+    nested = col.nested
     if nested:
         inner = col.inner_lens[:n].cpu().tolist()
         iv = (None if col.inner_valid is None
@@ -345,6 +507,56 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
         else:
             out.append(items(vals[i], lens[i],
                              None if ev is None else ev[i]))
+    return out
+
+
+def _decoded(col: Column, n: int, pool) -> List[Any]:
+    """The first ``n`` rows of an "any", map, duration column (or a list
+    of "any" values or of maps) as host values, validity not applied."""
+    from caps_tpu_torch.okapi.values import CypherDuration, CypherMap
+    if col.kind == "duration":
+        return [CypherDuration(*r) for r in col.data[:n].cpu().tolist()]
+    if col.kind == "any":
+        return decode_any(col.tags[:n].cpu().numpy(),
+                          col.data[:n].cpu().numpy(), pool)
+    if col.kind == "map":
+        keys = list(col.fields)
+        present = col.data[:n].cpu().tolist()
+        kids = [column_to_host(col.fields[k], n, pool) for k in keys]
+        return [CypherMap({k: kid[i] for k, kid, p in zip(keys, kids, ok)
+                           if p}) for i, ok in enumerate(present)]
+    # a list of "any" values or of maps: its elements as a column, cut
+    # into rows by the lengths
+    W = col.data.shape[1]
+    dev = col.data.device
+    flat = torch.arange(n * W, device=dev)
+    elems = column_to_host(elem_at(col, flat // W, flat % W,
+                                   torch.ones_like(flat, dtype=torch.bool)),
+                           n * W, pool)
+    lens = col.lens[:n].cpu().tolist()
+    return [elems[i * W:i * W + lens[i]] for i in range(n)]
+
+
+def decode_any(tags: np.ndarray, payload: np.ndarray, pool) -> List[Any]:
+    """Host values of "any" payloads by their tags."""
+    from caps_tpu_torch.okapi.values import CypherDate, CypherDateTime
+    floats = payload.view(np.float64).tolist()
+    ints = payload.tolist()
+    out: List[Any] = []
+    for t, i, f in zip(tags.tolist(), ints, floats):
+        k = ANY_TAGS[t]
+        if k == "int":
+            out.append(i)
+        elif k == "float":
+            out.append(f)
+        elif k == "str":
+            out.append(pool.decode(i))
+        elif k == "bool":
+            out.append(bool(i))
+        elif k == "date":
+            out.append(CypherDate(i))
+        else:
+            out.append(CypherDateTime(i))
     return out
 
 
@@ -376,21 +588,36 @@ def literal_column(value: Any, ctype: CypherType, capacity: int,
         raise ValueError(f"type {ctype!r} has no device representation")
     if value is None:
         if kind == "list":
+            ek = list_elem_kind(ctype)
             return Column(kind,
-                          torch.zeros((capacity, 1), dtype=list_dtype(
-                              list_elem_kind(ctype)), device=device),
+                          torch.zeros((capacity, 1), dtype=list_dtype(ek),
+                                      device=device),
                           torch.zeros(capacity, dtype=torch.bool,
                                       device=device), ctype,
                           torch.zeros(capacity, dtype=torch.int32,
-                                      device=device))
-        return Column(kind, torch.zeros(capacity, dtype=_DTYPES[kind],
+                                      device=device),
+                          tags=(torch.zeros((capacity, 1), dtype=torch.int8,
+                                            device=device)
+                                if ek == "any" else None),
+                          fields={} if ek == "map" else None)
+        shape = {"duration": (capacity, 3), "map": (capacity, 0)}.get(
+            kind, (capacity,))
+        return Column(kind, torch.zeros(shape, dtype=_DTYPES[kind],
                                         device=device),
                       torch.zeros(capacity, dtype=torch.bool, device=device),
-                      ctype)
+                      ctype,
+                      tags=(torch.zeros(capacity, dtype=torch.int8,
+                                        device=device)
+                            if kind == "any" else None),
+                      fields={} if kind == "map" else None)
+    if kind in ("list", "map", "any", "duration"):
+        col = make_column([value], ctype, 1, pool, device)
+        idx = torch.zeros(capacity, dtype=torch.int64, device=device)
+        return col.take(idx)
     if kind == "str":
         value = pool.encode(value)
-    if kind == "list":
-        raise ValueError("literal list columns are not supported")
+    elif kind in ("date", "datetime"):
+        value = _host_temporal(value, kind)
     data = torch.full((capacity,), value, dtype=_DTYPES[kind], device=device)
     return Column(kind, data, torch.ones(capacity, dtype=torch.bool,
                                          device=device), ctype)

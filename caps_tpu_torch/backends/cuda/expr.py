@@ -22,11 +22,12 @@ import torch.nn.functional as F
 
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    _DTYPES, Column, list_elem_kind,
+    Column, decode_any, elem_at, list_elem_kind, null_like,
 )
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.okapi.types import (
-    CTBoolean, CTFloat, CTInteger, CTNull, CTString, CypherType, _CTList,
+    CTBoolean, CTDate, CTDateTime, CTDuration, CTFloat, CTInteger, CTNull,
+    CTString, CypherType, _CTList,
 )
 from caps_tpu_torch.relational.header import RecordHeader
 
@@ -103,13 +104,17 @@ class DeviceExprCompiler:
             v = self.params[e.name]
             if isinstance(v, (list, tuple)):
                 return self._const_list(list(v))
-            if isinstance(v, dict):
-                raise UnsupportedOnDevice("map parameter value")
             return self._literal(v)
         if isinstance(e, E.ListLit):
             if not all(isinstance(i, (E.Lit, E.Param)) for i in e.items):
                 return L.list_literal(self, e)
             return self._const_list([self._constant(i) for i in e.items])
+        if isinstance(e, E.MapLit):
+            return M.literal(self, e)
+        if isinstance(e, E.Properties):
+            return M.properties(self, e)
+        if isinstance(e, E.Property):
+            return self._property(e)
         if isinstance(e, E.ListComprehension):
             return L.comprehension(self, e)
         if isinstance(e, E.QuantifiedPredicate):
@@ -170,6 +175,11 @@ class DeviceExprCompiler:
             c = self.compile(e.expr)
             if _is_null(c):
                 return self._null()
+            if c.kind == "duration":
+                # the oracle has no negation of a duration: a type error
+                self._note_row_error(c.valid, "bad operand type for unary "
+                                     "-: 'CypherDuration'")
+                return self._null()
             if c.kind not in ("int", "float", "id"):
                 raise UnsupportedOnDevice("negate non-numeric")
             return Column(c.kind, -c.data, c.valid, c.ctype)
@@ -203,12 +213,49 @@ class DeviceExprCompiler:
     def _literal(self, v: Any) -> Column:
         from caps_tpu_torch.backends.cuda.column import literal_column
         from caps_tpu_torch.okapi.types import from_python
-        if isinstance(v, (list, tuple, dict)):
-            raise UnsupportedOnDevice("collection literal")
+        if isinstance(v, (list, tuple)):
+            return self._const_list(list(v))
+        if isinstance(v, dict):
+            return M.constant(self, v)
         if v is None:
             return self._null()
         return literal_column(v, from_python(v), self.capacity, self.pool,
                               self.device)
+
+    def _property(self, e: E.Property) -> Column:
+        """``x.key`` of a value that is not a header entity: a map's
+        entry, a temporal value's component, null for any other value
+        (the oracle's lenient null)."""
+        base = self.compile(e.entity)
+        if _is_null(base):
+            return self._null()
+        if base.kind == "map":
+            return M.field(self, base, e.key)
+        if base.kind in ("date", "datetime", "duration"):
+            v = T.component(base, e.key)
+            if v is None:
+                return self._null()
+            return Column("int", v, base.valid, CTInteger)
+        if base.kind == "any":
+            return self._any_component(base, e.key)
+        if base.kind == "id":
+            raise UnsupportedOnDevice(f"no device rule for Property "
+                                      f"{e.key!r} of an entity")
+        return self._null()
+
+    def _any_component(self, c: Column, key: str) -> Column:
+        """``x.key`` of "any" values: a date's or datetime's component,
+        null for the other kinds."""
+        from caps_tpu_torch.backends.cuda.column import TAG
+        out = self._null()
+        for kind in ("date", "datetime"):
+            v = T.component(Column(kind, c.data, c.valid, CTInteger), key)
+            if v is None:
+                continue
+            hit = c.valid & (c.tags == TAG[kind])
+            here = Column("int", v, hit, CTInteger)
+            out = here if _is_null(out) else self._choose(hit, here, out)
+        return out
 
     def _null(self) -> Column:
         """An all-null column of no value type: a null literal's (and a
@@ -221,7 +268,7 @@ class DeviceExprCompiler:
         """A constant list value broadcast to every row (literal lists and
         list parameters); a null element is marked in ``elem_valid``."""
         from caps_tpu_torch.backends.cuda.column import (
-            _NP_DTYPES, encode_list_elem,
+            _NP_DTYPES, encode_any, encode_list_elem,
         )
         from caps_tpu_torch.okapi.types import CTList, from_python, join_all
         inner = join_all(from_python(v) for v in values) if values \
@@ -234,24 +281,31 @@ class DeviceExprCompiler:
             ek = "int"  # only nulls: no value to type the elements
         if ek is None:
             raise UnsupportedOnDevice(f"list of {inner!r} on device")
+        if ek == "map":
+            return M.stack(self, [self._literal(v) for v in values])
         width = max(1, len(values))
         codes = np.zeros(width, dtype=_NP_DTYPES[ek])
+        tags = np.zeros(width, dtype=np.int8)
         ok = np.ones(width, dtype=bool)
         try:
             for i, v in enumerate(values):
                 if v is None:
                     ok[i] = False
+                elif ek == "any":
+                    tags[i], codes[i] = encode_any(v, self.pool)
                 else:
                     codes[i] = encode_list_elem(v, ek, self.pool)
         except (ValueError, OverflowError) as ex:
             raise UnsupportedOnDevice(str(ex))
-        data = self._lut(codes)[None, :].expand(self.capacity, width)
+
+        def rows(a):
+            return self._lut(a)[None, :].expand(self.capacity, width)
+
         lens = torch.full((self.capacity,), len(values), dtype=torch.int32,
                           device=self.device)
-        ev = None if ok.all() else \
-            self._lut(ok)[None, :].expand(self.capacity, width)
-        return Column("list", data, self._full(True), ctype, lens,
-                      elem_valid=ev)
+        return Column("list", rows(codes), self._full(True), ctype, lens,
+                      elem_valid=None if ok.all() else rows(ok),
+                      tags=rows(tags) if ek == "any" else None)
 
     def _const_nested(self, values, ctype) -> Column:
         """A constant list of lists broadcast to every row (a null inner
@@ -265,7 +319,7 @@ class DeviceExprCompiler:
         if ek is None and all(x is None for v in values if v is not None
                               for x in v):
             ek = "int"  # only nulls: no value to type the elements
-        if ek is None:
+        if ek in (None, "any", "map"):
             raise UnsupportedOnDevice(f"list of {inner!r} on device")
         width = max(1, len(values))
         deep = max([1] + [len(v) for v in values if v is not None])
@@ -299,6 +353,9 @@ class DeviceExprCompiler:
 
     def _index(self, e) -> Column:
         base = self.compile(e.expr)
+        if base.kind == "map" and isinstance(e.idx, (E.Lit, E.Param)) \
+                and isinstance(self._constant(e.idx), str):
+            return M.field(self, base, self._constant(e.idx))
         if base.kind != "list":
             raise UnsupportedOnDevice(f"indexing kind {base.kind}")
         idx = self.compile(e.idx)
@@ -315,20 +372,9 @@ class DeviceExprCompiler:
                  valid: torch.Tensor) -> Column:
         """Each row's element ``i`` of a list column (``valid`` says
         where ``i`` is in range), as a column of the element kind."""
-        ek = base.elem_kind
-        inner = base.ctype.material.inner
         safe = i.clamp(0, base.data.shape[1] - 1).to(torch.int64)
         rows = torch.arange(self.capacity, device=self.device)
-        vals = base.data[rows, safe]
-        valid = base.valid & valid
-        if base.elem_valid is not None:
-            valid = valid & base.elem_valid[rows, safe]
-        if base.data.dim() == 3:  # an inner list
-            return Column("list", vals, valid, inner,
-                          base.inner_lens[rows, safe],
-                          elem_valid=(None if base.inner_valid is None
-                                      else base.inner_valid[rows, safe]))
-        return Column(ek, vals.to(_DTYPES[ek]), valid, inner)
+        return elem_at(base, rows, safe, base.valid & valid)
 
     def _list_function(self, name: str, c: Column) -> Column:
         """head / last / tail / reverse of a list column."""
@@ -349,6 +395,8 @@ class DeviceExprCompiler:
                  step: int = 1) -> Column:
         """Each row's ``length`` elements of a list column from position
         ``start`` on (``step`` -1 walks backwards), left-aligned."""
+        if base.fields is not None or base.nested:
+            raise UnsupportedOnDevice("a part of a list of maps or of lists")
         width = max(1, base.data.shape[1])
         j = torch.arange(width, device=self.device)[None, :]
         src = (start.to(torch.int64)[:, None] + step * j).clamp(0, width - 1)
@@ -358,7 +406,9 @@ class DeviceExprCompiler:
         ev = None if base.elem_valid is None else \
             torch.gather(base.elem_valid, 1, src)
         return Column("list", data, base.valid & valid, base.ctype,
-                      length.to(torch.int32), elem_valid=ev)
+                      length.to(torch.int32), elem_valid=ev,
+                      tags=(None if base.tags is None
+                            else torch.gather(base.tags, 1, src)))
 
     def _slice(self, e) -> Column:
         """``list[lower..upper]``: from ``lower`` up to but not including
@@ -396,7 +446,7 @@ class DeviceExprCompiler:
         """``a + b`` of two list columns of one element kind: each row's
         elements of ``a`` then those of ``b``."""
         from caps_tpu_torch.okapi.types import CTList
-        if l.elem_kind != r.elem_kind:
+        if l.elem_kind != r.elem_kind or l.fields is not None:
             raise UnsupportedOnDevice("concatenation of lists of different "
                                       "element kinds")
         wl, wr = l.data.shape[1], r.data.shape[1]
@@ -423,10 +473,14 @@ class DeviceExprCompiler:
             ev = concat(l.valid_elems(), r.valid_elems(), True)
         inner = l.ctype.material.inner.join(r.ctype.material.inner)
         return Column("list", concat(l.data, r.data, 0), l.valid & r.valid,
-                      CTList(inner), l.lens + r.lens, elem_valid=ev)
+                      CTList(inner), l.lens + r.lens, elem_valid=ev,
+                      tags=(None if l.tags is None
+                            else concat(l.tags, r.tags, 0)))
 
     def _concat_strings(self, e, l: Column, r: Column) -> Column:
-        """``a + b`` of two strings, one of them a literal or parameter."""
+        """``a + b`` of two strings: one of them a literal or parameter
+        maps the other column's held strings; two columns concatenate
+        their held (left, right) pairs (:meth:`_held_rows`)."""
         if isinstance(e.rhs, (E.Lit, E.Param)):
             v = self._constant(e.rhs)
             out = self._map_held(l, lambda s: s + v)
@@ -434,31 +488,77 @@ class DeviceExprCompiler:
             v = self._constant(e.lhs)
             out = self._map_held(r, lambda s: v + s)
         else:
-            raise UnsupportedOnDevice("concatenation of two string columns")
+            # one int64 key per (left, right) pair of codes
+            out = self._format_held(
+                [l.data.to(torch.int64) * (1 << 31) + r.data],
+                l.valid & r.valid, self._pair_text)
         return Column("str", out.data, l.valid & r.valid, CTString)
 
-    def _held(self, c: Column):
-        """The distinct codes that a string column's valid rows hold
-        (sorted, on the device) and each row's position among them;
-        None where no row is valid.  A function that makes new strings
-        maps only these, so running a query again adds nothing to the
-        pool (a table over the whole pool would map the last run's
-        results too).  The caller reads them to the host: on the card,
-        one device-to-host copy."""
-        held = torch.unique(c.data[c.valid])
-        if held.numel() == 0:
-            return None, None
-        pos = torch.searchsorted(held, c.data).clamp(max=held.numel() - 1)
-        return held, pos
+    def _held(self, values: torch.Tensor, ok: torch.Tensor):
+        """The distinct values of the rows ``ok`` read to the host
+        (sorted) and each row's position among them.  A function that
+        makes new strings maps only these, so running a query again
+        adds nothing to the pool (a table over the whole pool would map
+        the last run's results too).  On the card the read is one
+        device-to-host copy, counted in the backend's ``held_reads``."""
+        held = torch.unique(values[ok])
+        pos = torch.searchsorted(held, values).clamp(
+            max=max(held.numel() - 1, 0))
+        return self._read_held(held), pos
+
+    def _read_held(self, t: torch.Tensor) -> np.ndarray:
+        """One device-to-host read of held values, counted."""
+        if self.backend is not None:
+            self.backend.held_reads += 1
+        return t.cpu().numpy()
 
     def _map_held(self, c: Column, fn: Callable[[str], str]) -> Column:
         """fn of each string of a string column, new strings added to
         the pool (see :meth:`_held`)."""
-        held, pos = self._held(c)
-        if held is None:
-            return Column("str", torch.zeros_like(c.data), c.valid, CTString)
-        codes = self.pool.map_codes(held.cpu().numpy(), fn)
-        return Column("str", self._lut(codes)[pos], c.valid, CTString)
+        return self._format_held([c.data], c.valid, lambda rows: [
+            fn(s) for s in self.pool.decode_many(rows[:, 0])])
+
+    def _format_held(self, planes, valid: torch.Tensor, fn) -> Column:
+        """A string per row made from the row's values of ``planes``
+        (int64 tensors, or an int64 matrix for a value of several
+        planes): the distinct value rows that the valid live rows hold
+        go to the host in one counted read, ``fn`` formats them (an
+        int64 matrix, a row per value, to a list of strings), they are
+        encoded into the pool, and the rows gather their codes.
+        A held value that the pool already has adds nothing, so running
+        the query again adds no string."""
+        ok = valid & self.row_ok
+        cols = [c for p in planes for c in (
+            p.to(torch.int64).unbind(1) if p.dim() == 2
+            else (p.to(torch.int64),))]
+        if len(cols) == 1:
+            held, pos = self._held(cols[0], ok)
+            rows = held[:, None]
+        else:
+            rows, pos = self._held_rows(cols, ok)
+        strings = fn(rows) if len(rows) else []
+        if not strings:
+            return Column("str", torch.zeros_like(ok, dtype=torch.int32),
+                          valid, CTString)
+        codes = np.array(self.pool.encode_many(strings), dtype=np.int32)
+        return Column("str", self._lut(codes)[pos], valid, CTString)
+
+    def _held_rows(self, cols, ok: torch.Tensor):
+        """The distinct rows of several int64 planes among the rows
+        ``ok`` (read to the host, counted) and each row's position among
+        them: a stable sort by the planes, the neighbours that differ,
+        their running count scattered back."""
+        keys = [(~ok).to(torch.int64)] + [torch.where(ok, c,
+                                                      torch.zeros_like(c))
+                                          for c in cols]
+        perm = K.sort_perm(keys, self.capacity)
+        ordered = [k[perm] for k in keys]
+        change = K.neighbor_change_keys(ordered) & ~ordered[0].bool()
+        group = torch.cumsum(change.to(torch.int64), 0) - 1
+        pos = torch.empty_like(group)
+        pos[perm] = group.clamp(min=0)
+        rows = self._read_held(torch.stack(ordered[1:], dim=1)[change])
+        return rows, pos
 
     def _parse_strings(self, c: Column, name: str, fn, kind: str,
                        ctype: CypherType) -> Column:
@@ -474,9 +574,12 @@ class DeviceExprCompiler:
         return Column(kind, _gather(self._lut(values), c.data),
                       c.valid & _gather(self._lut(ok), c.data), ctype)
 
-    def _to_string(self, arg: E.Expr, c: Column) -> Column:
-        """toString of a string or boolean column, or of a number given
-        as a literal or parameter."""
+    def _to_string(self, c: Column) -> Column:
+        """toString of a column: a string is itself, a boolean 'true' or
+        'false'; numbers, temporal values and "any" values format their
+        held values on the host (:meth:`_format_held`) as the oracle's
+        ``_to_str`` does (``str`` of the number, ``iso()`` of the
+        temporal value)."""
         if c.kind == "str":
             return c
         if c.kind == "bool":
@@ -486,9 +589,36 @@ class DeviceExprCompiler:
                 torch.full_like(c.data, self.pool.encode("false"),
                                 dtype=torch.int32))
             return Column("str", codes, c.valid, CTString)
-        if c.kind in ("int", "float") and isinstance(arg, (E.Lit, E.Param)):
-            return self._literal(str(self._constant(arg)))
-        raise UnsupportedOnDevice(f"toString on kind {c.kind}")
+        from caps_tpu_torch.okapi import values as V
+        if c.kind == "float":
+            planes = [c.data.contiguous().view(torch.int64)]
+        elif c.kind == "any":
+            planes = [c.tags, c.data]
+        elif c.kind in ("int", "date", "datetime", "duration"):
+            planes = [c.data]
+        else:
+            raise UnsupportedOnDevice(f"toString on kind {c.kind}")
+        one = {"int": str, "date": lambda d: V.CypherDate(d).iso(),
+               "datetime": lambda us: V.CypherDateTime(us).iso()}
+
+        def fmt(rows):
+            if c.kind == "float":
+                return [str(v) for v in rows[:, 0].view(np.float64).tolist()]
+            if c.kind == "duration":
+                return [V.CypherDuration(*r).iso() for r in rows.tolist()]
+            if c.kind == "any":
+                return [_text(v) for v in decode_any(
+                    rows[:, 0].astype(np.int8), rows[:, 1], self.pool)]
+            return [one[c.kind](v) for v in rows[:, 0].tolist()]
+        return self._format_held(planes, c.valid, fmt)
+
+    def _pair_text(self, rows: np.ndarray):
+        """The concatenations of (left, right) string code pairs packed
+        as ``left << 31 | right``."""
+        keys = rows[:, 0]
+        left = self.pool.decode_many(keys >> 31)
+        right = self.pool.decode_many(keys & ((1 << 31) - 1))
+        return [a + b for a, b in zip(left, right)]
 
     def _string_function(self, name: str, e, c: Column) -> Column:
         """substring / left / right / replace / split of a string column
@@ -502,19 +632,20 @@ class DeviceExprCompiler:
         if name != "split":
             return self._map_held(c, fn)
         from caps_tpu_torch.okapi.types import CTList
-        held, pos = self._held(c)
-        if held is None:
+        held, pos = self._held(c.data, c.valid & self.row_ok)
+        if not len(held):
             return Column("list", torch.zeros((self.capacity, 1),
                                               dtype=torch.int32,
                                               device=self.device),
                           c.valid, CTList(CTString),
                           torch.zeros_like(c.data, dtype=torch.int32))
-        codes, lens = self.pool.list_codes(held.cpu().numpy(), fn)
+        codes, lens = self.pool.list_codes(held, fn)
         return Column("list", self._lut(codes)[pos], c.valid,
                       CTList(CTString), self._lut(lens)[pos])
 
     def _constant(self, e: E.Expr):
-        """The host value of a literal or parameter expression."""
+        """The host value of a literal or parameter expression (or of a
+        map or list literal of them)."""
         if isinstance(e, E.Lit):
             return e.value
         if isinstance(e, E.Param):
@@ -522,7 +653,106 @@ class DeviceExprCompiler:
         if isinstance(e, E.Negate):
             v = self._constant(e.expr)
             return None if v is None else -v
+        if isinstance(e, E.MapLit):
+            return {k: self._constant(v) for k, v in zip(e.keys, e.values)}
+        if isinstance(e, E.ListLit):
+            return [self._constant(v) for v in e.items]
         raise UnsupportedOnDevice(f"{type(e).__name__} is not a constant")
+
+    def _fold(self, e: E.Expr):
+        """(value,) of a constant expression, None for any other."""
+        try:
+            return (self._constant(e),)
+        except UnsupportedOnDevice:
+            return None
+
+    def _temporal_function(self, name: str, args) -> Column:
+        """date() / datetime() / localdatetime() / duration() (the
+        oracle's ``temporal_construct``): a constant argument folds once
+        here; a column converts on the device (a datetime to its date, a
+        date to its midnight, a string through a table over the pool, a
+        map literal of component columns through ``temporal.py``).  A
+        malformed value is an error of its row."""
+        from caps_tpu_torch.okapi.values import temporal_construct
+        target = {"localdatetime": "datetime"}.get(name, name)
+        if not args:
+            self._note_row_error(
+                self._full(True), f"{name}() without an argument (current "
+                "time) is non-deterministic and not supported")
+            return self._null()
+        arg = args[0]
+        const = self._fold(arg)
+        if const is not None:
+            if const[0] is None:
+                return self._null()
+            try:
+                return self._literal(temporal_construct(name, const[0]))
+            except (ValueError, TypeError, KeyError, OverflowError) as ex:
+                self._note_row_error(self._full(True), f"{name}(): {ex}")
+                return self._null()
+        if isinstance(arg, E.MapLit):
+            parts = {}
+            for k, v in zip(arg.keys, arg.values):
+                c = self.compile(v)
+                parts[k] = Column("int", torch.zeros(
+                    self.capacity, dtype=torch.int64, device=self.device),
+                    self._full(False), CTInteger) if _is_null(c) else c
+            ints = T.int_parts(parts)
+            if ints is None:
+                raise UnsupportedOnDevice(f"{name}() of a map of "
+                                          f"non-numeric components")
+            col, bad, what = T.construct(target, ints, self._full(True),
+                                         self.device)
+            self._note_row_error(bad, what)
+            col.valid = ~bad
+            return col
+        c = self.compile(arg)
+        if _is_null(c):
+            return self._null()
+        if c.kind == target:
+            return c
+        if target == "date" and c.kind == "datetime":
+            return Column("date", T.to_date(c), c.valid, CTDate)
+        if target == "datetime" and c.kind == "date":
+            return Column("datetime", c.data * T.US_PER_DAY, c.valid,
+                          CTDateTime)
+        if c.kind == "str":
+            return self._parse_temporal(name, target, c)
+        if c.kind in ("map", "any"):
+            raise UnsupportedOnDevice(f"{name}() of a {c.kind} column")
+        self._note_row_error(c.valid, f"cannot construct {name}() from a "
+                             f"{c.kind}")
+        return self._null()
+
+    def _parse_temporal(self, name: str, target: str, c: Column) -> Column:
+        """date() / datetime() / duration() of a string column: a table
+        over the pool per plane; a string that does not parse is an
+        error of its row."""
+        from caps_tpu_torch.okapi.values import temporal_construct
+
+        def plane(i):
+            def parse(s):
+                try:
+                    v = temporal_construct(name, s)
+                except ValueError:
+                    return None
+                return ((v.months, v.days, v.seconds)[i]
+                        if target == "duration" else
+                        v.days if target == "date" else v.micros)
+            return self.pool.value_lut(f"{name}#{i}", parse, np.int64)
+
+        n = 3 if target == "duration" else 1
+        luts = [plane(i) for i in range(n)]
+        if luts[0][0].shape[0] == 0:
+            return self._null()
+        ok = _gather(self._lut(luts[0][1]), c.data)
+        self._note_row_error(c.valid & ~ok, f"{name}(): a string that is "
+                             f"not a {target}")
+        planes = [_gather(self._lut(v), c.data) for v, _ok in luts]
+        data = planes[0] if n == 1 else torch.stack(planes, dim=1)
+        ctype = {"date": CTDate, "datetime": CTDateTime,
+                 "duration": CTDuration}[target]
+        return Column(target, data, c.valid & ok, ctype)
 
     def _bool(self, c: Column) -> Column:
         if c.kind != "bool":
@@ -552,10 +782,7 @@ class DeviceExprCompiler:
             # where its placeholder kind is the other's), so a result built
             # from both is typed by the side that holds values
             null, other = (l, r) if _is_null(l) else (r, l)
-            null = Column(other.kind, torch.zeros_like(other.data),
-                          null.valid, other.ctype,
-                          None if other.lens is None
-                          else torch.zeros_like(other.lens))
+            null = null_like(other, null.valid)
             return (null, other) if _is_null(l) else (other, null)
         if l.kind == r.kind:
             return l, r
@@ -564,22 +791,45 @@ class DeviceExprCompiler:
             if "float" in (l.kind, r.kind):
                 return l.astype_kind("float"), r.astype_kind("float")
             return l.astype_kind("int"), r.astype_kind("int")
+        if "any" in (l.kind, r.kind) and {l.kind, r.kind} <= set(
+                A.HELD_KINDS + ("any",)):
+            return A.to_any(l), A.to_any(r)
         raise UnsupportedOnDevice(f"cannot compare kinds {l.kind}/{r.kind}")
 
-    def _equality(self, e) -> Column:
-        l = self.compile(e.lhs)
-        r = self.compile(e.rhs)
+    def _rank(self) -> torch.Tensor:
+        if self.backend is not None:
+            return self.backend.rank_tensor()
+        return self._lut(self.pool.rank_array())
+
+    def equal_cols(self, l: Column, r: Column):
+        """``cypher_equals`` of two columns as (equal, known): ``known``
+        False where the answer is null (a null operand, or a null among
+        the elements or entries it hangs on)."""
         valid = l.valid & r.valid
         if l.kind == "list" or r.kind == "list":
             eq, known = self._list_equal(l, r)
-            valid = valid & known
-        else:
-            try:
-                l2, r2 = self._promote(l, r)
-                eq = l2.data == r2.data
-            except UnsupportedOnDevice:
-                # mismatched kinds: never equal
-                eq = self._full(False)
+            return eq, valid & known
+        if l.kind == "map" or r.kind == "map":
+            if l.kind != r.kind:
+                return self._full(False), valid
+            eq, known = M.equal(l, r, self.equal_cols)
+            return eq, valid & known
+        if _is_null(l) or _is_null(r):
+            return self._full(False), valid
+        if "any" in (l.kind, r.kind):
+            return A.equal(l, r, self._rank()), valid
+        if l.kind == "duration" and r.kind == "duration":
+            return (l.data == r.data).all(dim=1), valid
+        try:
+            l2, r2 = self._promote(l, r)
+            eq = l2.data == r2.data
+        except UnsupportedOnDevice:
+            # mismatched kinds: never equal
+            eq = self._full(False)
+        return eq, valid
+
+    def _equality(self, e) -> Column:
+        eq, valid = self.equal_cols(self.compile(e.lhs), self.compile(e.rhs))
         if isinstance(e, E.NotEquals):
             eq = ~eq
         return Column("bool", eq, valid, CTBoolean)
@@ -593,8 +843,12 @@ class DeviceExprCompiler:
         entities, which never equal integers in openCypher."""
         if l.kind != "list" or r.kind != "list":
             return self._full(False), self._full(True)
-        if l.data.dim() == 3 or r.data.dim() == 3:
+        if l.nested or r.nested:
             raise UnsupportedOnDevice("comparing lists of lists")
+        if "any" in (l.elem_kind, r.elem_kind) or "map" in (l.elem_kind,
+                                                            r.elem_kind):
+            raise UnsupportedOnDevice("comparing lists of values of mixed "
+                                      "types or of maps")
         ekl, ekr = l.elem_kind, r.elem_kind
         if ekl != ekr and {ekl, ekr} != {"int", "float"}:
             return self._full(False), self._full(True)
@@ -620,6 +874,17 @@ class DeviceExprCompiler:
         valid = l.valid & r.valid
         if _is_null(l) or _is_null(r):
             return self._null()
+        if "any" in (l.kind, r.kind) and "list" not in (l.kind, r.kind):
+            if {l.kind, r.kind} - set(A.HELD_KINDS + ("any", "id")):
+                return self._null()  # a map or duration: incomparable
+            lt = isinstance(e, (E.LessThan, E.LessThanOrEqual))
+            a, b = (l, r) if lt else (r, l)
+            out, known = A.less(a, b, self._rank(),
+                                or_equal=isinstance(e, (E.LessThanOrEqual,
+                                                        E.GreaterThanOrEqual)))
+            return Column("bool", out, valid & known, CTBoolean)
+        if l.kind in ("duration", "map") or r.kind in ("duration", "map"):
+            return self._null()  # durations and maps do not order
         if l.kind == "str" and r.kind == "str":
             rank = self._lut(self.pool.rank_array())
             ld = _gather(rank, l.data) if rank.shape[0] else l.data
@@ -728,11 +993,13 @@ class DeviceExprCompiler:
         true; a miss is null where the list holds a null element, else
         false; a null ``x`` gives null against a non-empty list and a
         null list gives null."""
-        if rhs.data.dim() == 3:
-            raise UnsupportedOnDevice("IN a list of lists")
+        if rhs.nested or rhs.tags is not None or rhs.fields is not None:
+            raise UnsupportedOnDevice("IN a list of lists, of maps or of "
+                                      "values of mixed types")
         ek = rhs.elem_kind
         numeric = ("id", "int", "float")
-        kinds = {"str": ("str",), "bool": ("bool",)}.get(ek, numeric)
+        kinds = {"str": ("str",), "bool": ("bool",), "date": ("date",),
+                 "datetime": ("datetime",)}.get(ek, numeric)
         if l.kind not in kinds:
             raise UnsupportedOnDevice(f"{l.kind} IN list of {ek}")
         dtype = torch.float64 if "float" in (l.kind, ek) else torch.int64
@@ -752,7 +1019,13 @@ class DeviceExprCompiler:
         r = self.compile(e.rhs)
         if _is_null(l) or _is_null(r):
             return self._null()
-        if isinstance(e, E.Add) and l.kind == "str" and r.kind == "str":
+        temporal = ("date", "datetime", "duration")
+        if l.kind in temporal or r.kind in temporal:
+            return self._temporal_arith(e, l, r)
+        if isinstance(e, E.Add) and "str" in (l.kind, r.kind) \
+                and "list" not in (l.kind, r.kind):
+            # a string and a value: the value's text (``_to_str``)
+            l, r = self._to_string(l), self._to_string(r)
             return self._concat_strings(e, l, r)
         if isinstance(e, E.Add) and l.kind == "list" and r.kind == "list":
             return self._concat_lists(l, r)
@@ -803,17 +1076,32 @@ class DeviceExprCompiler:
                E.Multiply: torch.multiply}
         return Column("float", ops[type(e)](a, b), valid, CTFloat)
 
+    def _temporal_arith(self, e, l: Column, r: Column) -> Column:
+        """date/datetime ± duration and duration ± duration (the
+        oracle's ``_temporal_arith``); any other pairing is null.  A
+        result outside years 1–9999 is an error of its row."""
+        valid = l.valid & r.valid
+        add = isinstance(e, E.Add)
+        if not add and not isinstance(e, E.Subtract):
+            return self._null()
+        if l.kind == "duration" and r.kind == "duration":
+            return Column("duration", l.data + r.data if add
+                          else l.data - r.data, valid, l.ctype)
+        if add and l.kind == "duration" and r.kind in ("date", "datetime"):
+            l, r = r, l
+        if l.kind in ("date", "datetime") and r.kind == "duration":
+            out, bad = T.plus(l, r.data, 1 if add else -1)
+            self._note_row_error(valid & bad, f"{l.kind} out of range")
+            return Column(l.kind, out, valid & ~bad, l.ctype)
+        return self._null()
+
     def _case(self, e: E.CaseExpr) -> Column:
         conds = [self._bool(self.compile(c)) for c in e.conditions]
         vals = [self.compile(v) for v in e.values]
         default = self.compile(e.default) if e.default is not None else None
         out = default
         if out is None:
-            proto = vals[0]
-            out = Column(proto.kind, torch.zeros_like(proto.data),
-                         self._full(False), proto.ctype,
-                         None if proto.lens is None
-                         else torch.zeros_like(proto.lens))
+            out = null_like(vals[0], self._full(False))
         for c, v in zip(reversed(conds), reversed(vals)):
             v2, o2 = self._promote(v, out)
             out = self._choose(c.valid & c.data, v2, o2)
@@ -822,11 +1110,16 @@ class DeviceExprCompiler:
     def _choose(self, take: torch.Tensor, a: Column, b: Column) -> Column:
         """Per row ``a`` where ``take`` holds, else ``b`` (two columns of
         one kind; of two lists the narrower is padded)."""
+        if a.kind == "map" or a.fields is not None or b.fields is not None:
+            raise UnsupportedOnDevice("choosing between maps")
         if a.kind != "list":
-            return Column(a.kind, torch.where(take, a.data, b.data),
-                          torch.where(take, a.valid, b.valid), a.ctype)
-        if a.data.dim() == 3 or b.data.dim() == 3 \
-                or a.data.dtype != b.data.dtype:
+            t = take[:, None] if a.data.dim() == 2 else take
+            return Column(a.kind, torch.where(t, a.data, b.data),
+                          torch.where(take, a.valid, b.valid), a.ctype,
+                          tags=(None if a.tags is None
+                                else torch.where(take, a.tags, b.tags)))
+        if a.nested or b.nested or a.data.dtype != b.data.dtype \
+                or (a.tags is None) != (b.tags is None):
             raise UnsupportedOnDevice("choosing between lists of different "
                                       "kinds")
         width = max(a.data.shape[1], b.data.shape[1])
@@ -841,33 +1134,17 @@ class DeviceExprCompiler:
             ev = pick(a.valid_elems(), b.valid_elems(), True)
         return Column("list", pick(a.data, b.data, 0),
                       torch.where(take, a.valid, b.valid), a.ctype,
-                      torch.where(take, a.lens, b.lens), elem_valid=ev)
+                      torch.where(take, a.lens, b.lens), elem_valid=ev,
+                      tags=None if a.tags is None else pick(a.tags, b.tags, 0))
 
     def _function(self, e: E.FunctionExpr) -> Column:  # noqa: C901
         name = e.name
-        if name in ("date", "datetime", "localdatetime") \
-                and len(e.args) == 1 and isinstance(e.args[0], E.Lit) \
-                and isinstance(e.args[0].value, str):
-            # constant temporal literal → one int64 constant column (the
-            # encodings are device-comparable; see column.py kinds)
-            from caps_tpu_torch.okapi.types import CTDate, CTDateTime
-            from caps_tpu_torch.okapi.values import CypherDate, CypherDateTime
-            try:
-                if name == "date":
-                    enc, kind, ct = (CypherDate.parse(e.args[0].value).days,
-                                     "date", CTDate)
-                else:
-                    enc, kind, ct = (
-                        CypherDateTime.parse(e.args[0].value).micros,
-                        "datetime", CTDateTime)
-            except ValueError as ex:
-                # an invalid literal is a runtime error of every live row
-                self._note_row_error(self._full(True), f"{name}(): {ex}")
-                return self._null()
-            return Column(kind, torch.full((self.capacity,), enc,
-                                           dtype=torch.int64,
-                                           device=self.device),
-                          self._full(True), ct)
+        if name in ("date", "datetime", "localdatetime", "duration"):
+            return self._temporal_function(name, e.args)
+        if name == "tostring" and e.args \
+                and (const := self._fold(e.args[0])) is not None:
+            return self._literal(None if const[0] is None
+                                 else _text(const[0]))
         args = [self.compile(a) for a in e.args]
         if any(_is_null(a) for a in args):
             # every function of the compiler returns null for a null
@@ -933,7 +1210,7 @@ class DeviceExprCompiler:
                                            "bool", CTBoolean)
             raise UnsupportedOnDevice(f"toBoolean on kind {c.kind}")
         if name == "tostring":
-            return self._to_string(e.args[0], args[0])
+            return self._to_string(args[0])
         if name in _STRING_FUNCTIONS:
             return self._string_function(name, e, args[0])
         if name in ("head", "last", "tail") or (
@@ -1017,6 +1294,15 @@ def _to_bool(s: str):
     return {"true": True, "false": False}.get(s.lower())
 
 
+def _text(v) -> str:
+    """toString of a non-null host value (the oracle's ``_to_str``)."""
+    if isinstance(v, str):
+        return v
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return v.iso() if hasattr(v, "iso") else str(v)
+
+
 def _is_null(c: Column) -> bool:
     """True for the all-null column of :meth:`DeviceExprCompiler._null`."""
     return c.ctype == CTNull
@@ -1028,4 +1314,7 @@ def _gather(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return table[codes.clamp(0, table.shape[0] - 1).to(torch.int64)]
 
 
+from caps_tpu_torch.backends.cuda import anyvalue as A  # noqa: E402
 from caps_tpu_torch.backends.cuda import lists as L  # noqa: E402
+from caps_tpu_torch.backends.cuda import maps as M  # noqa: E402
+from caps_tpu_torch.backends.cuda import temporal as T  # noqa: E402

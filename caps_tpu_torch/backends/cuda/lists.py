@@ -24,11 +24,14 @@ scan on the card, its ids sorted once, looked up by binary search.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from caps_tpu_torch.backends.cuda.column import Column, list_dtype
+from caps_tpu_torch.backends.cuda import anyvalue as A
+from caps_tpu_torch.backends.cuda import maps as M
+from caps_tpu_torch.backends.cuda.column import Column, elem_at, list_dtype
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice, _is_null,
 )
@@ -253,13 +256,22 @@ def bound_access(comp: DeviceExprCompiler, e: E.Expr) -> Optional[Column]:
     if not (isinstance(tgt, E.Var) and tgt.name in comp.bound):
         return None
     b = comp.bound[tgt.name]
-    if isinstance(e, E.Properties):
-        raise UnsupportedOnDevice("no device rule for Properties")
     if b.kind is None:
-        if b.col.kind in ("date", "datetime"):
-            raise UnsupportedOnDevice(f"no device rule for {type(e).__name__}"
-                                      f" of a {b.col.kind}")
-        return comp._null()  # a value that names no entity: null
+        # a value that names no entity (the oracle's ``_entity_field``):
+        # a map's entries, keys and itself, a temporal value's
+        # components; null for the rest
+        col = b.col
+        if col.kind == "map":
+            if isinstance(e, E.Property):
+                return M.field(comp, col, e.key)
+            if isinstance(e, E.Keys):
+                return M.keys(comp, col)
+            if isinstance(e, E.Properties):
+                return col
+        elif isinstance(e, E.Property) and col.kind in (
+                "date", "datetime", "duration", "any"):
+            return comp._property(e)
+        return comp._null()
     idx = entity_index(comp, b.kind)
     row, found = _lookup(comp, b, idx)
     present = b.col.valid if b.mask is None else b.col.valid & b.mask
@@ -273,6 +285,12 @@ def bound_access(comp: DeviceExprCompiler, e: E.Expr) -> Optional[Column]:
             field = type(e)(v) if b.kind == "rel" else None
         out = None if field is None else idx.field(field, row, found)
         return comp._null() if out is None else out
+    if isinstance(e, E.Properties):
+        names, cols = [], []
+        for name, he in idx.named(E.Property):
+            names.append(name)
+            cols.append(idx.field(he, row, found))
+        return M.of_properties(names, cols, present)
     if isinstance(e, (E.HasLabel, E.HasType)):
         if isinstance(e, E.HasLabel):
             f = (idx.field(E.HasLabel(v, e.label), row, found)
@@ -321,10 +339,10 @@ def labels_or_keys(comp: DeviceExprCompiler, e: E.Expr) -> Column:
     hold (or property columns that are set), sorted, as a string list;
     null for a null entity."""
     ent = e.node if isinstance(e, E.Labels) else e.entity
-    ids = comp.compile(ent)
     if not isinstance(ent, E.Var):
-        raise UnsupportedOnDevice(f"no device rule for {type(e).__name__} "
-                                  f"of {type(ent).__name__}")
+        from caps_tpu_torch.relational.table import ExprEvalError
+        raise ExprEvalError(f"{type(e).__name__.lower()}() on {ent!r}")
+    ids = comp.compile(ent)
     names, keeps = [], []
     items = []
     for he in comp.header.exprs:
@@ -378,34 +396,44 @@ def left_pack(values: torch.Tensor, keep: torch.Tensor,
 # -- list literals ---------------------------------------------------------
 
 def list_literal(comp: DeviceExprCompiler, e: E.ListLit) -> Column:
-    """A list literal of columns: the items stacked into ``(capacity,
-    k)``, a null item a null element; entities become their ids.  Ids
-    mixed with ints give an int list (the oracle's values are ints
-    too); other mixed kinds raise, naming them."""
-    cols = [comp.compile(i) for i in e.items]
+    """A list literal of columns (:func:`stack_items`)."""
+    return stack_items(comp, [comp.compile(i) for i in e.items])
+
+
+def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
+    """Columns as the elements of one list per row: stacked into
+    ``(capacity, k)``, a null item a null element; entities become their
+    ids.  Ids mixed with ints give an int list (the oracle's values are
+    ints too); values of several kinds give a list of "any" values;
+    maps a list of maps, lists a list of lists."""
     values = [c for c in cols if not _is_null(c)]
     if values and all(c.kind == "list" for c in values):
         return _nested_literal(comp, cols)
-    if any(c.kind == "list" for c in values):
-        raise UnsupportedOnDevice("list of lists and values on device")
+    if values and all(c.kind == "map" for c in values):
+        return M.stack(comp, cols)
     kinds = {c.kind for c in values}
     inner = join_all(c.ctype for c in cols)
+    if kinds & {"list", "map", "duration"}:
+        raise UnsupportedOnDevice(f"list of {inner!r} on device (kinds "
+                                  f"{', '.join(sorted(kinds))})")
+    lens = torch.full((comp.capacity,), len(cols), dtype=torch.int32,
+                      device=comp.device)
+    ev = torch.stack([c.valid for c in cols], dim=1)
     if not kinds:
         ek = "int"
     elif kinds <= {"id", "int"}:
         ek = "id" if kinds == {"id"} else "int"
-    elif len(kinds) == 1 and kinds <= {"int", "float", "str", "bool"}:
+    elif len(kinds) == 1 and "any" not in kinds:
         ek = next(iter(kinds))
     else:
-        raise UnsupportedOnDevice(f"list of {inner!r} on device (kinds "
-                                  f"{', '.join(sorted(kinds))})")
+        data, tags = A.stack([c if not _is_null(c) else comp._literal(0)
+                              for c in cols], comp.device)
+        return Column("list", data, comp._full(True), CTList(inner), lens,
+                      elem_valid=ev, tags=tags)
     dtype = list_dtype(ek)
     data = torch.stack([c.data.to(dtype) if not _is_null(c) else
                         torch.zeros(comp.capacity, dtype=dtype,
                                     device=comp.device) for c in cols], dim=1)
-    ev = torch.stack([c.valid for c in cols], dim=1)
-    lens = torch.full((comp.capacity,), len(cols), dtype=torch.int32,
-                      device=comp.device)
     return Column("list", data, comp._full(True), CTList(inner), lens,
                   elem_valid=ev)
 
@@ -416,7 +444,8 @@ def _nested_literal(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     F = torch.nn.functional
     lists = [c for c in cols if not _is_null(c)]
     kinds = {c.elem_kind for c in lists}
-    if len(kinds) != 1 or any(c.data.dim() != 2 for c in lists):
+    if len(kinds) != 1 or any(c.nested or c.tags is not None
+                              or c.fields is not None for c in lists):
         raise UnsupportedOnDevice("list of lists of different element "
                                   "kinds or of more than two levels")
     width = max(c.data.shape[1] for c in lists)
@@ -480,15 +509,7 @@ def _flatten(comp: DeviceExprCompiler, var: str, le: E.Expr,
     flat = torch.arange(n, device=dev)
     row, j = flat // W, flat % W
     ok = ((j < lst.lens[row]) & lst.valid[row] & comp.row_ok[row])
-    ev = ok & lst.valid_elems().reshape(n)
-    if lst.data.dim() == 3:  # the elements are lists
-        iv = lst.inner_valid
-        elem = Column("list", lst.data.reshape(n, -1), ev, _inner_type(lst),
-                      lst.inner_lens.reshape(n),
-                      elem_valid=None if iv is None else iv.reshape(n, -1))
-    else:
-        elem = Column(lst.elem_kind, lst.data.reshape(n), ev,
-                      _inner_type(lst))
+    elem = elem_at(lst, row, j, ok)
     kind, pos = _position_kind(elem_kinds(comp.header, le), W, dev)
     if pos is not None:
         pos = pos[j]
@@ -542,23 +563,48 @@ def comprehension(comp: DeviceExprCompiler,
         v = flat.var
     cap, W = comp.capacity, flat.width
     ctype = CTList(v.ctype if e.projection is not None else _inner_type(lst))
-    keep = keep.reshape(cap, W)
+    out = pack_elements(v, keep.reshape(cap, W), cap, W, ctype)
+    out.valid = lst.valid
+    if e.projection is None and lst.elem_valid is None:
+        out.elem_valid = None
+    return out
+
+
+def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
+                  ctype) -> Column:
+    """A column over ``cap * W`` element rows packed into one list per
+    row: the kept elements of each row, left-aligned (lists of lists,
+    of "any" values and of maps too)."""
+    valid = v.valid.reshape(cap, W)
     if v.kind == "list":  # a list of lists
-        if v.data.dim() == 3:
+        if v.nested or v.tags is not None or v.fields is not None:
             raise UnsupportedOnDevice("list of more than two levels")
-        data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep,
-                                   v.valid.reshape(cap, W))
+        data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep, valid)
         inner, _, _ = left_pack(v.lens.reshape(cap, W), keep)
         iv = None
         if v.elem_valid is not None:
             iv, _, _ = left_pack(v.elem_valid.reshape(cap, W, -1), keep)
-        return Column("list", data, lst.valid, ctype, lens, elem_valid=ev,
-                      inner_lens=inner, inner_valid=iv)
-    data, ev, lens = left_pack(v.data.reshape(cap, W), keep,
-                               v.valid.reshape(cap, W))
-    if e.projection is None and lst.elem_valid is None:
-        ev = None
-    return Column("list", data, lst.valid, ctype, lens, elem_valid=ev)
+        return Column("list", data, comp_true(lens), ctype, lens,
+                      elem_valid=ev, inner_lens=inner, inner_valid=iv)
+    if v.kind == "map":
+        data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep, valid)
+        fields = {}
+        for k, c in v.fields.items():
+            fields[k] = pack_elements(c, keep, cap, W, CTList(c.ctype))
+        return Column("list", data, comp_true(lens), ctype, lens,
+                      elem_valid=ev, fields=fields)
+    if v.kind == "duration":
+        raise UnsupportedOnDevice("list of durations")
+    data, ev, lens = left_pack(v.data.reshape(cap, W), keep, valid)
+    tags = None
+    if v.tags is not None:
+        tags, _, _ = left_pack(v.tags.reshape(cap, W), keep)
+    return Column("list", data, comp_true(lens), ctype, lens, elem_valid=ev,
+                  tags=tags)
+
+
+def comp_true(like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(like.shape, dtype=torch.bool, device=like.device)
 
 
 def quantify(comp: DeviceExprCompiler,
@@ -605,23 +651,15 @@ def reduce(comp: DeviceExprCompiler, e: E.Reduce) -> Column:
         return comp._null()
     cap, W = lst.data.shape[:2]
     live = lst.valid & comp.row_ok
-    ev = lst.valid_elems()
+    rows = torch.arange(cap, device=comp.device)
     kinds = elem_kinds(comp.header, e.list_expr)
-    inner = _inner_type(lst)
     for j in range(W):
         step = live & (lst.lens > j)
         kind = kinds[j] if isinstance(kinds, list) and j < len(kinds) \
             else (None if isinstance(kinds, list) else kinds)
         bound = dict(comp.bound)
         bound[e.acc] = Bound(acc)
-        if lst.data.dim() == 3:  # the elements are lists
-            iv = lst.inner_valid
-            elem = Column("list", lst.data[:, j], step & ev[:, j], inner,
-                          lst.inner_lens[:, j],
-                          elem_valid=None if iv is None else iv[:, j])
-        else:
-            elem = Column(lst.elem_kind, lst.data[:, j], step & ev[:, j],
-                          inner)
+        elem = elem_at(lst, rows, torch.full_like(rows, j), step)
         bound[e.var] = Bound(elem, kind)
         child = comp.child(comp.columns, cap, step, bound)
         out = child.compile(e.expr)
@@ -630,13 +668,13 @@ def reduce(comp: DeviceExprCompiler, e: E.Reduce) -> Column:
             out, acc = comp._promote(out, acc)
         if "list" in (out.kind, acc.kind):
             raise UnsupportedOnDevice("reduce: a list accumulator")
-        if out.kind != acc.kind:
+        if out.kind != acc.kind or "map" in (out.kind, acc.kind):
             raise UnsupportedOnDevice(f"reduce: the accumulator changes "
                                       f"kind from {acc.kind} to {out.kind}")
-        acc = Column(acc.kind, torch.where(step, out.data, acc.data),
-                     torch.where(step, out.valid, acc.valid),
-                     acc.ctype if not _is_null(acc) else out.ctype)
-    return Column(acc.kind, acc.data, acc.valid & lst.valid, acc.ctype)
+        ctype = acc.ctype if not _is_null(acc) else out.ctype
+        acc = comp._choose(step, out, acc)
+        acc.ctype = ctype
+    return dataclasses.replace(acc, valid=acc.valid & lst.valid, host=None)
 
 
 # -- paths and Disjoint ----------------------------------------------------
@@ -681,8 +719,10 @@ def disjoint(comp: DeviceExprCompiler, e: E.Disjoint) -> Column:
     a, b = comp.compile(e.lhs), comp.compile(e.rhs)
     if _is_null(a) or _is_null(b):
         return comp._null()
-    if a.kind != "list" or b.kind != "list":
-        raise UnsupportedOnDevice(f"Disjoint of kinds {a.kind}/{b.kind}")
+    if a.kind != "list" or b.kind != "list" or "any" in (
+            a.elem_kind, b.elem_kind) or "map" in (a.elem_kind, b.elem_kind):
+        raise UnsupportedOnDevice(f"Disjoint of kinds {a.kind}/{b.kind} "
+                                  f"of {a.elem_kind}/{b.elem_kind}")
     dtype = torch.float64 if "float" in (a.elem_kind, b.elem_kind) \
         else torch.int64
     eq = a.data.to(dtype)[:, :, None] == b.data.to(dtype)[:, None, :]

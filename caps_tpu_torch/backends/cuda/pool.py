@@ -78,7 +78,9 @@ class StringPool:
         return self._strings[code]
 
     def decode_many(self, codes) -> List[Optional[str]]:
-        return [self.decode(int(c)) for c in codes]
+        strings = self._strings  # one read of the native pool's mirror
+        return [None if c < 0 else strings[c] for c in
+                (codes.tolist() if hasattr(codes, "tolist") else codes)]
 
     # -- memory accounting ---------------------------------------------------
 

@@ -90,15 +90,16 @@ class CUDACypherSession(RelationalCypherSession):
         """Route every read query through the fused executor: the first
         run records the data-dependent sizes, repeats replay them with no
         device→host reads.  Attaches the per-query count of size reads
-        (``size_syncs``) and of generic replays to the result's
-        metrics."""
+        (``size_syncs``), of reads of the values a string-making
+        function formats (``held_reads``) and of generic replays to the
+        result's metrics."""
         be = self.backend
         # degraded unfused mode (relational/session.py): per-operator
         # eager execution, no memo touched.  Update statements never
         # fuse: their effect is a commit, not a replayable size stream.
         use_fused = (self.config.use_fused and not degraded_state()[1]
                      and not is_update_query(query))
-        syncs0 = be.syncs
+        syncs0, held0 = be.syncs, be.held_reads
         generic0 = self.fused.generic_replays
         if not use_fused:
             result = super()._cypher_on_graph(graph, query, parameters)
@@ -131,6 +132,7 @@ class CUDACypherSession(RelationalCypherSession):
                                    shape=f"g{key[0]}:{sig}")
         if result.metrics is not None:
             result.metrics["size_syncs"] = be.syncs - syncs0
+            result.metrics["held_reads"] = be.held_reads - held0
             if use_fused:
                 result.metrics["fused_generic_replays"] = \
                     self.fused.generic_replays - generic0
@@ -190,6 +192,7 @@ class CUDACypherSession(RelationalCypherSession):
         fused = self.fused
         snap.update({
             "backend.syncs": self.backend.syncs,
+            "backend.held_reads": self.backend.held_reads,
             "fused.recordings": fused.recordings,
             "fused.replays": fused.replays,
             "fused.generic_replays": fused.generic_replays,

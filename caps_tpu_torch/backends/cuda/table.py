@@ -32,13 +32,16 @@ import torch.nn.functional as F
 from caps_tpu_torch import ops as OPS
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    _DTYPES, Column, column_to_host, kind_for, list_dtype, list_elem_kind,
+    Column, column_to_host, elem_at, kind_for, list_dtype, list_elem_kind,
     literal_column, make_column,
 )
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice,
 )
+from caps_tpu_torch.backends.cuda import anyvalue as A
+from caps_tpu_torch.backends.cuda import maps as M
 from caps_tpu_torch.backends.cuda.pool import make_pool
+from caps_tpu_torch.relational.table import ExprEvalError
 from caps_tpu_torch.ir.exprs import Expr
 from caps_tpu_torch.okapi.config import EngineConfig
 from caps_tpu_torch.okapi.types import (
@@ -68,6 +71,10 @@ class DeviceBackend:
         # The session swaps in its own lattice.
         self.shapes = ShapeBucketLattice(config.bucket_sizes)
         self.syncs = 0  # device->host scalar reads (perf metric)
+        # device->host reads of the distinct values a string-making
+        # function formats (expr.py _held / _format_held): one each,
+        # outside the size stream, so a replay makes them too
+        self.held_reads = 0
         # Size-sync routing for the fused executor (fused.py):
         # None = eager (device->host read per data-dependent size);
         # ("record", entries)               = eager + record every size;
@@ -397,15 +404,14 @@ class DeviceTable(Table):
     def nbytes(self) -> int:
         """Exact device-buffer bytes of the columns (data + validity +
         list lengths), padding included."""
-        total = 0
-        for col in self._cols.values():
-            total += col.data.nbytes + col.valid.nbytes
-            if col.lens is not None:
-                total += col.lens.nbytes
-            for t in (col.elem_valid, col.inner_lens, col.inner_valid):
+        def size(col: Column) -> int:
+            n = col.data.nbytes + col.valid.nbytes
+            for t in (col.lens, col.elem_valid, col.inner_lens,
+                      col.inner_valid, col.tags):
                 if t is not None:
-                    total += t.nbytes
-        return total
+                    n += t.nbytes
+            return n + sum(size(c) for c in (col.fields or {}).values())
+        return sum(size(col) for col in self._cols.values())
 
     # -- column ops ------------------------------------------------------
 
@@ -572,7 +578,7 @@ class DeviceTable(Table):
         return self._sort_merge_join(other, how, pairs)
 
     def _join_key(self, col: Column, side: str = "l") -> torch.Tensor:
-        if col.kind in ("id", "int", "str", "bool"):
+        if col.kind in ("id", "int", "str", "bool", "date", "datetime"):
             return col.data.to(torch.int64)
         if col.kind == "float":
             # Monotone float64 -> int64 bit transform: order-preserving, so
@@ -716,12 +722,17 @@ class DeviceTable(Table):
             a, b = self._cols[c], other._cols[c]
             if a.kind != b.kind:
                 numeric = {"id", "int", "float"}
-                if a.kind not in numeric or b.kind not in numeric:
+                if "any" in (a.kind, b.kind) and {a.kind, b.kind} <= set(
+                        A.HELD_KINDS + ("any",)):
+                    a, b = A.to_any(a), A.to_any(b)
+                elif a.kind not in numeric or b.kind not in numeric:
                     raise UnsupportedOnDevice(
                         f"union_all: column {c!r} of kinds {a.kind} and "
                         f"{b.kind}")
-                target = "float" if "float" in (a.kind, b.kind) else "int"
-                a, b = a.astype_kind(target), b.astype_kind(target)
+                else:
+                    target = "float" if "float" in (a.kind, b.kind) \
+                        else "int"
+                    a, b = a.astype_kind(target), b.astype_kind(target)
             out[c] = _concat_columns(a, self._n, b, other._n, out_cap,
                                      a.ctype.join(b.ctype))
         if self._live is None and other._live is None:
@@ -1027,9 +1038,16 @@ class DeviceTable(Table):
         if a.kind == "collect":
             return self._collect_agg(a, col, ok, seg_id, num_segments,
                                      group_live, start_idx)
-        if col.kind == "list":
+        if col.kind == "any" and a.kind in ("min", "max"):
+            return self._extreme_agg(a, col, ok, seg_id, num_segments,
+                                     group_live, start_idx)
+        if col.kind == "any" and a.kind in ("sum", "avg"):
+            return self._number_sum(a, col, ok, seg_id, num_segments,
+                                    group_live)
+        if col.kind in ("list", "any", "map", "duration"):
             if a.kind != "first":
-                raise UnsupportedOnDevice(f"group: {a.kind} over list column")
+                raise UnsupportedOnDevice(f"group: {a.kind} over kind "
+                                          f"{col.kind}")
             # the first kept row of each group, whole (a list property
             # carried through a grouping by its entity)
             rows = torch.arange(col.capacity, device=dev)
@@ -1058,7 +1076,8 @@ class DeviceTable(Table):
             safe = agg.clamp(0, inv.shape[0] - 1)
             return Column("str", inv[safe], (counts > 0) & group_live,
                           col.ctype)
-        if col.kind not in ("int", "float", "id", "bool"):
+        if col.kind not in ("int", "float", "id", "bool") and not (
+                col.kind in ("date", "datetime") and a.kind in ("min", "max")):
             raise UnsupportedOnDevice(f"group: {a.kind} over kind {col.kind}")
         values = col.data
         counts = K.segment_agg(values, ok, seg_id, num_segments, "count")
@@ -1090,6 +1109,53 @@ class DeviceTable(Table):
             return Column("float", data, (counts > 0) & group_live, CTFloat)
         raise UnsupportedOnDevice(f"group: aggregation {a.kind}")
 
+    def _extreme_agg(self, a: AggSpec, col: Column, ok, seg_id,
+                     num_segments: int, group_live, start_idx) -> Column:
+        """min / max of "any" values in the global sort order (the
+        oracle's ``min(vals, key=order_key)``): one more stable sort by
+        (segment, kept first, the value), ascending for min and
+        descending for max, puts each group's answer at the head of its
+        block, which stays where it was (the rows are in group order
+        already); a tie keeps the first row, as ``min`` / ``max`` do."""
+        keys = [seg_id.to(torch.int64), (~ok).to(torch.int64)] + \
+            A.sort_keys(col, a.kind == "min", True,
+                        self.backend.rank_tensor())
+        p2 = self._sort_perm(keys)
+        counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
+        at = p2[start_idx.to(torch.int64).clamp(0, p2.shape[0] - 1)]
+        out = col.take(at)
+        out.valid = out.valid & (counts > 0) & group_live
+        return out
+
+    def _number_sum(self, a: AggSpec, col: Column, ok, seg_id,
+                    num_segments: int, group_live) -> Column:
+        """sum / avg of "any" numbers (the oracle's ``sum(vals)``): the
+        integers summed exactly, the floats in float64; a group with a
+        float gives a float, one of integers only an integer (sum) —
+        avg is always a float.  A value that is not a number is an
+        error, as adding it is in the oracle."""
+        is_int = col.tags == A.TAG_INT
+        is_float = col.tags == A.TAG_FLOAT
+        if self.backend.consume_count((ok & ~is_int & ~is_float).sum()):
+            raise ExprEvalError(f"{a.kind}() of a value that is not a "
+                                f"number")
+        ints = K.sorted_segment_agg(col.data, ok & is_int, seg_id,
+                                    num_segments, "sum")
+        floats = K.segment_agg(A.bits_float(col.data), ok & is_float, seg_id,
+                               num_segments, "sum")
+        has_float = K.segment_agg(col.data, ok & is_float, seg_id,
+                                  num_segments, "count") > 0
+        total = ints.to(torch.float64) + floats
+        if a.kind == "avg":
+            counts = K.segment_agg(col.data, ok, seg_id, num_segments,
+                                   "count")
+            return Column("float", total / counts.clamp(min=1),
+                          (counts > 0) & group_live, CTFloat)
+        tags = torch.where(has_float, A.TAG_FLOAT, A.TAG_INT).to(torch.int8)
+        payload = torch.where(has_float, A.float_bits(total), ints)
+        return Column("any", payload, group_live,
+                      a.result_type or col.ctype, tags=tags)
+
     def _collect_agg(self, a: AggSpec, col: Column, ok, seg_id,
                      num_segments: int, group_live, start_idx) -> Column:
         """collect(x): each group's values as one row of a (groups, L)
@@ -1097,7 +1163,8 @@ class DeviceTable(Table):
         scatter.  The kept rows are in group-sorted (stable) order, so
         each list holds its values in row order: the oracle's collect
         order.  Nulls are dropped, so no element is null."""
-        if col.kind not in ("id", "int", "float", "str", "bool"):
+        if col.kind not in ("id", "int", "float", "str", "bool", "date",
+                            "datetime", "any"):
             raise UnsupportedOnDevice(f"group: collect over kind {col.kind}")
         if a.result_type is None or (
                 list_elem_kind(a.result_type) is None
@@ -1109,7 +1176,10 @@ class DeviceTable(Table):
                 f"group: collect to {a.result_type!r}, a list type with no "
                 f"device representation")
         dev = self.backend.device
-        dtype = list_dtype(list_elem_kind(a.result_type) or col.kind)
+        ek = list_elem_kind(a.result_type)
+        if ek == "any" or col.kind == "any":
+            ek, col = "any", A.to_any(col)
+        dtype = list_dtype(ek or col.kind)
         counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
         # the row width: the longest list rounded up to a power of two on
         # the card, so a param-generic replay whose longest list grows a
@@ -1127,11 +1197,14 @@ class DeviceTable(Table):
         sentinel = num_segments * L
         flat_idx = torch.where(ok, seg_id.to(torch.int64) * L + within,
                                torch.full_like(within, sentinel))
-        flat = torch.zeros(sentinel + 1, dtype=dtype, device=dev)
-        flat.scatter_(0, flat_idx, col.data.to(dtype))
-        data = flat[:-1].reshape(num_segments, L)
-        return Column("list", data, group_live, a.result_type,
-                      counts.to(torch.int32))
+        def scatter(values, dtype):
+            flat = torch.zeros(sentinel + 1, dtype=dtype, device=dev)
+            flat.scatter_(0, flat_idx, values.to(dtype))
+            return flat[:-1].reshape(num_segments, L)
+        return Column("list", scatter(col.data, dtype), group_live,
+                      a.result_type, counts.to(torch.int32),
+                      tags=(None if col.tags is None
+                            else scatter(col.tags, torch.int8)))
 
     # -- lists -----------------------------------------------------------
 
@@ -1148,12 +1221,6 @@ class DeviceTable(Table):
             rest[out_col] = Column(col.kind, col.data, col.valid, out_type,
                                    col.lens)
             return self._with_cols(rest)._compact(col.valid & self.row_ok)
-        out_kind = kind_for(out_type)
-        if out_kind == "object":
-            # a list of no element type (only nulls, or nothing), or the
-            # planner's CTAny id of an entity it joins back: the column
-            # takes the device list's element kind
-            out_kind = col.elem_kind
         ok = col.valid & self.row_ok
         lens = torch.where(ok, col.lens, torch.zeros_like(col.lens))
         total, live = self.backend.consume_rows(lens.sum())
@@ -1161,23 +1228,17 @@ class DeviceTable(Table):
         row, within, out_valid, _ = K.explode_expand(col.lens, ok, out_cap)
         out_cols = _gather_cols(rest, row)
         at = within.clamp(0, col.data.shape[1] - 1)
-        if col.data.dim() == 3:
-            # a list of lists: one list a row
-            if col.elem_valid is not None:
-                out_valid = out_valid & col.elem_valid[row, at]
-            out_cols[out_col] = Column(
-                "list", col.data[row, at], out_valid, out_type,
-                col.inner_lens[row, at],
-                elem_valid=(None if col.inner_valid is None
-                            else col.inner_valid[row, at]))
-            return DeviceTable(self.backend, out_cols, total, live=live)
-        values = col.data[row, at].to(_DTYPES[out_kind])
-        if col.elem_valid is not None:
-            out_valid = out_valid & col.elem_valid[row, at]
-        # elements of no type (an empty list's) are nulls to what reads
-        # them: the rows hold none
-        ctype = CTNull if out_type.material == CTVoid else out_type
-        out_cols[out_col] = Column(out_kind, values, out_valid, ctype)
+        # the elements take the device list's element kind (a list of no
+        # element type, or the planner's CTAny id of an entity it joins
+        # back, keep theirs); elements of no type (an empty list's) are
+        # nulls to what reads them: the rows hold none
+        elem = elem_at(col, row, at, out_valid)
+        out_kind = kind_for(out_type)
+        if out_kind not in ("object", "any", "list", "map") \
+                and elem.kind not in ("any", out_kind):
+            elem = elem.astype_kind(out_kind)
+        elem.ctype = CTNull if out_type.material == CTVoid else out_type
+        out_cols[out_col] = elem
         return DeviceTable(self.backend, out_cols, total, live=live)
 
     def pack_list(self, cols: Sequence[str], out_col: str,
@@ -1241,7 +1302,7 @@ class DeviceTable(Table):
         at, counts = [], []
         for i, c in enumerate(cols):
             col = self._cols[c]
-            if col.kind == "list":
+            if col.kind in ("list", "map", "duration", "any"):
                 continue
             at.append(i)
             counts.append(K.distinct_count(col.data, col.valid & self.row_ok))
@@ -1285,10 +1346,6 @@ class DeviceTable(Table):
         return d[:n].astype(dtype, copy=False), np.asarray(v[:n], bool)
 
 
-class ExprEvalError(Exception):
-    """A per-row runtime error of an expression (division by zero)."""
-
-
 def _named(compile_fn, op: str, expr: Expr):
     """Compile ``expr``; an expression without a device path raises
     :class:`UnsupportedOnDevice` naming the operator it was compiled for."""
@@ -1308,9 +1365,12 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
     """The first ``n_a`` rows of ``a`` then the first ``n_b`` of ``b``,
     padded to ``out_cap``; list columns widen to the wider of the two."""
     pad = out_cap - n_a - n_b
+    if a.kind == "map" or a.fields is not None or b.fields is not None:
+        raise UnsupportedOnDevice("union of maps")
     if a.kind == "list":
-        if a.data.dim() == 3 or b.data.dim() == 3:
-            raise UnsupportedOnDevice("union of lists of lists")
+        if a.nested or b.nested or (a.tags is None) != (b.tags is None):
+            raise UnsupportedOnDevice("union of lists of lists or of "
+                                      "values of mixed types")
         if a.data.dtype != b.data.dtype:
             if a.data.dtype in (torch.int32, torch.int64) and \
                     b.data.dtype in (torch.int32, torch.int64):
@@ -1333,10 +1393,19 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
             ev = F.pad(torch.cat([rows(a.valid_elems(), n_a, True),
                                   rows(b.valid_elems(), n_b, True)]),
                        (0, 0, 0, pad), value=True)
-        return Column("list", data, valid, ctype, lens, elem_valid=ev)
-    data = F.pad(torch.cat([a.data[:n_a], b.data[:n_b]]), (0, pad))
-    valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
-    return Column(a.kind, data, valid, ctype)
+        tags = None
+        if a.tags is not None:
+            tags = F.pad(torch.cat([rows(a.tags, n_a, 0),
+                                    rows(b.tags, n_b, 0)]), (0, 0, 0, pad))
+        return Column("list", data, valid, ctype, lens, elem_valid=ev,
+                      tags=tags)
+
+    def rows_of(x, y):
+        both = torch.cat([x[:n_a], y[:n_b]])
+        return F.pad(both, (0, 0) * (both.dim() - 1) + (0, pad))
+    return Column(a.kind, rows_of(a.data, b.data),
+                  rows_of(a.valid, b.valid), ctype,
+                  tags=None if a.tags is None else rows_of(a.tags, b.tags))
 
 
 # A list element's key where one int64 plane holds it (ids, string
@@ -1370,12 +1439,18 @@ def _list_sort_keys(col: Column, ascending: bool, nulls_last: bool,
         if rank.shape[0]:
             data = rank[data.clamp(0, rank.shape[0] - 1).long()]
     keys = [null_key]
-    if ek in ("int", "float"):
+    if ek in ("int", "float", "date", "datetime", "any"):
         tag = torch.where(inside, torch.where(ev, 1, 2), 0).to(torch.int64)
-        val = torch.where(inside & ev, data, torch.zeros_like(data))
+        if ek == "any":
+            vals = A.view(Column("any", data, col.valid, col.ctype,
+                                 tags=col.tags), backend.rank_tensor())
+        else:
+            vals = (data,)
         for i in range(W):
             keys.append(sign * tag[:, i])
-            keys.append(val[:, i] if ascending else -val[:, i])
+            for v in vals:
+                v = torch.where(inside & ev, v, torch.zeros_like(v))
+                keys.append(v[:, i] if ascending else -v[:, i])
         return keys
     v = data.to(torch.int64)
     v = torch.where(inside, torch.where(ev, v, _LIST_NULL), _LIST_ABSENT)
@@ -1389,12 +1464,24 @@ def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
     for an ascending lexicographic sort (a list column into its planes,
     :func:`_list_sort_keys`)."""
     if col.kind == "list":
-        if col.data.dim() == 3:
-            raise UnsupportedOnDevice(f"{op}: sorting by a list of lists")
+        if col.nested or col.fields is not None:
+            raise UnsupportedOnDevice(f"{op}: sorting by a list of lists "
+                                      f"or of maps")
         return _list_sort_keys(col, ascending, nulls_last, backend)
+    if col.kind == "any":
+        return A.sort_keys(col, ascending, nulls_last, backend.rank_tensor())
+    if col.kind == "map":
+        return M.sort_keys(col, ascending, nulls_last, lambda c: _sort_keys(
+            c, ascending, nulls_last, backend, op))
     null_key = (~col.valid).to(torch.int64)
     if not nulls_last:
         null_key = -null_key
+    if col.kind == "duration":
+        # (months, days, seconds): the reference's deterministic key
+        planes = torch.where(col.valid[:, None], col.data,
+                             torch.zeros_like(col.data))
+        sign = 1 if ascending else -1
+        return [null_key] + [sign * planes[:, i] for i in range(3)]
     if col.kind == "str":
         rank = backend.rank_tensor()
         if rank.shape[0] == 0:

@@ -18,12 +18,11 @@ from caps_tpu_torch.okapi.values import (
     is_temporal, temporal_component, temporal_construct,
 )
 from caps_tpu_torch.relational.header import RecordHeader
+from caps_tpu_torch.relational.table import ExprEvalError  # noqa: F401
 
 GetCol = Callable[[str], List[Any]]
 
 
-class ExprEvalError(Exception):
-    pass
 
 
 def evaluate(expr: E.Expr, n_rows: int, getcol: GetCol, header: RecordHeader,

@@ -3,7 +3,9 @@
 The port's counterpart of carrying weights across: the same arrays a
 test hands ``caps_tpu``'s ``TableFactory.from_columns`` build the port's
 ``NodeTable`` / ``RelationshipTable`` here, so both engines hold the same
-graph.  Numeric arrays are copied to the device in bulk.
+graph.  Numeric arrays are copied to the device in bulk, and so are
+``datetime64`` arrays: days (``datetime64[D]``) as dates, any finer unit
+as datetimes in microseconds, ``NaT`` a null.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 
 from caps_tpu_torch.okapi.types import (
-    CTBoolean, CTFloat, CTInteger, CTString, CypherType,
+    CTBoolean, CTDate, CTDateTime, CTFloat, CTInteger, CTString, CypherType,
 )
 from caps_tpu_torch.relational.entity_tables import (
     NodeMapping, NodeTable, RelationshipMapping, RelationshipTable,
@@ -38,6 +40,9 @@ def ctype_of(values: Any) -> CypherType:
         return CTFloat
     if kind in "USO":
         return CTString
+    if kind == "M":
+        return CTDate if np.datetime_data(arr.dtype)[0] == "D" \
+            else CTDateTime
     raise TypeError(f"no Cypher type for numpy dtype {arr.dtype}")
 
 

@@ -23,6 +23,11 @@ from caps_tpu_torch.okapi.types import CypherType
 from caps_tpu_torch.relational.header import RecordHeader
 
 
+class ExprEvalError(Exception):
+    """A runtime error of an expression on a row (division by zero, a
+    malformed temporal value): every backend raises this class."""
+
+
 @dataclasses.dataclass(frozen=True)
 class AggSpec:
     """One aggregation over a pre-projected input column.

@@ -135,18 +135,9 @@ def _copy_device_table(backend, table):
     current stream), each through its placement seam; the ingest-time
     host mirrors are shared (immutable numpy arrays), so the target
     builds its CSR from them as an ingest does."""
-    from caps_tpu_torch.backends.cuda.column import Column
     from caps_tpu_torch.backends.cuda.table import DeviceTable
-    dev = backend.device
-    cols = {}
-    for c, col in table._cols.items():
-        cols[c] = backend.place_column(Column(
-            col.kind, col.data.to(dev, copy=True),
-            col.valid.to(dev, copy=True), col.ctype,
-            None if col.lens is None else col.lens.to(dev, copy=True),
-            host=col.host,
-            elem_valid=(None if col.elem_valid is None
-                        else col.elem_valid.to(dev, copy=True))))
+    cols = {c: backend.place_column(col.to_device(backend.device))
+            for c, col in table._cols.items()}
     return DeviceTable(backend, cols, table._n)
 
 

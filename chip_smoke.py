@@ -296,6 +296,30 @@ QUERY_LISTS_L3 = (
     "ORDER BY ages, cities LIMIT 1000")
 QUERY_LISTS_L3_CITY = QUERY_LISTS_L3.replace(
     "WHERE a.age = $age", "WHERE a.age = $age AND a.city = $city")
+# The values phase, on the slice's graph with three temporal properties
+# added (born, joined, since): temporal grouping over the seeds' friends
+# (V1), the whole graph's temporal arithmetic (V2), maps and strings built
+# from columns (V3), mixed-type values (V4).
+QUERY_VALUES_V1 = (
+    "MATCH (a:Person)-[k:KNOWS]->(b:Person) WHERE a.age = $age "
+    "AND k.since >= datetime($from) RETURN b.born.year AS year, "
+    "count(*) AS n, min(b.born) AS first, max(k.since) AS last "
+    "ORDER BY year")
+QUERY_VALUES_V2 = (
+    "MATCH (a:Person)-[k:KNOWS]->(b:Person) "
+    "WITH a, k.since + duration({days: 30}) AS due, b.born AS born "
+    "WHERE due.year = 2020 AND date(due) > born + duration('P18Y') "
+    "RETURN a.city AS city, count(*) AS n, min(due) AS first")
+QUERY_VALUES_V3 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age "
+    "RETURN {pair: a.city + '/' + b.city, born: toString(b.born), "
+    "age: b.age} AS m, properties(b) AS p, keys(b) AS ks, id(b) AS b "
+    "ORDER BY m.pair, b LIMIT 1000")
+QUERY_VALUES_V4 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age "
+    "UNWIND [b.age, toFloat(b.age) / 4, b.city, b.born] AS v "
+    "RETURN DISTINCT v ORDER BY v LIMIT 30000")
+VALUES_FROM = "2015-06-01T00:00:00"   # V1's $from
 # The cyclic phase on the slice's graph: the seeded triangle, enumerated
 # (the multiway join, MultiwayJoinOp over K2).
 QUERY_TRIANGLE = ("MATCH (a:Person)-[r1:KNOWS]->(b)-[r2:KNOWS]->(c), "
@@ -323,6 +347,15 @@ KERNELS = {
                         "caps_tpu/ops/probe.py:94"),
 }
 ROTATING = 24   # $age values of the warm phase's param-generic sequence
+# Launches one exact replay of each values query makes at least: the
+# joins on K2, the sort of up to 16,384 rows on K3 (V1's ORDER BY of its
+# years); V1 groups, V3 orders and V4 deduplicates the seeds' 137,125
+# friend rows (or 4 times as many) and orders about 25,000 distinct
+# values, and V2 groups 10M, on the torch sort.
+MIN_VALUES_LAUNCHES = {"V1": {"expand_positions": 1, "bitonic_sort": 1},
+                       "V2": {"expand_positions": 1},
+                       "V3": {"expand_positions": 1},
+                       "V4": {"expand_positions": 1}}
 # Launches one run of the grouped query makes of the kernels it runs
 # itself (K4 runs only in the self-test): two joins per hop, one
 # group-by, one sort of the grouped rows.
@@ -1543,6 +1576,290 @@ def run_lists(torch, np, args, card: str, state):
     emit(out)
     return ({"lists": launches["L1"]},
             {f"lists_{k}": v for k, v in calls.items()})
+
+
+# The values phase's temporal properties: born uniform over 1940-01-01 …
+# 2005-12-31 (epoch days, 5 % null), joined over 2000 … 2024 and since
+# over 2010 … 2024 (epoch microseconds)
+VALUES_BORN_DAYS = (-10_957, 13_148)
+VALUES_JOINED_US = (946_684_800_000_000, 1_735_689_600_000_000)
+VALUES_SINCE_US = (1_262_304_000_000_000, 1_735_689_600_000_000)
+US_PER_DAY = 86_400_000_000
+
+
+def values_arrays(np, nodes, rels, seed: int):
+    """The slice's arrays with born, joined (persons) and since (KNOWS)
+    added as ``datetime64`` columns, drawn from the seed."""
+    rng = np.random.default_rng(seed + 7)
+    person, knows = nodes["Person"], rels["KNOWS"]
+    n, m = len(person["_id"]), len(knows["_id"])
+    born = rng.integers(VALUES_BORN_DAYS[0], VALUES_BORN_DAYS[1] + 1,
+                        n).astype("datetime64[D]")
+    born[rng.random(n) < 0.05] = np.datetime64("NaT")
+    joined = rng.integers(*VALUES_JOINED_US, n).astype("datetime64[us]")
+    since = rng.integers(*VALUES_SINCE_US, m).astype("datetime64[us]")
+    return ({"Person": {**person, "born": born, "joined": joined}},
+            {"KNOWS": {**knows, "since": since}})
+
+
+def np_years(np, days):
+    """The calendar year of epoch days."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def np_add_months(np, days, months: int):
+    """Epoch days moved by ``months``, the day clamped to the month's
+    length (``CypherDate.plus``)."""
+    d = days.astype("datetime64[D]")
+    mo = d.astype("datetime64[M]")
+    day = (d - mo.astype("datetime64[D]")).astype(np.int64)
+    tm = mo + months
+    first = tm.astype("datetime64[D]")
+    length = ((tm + 1).astype("datetime64[D]") - first).astype(np.int64)
+    return first.astype(np.int64) + np.minimum(day, length - 1)
+
+
+def values_columns(np, vnodes, vrels):
+    """(born days, born null, since µs) as int64 / bool arrays."""
+    born = vnodes["Person"]["born"]
+    nat = np.isnat(born)
+    days = np.where(nat, 0, born.astype(np.int64))
+    return days, nat, vrels["KNOWS"]["since"].astype(np.int64)
+
+
+def values_v1_oracle(np, vnodes, vrels, age: int) -> list:
+    person, knows = vnodes["Person"], vrels["KNOWS"]
+    days, nat, since = values_columns(np, vnodes, vrels)
+    src, tgt = knows["_src"], knows["_tgt"]
+    start = int(np.datetime64(VALUES_FROM, "us").astype(np.int64))
+    sel = np.flatnonzero((person["age"][src] == age) & (since >= start))
+    t, s_us = tgt[sel], since[sel]
+    ok = ~nat[t]
+    year = np.where(ok, np_years(np, days[t]), 1 << 40)
+    rows = []
+    for y in np.unique(year):
+        g = year == y
+        rows.append({"year": None if y == 1 << 40 else int(y),
+                     "n": int(g.sum()),
+                     "first": int(days[t][g & ok].min()) if (g & ok).any()
+                     else None, "last": int(s_us[g].max())})
+    return rows
+
+
+def values_v2_oracle(np, vnodes, vrels) -> list:
+    person, knows = vnodes["Person"], vrels["KNOWS"]
+    days, nat, since = values_columns(np, vnodes, vrels)
+    src, tgt = knows["_src"], knows["_tgt"]
+    due = since + 30 * US_PER_DAY
+    due_days = due // US_PER_DAY
+    adult = np_add_months(np, days[tgt], 18 * 12)
+    ok = ~nat[tgt] & (np_years(np, due_days) == 2020) & (due_days > adult)
+    names, codes = city_codes(np, vnodes)
+    c = codes[src[ok]]
+    count = np.bincount(c, minlength=len(names))
+    first = np.full(len(names), np.iinfo(np.int64).max)
+    np.minimum.at(first, c, due[ok])
+    return [{"city": str(names[i]), "n": int(count[i]),
+             "first": int(first[i])} for i in np.flatnonzero(count)]
+
+
+def values_v3_oracle(np, vnodes, vrels, age: int) -> list:
+    person, knows = vnodes["Person"], vrels["KNOWS"]
+    days, nat, _since = values_columns(np, vnodes, vrels)
+    joined = person["joined"].astype(np.int64)
+    src, tgt = knows["_src"], knows["_tgt"]
+    sel = np.flatnonzero(person["age"][src] == age)
+    s, t = src[sel], tgt[sel]
+    city = person["city"]
+    pair = np.char.add(np.char.add(city[s].astype(str), "/"),
+                       city[t].astype(str))
+    top = np.lexsort((t, pair))[:1000]
+    iso = np.datetime_as_string(days.astype("datetime64[D]"))
+    rows = []
+    for i in top:
+        b = int(t[i])
+        p = {"age": int(person["age"][b]), "city": str(city[b]),
+             "joined": int(joined[b])}
+        if not nat[b]:
+            p["born"] = int(days[b])
+        rows.append({"m": {"pair": str(pair[i]),
+                           "born": None if nat[b] else str(iso[b]),
+                           "age": int(person["age"][b])},
+                     "p": p, "ks": sorted(p), "b": b})
+    return rows
+
+
+def values_v4_oracle(np, vnodes, vrels, age: int) -> list:
+    """V4's distinct values in the global sort order as (class, value)
+    keys: strings, then numbers (an int and a float of one value are
+    one), then dates, then null."""
+    person, knows = vnodes["Person"], vrels["KNOWS"]
+    days, nat, _since = values_columns(np, vnodes, vrels)
+    t = knows["_tgt"][person["age"][knows["_src"]] == age]
+    ages = person["age"][t]
+    keys = sorted({(0, str(c)) for c in person["city"][t]}) + sorted(
+        {(2, float(v)) for v in np.r_[ages, ages / 4.0]}) + sorted(
+        {(4, int(d)) for d in days[t][~nat[t]]})
+    return ((keys + [(9,)]) if nat[t].any() else keys)[:30000]
+
+
+def values_norm(v):
+    """An engine's value as the oracles write it: dates as epoch days,
+    datetimes as epoch microseconds, maps as dicts."""
+    name = type(v).__name__
+    if name == "CypherDate":
+        return v.days
+    if name == "CypherDateTime":
+        return v.micros
+    if isinstance(v, dict):
+        return {k: values_norm(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [values_norm(x) for x in v]
+    return v
+
+
+def values_v4_key(v):
+    if v is None:
+        return (9,)
+    if isinstance(v, str):
+        return (0, v)
+    if type(v).__name__ == "CypherDate":
+        return (4, v.days)
+    return (2, float(v))
+
+
+def run_values(torch, np, args, card: str, state):
+    """Temporal values, maps, mixed-type values and strings built from
+    columns on the slice's graph with born, joined and since added in
+    bulk, in a session of its own: each query's cold run and 5 exact replays, V1 also over the
+    warm phase's 24 rotating ages (param-generic replays), every run
+    against its numpy oracle; per query the size reads and held-value
+    reads of one more exact replay, the kernel calls and launches of
+    the last exact replay, and one exact replay under the profiler."""
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    _session, _graph, nodes, rels, _ = state
+    t0 = time.perf_counter()
+    vnodes, vrels = values_arrays(np, nodes, rels, args.seed)
+    arrays_s = time.perf_counter() - t0
+    # a session of its own: the strings V3 builds (about 150,000) stay in
+    # its pool, which would take the later phases' group-bys by city off
+    # the dense path (K1 takes a pool of at most 4,095 strings)
+    session = caps_tpu_torch.local_session()
+    graph = graph_from_numpy(session, vnodes, vrels)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0 - arrays_s
+    rng = np.random.default_rng(args.seed + 1)   # the warm phase's ages
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    out = {"phase": "values", "card": card, "age": AGE, "ages": ages,
+           "arrays_s": arrays_s, "ingest_s": ingest_s,
+           "added_bytes": int(sum(a.nbytes for a in (
+               vnodes["Person"]["born"], vnodes["Person"]["joined"],
+               vrels["KNOWS"]["since"])))}
+
+    def v1_rows(rows):
+        return [{k: values_norm(r[k]) for k in ("year", "n", "first",
+                                                "last")} for r in rows]
+
+    def v2_rows(rows):
+        return sorted(({k: values_norm(r[k]) for k in ("city", "n",
+                                                        "first")}
+                       for r in rows), key=lambda r: r["city"])
+
+    def v3_rows(rows):
+        return [{k: values_norm(r[k]) for k in ("m", "p", "ks", "b")}
+                for r in rows]
+
+    def v4_rows(rows):
+        return [values_v4_key(r["v"]) for r in rows]
+
+    queries = {
+        "V1": (QUERY_VALUES_V1, lambda a: {"age": a, "from": VALUES_FROM},
+               lambda a: values_v1_oracle(np, vnodes, vrels, a), v1_rows),
+        "V2": (QUERY_VALUES_V2, lambda a: {},
+               lambda a: values_v2_oracle(np, vnodes, vrels), v2_rows),
+        "V3": (QUERY_VALUES_V3, lambda a: {"age": a},
+               lambda a: values_v3_oracle(np, vnodes, vrels, a), v3_rows),
+        "V4": (QUERY_VALUES_V4, lambda a: {"age": a},
+               lambda a: values_v4_oracle(np, vnodes, vrels, a), v4_rows),
+    }
+    launches, calls, phase_launches = {}, {}, {}
+    for label, (query, params, want, norm) in queries.items():
+        recorders = query_recorders()
+        t1 = time.perf_counter()
+        expected = want(AGE)
+        oracle_s = time.perf_counter() - t1
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params(AGE), card,
+                                          recorders=recorders)
+        expect(label, norm(rows) == expected,
+               f"disagrees with numpy ({len(rows)} rows, {len(expected)} "
+               f"expected):\ngot  {norm(rows)[:3]}\nwant {expected[:3]}",
+               "values")
+        replay = graph.cypher(query, params(AGE))
+        expect(label, norm(replay.records.to_maps()) == expected,
+               "the counted replay disagrees with numpy", "values")
+        expect(label, session.fused.last_mode == "replay",
+               f"the counted run was a {session.fused.last_mode}", "values")
+        info["replay_size_syncs"] = replay.metrics["size_syncs"]
+        info["replay_held_reads"] = replay.metrics["held_reads"]
+        expect(label, replay.metrics["size_syncs"] == 0,
+               f"an exact replay read {replay.metrics['size_syncs']} sizes",
+               "values")
+        # V3 builds strings (a.city + '/', then that + b.city, and
+        # toString of a date): one read of the held values each; the
+        # others none
+        expect(label, replay.metrics["held_reads"] == (
+            3 if label == "V3" else 0),
+               f"an exact replay read held values "
+               f"{replay.metrics['held_reads']} times", "values")
+        check_query_launches(f"the values query {label}'s replay",
+                             info["replay_launches"],
+                             MIN_VALUES_LAUNCHES.get(label, {}))
+        info.update({
+            "rows": len(rows), "oracle_s": oracle_s,
+            "k_launches": {k: info["replay_launches"].get(k, 0)
+                           for k in ("segment_agg", "expand_positions",
+                                     "bitonic_sort")},
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(
+                    query, params(AGE)).records.to_maps()),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]]})
+        if label == "V1":
+            gen_times, gen_runs = [], []
+            for a in ages:
+                r, res, t = timed_query(torch, graph, query, params(a))
+                gen_runs.append(run_info(session, res))
+                if gen_runs[-1]["mode"] == "replay_gen":
+                    gen_times.append(t)
+                expect(label, norm(r) == want(a),
+                       f"age {a}: {len(r)} rows disagree with numpy",
+                       "values")
+            expect(label, gen_times, f"no generic replay: {gen_runs}",
+                   "values")
+            info.update({
+                "generic_s": statistics.median(gen_times),
+                "generic_runs_s": gen_times,
+                "generic_size_syncs": [r["size_syncs"] for r in gen_runs],
+                "generic_modes": [r["mode"] for r in gen_runs]})
+        launches[label] = info["replay_launches"]
+        for k, n in info["replay_launches"].items():
+            phase_launches[k] = phase_launches.get(k, 0) + n
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    expect("phase", not MIN_VALUES_LAUNCHES or all(
+        phase_launches.get(k, 0) for k in ("expand_positions",
+                                           "bitonic_sort")),
+           f"K2 or K3 never launched: {phase_launches}", "values")
+    out["phase_launches"] = phase_launches
+    out["pool_strings"] = len(session.backend.pool)
+    del graph, session
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"values": launches},
+            {f"values_{k}": v for k, v in calls.items()})
 
 
 def np_expand(np, starts, counts):
@@ -4934,6 +5251,9 @@ def main() -> int:
     lists_launches, lists_calls = run_lists(torch, np, args, card, state)
     launches.update(lists_launches)
     pattern_calls.update(lists_calls)
+    values_launches, values_calls = run_values(torch, np, args, card, state)
+    launches.update(values_launches)
+    pattern_calls.update(values_calls)
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)
@@ -5022,6 +5342,9 @@ def main() -> int:
             "launches_ldbc_ic12_replay": launches["ldbc_ic12"].get(name, 0),
             # one exact replay of the lists phase's first query (L1)
             "launches_lists_replay": launches["lists"].get(name, 0),
+            # one exact replay of each values-phase query
+            "launches_values_replay": {
+                q: n.get(name, 0) for q, n in launches["values"].items()},
             # one exact replay of the seeded triangle on the multiway join
             "launches_wcoj_triangle_replay": launches["wcoj_triangle"].get(
                 name, 0),

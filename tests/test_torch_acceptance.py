@@ -29,7 +29,7 @@ from caps_tpu_torch.testing.suites import (
 
 GAPS = load_acceptance_gaps()
 # The longest the list may be; each slice that closes gaps lowers it.
-MAX_LISTED = 9
+MAX_LISTED = 0
 COUNTS = {"aggregation": 16, "comprehension": 19, "functions": 12,
           "match": 15, "optional_match": 6, "path": 19, "predicate": 12,
           "temporal": 6, "with": 12}

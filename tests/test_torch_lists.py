@@ -432,15 +432,17 @@ def test_exact_replay_of_a_comprehension_reads_nothing(engines):
 
 
 @pytest.mark.parametrize("query,cause", [
-    ("MATCH (a:Person) RETURN {k: a.age} AS m", "MapLit"),
-    ("MATCH (a:Person) RETURN [a.age, 2.5] AS l", "list of CTNumber"),
-    ("MATCH (a:Person) RETURN [1, 2.5] AS l", "list of CTNumber"),
-    ("MATCH (a:Person) RETURN a.name + a.name AS s",
-     "concatenation of two string columns"),
-    ("MATCH (a:Person) RETURN reduce(s = '', x IN [a.name] | s + x) AS s",
-     "concatenation of two string columns"),
-], ids=["map_literal", "number_list_columns", "number_list_constant",
-        "string_columns", "string_reduce"])
+    ("MATCH (a:Person)-[r:KNOWS]->(b:Person) "
+     "RETURN [x IN [a, r] | 1] AS l", "list of nodes and relationships"),
+    ("MATCH (a:Person) RETURN [[[a.age]]] AS l", "list of"),
+    ("MATCH (a:Person) RETURN [[a.age]] = [[1]] AS e",
+     "comparing lists of lists"),
+    ("MATCH (a:Person) RETURN substring(a.name, a.age) AS s",
+     "is not a constant"),
+    ("MATCH (a:Person) RETURN [duration({days: a.age})] AS l",
+     "list of CTDuration"),
+], ids=["nodes_and_relationships", "three_levels", "lists_of_lists_equal",
+        "string_function_column_argument", "list_of_durations"])
 def test_causes_left_out_raise_on_the_device_path(engines, query, cause):
     with pytest.raises(UnsupportedOnDevice, match=cause):
         engines[0].cypher(query, {}).records.to_maps()

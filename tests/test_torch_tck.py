@@ -24,7 +24,7 @@ from caps_tpu_torch.tck.runner import (
 SCENARIOS = load_features()
 GAPS = load_gaps(BLACKLIST)
 # The longest the list may be; each slice that closes gaps lowers it.
-MAX_LISTED = 26
+MAX_LISTED = 0
 # Operators with a device path: no listed scenario may raise for one.
 PORTED_OPERATORS = ("explode", "collect", "cross join", "DISTINCT",
                     "percentile")
