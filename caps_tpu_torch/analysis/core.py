@@ -45,8 +45,8 @@ DEFAULT_SERVE_MODULES = frozenset({
     "__init__.py", "admission.py", "batcher.py", "breaker.py",
     "compaction.py", "deadline.py", "devices.py", "errors.py",
     "failure.py", "fleet.py", "ha.py", "request.py", "retry.py",
-    "router.py", "server.py", "warmup.py", "wire.py",
-})  # the reference's shards.py comes with multi-GPU (ROADMAP item 12)
+    "router.py", "server.py", "shards.py", "warmup.py", "wire.py",
+})
 
 
 @dataclasses.dataclass(frozen=True)

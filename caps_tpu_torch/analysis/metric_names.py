@@ -222,6 +222,15 @@ by capslint's `metric-names` pass from the literal call sites in
 `session.metrics_snapshot()` to `<name>.count` / `.sum` / `.min` /
 `.max` / `.mean`.
 
+`collectives.<op>.calls` / `.traced_bytes` keep the JAX package's names
+but count per RUN: each call of a `parallel/collectives.py` collective
+adds one call and the bytes it moves (the JAX package's wrappers run
+once per trace of a `shard_map` program, so there they count per
+compile).  `backend.ici_bytes` / `.ici_payload_bytes` (and the per-query
+`ici_bytes` metrics) count the bytes that cross between shards; on a
+virtual mesh, whose shards share one card, that is a copy within the
+card's memory.
+
 ```python
 from caps_tpu_torch.obs.metrics import MetricsRegistry
 

@@ -86,7 +86,7 @@ def _merge_streams(merged: List[Tuple], rec: List[Tuple],
     """Merge a fresh recording into the param-generic stream: entry
     tags must align 1:1 (the op sequence must not depend on params);
     capacity-like values widen to the max, lower bounds to the min,
-    exact values must agree, stats take the latest.  Returns
+    exact values must agree, stats and objects take the latest.  Returns
     None when the streams are structurally incompatible (the query is
     then not param-generic).
 
@@ -100,7 +100,13 @@ def _merge_streams(merged: List[Tuple], rec: List[Tuple],
     for m, r in zip(merged, rec):
         if m[0] != r[0]:
             return None
-        if m[0] == "rows":
+        if m[0] == "__obj__":
+            # host objects take the LATEST recording and are served
+            # unchecked under generic replay: soundness rests on the
+            # consume_obj invariant (table.py) — every consumer is guarded
+            # by a later relation-checked consume
+            out.append(r)
+        elif m[0] == "rows":
             hi = max(m[1], r[1])
             if widen_rows is not None and r[1] > m[1]:
                 hi = max(hi, widen_rows(r[1]))
@@ -241,6 +247,15 @@ class FusedExecutor:
                 state["result"] = thunk()
             return state["result"]
 
+    def clear(self) -> int:
+        """Drop every exact memo and generic stream (a re-shard changes
+        every recorded size: ``session.shrink_and_reshard``).  Returns
+        the memos dropped."""
+        n = len(self._memo)
+        self._memo.clear()
+        self._generic.clear()
+        return n
+
     def evict_dependents(self, qgn=None) -> int:
         """The session's catalog subscription: drop the exact memo of
         every query that resolved the catalog graph ``qgn`` (any catalog
@@ -377,6 +392,7 @@ class FusedExecutor:
             entries = generic[1]
             cursor = [0]
             backend._replay_viol = None
+            backend._obj_unguarded = 0
             backend.count_mode = ("replay_gen", entries, cursor)
             try:
                 yield
@@ -386,6 +402,15 @@ class FusedExecutor:
                 raise FusedReplayMismatch(
                     f"generic replay consumed {cursor[0]} of "
                     f"{len(entries)} merged sizes — op sequence diverged")
+            if backend.config.debug_obj_guard and backend._obj_unguarded:
+                # consume_obj invariant (table.py): a served host object
+                # with no later relation-checked consume could shape
+                # results undetected
+                raise AssertionError(
+                    f"{backend._obj_unguarded} __obj__ entr"
+                    f"{'y' if backend._obj_unguarded == 1 else 'ies'} "
+                    "served under generic replay without a downstream "
+                    "relation-checked consume guarding them")
             viol = backend._replay_viol
             backend._replay_viol = None
             if viol is not None:

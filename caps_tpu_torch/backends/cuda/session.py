@@ -101,6 +101,9 @@ class CUDACypherSession(RelationalCypherSession):
                      and not is_update_query(query))
         syncs0, held0 = be.syncs, be.held_reads
         generic0 = self.fused.generic_replays
+        # the mesh's communication accounting, as per-query deltas
+        dist0 = (be.ici_bytes, be.dist_joins, be.broadcast_joins,
+                 be.ici_payload_bytes, be.salted_joins)
         if not use_fused:
             result = super()._cypher_on_graph(graph, query, parameters)
         else:
@@ -133,6 +136,12 @@ class CUDACypherSession(RelationalCypherSession):
         if result.metrics is not None:
             result.metrics["size_syncs"] = be.syncs - syncs0
             result.metrics["held_reads"] = be.held_reads - held0
+            for name, v0 in zip(("ici_bytes", "dist_joins",
+                                 "broadcast_joins", "ici_payload_bytes",
+                                 "salted_joins"), dist0):
+                result.metrics[name] = getattr(be, name) - v0
+            if be.mesh is not None:
+                result.metrics["mesh"] = be.mesh.describe()
             if use_fused:
                 result.metrics["fused_generic_replays"] = \
                     self.fused.generic_replays - generic0
@@ -200,5 +209,103 @@ class CUDACypherSession(RelationalCypherSession):
             "fused.batches": fused.batches,
             "fused.batch_members": fused.batch_members,
             "fused.count_builds": self.backend.count_builds,
+            "backend.ici_bytes": self.backend.ici_bytes,
+            "backend.ici_payload_bytes": self.backend.ici_payload_bytes,
+            "backend.dist_joins": self.backend.dist_joins,
+            "backend.broadcast_joins": self.backend.broadcast_joins,
+            "backend.salted_joins": self.backend.salted_joins,
         })
         return snap
+
+    def health_check(self) -> dict:
+        """Device health probe (SURVEY.md §5.3): a tiny canary
+        computation on every shard's device (the session's device
+        without a mesh), checked on the host.  Returns {shard: bool},
+        keyed by ``str`` of the mesh slot (``"cuda:0#3"``) or of the
+        device.  A failing device reports False instead of raising, so
+        callers can shrink the mesh and re-shard."""
+        be = self.backend
+        targets = (list(be.mesh.slots) if be.mesh is not None
+                   else [self.device])
+        status = {}
+        for t in targets:
+            dev = getattr(t, "device", t)
+            try:
+                x = torch.arange(8, dtype=torch.int32, device=dev)
+                ok = int((x * 2 + 1).sum()) == 64
+            except Exception:
+                ok = False
+            status[str(t)] = ok
+        return status
+
+    def shrink_and_reshard(self, healthy=None, graphs=None) -> int:
+        """Failure recovery (SURVEY.md §5.3): rebuild the mesh over the
+        surviving shard slots (the largest power-of-two prefix, so
+        bucketed capacities stay divisible; a 2-D mesh regroups the
+        survivors by their DCN row and keeps rows slice-contiguous),
+        re-place every column of every catalog graph (and of
+        ``graphs``) on the new lead device, and rebuild each
+        relationship table's CSR.  Returns the new shard count.
+
+        A re-shard changes the shard count and with it every recorded
+        size stream (bin capacities, per-shard output sizes): the fused
+        executor's memo, the plan cache's entries and the count
+        closures of the re-placed graphs are dropped, so the next run of
+        any query re-records.
+
+        ``healthy``: the surviving mesh slots (default: those whose
+        ``health_check`` passes)."""
+        from caps_tpu_torch.okapi.catalog import SessionGraphDataSource
+        from caps_tpu_torch.parallel.mesh import mesh_from_slots
+        be = self.backend
+        old = be.mesh
+        if healthy is None:
+            status = self.health_check()
+            pool = list(old.slots) if old is not None else []
+            healthy = [d for d in pool if status.get(str(d), False)]
+        if not healthy:
+            raise RuntimeError("no healthy devices to reshard onto")
+        if old is not None and old.devices.ndim == 2:
+            by_row = []
+            for row in old.devices:
+                keep = [d for d in row if d in healthy]
+                if keep:
+                    by_row.append(keep)
+            width = 1 << (min(len(v) for v in by_row).bit_length() - 1)
+            rows = [v[:width] for v in by_row]
+            be.mesh = mesh_from_slots(rows)
+            survivors = [d for r in rows for d in r]
+        else:
+            k = 1 << (len(healthy).bit_length() - 1)
+            survivors = list(healthy[:k])
+            be.mesh = mesh_from_slots(survivors)
+        lead = getattr(survivors[0], "device", self.device)
+        be.device = self.device = torch.device(lead)
+        be.fused_count_static.clear()
+        be.fused_count_fns.clear()
+        be.algo_fns.clear()
+
+        targets = list(graphs or [])
+        for ns in self.catalog.namespaces:
+            src = self.catalog.source(ns)
+            if isinstance(src, SessionGraphDataSource):
+                targets.extend(src.graph(g) for g in src.graph_names())
+        from caps_tpu_torch.backends.cuda.table import DeviceTable
+        seen = set()
+        for g in targets:
+            for et in (tuple(getattr(g, "node_tables", ()))
+                       + tuple(getattr(g, "rel_tables", ()))):
+                t = et.table
+                if id(t) in seen or not isinstance(t, DeviceTable):
+                    continue
+                seen.add(id(t))
+                t._cols = {c: col.to_device(be.device)
+                           for c, col in t._cols.items()}
+            for rt in getattr(g, "rel_tables", ()):
+                # rebuild the CSR physical layout on the new placement
+                self._factory.prepare_rel_table(rt)
+        # every recorded size stream and cached plan was made for the
+        # old shard count
+        self.fused.clear()
+        self.plan_cache.clear()
+        return be.n_shards

@@ -43,6 +43,7 @@ from caps_tpu_torch.backends.cuda import maps as M
 from caps_tpu_torch.backends.cuda.pool import make_pool
 from caps_tpu_torch.relational.table import ExprEvalError
 from caps_tpu_torch.ir.exprs import Expr
+from caps_tpu_torch.obs import active_tracer
 from caps_tpu_torch.okapi.config import EngineConfig
 from caps_tpu_torch.okapi.types import (
     CTFloat, CTInteger, CTNull, CTVoid, CypherType,
@@ -105,14 +106,54 @@ class DeviceBackend:
         # the id set's identity; the set is kept in the entry so its id
         # cannot be reused while the entry lives
         self._tombstones: Dict[int, Tuple[Any, torch.Tensor]] = {}
+        # debug_obj_guard bookkeeping: __obj__ entries served under
+        # generic replay with no non-stat relation check after them yet
+        # (see consume_obj's invariant)
+        self._obj_unguarded = 0
+        # Distributed-join accounting (SURVEY.md §5.5/§5.8), under the
+        # JAX package's names: bytes that cross between shards in the
+        # hand-scheduled exchanges (the padded buffers, each counted once
+        # per shard it reaches — on a virtual mesh a copy within one
+        # card's memory), the live-row payload of those buffers measured
+        # on the device, and how often each strategy ran.
+        self.ici_bytes = 0
+        self.ici_payload_bytes = 0
+        self.dist_joins = 0       # radix exchange joins executed
+        self.broadcast_joins = 0  # broadcast joins executed
+        self.salted_joins = 0     # radix joins that salted hot keys
+        # last cost-model distribution decision (relational/cost.py
+        # choose_dist_strategy)
+        self.last_dist_decision: Optional[Dict] = None
+        self.mesh = None
+        if config.mesh_shape:
+            import math
+            from caps_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+            # degenerate leading axes collapse to a 1-D mesh, so (1, 8)
+            # keeps the ring schedules that (8,) gets
+            if math.prod(config.mesh_shape[:-1] or (1,)) > 1:
+                self.mesh = make_mesh_2d(
+                    (math.prod(config.mesh_shape[:-1]),
+                     config.mesh_shape[-1]), device=device)
+            else:
+                self.mesh = make_mesh(math.prod(config.mesh_shape),
+                                      device=device)
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
 
     def bucket(self, n: int) -> int:
         return max(1, self.shapes.bucket(n))
 
     def place_column(self, col: Column) -> Column:
-        """The placement seam every ingested column passes (one card:
-        nothing to move).  Fault injection (testing/faults.py
-        ``abort_write``, ``flaky_compaction``) wraps it."""
+        """The placement seam every ingested column passes.  Nothing
+        moves, also on a mesh: a column keeps its rows whole on the lead
+        device (there is no partitioner to keep 1/n of a table per card);
+        the hand-scheduled paths pad to a shard multiple and split rows
+        where they run (``parallel/collectives.shard_blocks``).  Fault
+        injection (testing/faults.py ``abort_write``,
+        ``flaky_compaction``, ``flaky_ingest``, ``corrupt_shard``) wraps
+        it."""
         return col
 
     def tombstone_tensor(self, values, dtype: torch.dtype) -> torch.Tensor:
@@ -298,6 +339,40 @@ class DeviceBackend:
             bad = actual != served
         self._replay_viol = (bad if self._replay_viol is None
                              else self._replay_viol | bad)
+        # any non-stat relation check downstream of a served __obj__
+        # counts as its guard (see consume_obj's invariant)
+        self._obj_unguarded = 0
+
+    def consume_obj(self, make):
+        """Materialize a small data-dependent HOST value (the hot-key
+        sample of the radix dist join) through the same record/replay
+        stream as sizes: eager and record runs call ``make()`` (counting
+        its read), replays serve the recorded value with no device read.
+
+        INVARIANT: an ``__obj__`` entry has no device-side relation check
+        of its own — under GENERIC replay the served object may be stale
+        for the current parameter values.  Every consumer must therefore
+        be guarded by a later relation-checked consume (``consume_count``
+        / ``consume_rows`` / ``consume_pred`` with a relation other than
+        ``"stat"``) that trips the end-of-query violation flag whenever
+        the stale object could shape results — the radix join consumes
+        its sample and then checks ``dropped == 0`` with relation
+        ``"exact"``.  With ``config.debug_obj_guard`` an obj served under
+        generic replay with no later non-stat check raises at the end of
+        the query (fused.py)."""
+        mode = self.count_mode
+        if mode is None:
+            self.syncs += 1
+            return make()
+        if mode[0] == "record":
+            self.syncs += 1
+            v = make()
+            mode[1].append(("__obj__", v))
+            return v
+        v = self._next_entry(mode, "__obj__")[1]
+        if mode[0] == "replay_gen" and self.config.debug_obj_guard:
+            self._obj_unguarded += 1
+        return v
 
 
 class FusedReplayMismatch(RuntimeError):
@@ -619,6 +694,8 @@ class DeviceTable(Table):
         """The device-resident CSR for a build-side column, if the ingest
         hook (DeviceTableFactory.prepare_rel_table) attached one and the
         table still has the exact shape it was built for."""
+        if not self.backend.config.use_csr:
+            return None
         cached = getattr(rcol, "_csr", None)
         if (cached is not None and other._live is None
                 and cached[0] == (other._n,)):
@@ -638,6 +715,13 @@ class DeviceTable(Table):
         l_ok = self.row_ok
         left_join = how == "left"
         csr = self._csr_for(other, rcol)
+        if csr is None:
+            # No resident adjacency to probe: on a mesh, schedule the
+            # exchange by hand (radix exchange / broadcast join,
+            # parallel/dist_join.py)
+            dist = self._dist_join(other, how, pairs)
+            if dist is not None:
+                return dist
         if csr is not None:
             # CSR probe: two indptr gathers per row, no sort, no search
             counts, lo = csr.probe(self._masked_left_key(lcol), l_ok)
@@ -659,6 +743,187 @@ class DeviceTable(Table):
                                               valid=col.valid & r_matched)
         out = DeviceTable(self.backend, out_cols, total, live=live)
         return out._extra_pair_filter(pairs, left_join)
+
+    def _detect_hot_keys(self, l_key, l_ok, n: int, keep_top: int = 0):
+        """Host-side probe-key sample → (sorted hot-key array, auto salt).
+        A key is hot when its sampled frequency exceeds
+        ``join_hot_factor`` × the per-shard fair share; the suggested
+        salt spreads the hottest key back under the fair share (SURVEY.md
+        §5.8).  ``keep_top``: when no key crosses the threshold, still
+        return the ``keep_top`` most frequent sampled keys (a manual salt
+        must engage on the heaviest keys)."""
+        cfg = self.backend.config
+        H = cfg.join_hot_capacity
+        S = min(4096, int(l_key.shape[0]))
+        # one read through the record/replay stream: a fused replay
+        # serves the recorded sample with no read
+        sample, ok = self.backend.consume_obj(
+            lambda: (l_key[:S].cpu().numpy(), l_ok[:S].cpu().numpy()))
+        live = sample[ok]
+        if live.shape[0] == 0:
+            return np.zeros((0,), np.int64), 1
+        vals, counts = np.unique(live, return_counts=True)
+        fair = max(1.0, live.shape[0] / n)
+        hot_mask = counts > cfg.join_hot_factor * fair
+        hot_vals = vals[hot_mask]
+        if hot_vals.shape[0] > H:  # keep the heaviest H
+            order = np.argsort(counts[hot_mask])[::-1][:H]
+            hot_vals = hot_vals[order]
+        salt = 1
+        if hot_vals.shape[0]:
+            need = int(np.ceil(counts.max() / fair))
+            salt = 2
+            while salt < min(n, need):
+                salt *= 2
+            salt = min(salt, n)
+        elif keep_top:
+            hot_vals = vals[np.argsort(counts)[::-1][:keep_top]]
+        return np.sort(hot_vals.astype(np.int64)), salt
+
+    def _dist_join(self, other: "DeviceTable", how: str,
+                   pairs: Sequence[Tuple[str, str]]
+                   ) -> Optional["DeviceTable"]:
+        """Hand-scheduled distributed join over the mesh
+        (parallel/dist_join.py): broadcast join for small build sides,
+        radix exchange with SURGICAL hot-key salting (only detected-hot
+        keys replicate) otherwise.  Both sides pad to a shard multiple;
+        every per-row tensor of a column (list matrices included) rides
+        the exchange.  Returns None when the config or join kind rules
+        it out — a planned strategy: the caller then runs its
+        single-program join."""
+        be = self.backend
+        cfg = be.config
+        if (be.mesh is None or not cfg.use_dist_join
+                or how not in ("inner", "left")):
+            return None
+        n = be.n_shards
+        if n <= 1:
+            return None
+        from caps_tpu_torch.parallel import dist_join as DJ
+        from caps_tpu_torch.relational.cost import choose_dist_strategy
+        lc, rc = pairs[0]
+        lcol, rcol = self._cols[lc], other._cols[rc]
+        # null keys fold to the sentinel; liveness stays separate so
+        # LEFT joins retain null-key rows
+        l_key = self._masked_left_key(lcol)
+        r_key = self._join_key(rcol, side="r")
+        l_ok = self.row_ok
+        r_ok = rcol.valid & other.row_ok
+        left_join = how == "left"
+
+        cap_l = -(-self.capacity // n) * n
+        cap_r = -(-other.capacity // n) * n
+        l_key, l_ok = _pad_rows(l_key, cap_l), _pad_rows(l_ok, cap_l)
+        r_key, r_ok = _pad_rows(r_key, cap_r), _pad_rows(r_ok, cap_r)
+        l_names, r_names = list(self._cols), list(other._cols)
+        l_arrs = [_pad_rows(t, cap_l) for c in l_names
+                  for t in _col_tensors(self._cols[c])]
+        r_arrs = [_pad_rows(t, cap_r) for c in r_names
+                  for t in _col_tensors(other._cols[c])]
+
+        KEY_OK_BYTES = 9  # int64 key + bool validity channel
+
+        def row_bytes(arrs) -> int:
+            return KEY_OK_BYTES + sum(
+                a.element_size() * int(np.prod(a.shape[1:], dtype=np.int64))
+                for a in arrs)
+
+        # the SAME model function the planner's EXPLAIN annotation
+        # consults, pricing actual row counts
+        strategy, decision = choose_dist_strategy(self._n, other._n, n, cfg)
+        be.last_dist_decision = {"strategy": strategy, **decision}
+        tr = active_tracer()
+        if strategy == "broadcast":
+            bp1 = DJ.broadcast_join_phase1(be.mesh, l_key, l_ok, r_key,
+                                           r_ok, left_join)
+            out_cap_dev = be.bucket(max(1, be.consume_count(
+                bp1.max_total, relation="cap")))
+            res = DJ.broadcast_join_phase2(be.mesh, bp1, l_key, l_ok, r_key,
+                                           r_ok, l_arrs, r_arrs, out_cap_dev,
+                                           left_join)
+            # each shard receives the other (n-1) shards of the build
+            # side; wire = padded buffers, payload = live rows measured
+            # on the device
+            wire = (KEY_OK_BYTES + row_bytes(r_arrs)) * cap_r * (n - 1)
+            be.ici_bytes += wire
+            payload = (KEY_OK_BYTES + row_bytes(r_arrs)) \
+                * be.consume_count(bp1.live_r, relation="stat") * (n - 1)
+            be.ici_payload_bytes += payload
+            be.broadcast_joins += 1
+            if tr.enabled:
+                tr.event("dist_join.broadcast", kind="collective",
+                         bytes=wire, payload_bytes=payload, shards=n)
+        else:
+            manual = cfg.join_salt > 1
+            # a manual salt must engage even when detection finds no
+            # outlier: salt the heaviest sampled key
+            hot_np, auto_salt = self._detect_hot_keys(
+                l_key, l_ok, n, keep_top=1 if manual else 0)
+            salt = cfg.join_salt if manual else auto_salt
+            # the salt must divide the shard count for distinct
+            # sub-bucket targets (power-of-2 meshes: round down)
+            salt = max(1, min(salt, n))
+            while n % salt:
+                salt -= 1
+            H = max(1, cfg.join_hot_capacity)
+            hot = np.full((H,), np.iinfo(np.int64).max, np.int64)
+            hot[:hot_np.shape[0]] = hot_np[:H]
+            hot_keys = torch.from_numpy(np.sort(hot)).to(be.device)
+
+            local_cap = max(cap_l, cap_r) // n
+            bin_cap = min(local_cap, max(8, -(-local_cap * 2 // n)))
+            # hot sub-buckets carry only the replicated hot build rows
+            hot_bin_cap = bin_cap if salt <= 1 else \
+                min(local_cap, max(8, bin_cap // 2))
+            wire_total = 0  # across bin-widening retries
+            while True:
+                p1 = DJ.radix_join_phase1(be.mesh, hot_keys, l_key, l_ok,
+                                          r_key, r_ok, l_arrs, r_arrs,
+                                          bin_cap, salt, hot_bin_cap)
+                # of each shard's n bins, n-1 leave it (bin i stays on
+                # shard i); hot sub-buckets are the smaller buffers
+                wire = (row_bytes(l_arrs) * bin_cap
+                        + row_bytes(r_arrs)
+                        * (bin_cap + (salt - 1) * hot_bin_cap)) * n * (n - 1)
+                be.ici_bytes += wire
+                wire_total += wire
+                if be.consume_count(p1.dropped, relation="exact") == 0:
+                    break
+                if bin_cap >= local_cap and hot_bin_cap >= local_cap:
+                    raise RuntimeError(
+                        "dist join: rows dropped at the safe bin bound")
+                bin_cap = min(local_cap, bin_cap * 2)
+                hot_bin_cap = min(local_cap, hot_bin_cap * 2)
+            payload_bytes = (
+                row_bytes(l_arrs) * be.consume_count(p1.sent_l,
+                                                     relation="stat")
+                + row_bytes(r_arrs) * be.consume_count(p1.sent_r,
+                                                       relation="stat"))
+            be.ici_payload_bytes += payload_bytes
+            if tr.enabled:
+                tr.event("dist_join.radix", kind="collective",
+                         bytes=wire_total, payload_bytes=payload_bytes,
+                         shards=n, salt=salt)
+            total_dev = be.consume_count(
+                p1.max_left if left_join else p1.max_total, relation="cap")
+            out_cap_dev = be.bucket(max(1, total_dev))
+            res = DJ.radix_join_phase2(be.mesh, p1, out_cap_dev, left_join)
+            be.dist_joins += 1
+            if salt > 1:
+                be.salted_joins += 1
+
+        l_valid, r_valid, l_out, r_out = res
+        out_cols: Dict[str, Column] = {}
+        for names, cols, datas, side_valid in (
+                (l_names, self._cols, l_out, l_valid),
+                (r_names, other._cols, r_out, r_valid)):
+            it = iter(datas)
+            for c in names:
+                col = _col_from(cols[c], it)
+                out_cols[c] = dataclasses.replace(
+                    col, valid=col.valid & side_valid)
+        tmp = DeviceTable(be, out_cols, int(l_valid.shape[0]))
+        return tmp._compact(l_valid)._extra_pair_filter(pairs, left_join)
 
     def _extra_pair_filter(self, pairs: Sequence[Tuple[str, str]],
                            left_join: bool) -> "DeviceTable":
@@ -976,18 +1241,30 @@ class DeviceTable(Table):
 
         dev = self.backend.device
         OPS.ensure_kernels("basic", dev)
+        backend = self.backend
+        # on a mesh the kernel runs once per shard's row block and the
+        # partials combine (the JAX package's sharded Pallas group-by)
+        sharded = (backend.mesh is not None
+                   and self.capacity % backend.n_shards == 0)
+
+        def agg_kernel(codes_, ok_, vals_, kind_):
+            if sharded:
+                return OPS.dense_segment_agg_sharded(
+                    backend.mesh, codes_, ok_, vals_, S, kind_)
+            return OPS.dense_segment_agg(codes_, ok_, vals_, S, kind_)
+
         codes = torch.where(key_col.valid & row_ok,
                             key_col.data.to(torch.int32),
                             torch.full_like(key_col.data, domain,
                                             dtype=torch.int32)).contiguous()
-        counts_all = OPS.dense_segment_agg(codes, row_ok, codes, S, "count")
+        counts_all = agg_kernel(codes, row_ok, codes, "count")
         count_cache: Dict[str, torch.Tensor] = {}
 
         def count_of(col_name: str) -> torch.Tensor:
             if col_name not in count_cache:
                 col = self._cols[col_name]
-                count_cache[col_name] = OPS.dense_segment_agg(
-                    codes, col.valid & row_ok, codes, S, "count")
+                count_cache[col_name] = agg_kernel(
+                    codes, col.valid & row_ok, codes, "count")
             return count_cache[col_name]
 
         slots = torch.arange(S, device=dev)
@@ -1008,10 +1285,10 @@ class DeviceTable(Table):
                                      live, CTInteger)
             else:  # min / max over int/id
                 col = self._cols[a.col]
-                agg = OPS.dense_segment_agg(
+                agg = agg_kernel(
                     codes, col.valid & row_ok,
                     col.data.to(torch.int32).contiguous(),
-                    S, "min_i32" if a.kind == "min" else "max_i32")
+                    "min_i32" if a.kind == "min" else "max_i32")
                 has = count_of(a.col) > 0
                 out[a.name] = Column(col.kind, agg.to(
                     torch.int64 if col.kind == "int" else torch.int32),
@@ -1355,6 +1632,38 @@ def _named(compile_fn, op: str, expr: Expr):
         raise UnsupportedOnDevice(f"{op}: {ex}") from None
 
 
+def _pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
+    """``t``'s rows zero-padded to ``cap``."""
+    if t.shape[0] == cap:
+        return t
+    return torch.cat([t, torch.zeros((cap - t.shape[0],) + tuple(t.shape[1:]),
+                                     dtype=t.dtype, device=t.device)])
+
+
+_ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "inner_lens",
+               "inner_valid", "tags")
+
+
+def _col_tensors(col: Column) -> List[torch.Tensor]:
+    """Every per-row tensor of a column in a fixed order (a map's child
+    columns after its own), for a collective to carry."""
+    out = [getattr(col, f) for f in _ROW_FIELDS
+           if getattr(col, f) is not None]
+    for k in sorted(col.fields or {}):
+        out += _col_tensors(col.fields[k])
+    return out
+
+
+def _col_from(col: Column, it) -> Column:
+    """``col`` rebuilt from the tensors :func:`_col_tensors` listed, read
+    in the same order from the iterator ``it``."""
+    kw = {f: next(it) for f in _ROW_FIELDS if getattr(col, f) is not None}
+    if col.fields is not None:
+        kw["fields"] = {k: _col_from(col.fields[k], it)
+                        for k in sorted(col.fields)}
+    return dataclasses.replace(col, host=None, **kw)
+
+
 def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
                  ) -> Dict[str, Column]:
     return {c: col.take(idx) for c, col in cols.items()}
@@ -1510,6 +1819,8 @@ class DeviceTableFactory(TableFactory):
         host from the columns' ingest mirrors.  Every later Expand hop
         against this table probes ``indptr`` instead of sorting +
         binary-searching the edge list."""
+        if not self.backend.config.use_csr:
+            return
         t = rel_table.table
         if not isinstance(t, DeviceTable):
             return

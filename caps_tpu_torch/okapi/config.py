@@ -27,6 +27,11 @@ def _env_int(name: str, default: int) -> int:
     return int(v)
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v is not None else default
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     # Debug printing (the reference's PrintIr / PrintLogicalPlan / ... flags)
@@ -43,6 +48,14 @@ class EngineConfig:
     # Row-count buckets: device tables are padded up to the next bucket so
     # query programs compile once per (plan, bucket) key.
     bucket_sizes: Tuple[int, ...] = (256, 1024, 4096, 16384, 65536, 262144, 1048576)
+    # Mesh shape for sharded execution (parallel/mesh.py); () = one
+    # device.  (n,) is a 1-D mesh, (dcn, n) a two-level one.
+    mesh_shape: Tuple[int, ...] = ()
+    # Device-resident CSR adjacency as the relationship scan's physical
+    # layout (ops/expand.py DeviceCSR); joins against it probe indptr
+    # instead of sorting + binary-searching the edge table.
+    use_csr: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_USE_CSR", True))
     # Aggregate pushdown (relational/count_pattern.py): lower count-only
     # pattern chains to SpMV over the adjacency instead of join+count.
     use_count_pushdown: bool = dataclasses.field(
@@ -50,7 +63,8 @@ class EngineConfig:
     # Matrix var-expand (relational/var_expand.py): an eligible
     # var-length pattern whose relationship list nothing reads runs as
     # SpMV hops over a per-seed count matrix (strategy "matrix") instead
-    # of the join cascade.  One card: no ring schedule yet (ROADMAP).
+    # of the join cascade; on a 1-D mesh the same matrix and uniform
+    # pushdown chains ride the ring schedule (parallel/ring.py).
     use_ring: bool = dataclasses.field(
         default_factory=lambda: _env_bool("CAPS_TPU_USE_RING", True))
     # Worst-case-optimal multiway joins (relational/wcoj.py): detected
@@ -72,12 +86,33 @@ class EngineConfig:
     # calibrated statistics.  0 disables.
     replan_threshold: int = dataclasses.field(
         default_factory=lambda: _env_int("CAPS_TPU_REPLAN_THRESHOLD", 2))
-    # Features of the JAX package this package has not ported yet (see
-    # ROADMAP).  They stay off; a session built with one of them on
-    # raises NotImplementedError instead of planning without it.
-    use_dist_join: bool = False
+    # Hand-scheduled distributed joins (parallel/dist_join.py, SURVEY.md
+    # §5.8): on a mesh, large-large joins ride a radix exchange (each row
+    # crosses between shards once) and small build sides a broadcast.
+    use_dist_join: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_DIST_JOIN", True))
+    # Build sides at or under this many rows broadcast instead of
+    # exchanging (Spark's autoBroadcastJoinThreshold analog, in rows); a
+    # model INPUT with the cost model on (relational/cost.py
+    # choose_dist_strategy); <= 0 disables broadcasting either way.
+    broadcast_join_threshold: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_BROADCAST_ROWS", 4096))
+    # Skew salting for the radix exchange (surgical: ONLY detected-hot
+    # keys replicate).  join_salt > 1 forces that salt factor; 1 = pick
+    # it from the probe-key sample (1 when no key exceeds
+    # join_hot_factor x the per-shard fair share).
+    join_salt: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_JOIN_SALT", 1))
+    join_hot_factor: float = dataclasses.field(
+        default_factory=lambda: _env_float("CAPS_TPU_JOIN_HOT_FACTOR", 4.0))
+    # At most this many hot keys ride the device-resident hot set.
+    join_hot_capacity: int = dataclasses.field(
+        default_factory=lambda: _env_int("CAPS_TPU_JOIN_HOT_CAP", 16))
 
-    UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = ("use_dist_join",)
+    # Features of the JAX package this package has not ported (see
+    # ROADMAP): none is left.  A flag listed here would make a session
+    # built with it on raise NotImplementedError.
+    UNPORTED_FLAGS: ClassVar[Tuple[str, ...]] = ()
 
     # Fused executor (backends/cuda/fused.py): record data-dependent sizes
     # on a query's first run, replay them sync-free on repeats.
@@ -101,6 +136,11 @@ class EngineConfig:
     # Max cached plans per session (LRU evicted beyond this).
     plan_cache_size: int = dataclasses.field(
         default_factory=lambda: _env_int("CAPS_TPU_PLAN_CACHE_SIZE", 256))
+    # Debug assertion hook for the generic-replay __obj__ invariant
+    # (backends/cuda/fused.py): an obj served under generic replay that
+    # no downstream relation-checked consume guards raises at query end.
+    debug_obj_guard: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("CAPS_TPU_DEBUG_OBJ_GUARD", False))
 
     # Determinism check (SURVEY.md §5.2): run each query twice and compare
     # result digests; raises NondeterministicResultError on mismatch.

@@ -50,6 +50,7 @@ from caps_tpu_torch.ops.expand import (  # noqa: E402
 )
 from caps_tpu_torch.ops.segment import (  # noqa: E402
     dense_segment_agg, dense_segment_agg_cuda, dense_segment_agg_plain,
+    dense_segment_agg_sharded,
 )
 from caps_tpu_torch.ops.sort import (  # noqa: E402
     bitonic_sort_perm, bitonic_sort_perm_cuda, bitonic_sort_perm_plain,
@@ -59,6 +60,7 @@ from caps_tpu_torch.ops.sort import (  # noqa: E402
 __all__ = [
     "launches", "reset_launches",
     "dense_segment_agg", "dense_segment_agg_cuda", "dense_segment_agg_plain",
+    "dense_segment_agg_sharded",
     "DeviceCSR", "build_csr", "expand_positions", "expand_positions_cuda",
     "expand_positions_plain", "join_expand_via_positions",
     "bitonic_sort_perm", "bitonic_sort_perm_cuda", "bitonic_sort_perm_plain",

@@ -282,3 +282,31 @@ def dense_segment_agg_plain(codes: torch.Tensor, ok: torch.Tensor,
                      device=codes.device)
     return out.scatter_reduce_(0, safe, v, reduce=reduce,
                                include_self=True)[:S]
+
+
+def dense_segment_agg_sharded(mesh, codes: torch.Tensor, ok: torch.Tensor,
+                              values: torch.Tensor, num_segments: int,
+                              kind: str) -> torch.Tensor:
+    """Distributed histogram, the counterpart of the JAX package's
+    ``dense_segment_agg_sharded`` (rows split over every mesh axis): the
+    kernel runs once per shard on the shard's row block
+    (:func:`dense_segment_agg`: the kernel on a card, its plain version
+    on the CPU), then the partials combine on the lead device through
+    the mesh's all-reduces (``global_sum`` for count and sum, ``pmin`` /
+    ``pmax`` for min and max, which fold as the JAX package's do: a NaN
+    partial never wins, ±0 keep the earlier shard's sign, and an empty
+    slot keeps its identity).  Within a shard the kernel's own rules
+    hold (module docstring).  The row count must divide over the
+    shards."""
+    from caps_tpu_torch.parallel.collectives import global_sum, pmax, \
+        pmin, shard_blocks
+    if kind == "count":
+        values = codes
+    parts = [dense_segment_agg(c.contiguous(), o.contiguous(),
+                               v.contiguous(), num_segments, kind)
+             for c, o, v in zip(shard_blocks(codes, mesh),
+                                shard_blocks(ok, mesh),
+                                shard_blocks(values, mesh))]
+    reduce = (pmin if kind.startswith("min") else
+              pmax if kind.startswith("max") else global_sum)
+    return reduce(parts, [mesh.lead])[0]

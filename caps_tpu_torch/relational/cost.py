@@ -39,10 +39,10 @@ Decision surfaces:
   running mean.
 
 The counterpart of ``caps_tpu/relational/cost.py``, host arithmetic
-throughout.  Nothing in this package calls :func:`choose_dist_strategy`
-or :meth:`CostModel.dist_strategy` yet (the sharded path is ROADMAP
-Queue 1 item 12).  Counters go to the session's metrics registry
-(``obs/metrics.py``).
+throughout.  :func:`choose_dist_strategy` is called by the sharded join
+at run time (``backends/cuda/table.py DeviceTable._dist_join``) and by
+:func:`annotate_plan` for EXPLAIN.  Counters go to the session's
+metrics registry (``obs/metrics.py``).
 """
 from __future__ import annotations
 

@@ -26,10 +26,12 @@ closed-form correction: 2-hop reuse is r2 == r1, detectable per edge;
 The lowering is *exact* there and the matcher refuses longer chains,
 leaving them on the join path.
 
-One card, no mesh: the JAX package's ring and edge-sharded strategies
-(``_try_ring``, "spmv-sharded") have no counterpart until the multi-GPU
-slice (ROADMAP Queue 1 item 12).  Counts are int64 throughout; ids are
-cast to int32 only under ``_MAX_DOMAIN``.
+On a 1-D device mesh, uniform unmasked chains ride the ring schedule
+(``parallel/ring.py``, strategy "ring").  Other chains (and every chain
+on a 2-D mesh) run the same segment-sums unsharded, on the whole edge
+table on the mesh's lead device, and report "spmv": the JAX package
+lets GSPMD shard them and reports "spmv-sharded".  Counts are int64 throughout; ids are cast to int32 only under
+``_MAX_DOMAIN``.
 """
 from __future__ import annotations
 
@@ -503,7 +505,9 @@ class CountPatternOp(RelationalOperator):
 
     def _fused_total(self):
         backend = self._backend
-        if not backend.config.use_fused_count:
+        if backend.mesh is not None or not backend.config.use_fused_count:
+            # cached closures are single-device programs: a mesh takes
+            # the ring / sharded strategies
             return None
         from caps_tpu_torch.backends.cuda.fused import _graph_key, _params_key
         gk = _graph_key(self.graph)
@@ -1158,25 +1162,35 @@ class CountPatternOp(RelationalOperator):
                 else (tgt, src)
             return frm, to, ok
 
-        self.strategy = "spmv"
-        total = torch.zeros((), dtype=torch.int64, device=seed_vec.device)
-        x = seed_vec
-        for length in range(0, max(self.lengths) + 1):
-            if length in self.lengths:
-                # fixed chains are already fully masked; var-length
-                # paths are masked only where they end
-                xl = x * end_mask if self.is_varlen else x
-                total = total + xl.sum()
-            if length < max(self.lengths):
-                frm, to, ok = hop_arrays(self.hops[length])
-                safe_frm = torch.where(ok, frm, torch.zeros_like(frm)).long()
-                safe_to = torch.where(ok, to, torch.full_like(to, n)).long()
-                contrib = torch.where(ok, x[safe_frm], torch.zeros_like(
-                    x[safe_frm]))
-                nxt = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
-                x = nxt.index_add_(0, safe_to, contrib)[:n]
-                if not self.is_varlen:
-                    x = x * mask_vecs[length]
+        mesh = self._backend.mesh
+        ring_total = self._try_ring(mesh, n, seed_vec, mask_vecs,
+                                    hop_arrays)
+        if ring_total is not None:
+            total = ring_total
+        else:
+            self.strategy = "spmv"
+            total = torch.zeros((), dtype=torch.int64,
+                                device=seed_vec.device)
+            x = seed_vec
+            for length in range(0, max(self.lengths) + 1):
+                if length in self.lengths:
+                    # fixed chains are already fully masked; var-length
+                    # paths are masked only where they end
+                    xl = x * end_mask if self.is_varlen else x
+                    total = total + xl.sum()
+                if length < max(self.lengths):
+                    frm, to, ok = hop_arrays(self.hops[length])
+                    safe_frm = torch.where(ok, frm,
+                                           torch.zeros_like(frm)).long()
+                    safe_to = torch.where(ok, to,
+                                          torch.full_like(to, n)).long()
+                    contrib = torch.where(ok, x[safe_frm], torch.zeros_like(
+                        x[safe_frm]))
+                    nxt = torch.zeros(n + 1, dtype=torch.int64,
+                                      device=x.device)
+                    x = nxt.index_add_(0, safe_to, contrib)[:n]
+                    if not self.is_varlen:
+                        x = x * mask_vecs[length]
 
         if self.correct_len2:
             if self.is_varlen:
@@ -1186,6 +1200,54 @@ class CountPatternOp(RelationalOperator):
             total = total - self._len2_correction(n, seed_vec, corr_masks)
 
         return self._emit(total)
+
+    def _try_ring(self, mesh, n, seed_vec, mask_vecs, hop_arrays):
+        """Uniform unmasked chains on a 1-D mesh ride the ring schedule
+        (parallel/ring.py).  Returns the total, or None — a planned
+        strategy, not an error path: 2-D meshes and chains whose hops
+        differ take the unsharded "spmv"."""
+        backend = self._backend
+        if mesh is None or mesh.devices.ndim != 1:
+            return None
+        if not backend.config.use_ring:
+            return None
+        if len(self.lengths) != 1 or self.lengths[0] < 1:
+            return None
+        k = self.lengths[0]
+        if len({(h.rel_types, h.direction) for h in self.hops}) != 1:
+            return None
+        if not self.is_varlen:
+            # fixed chains mask every hop; the ring applies ONE mask per
+            # hop, so all hop target specs must coincide
+            if len({(h.target.labels, h.target.preds)
+                    for h in self.hops}) != 1:
+                return None
+        from caps_tpu_torch.parallel.ring import ring_khop_cached
+        s = mesh.size
+        n_pad = ((n + s - 1) // s) * s
+        frm, to, ok = hop_arrays(self.hops[0])
+        e_pad = ((int(frm.shape[0]) + s - 1) // s) * s
+
+        def pad(a, length, fill):
+            return torch.cat([a, torch.full((length - a.shape[0],), fill,
+                                            dtype=a.dtype, device=a.device)])
+        zero = torch.zeros_like(frm)
+        frm_p = pad(torch.where(ok, frm, zero).to(torch.int32), e_pad, 0)
+        to_p = pad(torch.where(ok, to, zero).to(torch.int32), e_pad, 0)
+        ok_p = pad(ok, e_pad, False)
+        seed_p = pad(seed_vec, n_pad, 0)
+        if self.is_varlen:
+            # intermediate endpoints unmasked; the end mask applies to
+            # the final frontier
+            khop = ring_khop_cached(mesh, n_pad, k)
+            _, blk = khop(seed_p, frm_p, to_p, ok_p)
+            total = (blk.to(torch.int64) * pad(mask_vecs[0], n_pad, 0)).sum()
+        else:
+            khop = ring_khop_cached(mesh, n_pad, k, masked=True)
+            total, _ = khop(seed_p, frm_p, to_p, ok_p,
+                            pad(mask_vecs[0], n_pad, 0))
+        self.strategy = "ring"
+        return total
 
     def _len2_correction(self, n, seed_vec, corr_masks):
         """Walks of length 2 reusing their edge (r2 == r1): an edge can be

@@ -17,8 +17,10 @@ When the relationship variable is dead downstream (the planner proves it
 per-seed path-count MATRIX with SpMV hops (``parallel/ring.py``) and
 explodes (source, target, multiplicity) back into rows (strategy
 "matrix").  Per-path relationship lists cannot ride this form; those
-queries stay on joins.  The JAX package's mesh form of the matrix (the
-ppermute ring, strategy "ring-matrix") waits for the multi-GPU slice.
+queries stay on joins.  On a 1-D mesh the matrix's frontier blocks
+rotate around the ring schedule instead (``make_ring_varexpand``,
+strategy "ring-matrix"); a 2-D mesh runs the single-device form on the
+lead device.
 """
 from __future__ import annotations
 
@@ -134,9 +136,13 @@ class VarExpandOp(RelationalOperator):
         from caps_tpu_torch.backends.cuda.column import Column
         from caps_tpu_torch.backends.cuda.table import DeviceTable
         from caps_tpu_torch.parallel.ring import (
-            ring_varexpand3_reference, ring_varexpand_reference,
+            ring_varexpand3_cached, ring_varexpand3_reference,
+            ring_varexpand_cached, ring_varexpand_reference,
         )
         dev = backend.device
+        mesh = backend.mesh
+        on_ring = mesh is not None and mesh.devices.ndim == 1
+        n_shards = mesh.size if on_ring else 1
 
         parent_header, parent_table = self.children[0].result
         src_id_col = parent_header.column(E.Var(self.source))
@@ -165,7 +171,7 @@ class VarExpandOp(RelationalOperator):
             mx = max(mx, backend.consume_count(
                 torch.where(p_ok, pids, torch.full_like(pids, -1)).max(),
                 relation="cap"))
-        n_pad = max(mx + 1, 1)
+        n_pad = max(-(-(mx + 1) // n_shards) * n_shards, n_shards)
         if n_pad > self._RING_MAX_MATRIX:
             return None  # a single frontier row exceeds the budget
         # (large SEED sets are fine — the execution below chunks them)
@@ -175,7 +181,7 @@ class VarExpandOp(RelationalOperator):
         is_seed = is_seed[:n_pad]
         n_seeds = backend.consume_count(is_seed.sum(), relation="cap")
         lengths = tuple(range(self.lower, self.upper + 1))
-        self.strategy = "matrix"
+        self.strategy = "ring-matrix" if on_ring else "matrix"
         rel_list_type = CTList(CTRelationship(self.rel_types))
 
         if n_seeds == 0:
@@ -201,7 +207,8 @@ class VarExpandOp(RelationalOperator):
         # SEED BLOCKING: the per-hop working set is seeds x max(nodes,
         # edges); larger seed sets run in fixed-size chunks (zero-padded
         # last block) whose pair tables union.
-        per_seed = max(n_pad, widest)
+        # (the ring splits the edges over the shards)
+        per_seed = max(n_pad, widest // n_shards)
         if per_seed > self._RING_MAX_MATRIX:
             return None  # even one seed's per-hop gather exceeds budget
         # pow2-pad the chunk dimension so a parameter sweep keeps its
@@ -224,7 +231,22 @@ class VarExpandOp(RelationalOperator):
             tmask_d = torch.cat([tmask_d, zeros])
             r2_d = torch.cat([r2_d, zeros])
 
+        if on_ring:
+            def shard_pad(t):
+                k = -(-max(t.shape[0], 1) // n_shards) * n_shards
+                return torch.cat([t, torch.zeros(k - t.shape[0],
+                                                 dtype=t.dtype, device=dev)])
+            ring_edges = tuple(shard_pad(t) for t in (frm_d, to_d, okp_d))
+            ring_extra3 = tuple(shard_pad(t) for t in extra3)
+
         def run_chunk(f0, lens):
+            if on_ring:
+                if max(lens) == 3:
+                    fn = ring_varexpand3_cached(mesh, n_pad, lens,
+                                                correction)
+                    return fn(f0, *ring_edges, tmask_d, *ring_extra3)
+                fn = ring_varexpand_cached(mesh, n_pad, lens, correction)
+                return fn(f0, *ring_edges, tmask_d)
             base = (f0, frm_d, to_d, okp_d, tmask_d, lens)
             if max(lens) == 3:
                 return ring_varexpand3_reference(

@@ -22,6 +22,12 @@ threads and one engine session whose graph lives on the card:
                         graphs, the health ladder (healthy ->
                         quarantined -> probing), background canary
                         probes, graph replication
+    serve/shards.py     shard groups: one hash-partitioned graph behind
+                        N member sessions (capacity members mixed into
+                        the ReplicaSet) — single-shard routing,
+                        mesh-sharded cross-shard execution, group-level
+                        health ladder with background member rebuild,
+                        host-memory partition paging
     serve/server.py     QueryServer: worker pool (one worker per device
                         replica, or one serialized stream), serve.*
                         metrics, containment ladder, device failover,
@@ -48,8 +54,6 @@ threads and one engine session whose graph lives on the card:
                         active/standby routers on a second lease
                         namespace, zombie-router fencing, the
                         RouterSet client facade
-
-Not ported yet (ROADMAP): shard groups (``serve/shards.py``, item 12).
 
 Engine hooks this package owns: ``RelationalCypherSession.cypher_batch``
 (one batched pass over a cached plan), the deadline checkpoints in
@@ -92,6 +96,15 @@ _LAZY = {
     "DeviceReplica": "caps_tpu_torch.serve.devices",
     "replicate_graph": "caps_tpu_torch.serve.devices",
     "executing_device_index": "caps_tpu_torch.serve.devices",
+    # sharded serving (serve/shards.py): partitioned graphs behind the
+    # same server
+    "ShardGroup": "caps_tpu_torch.serve.shards",
+    "ShardGroupConfig": "caps_tpu_torch.serve.shards",
+    "GraphPartition": "caps_tpu_torch.serve.shards",
+    "partition_graph": "caps_tpu_torch.serve.shards",
+    "executing_shard": "caps_tpu_torch.serve.shards",
+    "ShardingUnsupported": "caps_tpu_torch.serve.errors",
+    "ShardMemberDown": "caps_tpu_torch.serve.errors",
     # fleet serving (serve/wire.py, serve/fleet.py, serve/router.py):
     # multi-process scale-out behind a consistent-hash router
     "WireError": "caps_tpu_torch.serve.errors",

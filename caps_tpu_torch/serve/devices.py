@@ -373,12 +373,20 @@ class ReplicaSet:
 
     def __init__(self, session, graph=None, n_devices: int = 1,
                  registry=None, failure_threshold: int = 3,
-                 cooldown_s: float = 1.0, on_change=None):
+                 cooldown_s: float = 1.0, on_change=None, groups=()):
         n = max(1, int(n_devices))
         devices = _acquire_devices(n, session)
+        #: shard-group members (serve/shards.py): capacity members that
+        #: front ONE hash-partitioned graph each, mixed behind the same
+        #: server next to the throughput replicas above.  Groups keep
+        #: their own (group-level) health ladder; the replica breaker
+        #: below never sees them.
+        self.groups = list(groups)
         self.replicas: List[DeviceReplica] = []
         for i in range(n):
-            s = session if i == 0 else session.clone(device=devices[i])
+            s = session if i == 0 else (
+                session.clone(device=devices[i])
+                if hasattr(session, "device") else session.clone())
             self.replicas.append(DeviceReplica(i, s, devices[i]))
         if graph is not None and supports_replication(graph):
             # ingest once per device, up front: serving never pays a
@@ -400,9 +408,27 @@ class ReplicaSet:
     def __len__(self) -> int:
         return len(self.replicas)
 
+    # -- shard groups (serve/shards.py) --------------------------------
+
+    def group_for(self, graph):
+        """The shard group serving this graph, or None (the graph is
+        replica territory).  Claimed batches against a group graph
+        redirect here whichever worker claimed them."""
+        for g in self.groups:
+            if g.serves(graph):
+                return g
+        return None
+
+    @staticmethod
+    def _is_group(member) -> bool:
+        from caps_tpu_torch.serve.shards import ShardGroup
+        return isinstance(member, ShardGroup)
+
     # -- health --------------------------------------------------------
 
     def state(self, replica) -> str:
+        if self._is_group(replica):
+            return replica.health()
         index = replica.index if isinstance(replica, DeviceReplica) \
             else int(replica)
         if len(self.replicas) == 1:
@@ -410,13 +436,19 @@ class ReplicaSet:
         return _BREAKER_TO_HEALTH[self._breaker.state(index)]
 
     def is_healthy(self, replica) -> bool:
+        if self._is_group(replica):
+            # a DEGRADED group still serves (healthy members + retry
+            # ladder); only a quarantined group stops claiming work
+            from caps_tpu_torch.serve.shards import GROUP_QUARANTINED
+            return replica.health() != GROUP_QUARANTINED
         return self.state(replica) == HEALTHY
 
     def live_count(self) -> int:
-        return sum(1 for r in self.replicas if self.is_healthy(r))
+        return sum(1 for r in self.replicas if self.is_healthy(r)) \
+            + sum(1 for g in self.groups if self.is_healthy(g))
 
     def quarantined_count(self) -> int:
-        return len(self.replicas) - self.live_count()
+        return len(self.replicas) + len(self.groups) - self.live_count()
 
     def health(self) -> Dict[int, str]:
         return {r.index: self.state(r) for r in self.replicas}
@@ -431,6 +463,9 @@ class ReplicaSet:
     # -- outcome bookkeeping (the ladder's input) ----------------------
 
     def record_success(self, replica) -> None:
+        if self._is_group(replica):
+            replica.record_success()
+            return
         replica.note(completed=1)
         if len(self.replicas) > 1:
             self._breaker.record_success(replica.index)
@@ -439,8 +474,15 @@ class ReplicaSet:
         """Fold one execution failure in.  Only device-attributed errors
         count against the device; returns truthy when THIS failure
         quarantined it (the caller drains its claimed work back to the
-        dispatcher and lets the background probe reinstate it)."""
+        dispatcher and lets the background probe reinstate it).  Shard
+        groups return ``"member"`` / ``"group"`` for the level that
+        tripped (their ladder is group-scoped — serve/shards.py)."""
         from caps_tpu_torch.serve.failure import device_fault
+        if self._is_group(replica):
+            tripped = replica.record_failure(exc)
+            if tripped:
+                self._changed()
+            return tripped
         replica.note(failed=1)
         if len(self.replicas) == 1 or not device_fault(exc):
             return False
@@ -461,10 +503,19 @@ class ReplicaSet:
     def try_probe(self, replica):
         """Breaker admit for the background probe: ``(TRIAL, 0)`` when
         the cooldown elapsed and this caller owns the single probe slot,
-        else ``(REJECT, remaining_cooldown)``."""
+        else ``(REJECT, remaining_cooldown)``.  Shard groups gate on
+        their own maintenance cadence."""
+        if self._is_group(replica):
+            return replica.probe_gate()
         return self._breaker.admit(replica.index)
 
     def probe(self, replica) -> bool:
+        if self._is_group(replica):
+            # the group's "probe" is one maintenance pass: per-member
+            # canaries + background rebuild onto a spare session
+            ok = replica.maintenance_tick()
+            self._changed()
+            return ok
         return self._probe_replica(replica)
 
     def _probe_replica(self, replica: DeviceReplica) -> bool:
@@ -517,10 +568,18 @@ class ReplicaSet:
     # -- placement -----------------------------------------------------
 
     def replica_for(self, replica, graph):
-        """Where a claimed batch actually executes: the claiming
-        worker's own device, except non-replicable graphs (union/catalog
-        graphs) which pin to device 0 — the template session is the only
-        one that can resolve them."""
+        """Where a claimed batch actually executes: a shard-group graph
+        always executes on its group (whichever worker claimed it);
+        otherwise the claiming worker's own device, except
+        non-replicable graphs (union/catalog graphs) which pin to
+        device 0 — the template session is the only one that can
+        resolve them.  A group worker that claimed a non-group batch
+        hands it to device 0 the same way."""
+        group = self.group_for(graph)
+        if group is not None:
+            return group
+        if self._is_group(replica):
+            return self.replicas[0]
         if replica.index != 0 and not supports_replication(graph):
             return self.replicas[0]
         return replica
@@ -542,7 +601,8 @@ class ReplicaSet:
         cands = [r for r in self.replicas
                  if r.index not in excluded_set and self.is_healthy(r)]
         if not cands:
-            # prefer the most recent failure that names a replica
+            # prefer the most recent failure that actually names a
+            # replica (a shard group's index is not in this list)
             for idx in reversed(excluded):
                 if 0 <= idx < len(self.replicas):
                     return self.replicas[idx]
@@ -556,3 +616,7 @@ class ReplicaSet:
             snap["health"] = self.state(r)
             out.append(snap)
         return out
+
+    def group_summaries(self) -> List[Dict[str, Any]]:
+        """Per shard-group structured health (``stats()["shards"]``)."""
+        return [g.summary() for g in self.groups]

@@ -51,9 +51,10 @@ class ServeError(RuntimeError):
 
 
 class NotPorted(ServeError, NotImplementedError):
-    """A serving feature of the JAX package the port has not reached yet
-    (shard groups, ROADMAP): a ServeError, and the NotImplementedError
-    naming ROADMAP that every unported feature of the port raises."""
+    """A serving feature of the JAX package the port has not reached
+    (none is left since shard groups were ported; the type stays in the
+    wire protocol's error set): a ServeError, and the NotImplementedError
+    naming ROADMAP that an unported feature of the port raises."""
 
 
 class ServerClosed(ServeError):

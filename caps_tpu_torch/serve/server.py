@@ -1,5 +1,5 @@
 """QueryServer: the multi-client query-serving tier (the counterpart of
-``caps_tpu/serve/server.py``, without shard groups).
+``caps_tpu/serve/server.py``).
 
 Turns an engine session into a service: clients ``submit()`` queries
 from any thread and get Future-style handles back; a worker pool
@@ -32,9 +32,11 @@ and materialization while one executes.  A worker reads a batch's rows
 after the batch's last member dispatched, so an exact-replay batch
 waits for the card once.
 
-Shard groups (``ServerConfig.shards`` / ``shard_config``) need a
-mesh-sharded session and are not ported: setting either raises
-``NotPorted`` (a ``NotImplementedError`` naming ROADMAP).
+With ``shards=N`` the server also fronts ONE hash-partitioned graph
+behind a shard group of N member sessions (``serve/shards.py``):
+single-shard queries route to the owning member, cross-shard patterns
+ride the group's mesh session, and the failure ladder runs at group
+level.
 
 **Writes.**  Against a versioned default graph
 (relational/updates.py), reads pin the latest committed snapshot AT
@@ -85,7 +87,6 @@ import dataclasses
 import threading
 from typing import Any, Dict, List, Mapping, Optional
 
-from caps_tpu_torch._unported import not_ported
 from caps_tpu_torch.obs import clock
 from caps_tpu_torch.obs.lockgraph import make_lock
 from caps_tpu_torch.obs.log import EventLog, SlowQueryLog
@@ -100,7 +101,7 @@ from caps_tpu_torch.serve.breaker import REJECT, TRIAL, CircuitBreaker
 from caps_tpu_torch.serve.deadline import CancelScope, cancel_scope
 from caps_tpu_torch.serve.devices import DeviceReplica, ReplicaSet
 from caps_tpu_torch.serve.errors import (
-    Cancelled, CancellationError, CircuitOpen, DeadlineExceeded, NotPorted,
+    Cancelled, CancellationError, CircuitOpen, DeadlineExceeded, Overloaded,
     QueryFailed,
 )
 from caps_tpu_torch.serve.failure import (
@@ -108,6 +109,7 @@ from caps_tpu_torch.serve.failure import (
     quarantine_plan_state,
 )
 from caps_tpu_torch.serve.request import INTERACTIVE, QueryHandle, Request
+from caps_tpu_torch.serve.shards import ShardGroup, ShardGroupConfig
 from caps_tpu_torch.serve.retry import RetryPolicy
 from caps_tpu_torch.serve.warmup import ServerWarmup, WarmupConfig
 
@@ -186,10 +188,18 @@ class ServerConfig:
     #: through the normal compile boundaries, so the compile ledger
     #: proves coverage before traffic arrives.  None = no warmup.
     warmup: Optional["WarmupConfig"] = None
-    #: shard-group capacity members: not ported (they need a
-    #: mesh-sharded session, ROADMAP); setting either raises
+    #: shard-group capacity members (serve/shards.py): with ``shards=N``
+    #: the server fronts ONE hash-partitioned graph — the ``shard_graph``
+    #: passed at construction, defaulting to the default graph — behind
+    #: a group of N member sessions: single-shard queries route to the
+    #: owning member, cross-shard patterns ride the group's mesh
+    #: session, and the failure ladder runs at GROUP level (a dead shard
+    #: degrades its group, never the server).  Replica members
+    #: (``devices``) keep serving every other graph.
     shards: Optional[int] = None
-    shard_config: Optional[Any] = None
+    #: knobs for the group (partition property, paging budget, ladder
+    #: thresholds); ``members`` is overridden by ``shards``
+    shard_config: Optional["ShardGroupConfig"] = None
     #: default per-request budget (None = no deadline)
     default_deadline_s: Optional[float] = None
     default_priority: int = INTERACTIVE
@@ -271,11 +281,11 @@ class QueryServer:
     """
 
     def __init__(self, session, graph=None,
-                 config: Optional[ServerConfig] = None, start: bool = True):
+                 config: Optional[ServerConfig] = None, start: bool = True,
+                 shard_graph=None):
         self.session = session
         self.config = config or ServerConfig()
-        if self.config.shards or self.config.shard_config is not None:
-            raise NotPorted(str(not_ported("shard groups")))
+        self._shard_graph = shard_graph
         self._default_graph = graph if graph is not None \
             else session._ambient
         registry = session.metrics_registry
@@ -329,10 +339,28 @@ class QueryServer:
             self.result_cache = ResultCache(self.config.result_cache,
                                             registry=registry)
             session.result_cache = self.result_cache
+        #: shard-group capacity members (serve/shards.py): one group of
+        #: ``config.shards`` member sessions fronting the partitioned
+        #: ``shard_graph`` (default: the server's default graph).  Built
+        #: BEFORE the replica set so both kinds of member sit behind the
+        #: same dispatch/claim machinery.
+        self.shard_groups: List[ShardGroup] = []
+        if self.config.shards:
+            target = shard_graph if shard_graph is not None \
+                else self._default_graph
+            gcfg = self.config.shard_config or ShardGroupConfig()
+            gcfg = dataclasses.replace(gcfg, members=self.config.shards)
+            self.shard_groups.append(ShardGroup(
+                session, target, gcfg, registry=registry,
+                event_log=self.event_log,
+                index=(self.config.devices or 1),
+                on_change=lambda: self.admission.set_active_workers(
+                    self.devices.live_count() or 1)))
         self.admission = AdmissionController(
             registry, max_queue=self.config.max_queue,
             per_priority_limits=self.config.per_priority_limits,
-            workers=self.config.devices or self.config.workers,
+            workers=(self.config.devices or self.config.workers)
+            + len(self.shard_groups),
             telemetry=self.telemetry)
         self.batcher = MicroBatcher(self.admission,
                                     max_batch=self.config.max_batch,
@@ -345,14 +373,21 @@ class QueryServer:
         #: replicas 1..N-1 are clones with re-ingested graph copies.
         #: Quarantine/reinstate transitions re-tell the admission
         #: controller how many parallel streams are actually live.
+        #: replicas never eagerly ingest a group-served default graph —
+        #: capacity lives on the group's members, that is the point
+        replica_default = graph
+        if self.shard_groups and \
+                self.shard_groups[0].serves(self._default_graph):
+            replica_default = None
         self.devices = ReplicaSet(
-            session, graph=graph,
+            session, graph=replica_default,
             n_devices=self.config.devices or 1,
             registry=registry,
             failure_threshold=self.config.device_failure_threshold,
             cooldown_s=self.config.device_cooldown_s,
             on_change=lambda: self.admission.set_active_workers(
-                self.devices.live_count() or 1))
+                self.devices.live_count() or 1),
+            groups=self.shard_groups)
         #: AOT warmup driver (serve/warmup.py) — None unless configured.
         #: ``start()`` runs it (inline or background per its config);
         #: progress/outcome ride ``stats()["warmup"]``.
@@ -419,6 +454,11 @@ class QueryServer:
         else:
             bindings = [self.devices.replicas[0]] \
                 * max(1, self.config.workers)
+        # one dispatch stream per shard group, plus its background
+        # maintenance loop (probe + rebuild off the serving path)
+        bindings.extend(self.shard_groups)
+        for group in self.shard_groups:
+            group.start_maintenance()
         for i, replica in enumerate(bindings):
             t = threading.Thread(
                 target=self._worker_loop, args=(replica,),
@@ -481,6 +521,8 @@ class QueryServer:
         inflating ``mem.tracked_graph_bytes``."""
         if self.warmer is not None:
             self.warmer.finalize()
+        for group in self.shard_groups:
+            group.close()
         listeners = getattr(self.session, "replan_listeners", None)
         if listeners is not None and self._on_replan in listeners:
             listeners.remove(self._on_replan)
@@ -536,6 +578,24 @@ class QueryServer:
             from caps_tpu_torch.relational.updates import is_update_query
             if not is_update_query(query):
                 graph = graph.current()
+        # Shard-group graphs never reach the branch above: the group
+        # versions its partitions INTERNALLY (serve/shards.py), so
+        # writes pass through untouched and commit via the group's own
+        # lineage inside ShardGroup.execute.
+        group = self.devices.group_for(graph)
+        if group is not None:
+            # group-level admission: a QUARANTINED group sheds its
+            # traffic here with an honest retry hint (the remaining
+            # rebuild cooldown) instead of queueing work nobody can
+            # serve — replica members keep serving everything else
+            retry_after = group.shed_retry_after()
+            if retry_after is not None:
+                self.telemetry.note_shed()
+                raise Overloaded(
+                    f"shard group {group.name!r} is quarantined "
+                    f"(rebuild pending; retry after {retry_after:.3f}s)",
+                    retry_after_s=retry_after,
+                    queue_depth=self.admission.depth(), priority=priority)
         mode, plan_key, key = _batcher.request_keys(
             graph, query, params, ragged=self.config.ragged_batching,
             lattice=getattr(self.session, "shape_lattice", None))
@@ -583,6 +643,7 @@ class QueryServer:
         out["health"] = self.health()
         out["breakers"] = self.breaker.summary()
         out["devices"] = self.devices.summary()
+        out["shards"] = self.devices.group_summaries()
         out["compaction"] = (self.compactor.summary()
                              if self.compactor is not None else None)
         out["telemetry"] = self.telemetry.summary()
@@ -635,6 +696,9 @@ class QueryServer:
             "window": self.telemetry.summary(),
             "breakers": self.breaker.summary(),
             "devices": self.devices.summary(),
+            # per-group shard health: member ladder states, rebuild
+            # counts, paging gauges (serve/shards.py)
+            "shards": self.devices.group_summaries(),
             "compaction": (self.compactor.summary()
                            if self.compactor is not None else None),
             # the resource-accounting sections: per-family
@@ -666,6 +730,11 @@ class QueryServer:
         hot = (list(families) if families is not None
                else self.session.op_stats.families())
         compiled = set(ledger.families()) if ledger is not None else set()
+        for group in self.shard_groups:
+            # a family that only ever compiled on a shard group (its
+            # members' sessions or its cross-shard session) is covered:
+            # that is where its traffic executes
+            compiled |= group.compiled_families()
         cold = [f for f in hot if f not in compiled]
         return {
             "hot_families": len(hot),
@@ -712,6 +781,10 @@ class QueryServer:
         if self.admission.closed:
             return "lame-duck"
         if self.breaker.open_count() or self.devices.quarantined_count():
+            return "degraded"
+        if any(g.health() != "healthy" for g in self.shard_groups):
+            # a degraded group still serves its healthy shards, but
+            # capacity planning must see the lost member
             return "degraded"
         if self.compactor is not None and self.compactor.failing:
             # serving still works, but the delta overlay has stopped
@@ -843,8 +916,23 @@ class QueryServer:
             # the whole batch back to the dispatcher
             self._requeue(live)
             return
-        # non-replicable graphs (union/catalog) pin to device 0
+        # non-replicable graphs (union/catalog) pin to device 0; shard-
+        # group graphs redirect to their group whoever claimed them
         replica = self.devices.replica_for(replica, live[0].graph)
+        if isinstance(replica, ShardGroup) and \
+                not self.devices.is_healthy(replica):
+            # the batch's shard GROUP quarantined between admission and
+            # the claim: requeue — the in-flight group requests drain
+            # back to the dispatcher and complete once the rebuild
+            # reinstates it (or expire on their own deadlines); new
+            # traffic sheds at submit.  The nap keeps a healthy claimer
+            # from hot-spinning on work only the rebuilt member can
+            # serve.  Scoped to groups: a batch PINNED to a quarantined
+            # device 0 still executes and fails through the retry
+            # ladder — the client gets an answer, not an infinite loop.
+            self._requeue(live)
+            clock.sleep(_PROBE_NAP_S)
+            return
         with self._tracked(live):
             self._execute_live(live, replica)
 
@@ -1062,7 +1150,18 @@ class QueryServer:
                 continue
             if isinstance(outcome, BaseException):
                 tripped = self.devices.record_failure(replica, outcome)
-                if tripped:
+                if tripped and isinstance(replica, ShardGroup):
+                    # a member (or the whole group) tripped its ladder:
+                    # black-box it — the group keeps serving healthy
+                    # shards while the background rebuild runs
+                    from caps_tpu_torch.serve.shards import member_of
+                    self.telemetry.auto_dump(f"shard_{tripped}_quarantine")
+                    self.event_log.emit(
+                        "shard.quarantine", request_id=None, family=None,
+                        group=replica.name, level=tripped,
+                        member=member_of(outcome),
+                        error=type(outcome).__name__)
+                elif tripped:
                     # this failure quarantined the device: black-box the
                     # in-flight picture for the postmortem
                     self.telemetry.auto_dump("device_quarantine")
@@ -1139,6 +1238,7 @@ class QueryServer:
                 # device failover: re-execute on a different healthy
                 # device when one exists — routed through replica_for,
                 # so non-replicable graphs keep retrying on device 0
+                # and shard-group graphs come back to their group
                 replica = self.devices.replica_for(
                     self.devices.retry_target(
                         exclude_index=failed_devices), req.graph)
@@ -1227,6 +1327,14 @@ class QueryServer:
             # cached results (and every shared memoized intermediate)
             # must go with the plan (relational/result_cache.py)
             self.result_cache.evict_family(req.plan_key[1])
+        if isinstance(replica, ShardGroup):
+            # group-routed: evict on the session that actually served
+            # this family (owning member or the cross-shard session)
+            replica.quarantine_family(req.query, req.params)
+            self.event_log.emit(
+                "plan.quarantine", request_id=req.request_id,
+                family=self._family_label(req), device=replica.index)
+            return
         session = replica.session
         try:
             graph = replica.graph_for(req.graph)

@@ -138,6 +138,21 @@ class ServerWarmup:
         try:
             payload = collect_warm_state(
                 self.server.session, graph=self.server._default_graph)
+            # shard groups record their warm bindings on THEIR member /
+            # cross sessions, not the template — merge them in so a
+            # family served only by a group still round-trips into the
+            # store (the cold-process sharded warmup's targets)
+            known = {f["family"] for f in payload["families"]}
+            for group in getattr(self.server, "shard_groups", ()):
+                for b in group.warmup_bindings():
+                    if b["family"] in known:
+                        continue
+                    known.add(b["family"])
+                    payload["families"].append({
+                        "family": b["family"], "query": b["query"],
+                        "params": b["params"],
+                        "bindings": b.get("bindings") or [b["params"]],
+                        "stream": None, "rows_max": 0})
         except Exception as ex:  # collection must not break shutdown
             self.store._reject(
                 f"collect failed: {type(ex).__name__}: {ex}")
@@ -260,7 +275,17 @@ class ServerWarmup:
             # read path — replicas cannot (and must not) replicate the
             # writable handle itself
             graph = graph.current()
-        if server.config.devices is not None:
+        group = server.devices.group_for(graph)
+        if group is not None:
+            # shard-group-served default graph: every target executes
+            # THROUGH the group's routing seam, so the compile charges
+            # land on the member (or cross-shard) session that will
+            # actually serve that family's traffic — per-member compile
+            # boundaries, per-member plan caches.  warmup_report()
+            # unions the group sessions' ledgers, so a family that only
+            # compiled on the group counts as covered.
+            replicas = [group]
+        elif server.config.devices is not None:
             replicas = list(server.devices.replicas)
         else:
             replicas = [server.devices.replicas[0]]

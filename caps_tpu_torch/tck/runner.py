@@ -175,6 +175,8 @@ def load_gaps(path: str) -> Dict[str, str]:
 
 
 BLACKLIST = os.path.join(os.path.dirname(__file__), "blacklists", "cuda.txt")
+SHARDED_BLACKLIST = os.path.join(os.path.dirname(__file__), "blacklists",
+                                 "sharded.txt")
 
 
 class TckFailure(AssertionError):

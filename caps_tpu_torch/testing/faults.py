@@ -45,8 +45,10 @@ faults it can practice against.  This module provides them:
 * :class:`FaultPlan` — compose any of the above into one context
   manager.
 
-The injectors of shard groups (``corrupt_shard``, ``shard_loss``,
-``sick_shard``) come with that tier (ROADMAP item 12).
+* :func:`shard_loss` / :func:`sick_shard` — kill or flake one member of
+  a shard group (serve/shards.py), inside that group's brackets only;
+* :func:`corrupt_shard` — silently damage the rows of one mesh shard at
+  ingest (``DeviceBackend.place_column``).
 
 All operator-level faults route through ONE locked patch point
 (:class:`_OperatorPatch`): each operator class is monkey-patched at most
@@ -66,6 +68,8 @@ per-member isolation contract depends on it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Type, Union
 
 import torch
@@ -552,6 +556,144 @@ def sick_device(device_index: int, error_rate: float = 0.2,
 
     with OPERATOR_PATCH.hooked(cls, hook):
         yield budget
+
+
+def _make_shard_down(group: str, member: Optional[int]) -> BaseException:
+    """A fresh CUDA runtime error attributed to one shard-group member
+    (serve/shards.py): ``caps_device_fault`` makes the group's ladder
+    count it, ``caps_shard_member`` attributes the member so the MEMBER
+    breaker (not the group's) climbs."""
+    exc = torch.AcceleratorError(
+        f"CUDA error: unspecified launch failure [injected shard loss: "
+        f"member {member} of group {group!r}]")
+    exc.caps_device_fault = True
+    if member is not None:
+        exc.caps_shard_member = member
+    return exc
+
+
+def _shard_scope_matches(group: str, member: Optional[int]) -> bool:
+    """True when the calling thread is executing inside the targeted
+    shard scope: the member's own bracket, or — because a dead device
+    also breaks every group-wide (cross-shard) program that spans it —
+    the group-wide bracket (member None)."""
+    from caps_tpu_torch.serve.shards import executing_shard
+    scope = executing_shard()
+    if scope is None or scope[0] != group:
+        return False
+    if member is None:
+        return True
+    return scope[1] is None or scope[1] == member
+
+
+@contextlib.contextmanager
+def shard_loss(group: str, member: int, n_times: Optional[int] = None,
+               op_name: str = "Scan"):
+    """Kill ONE shard-group member: while active, every ``_compute`` of
+    the named operator raises a fresh member-attributed device error —
+    but ONLY inside executions of group ``group`` that touch member
+    ``member``: the member's own single-shard stream, AND the group-wide
+    cross-shard programs (which span the dead member).  Other groups,
+    other members' single-shard streams and plain replicas never see
+    it.
+
+    ``n_times=None`` is a permanent loss (the group must degrade and
+    keep serving its other shards); ``n_times=K`` is a K-shot glitch —
+    the background rebuild's canary after it heals the member.  Yields
+    the injection budget (``.injected``)."""
+    cls = _resolve_operator(op_name)
+    budget = _Budget(n_times)
+
+    def hook(_op):
+        if not _shard_scope_matches(group, member):
+            return
+        if budget.take():
+            _count_injection("shard_loss")
+            raise _make_shard_down(group, member)
+
+    with OPERATOR_PATCH.hooked(cls, hook):
+        yield budget
+
+
+@contextlib.contextmanager
+def sick_shard(group: str, member: Optional[int] = None,
+               error_rate: float = 0.2, n_times: Optional[int] = None,
+               op_name: str = "Scan"):
+    """A flaky (not dead) shard scope: a deterministic ~``error_rate``
+    fraction of the named operator's executions inside group ``group``
+    (optionally narrowed to one ``member``) fail once with a transient
+    member-attributed device error — the every-Nth spacing of
+    ``sick_device``, so a single retry through the server's ladder
+    always heals.  Yields the injection budget."""
+    if not 0.0 < error_rate <= 1.0:
+        raise ValueError(f"error_rate must be in (0, 1], got {error_rate}")
+    cls = _resolve_operator(op_name)
+    budget = _Budget(n_times, every_n=max(1, int(round(1.0 / error_rate))))
+
+    def hook(_op):
+        if not _shard_scope_matches(group, member):
+            return
+        if budget.take():
+            _count_injection("sick_shard")
+            from caps_tpu_torch.serve.shards import executing_shard
+            scope = executing_shard()
+            raise _make_shard_down(group, scope[1] if scope else member)
+
+    with OPERATOR_PATCH.hooked(cls, hook):
+        yield budget
+
+
+@contextlib.contextmanager
+def corrupt_shard(session, shard: int = 0, flip_bits: int = 1):
+    """While active, every *data* buffer placed on the session's mesh
+    gets ``flip_bits`` added to the rows of shard ``shard``'s block
+    (validity masks are left intact — the corruption is silent, like
+    real bit damage).  Only affects tables ingested inside the ``with``
+    block.
+
+    A column the injector CANNOT damage (row count not divisible by the
+    shard count, or a bool or non-numeric dtype where "+1" is not bit
+    damage) is skipped with a warning, and if NOTHING was corrupted by
+    the time the block exits the context raises — a fault test that
+    injected no fault must fail loudly, not pass vacuously."""
+    backend = _placement_backend(session, "corrupt_shard")
+    if getattr(backend, "mesh", None) is None:
+        raise ValueError("corrupt_shard needs a sharded session "
+                         "(EngineConfig.mesh_shape)")
+    n_shards = backend.mesh.size
+    counts = {"corrupted": 0, "skipped": 0}
+
+    def wrap(orig):
+        def poisoned(col):
+            n = col.data.shape[0]
+            if n % n_shards == 0 and col.data.dtype != torch.bool:
+                rows = n // n_shards
+                data = col.data.clone()
+                data[shard * rows:(shard + 1) * rows] += flip_bits
+                col = dataclasses.replace(col, data=data)
+                counts["corrupted"] += 1
+                _count_injection("corrupt_shard")
+            else:
+                counts["skipped"] += 1
+                reason = ("bool dtype" if col.data.dtype == torch.bool
+                          else f"{n} rows not divisible by "
+                               f"{n_shards} shards")
+                warnings.warn(f"corrupt_shard skipped a column ({reason}) "
+                              f"— this column was placed UNDAMAGED",
+                              stacklevel=2)
+            return orig(col)
+        return poisoned
+
+    with _patched(backend, "place_column", wrap):
+        yield counts
+    # only reached on a CLEAN exit (an exception unwinding the body
+    # propagates above and must not be masked by the vacuity check)
+    if counts["corrupted"] == 0:
+        raise RuntimeError(
+            "corrupt_shard corrupted NOTHING "
+            f"({counts['skipped']} column(s) skipped) — the fault "
+            "test would pass vacuously; ingest a divisible-row, "
+            "non-bool column inside the block")
 
 
 @contextlib.contextmanager

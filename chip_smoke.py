@@ -159,7 +159,31 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 from the first one's plan store against a cold one; and
                 failover between two replicas on the card (each on its
                 own stream) under ``device_loss(0)``;
- 16. fleet    — durability and the fleet with backend processes on the
+ 16. mesh     — the multi-GPU slice on a mesh of 4 shards (4 cards where
+                the process sees as many, else all on the one card, run
+                one after another): M1 the grouped 2-hop query on a
+                ``mesh_shape=(4,), use_csr=False`` session (radix-exchange
+                joins, K2 on every shard's expansion, K1 once per shard
+                then the combine, K3), cold, 5 exact replays (0 size
+                reads), eager and the 24 rotating ages, each against the
+                numpy oracle and an unsharded session, each shard's K1
+                combine against the plain version over the whole column;
+                M2 the same query with every join a broadcast join
+                (EXPLAIN's ``dist_strategy``); M3 a salted radix join
+                through a hub node (20 % of the edges, seeded; hot above
+                half a shard's fair share); M4 the ring 2-hop count and a
+                ``[*1..3]`` ring-matrix var-expand against the unsharded
+                session; M5 the sharded two-hop step and the collectives
+                smoke over the 10M edges against numpy; M6 a re-shard to
+                the 3 healthy slots (2 shards, the power-of-two rule),
+                then M1 again; M7 a ``QueryServer`` whose graph a shard
+                group of 4 members serves (partitioned by city): 8
+                clients, 1,000 requests (routed single-city reads and
+                M1), a member lost under traffic and rebuilt, one write
+                read back.  Per query cold and warm latency, size reads,
+                dist joins, bytes between shards, launches, peak bytes
+                and one exact replay's busy time and idle share;
+ 17. fleet    — durability and the fleet with backend processes on the
                 card, each a new interpreter with its own CUDA context
                 building the same ``foaf`` graph (1M people, 10M edge
                 draws) from one spec: the grouped query through one
@@ -178,15 +202,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``RouterSet`` under a seeded ``ChaosSchedule`` that kills
                 the active one (takeover, availability, the dead
                 router's epoch fenced, every invariant green);
- 17. tck      — the 465 TCK scenarios on the card under the CPU tests'
+ 18. tck      — the 465 TCK scenarios on the card under the CPU tests'
                 strict list (``caps_tpu_torch/tck/blacklists/cuda.txt``),
                 and the port's float64 sqrt on 2^20 values bit for bit
                 against numpy;
- 18. acceptance — the 117 behaviour tests of ``tests/acceptance`` against
+ 19. acceptance — the 117 behaviour tests of ``tests/acceptance`` against
                 a session on the card, every query's rows equal to the
                 port's pure-Python oracle on the same graph, the strict
                 list's tests raising their causes; counts by suite;
- 19. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
+ 20. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
                 generator: at scale 11 (about LDBC SF1) 3 parameter draws
                 each, equal to the port's CPU session; at scale 110
                 (about SF10) a cold run, 5 exact replays and 3 generic
@@ -194,18 +218,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
                 ``use_cost_model=False`` session too;
- 20. plan     — bench config 9 at its TPU size: the five query families
+ 21. plan     — bench config 9 at its TPU size: the five query families
                 on the default session and a ``use_cost_model=False``
                 one, equal binding by binding, re-roots as intended, warm
                 latency of each; the re-plan loop from a seeded distorted
                 sketch to a re-planned exact replay;
- 21. selftest — the seconds each kernel family's self-test took, and a
+ 22. selftest — the seconds each kernel family's self-test took, and a
                 check that a second request launches nothing;
- 22. kernels  — each kernel wrapper against its plain PyTorch version on
+ 23. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
                 unwind and lists queries, the multiway joins, the final
-                snapshot of the updates phase, IC12 and a served batch)
+                snapshot of the updates phase, IC12, a served batch and
+                the mesh phase's M1: every shard's K1 and K2 calls)
                 and at edge
                 shapes (the segment
                 kernel: bit for bit, NaN and signed zeros included, and
@@ -215,7 +240,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 call's time, and, for the expand and segment kernels,
                 device time and launches by kernel name
                 (``torch.profiler``);
- 23. the script's seconds, the ``{"kernels": [...]}`` line, the card
+ 24. the script's seconds, the ``{"kernels": [...]}`` line, the card
      line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -233,6 +258,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -4374,6 +4400,380 @@ def run_fleet(torch, np, args, card: str) -> dict:
     return total
 
 
+# The mesh phase: a 4-shard mesh (4 cards where the process sees as
+# many, else a virtual mesh on one card) driving the hand-scheduled
+# distributed joins, the sharded K1 group-by, the ring schedules, the
+# sharded query steps, a re-shard and a shard group.
+MESH_SHARDS = 4
+MESH_HUB_SHARE = 0.2        # M3: the share of edges that target node 0
+MESH_HOT_FACTOR = 0.5       # M3: hot above half a shard's fair share
+QUERY_HUB = ("MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age "
+             "RETURN b.city AS city, count(*) AS n ORDER BY n DESC, city "
+             "LIMIT 20")
+QUERY_VARLEN3_CITY = (
+    "MATCH (a:Person)-[:KNOWS*1..3]->(c) WHERE a.age = $age "
+    "AND a.city = $city "
+    "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+# M7: the shard group's traffic, and the member loss under it
+SHARD_CLIENTS = 8
+SHARD_REQUESTS = 1000
+SHARD_LOSS_REQUESTS = 200
+SHARD_LOSS_FAULTS = 6
+QUERY_CITY = ("MATCH (p:Person {city: $c}) "
+              "RETURN count(*) AS n, min(p.age) AS lo, max(p.age) AS hi")
+QUERY_SHARD_WRITE = "CREATE (:Person {city: $c, age: 200})"
+QUERY_SHARD_READBACK = ("MATCH (p:Person {city: $c}) WHERE p.age = 200 "
+                        "RETURN count(*) AS n")
+# K1 launches one group-by of M1 makes at least: once per shard
+MIN_MESH_LAUNCHES = {"segment_agg": MESH_SHARDS,
+                     "expand_positions": MESH_SHARDS, "bitonic_sort": 1}
+
+
+def mesh_numbers(torch, session, graph, query, params, card, recorders=(),
+                 warm=5):
+    """``pattern_runs`` plus the mesh's accounting of one exact replay:
+    its dist joins, bytes between shards (padded buffers and live
+    payload), and its device busy time and idle share."""
+    rows, info, result = pattern_runs(torch, session, graph, query, params,
+                                      card, warm=warm, recorders=recorders)
+    expect_replays(query[:40], info, 0, "mesh")
+    m = result.metrics
+    info.update({k: m[k] for k in ("dist_joins", "broadcast_joins",
+                                   "salted_joins", "ici_bytes",
+                                   "ici_payload_bytes")})
+    info["mesh"] = m.get("mesh")
+    info["replay_profile"] = device_profile(
+        torch, lambda: graph.cypher(query, params).records.to_maps())
+    return rows, info, result
+
+
+def hub_oracle(np, nodes, rels, age: int):
+    """M3: the seeds' one-hop friends grouped by city (top 20)."""
+    k = rels["KNOWS"]
+    seeds = (nodes["Person"]["age"] == age).astype(np.int64)
+    per_node = np.bincount(k["_tgt"], weights=seeds[k["_src"]],
+                           minlength=len(seeds))
+    return top_cities(np, nodes, per_node)
+
+
+def shard_oracles(np, nodes, rels, ages):
+    """M7's oracles: per city its persons' count, least and greatest
+    age; and the grouped 2-hop rows of each of ``ages``."""
+    persons = nodes["Person"]
+    names, codes = np.unique(persons["city"], return_inverse=True)
+    counts = np.bincount(codes, minlength=len(names))
+    lo = np.full(len(names), 1 << 30)
+    hi = np.full(len(names), -1)
+    np.minimum.at(lo, codes, persons["age"])
+    np.maximum.at(hi, codes, persons["age"])
+    city = {str(c): [{"n": int(k), "lo": int(a), "hi": int(b)}]
+            for c, k, a, b in zip(names, counts, lo, hi)}
+    return city, {a: oracle(np, nodes, rels, a)[0] for a in ages}
+
+
+def run_shard_group(torch, np, nodes, rels, card: str) -> dict:
+    """M7: a ``QueryServer`` whose default graph is served by a shard
+    group of MESH_SHARDS members partitioned by city (the members are
+    sessions on the card, each on its own stream; the cross-shard
+    session a MESH_SHARDS-shard mesh session): closed-loop clients send
+    routed single-city reads and the grouped 2-hop query, every answer
+    against its oracle; then a member lost under traffic, its rebuild
+    and reinstatement; then one write through the group read back."""
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.serve import (QueryServer, RetryPolicy,
+                                      ServerConfig, ShardGroupConfig)
+    from caps_tpu_torch.testing.faults import shard_loss
+    t0 = time.perf_counter()
+    session = caps_tpu_torch.local_session()
+    graph = graph_from_numpy(session, nodes, rels)
+    ages = [AGE, AGE + 7, AGE + 19, AGE + 33]
+    city_want, m1_want = shard_oracles(np, nodes, rels, ages)
+    cities = sorted(city_want)
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        shards=MESH_SHARDS, max_queue=4 * SHARD_CLIENTS,
+        shard_config=ShardGroupConfig(
+            name="m7", partition_property="city",
+            member_failure_threshold=1, member_cooldown_s=0.5),
+        device_failure_threshold=1000, breaker_threshold=1000,
+        retry=RetryPolicy(max_attempts=60, backoff_base_s=0.01,
+                          backoff_max_s=0.1)))
+    group = server.shard_groups[0]
+    torch.cuda.synchronize()
+    out = {"card": card, "members": MESH_SHARDS,
+           "build_s": time.perf_counter() - t0,
+           "partition_rows": [p.rows for p in group.partitions],
+           "cross_mesh": group.cross_session.backend.mesh.describe()}
+
+    def request(i):
+        if i % 2 == 0:
+            c = cities[(i * 7919) % len(cities)]
+            return QUERY_CITY, {"c": c}, city_want[c]
+        a = ages[(i // 2) % len(ages)]
+        return QUERY_GROUPED, {"age": a}, m1_want[a]
+
+    def soak(n_requests):
+        lat, wrong, failed = [], [], []
+        lock = threading.Lock()
+        nxt = [0]
+
+        def client():
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= n_requests:
+                    return
+                q, params, want = request(i)
+                t1 = time.perf_counter()
+                try:
+                    rows = server.submit(q, params).rows(timeout=120)
+                except Exception as ex:
+                    with lock:
+                        failed.append(type(ex).__name__)
+                    continue
+                with lock:
+                    lat.append(time.perf_counter() - t1)
+                    if rows != want:
+                        wrong.append((q[:30], params))
+        threads = [threading.Thread(target=client)
+                   for _ in range(SHARD_CLIENTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t1, lat, wrong, failed
+
+    try:
+        before = session.metrics_snapshot()
+        wall, lat, wrong, failed = soak(SHARD_REQUESTS)
+        snap = session.metrics_snapshot()
+        single = snap["shard.requests.single"] \
+            - before.get("shard.requests.single", 0)
+        cross = snap["shard.requests.cross"] \
+            - before.get("shard.requests.cross", 0)
+        expect("M7", not wrong and not failed,
+               f"wrong {wrong[:3]} failed {failed[:3]}", "mesh")
+        out["soak"] = {"requests": SHARD_REQUESTS, "clients": SHARD_CLIENTS,
+                       "wall_s": wall,
+                       "requests_per_s": SHARD_REQUESTS / wall,
+                       **latency_summary(lat),
+                       "routed_share": single / max(1, single + cross)}
+
+        # a member lost under traffic: quarantined, rebuilt, reinstated
+        t_loss = time.perf_counter()
+        with shard_loss("m7", 1, n_times=SHARD_LOSS_FAULTS) as budget:
+            wall, lat, wrong, failed = soak(SHARD_LOSS_REQUESTS)
+        expect("M7", not wrong, f"wrong answers {wrong[:3]}", "mesh")
+        deadline = time.perf_counter() + 60
+        while group.health() != "healthy" \
+                and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        m1s = group.summary()["members"][1]
+        expect("M7", group.health() == "healthy"
+               and m1s["quarantines"] >= 1 and m1s["reinstates"] >= 1,
+               group.summary(), "mesh")
+        out["loss"] = {"requests": SHARD_LOSS_REQUESTS,
+                       "injected": budget.injected,
+                       "right_share": len(lat) / SHARD_LOSS_REQUESTS,
+                       "failed": len(failed), "wall_s": wall,
+                       "seconds_to_reinstated": time.perf_counter() - t_loss,
+                       "member": m1s,
+                       "transitions": [t["state"] for t in
+                                       group.summary()["transitions"]]}
+
+        # one write through the group, read back on the owning member
+        c = cities[0]
+        server.submit(QUERY_SHARD_WRITE, {"c": c}).result(timeout=60)
+        got = server.submit(QUERY_SHARD_READBACK,
+                            {"c": c}).rows(timeout=60)
+        expect("M7", got == [{"n": 1}], got, "mesh")
+        out["write_readback"] = got
+    finally:
+        server.shutdown()
+    return out
+
+
+def run_mesh(torch, np, args, card: str, state) -> dict:
+    """M1–M6 of the mesh phase (module docstring)."""
+    import caps_tpu_torch
+    from caps_tpu_torch import ops
+    from caps_tpu_torch.interop import graph_from_numpy
+    from caps_tpu_torch.okapi.config import EngineConfig
+    from caps_tpu_torch.parallel.mesh import make_mesh
+    from caps_tpu_torch.parallel.query_step import (
+        make_collectives_smoke, make_sharded_two_hop)
+    from caps_tpu_torch.relational.session import degraded_execution
+    _session, _graph, nodes, rels, slice_info = state
+    t_phase = time.perf_counter()
+    age = {"age": AGE}
+    out = {"phase": "mesh", "card": card, "shards": MESH_SHARDS}
+
+    def mesh_session(graph_rels=rels, **cfg):
+        s = caps_tpu_torch.local_session(config=EngineConfig(
+            mesh_shape=(MESH_SHARDS,), **cfg))
+        return s, graph_from_numpy(s, nodes, graph_rels)
+
+    t0 = time.perf_counter()
+    msess, mgraph = mesh_session(use_csr=False)
+    psess = caps_tpu_torch.local_session(config=EngineConfig(use_csr=False))
+    pgraph = graph_from_numpy(psess, nodes, rels)
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    out["mesh"] = msess.backend.mesh.describe()
+
+    # -- M1: the grouped 2-hop query: radix joins, sharded K1, K3 ------
+    want = oracle(np, nodes, rels, AGE)[0]
+    sharded = Recorder(ops, "dense_segment_agg_sharded",
+                       lambda a: a[1].shape[0])
+    per_query = query_recorders()
+    rows, m1, result = mesh_numbers(torch, msess, mgraph, QUERY_GROUPED, age,
+                                    card, recorders=per_query + [sharded])
+    expect("M1", rows == want, f"{rows[:3]} != oracle {want[:3]}", "mesh")
+    check_query_launches("mesh M1", m1["replay_launches"], MIN_MESH_LAUNCHES)
+    expect("M1", m1["dist_joins"] > 0, m1, "mesh")
+    prow, pinfo, _ = pattern_runs(torch, psess, pgraph, QUERY_GROUPED, age,
+                                  card)
+    expect("M1", prow == rows, "unsharded rows differ", "mesh")
+    m1["unsharded_cold_s"], m1["unsharded_warm_s"] = (pinfo["cold_s"],
+                                                      pinfo["warm_s"])
+    # each K1 call of the replay ran on one shard's block: the combine of
+    # each sharded group-by equals the plain version over the whole column
+    combines = 0
+    for args_ in sharded.calls:
+        mesh, codes, okm, vals, S, kind = args_
+        got = ops.segment.dense_segment_agg_sharded(*args_)
+        whole = ops.dense_segment_agg_plain(codes, okm, vals, S, kind)
+        expect("M1", torch.equal(got, whole),
+               f"sharded {kind} over {codes.shape[0]} rows differs from "
+               f"the plain version", "mesh")
+        combines += 1
+    expect("M1", combines > 0, "no sharded group-by ran", "mesh")
+    m1["sharded_group_bys"] = combines
+    m1["k1_calls"] = len(per_query[0].calls)
+    m1["k2_calls"] = len(per_query[1].calls)
+    # eager and the 24 rotating ages (param-generic replays)
+    with degraded_execution(no_plan_cache=True, no_fused=True):
+        erows, _r, m1["eager_s"] = timed_query(torch, mgraph, QUERY_GROUPED,
+                                               age)
+    expect("M1", erows == want, "eager run differs", "mesh")
+    rng = np.random.default_rng(args.seed + 1)
+    ages = [int(a) for a in rng.integers(18, 90, ROTATING)]
+    gen = []
+    for a in ages:
+        got, res, s = timed_query(torch, mgraph, QUERY_GROUPED, {"age": a})
+        gen.append((a, got, s, msess.fused.last_mode))
+    for a, got, _s, _mode in gen:
+        expect("M1", got == oracle(np, nodes, rels, a)[0],
+               f"age {a} differs from the oracle", "mesh")
+    m1["rotating_s"] = statistics.median(s for _a, _g, s, _m in gen)
+    m1["rotating_modes"] = sorted({m for *_x, m in gen})
+    out["M1"] = m1
+
+    # -- M2: broadcast joins for the seeds' hop --------------------------
+    bsess, bgraph = mesh_session(use_csr=False,
+                                 broadcast_join_threshold=1 << 24)
+    plan = bgraph.cypher("EXPLAIN " + QUERY_GROUPED, age).plans.get("cost",
+                                                                    "")
+    expect("M2", "chosen=broadcast" in plan, plan, "mesh")
+    rows, m2, _ = mesh_numbers(torch, bsess, bgraph, QUERY_GROUPED, age,
+                               card)
+    expect("M2", rows == want and m2["broadcast_joins"] > 0, m2, "mesh")
+    m2["cost"] = plan
+    out["M2"] = m2
+    del bsess, bgraph
+
+    # -- M3: a salted radix join through a hub ---------------------------
+    hub_rng = np.random.default_rng(args.seed + 15)
+    k = rels["KNOWS"]
+    hub_tgt = np.where(hub_rng.random(k["_tgt"].shape[0]) < MESH_HUB_SHARE,
+                       0, k["_tgt"])
+    hub_rels = {"KNOWS": dict(k, _tgt=hub_tgt)}
+    hsess, hgraph = mesh_session(graph_rels=hub_rels, use_csr=False,
+                                 join_hot_factor=MESH_HOT_FACTOR)
+    rows, m3, _ = mesh_numbers(torch, hsess, hgraph, QUERY_HUB, age, card)
+    hub_want = hub_oracle(np, nodes, hub_rels, AGE)
+    expect("M3", rows == hub_want, f"{rows[:3]} != {hub_want[:3]}", "mesh")
+    expect("M3", m3["salted_joins"] > 0, m3, "mesh")
+    m3["hub_edges"] = int((hub_tgt == 0).sum())
+    out["M3"] = m3
+    del hsess, hgraph
+
+    # -- M4: the ring schedules ------------------------------------------
+    rsess, rgraph = mesh_session(use_cost_model=False)
+    heur = slice_info.get("heuristic")
+    rows, m4c, _ = mesh_numbers(torch, rsess, rgraph, QUERY_COUNT, age, card)
+    hop2 = hop_counts(np, nodes, rels,
+                      (nodes["Person"]["age"] == AGE).astype(np.int64))[1]
+    expect("M4", rows == [{"c": int(round(hop2.sum()))}], rows, "mesh")
+    expect("M4", m4c["strategies"].get("CountPattern") == "ring",
+           m4c["strategies"], "mesh")
+    p3 = {"age": AGE, "city": CITY}
+    rows, m4v, _ = mesh_numbers(torch, rsess, rgraph, QUERY_VARLEN3_CITY, p3,
+                                card)
+    expect("M4", m4v["strategies"].get("VarExpand") == "ring-matrix",
+           m4v["strategies"], "mesh")
+    if heur is not None:
+        want3 = heur[1].cypher(QUERY_VARLEN3_CITY, p3).records.to_maps()
+        want_c = heur[1].cypher(QUERY_COUNT, age).records.to_maps()
+        expect("M4", rows == want3, "ring-matrix rows differ", "mesh")
+        expect("M4", want_c == [{"c": int(round(hop2.sum()))}], want_c,
+               "mesh")
+    out["M4"] = {"count": m4c, "varlen3": m4v}
+    del rsess, rgraph
+
+    # -- M5: the sharded query steps over the 10M edges -----------------
+    mesh = make_mesh(MESH_SHARDS, device=msess.device)
+    dev = mesh.lead
+    ages_d = torch.from_numpy(nodes["Person"]["age"].astype(np.int32)).to(dev)
+    src = torch.from_numpy(k["_src"].astype(np.int32)).to(dev)
+    dst = torch.from_numpy(k["_tgt"].astype(np.int32)).to(dev)
+    okd = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    step = make_sharded_two_hop(mesh, len(nodes["Person"]["_id"]))
+    t0 = time.perf_counter()
+    total, _cnt2 = step(ages_d, src, dst, okd, AGE)
+    total = int(total)
+    two_hop_s = time.perf_counter() - t0
+    seeds = nodes["Person"]["age"][k["_src"]] == AGE
+    cnt1 = np.bincount(k["_tgt"][seeds], minlength=len(nodes["Person"]["_id"]))
+    expect("M5", total == int(cnt1[k["_src"]].sum()), total, "mesh")
+    t0 = time.perf_counter()
+    smoke = int(make_collectives_smoke(mesh)(src))
+    smoke_s = time.perf_counter() - t0
+    blocks = k["_src"].reshape(MESH_SHARDS, -1)
+    want_smoke = 2 * int(k["_src"].sum()) \
+        + MESH_SHARDS * int(blocks[:, :4].sum())
+    expect("M5", smoke == want_smoke, (smoke, want_smoke), "mesh")
+    out["M5"] = {"two_hop_paths": total, "two_hop_s": two_hop_s,
+                 "collectives_smoke": smoke, "smoke_s": smoke_s}
+
+    # -- M6: a re-shard --------------------------------------------------
+    msess.catalog.store("mesh", mgraph)
+    slots = list(msess.backend.mesh.slots)
+    t0 = time.perf_counter()
+    n_after = msess.shrink_and_reshard(healthy=slots[:MESH_SHARDS - 1])
+    reshard_s = time.perf_counter() - t0
+    rows, m6, _ = mesh_numbers(torch, msess, mgraph, QUERY_GROUPED, age,
+                               card)
+    expect("M6", rows == want, "rows after the re-shard differ", "mesh")
+    expect("M6", m6["cold_run"]["mode"] == "record", m6["cold_run"], "mesh")
+    m6.update({"healthy": MESH_SHARDS - 1, "shards_after": n_after,
+               "reshard_s": reshard_s})
+    out["M6"] = m6
+    del msess, mgraph, psess, pgraph
+    out["M7"] = run_shard_group(torch, np, nodes, rels, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    # the phase's sessions hold several copies of the graph: hand their
+    # memory back before the fleet's backend processes start
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"mesh_replay": m1["replay_launches"]},
+            {"mesh_m1": {r.name: r.calls for r in per_query}})
+
+
 def run_tck(torch, np, args, card: str) -> None:
     """The TCK corpus on the card, one session per feature file, under
     the CPU tests' strict list (``tck/blacklists/cuda.txt``): an
@@ -5270,6 +5670,9 @@ def main() -> int:
     serve_launches, serve_calls = run_serve(torch, np, args, card, state)
     launches.update(serve_launches)
     pattern_calls.update(serve_calls)
+    mesh_launches, mesh_calls = run_mesh(torch, np, args, card, state)
+    launches.update(mesh_launches)
+    pattern_calls.update(mesh_calls)
     del state
     launches["fleet_soak"] = run_fleet(torch, np, args, card)
     run_tck(torch, np, args, card)
@@ -5359,6 +5762,9 @@ def main() -> int:
             # one exact replay of the grouped query on the graph the fs
             # phase loaded from parquet
             "launches_fs_replay": launches["fs_replay"].get(name, 0),
+            # one exact replay of the grouped query on the mesh phase's
+            # 4-shard session (M1)
+            "launches_mesh_replay": launches["mesh_replay"].get(name, 0),
             # the 3-backend read soak of the fleet phase, summed over the
             # backend processes (each counts its own launches)
             "launches_fleet_soak": launches["fleet_soak"].get(name, 0),

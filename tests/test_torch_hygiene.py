@@ -326,13 +326,13 @@ def test_native_source_is_the_ports_own_copy():
 
 def test_cost_model_wcoj_and_replan_are_on_by_default():
     """The port plans as the JAX package does by default: the cost
-    model, WCOJ and re-planning on; only the distributed join is still
+    model, WCOJ, re-planning and the distributed join on; no flag is
     refused."""
     from caps_tpu_torch.okapi.config import EngineConfig
     cfg = EngineConfig()
-    assert cfg.use_cost_model and cfg.use_wcoj
+    assert cfg.use_cost_model and cfg.use_wcoj and cfg.use_dist_join
     assert cfg.replan_threshold == 2
-    assert EngineConfig.UNPORTED_FLAGS == ("use_dist_join",)
+    assert EngineConfig.UNPORTED_FLAGS == ()
     s = caps_tpu_torch.local_session(device="cpu")
     assert s.supports_wcoj
 

@@ -194,3 +194,109 @@ def test_out_of_range_codes_are_ignored():
     codes = torch.tensor([-1, 0, 1, 5], dtype=torch.int32)
     ok = torch.ones(4, dtype=torch.bool)
     assert dense_segment_agg(codes, ok, codes, 2, "count").tolist() == [1, 1]
+
+
+# -- the sharded form: once per shard, then the combine ------------------------
+
+def _sharded_both(codes, ok, values, s, kind, n_shards=8):
+    from caps_tpu.ops.segment import \
+        dense_segment_agg_sharded as jax_sharded
+    from caps_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from caps_tpu_torch.ops import dense_segment_agg_sharded
+    from caps_tpu_torch.parallel.mesh import make_mesh
+    want = np.asarray(jax_sharded(
+        jax_make_mesh(n_shards), "shard", jnp.asarray(codes),
+        jnp.asarray(ok), jnp.asarray(values), s, kind, interpret=True))
+    got = dense_segment_agg_sharded(
+        make_mesh(n_shards, device="cpu"), torch.from_numpy(codes),
+        torch.from_numpy(ok), torch.from_numpy(values), s, kind).numpy()
+    assert got.shape == want.shape == (s,) and got.dtype == want.dtype
+    return got, want
+
+
+def _bitwise(got, want):
+    """Equal bit for bit, NaNs by position."""
+    if got.dtype == np.float32:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        keep = ~np.isnan(want)
+        np.testing.assert_array_equal(got[keep].view(np.int32),
+                                      want[keep].view(np.int32))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,s", [(0, 5), (8, 3), (1000, 17), (3000, 64),
+                                 (4096, 4097), (8000, 20000)])
+def test_dense_segment_agg_sharded_matches_jax(kind, n, s):
+    """Every kind over an 8-shard mesh against the JAX package's
+    ``dense_segment_agg_sharded`` on 8 devices: bit for bit, except
+    ``sum_f32``, whose per-shard sums round differently (module
+    docstring) — held to the same tolerance as the one-device kernel."""
+    codes, ok, values = _inputs(kind, n, s)
+    got, want = _sharded_both(codes, ok, values, s, kind)
+    if kind == "sum_f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _bitwise(got, want)
+
+
+@pytest.mark.parametrize("kind", ["min_f32", "max_f32"])
+@pytest.mark.parametrize("layout", ["spread", "nan_first", "all_nan",
+                                    "one_shard", "empty_shards"])
+def test_sharded_float_min_max_signed_zero_and_nan(kind, layout):
+    """NaN of both signs and ±0 across shard boundaries, held bit for
+    bit to the JAX package's pmin / pmax over its per-device partials:
+    a NaN partial wins only from the first shard, ±0 keep the earlier
+    shard's sign, and an empty slot keeps its identity."""
+    n, s = 64, 6
+    codes = (np.arange(n) % s).astype(np.int32)
+    values = np.zeros(n, np.float32)
+    values[codes == 0] = -0.0
+    values[(codes == 0) & (np.arange(n) % 16 == 0)] = 0.0
+    values[codes == 1] = np.where(np.arange(n)[codes == 1] < 32, 0.0, -0.0)
+    values[(codes == 2) & (np.arange(n) == 20)] = np.float32("nan")
+    values[(codes == 3) & (np.arange(n) == 45)] = -np.float32("nan")
+    values[codes == 4] = np.linspace(-2, 2, int((codes == 4).sum()))
+    ok = np.ones(n, bool)
+    ok[codes == 5] = False
+    if layout == "nan_first":
+        values[2] = np.float32("nan")   # code 2 on shard 0
+    elif layout == "all_nan":
+        values[codes == 2] = np.float32("nan")
+    elif layout == "one_shard":
+        ok[8:] &= codes[8:] != 0
+    elif layout == "empty_shards":
+        ok[:32] = False
+    got, want = _sharded_both(codes, ok, values, s, kind)
+    _bitwise(got, want)
+
+
+def test_sharded_group_by_needs_a_shard_multiple(monkeypatch):
+    """The group-by shards K1 only where the table's capacity divides
+    over the mesh, as in the JAX package: a 3-shard mesh over 256-row
+    capacities runs the one-device kernel."""
+    from caps_tpu_torch import ops as OPS
+    from caps_tpu_torch.okapi.config import EngineConfig
+    from caps_tpu_torch.testing.factory import create_graph
+    calls = []
+    real = OPS.dense_segment_agg_sharded
+
+    def spy(*a, **k):
+        calls.append(a[0].size)
+        return real(*a, **k)
+    monkeypatch.setattr(OPS, "dense_segment_agg_sharded", spy)
+    create = ("CREATE (:P {c: 'x', v: 1}), (:P {c: 'y', v: 5}), "
+              "(:P {c: 'x', v: 3})")
+    q = ("MATCH (p:P) RETURN p.c AS c, count(*) AS n, min(p.v) AS lo, "
+         "max(p.v) AS hi ORDER BY c")
+    want = [{"c": "x", "n": 2, "lo": 1, "hi": 3},
+            {"c": "y", "n": 1, "lo": 5, "hi": 5}]
+    for shape, sharded in (((8,), True), ((3,), False), ((2, 4), True)):
+        calls.clear()
+        s = caps_tpu_torch.local_session(
+            device="cpu", config=EngineConfig(mesh_shape=shape))
+        g = create_graph(s, create, {})
+        assert g.cypher(q).records.to_maps() == want
+        assert bool(calls) == sharded, shape
+        assert all(c == 8 for c in calls)

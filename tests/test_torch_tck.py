@@ -10,7 +10,10 @@ starts to pass fails here until it is taken off the list.
 
 The same scenarios run on the port's pure-Python oracle
 (``local_session(backend="local")``) with no list, as the reference's
-local backend runs them (``test_tck_local``).
+local backend runs them (``test_tck_local``), and on the ``"sharded"``
+backend (the device backend over an 8-shard mesh on the CPU) under the
+strict list ``caps_tpu_torch/tck/blacklists/sharded.txt``
+(``test_tck_sharded``).
 """
 import pytest
 
@@ -18,11 +21,13 @@ import caps_tpu_torch
 from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
 from caps_tpu_torch.tck import NotPorted, load_features, run_scenario
 from caps_tpu_torch.tck.runner import (
-    BLACKLIST, Expectation, Scenario, load_gaps,
+    BLACKLIST, SHARDED_BLACKLIST, Expectation, Scenario, load_gaps,
 )
+from caps_tpu_torch.testing.sessions import make_backend_session
 
 SCENARIOS = load_features()
 GAPS = load_gaps(BLACKLIST)
+SHARDED_GAPS = load_gaps(SHARDED_BLACKLIST)
 # The longest the list may be; each slice that closes gaps lowers it.
 MAX_LISTED = 0
 # Operators with a device path: no listed scenario may raise for one.
@@ -35,9 +40,12 @@ _SESSIONS = {}
 def _session(feature, backend="cuda"):
     key = (backend, feature)
     if key not in _SESSIONS:
-        _SESSIONS[key] = caps_tpu_torch.local_session(backend="local") \
-            if backend == "local" else \
-            caps_tpu_torch.local_session(device="cpu")
+        if backend == "local":
+            _SESSIONS[key] = caps_tpu_torch.local_session(backend="local")
+        elif backend == "sharded":
+            _SESSIONS[key] = make_backend_session("sharded", device="cpu")
+        else:
+            _SESSIONS[key] = caps_tpu_torch.local_session(device="cpu")
     return _SESSIONS[key]
 
 
@@ -48,6 +56,7 @@ def test_corpus_and_list_size():
     assert set(GAPS) <= {s.key for s in SCENARIOS}
     assert len(GAPS) <= MAX_LISTED
     assert all(GAPS.values()), "every listed scenario names its cause"
+    assert len(SHARDED_GAPS) <= MAX_LISTED
 
 
 def test_no_listed_scenario_raises_for_a_ported_operator():
@@ -60,6 +69,19 @@ def test_no_listed_scenario_raises_for_a_ported_operator():
 def test_tck(scenario):
     session = _session(scenario.feature)
     cause = GAPS.get(scenario.key)
+    if cause is None:
+        run_scenario(session, scenario)
+        return
+    with pytest.raises(NotPorted) as info:
+        run_scenario(session, scenario)
+    assert cause in str(info.value), \
+        f"listed for {cause!r}, raised {info.value}"
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda s: s.key)
+def test_tck_sharded(scenario):
+    session = _session(scenario.feature, "sharded")
+    cause = SHARDED_GAPS.get(scenario.key)
     if cause is None:
         run_scenario(session, scenario)
         return
