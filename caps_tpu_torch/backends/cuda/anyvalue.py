@@ -20,6 +20,7 @@ then the value (``_order_key``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import torch
@@ -28,9 +29,10 @@ from caps_tpu_torch.backends.cuda.column import ANY_TAGS, TAG, Column
 
 # the class (sort rank) of each tag: ints and floats share one
 _CLASS_OF_TAG = {"str": 0, "bool": 1, "int": 2, "float": 2, "datetime": 3,
-                 "date": 4}
+                 "date": 4, "duration": 5}
 # plain kinds that an "any" value can hold
-HELD_KINDS = ("str", "bool", "int", "float", "datetime", "date")
+HELD_KINDS = ("str", "bool", "int", "float", "datetime", "date",
+              "duration")
 _TWO_63 = 2.0 ** 63
 TAG_INT, TAG_FLOAT = TAG["int"], TAG["float"]
 
@@ -54,6 +56,30 @@ def bits_float(p: torch.Tensor) -> torch.Tensor:
     return p.contiguous().view(torch.float64)
 
 
+def payload(c: Column) -> torch.Tensor:
+    """The one-plane payload of "any" values: the first column of a
+    3-wide payload (a duration's months)."""
+    return c.data[..., 0] if c.data.dim() > c.tags.dim() else c.data
+
+
+def widen(c: Column) -> Column:
+    """"any" values (or a list of them) with a 3-wide payload."""
+    if c.data.dim() > c.tags.dim():
+        return c
+    z = torch.zeros_like(c.data)
+    return dataclasses.replace(c, data=torch.stack([c.data, z, z], dim=-1),
+                               host=None)
+
+
+def extra(c: Column) -> torch.Tensor:
+    """A duration's days and seconds per value (zeros for the other
+    values)."""
+    if c.data.dim() > c.tags.dim():
+        return c.data[..., 1:]
+    return torch.zeros(c.data.shape + (2,), dtype=torch.int64,
+                       device=c.data.device)
+
+
 def to_any(c: Column) -> Column:
     """A column of a kind an "any" value holds, as "any" values."""
     if c.kind == "any":
@@ -61,11 +87,28 @@ def to_any(c: Column) -> Column:
     if c.kind not in HELD_KINDS:
         from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
         raise UnsupportedOnDevice(f"a {c.kind} among values of other types")
-    payload = float_bits(c.data) if c.kind == "float" \
+    data = float_bits(c.data) if c.kind == "float" \
         else c.data.to(torch.int64)
-    tags = torch.full(c.data.shape, TAG[c.kind], dtype=torch.int8,
+    shape = c.data.shape[:-1] if c.kind == "duration" else c.data.shape
+    tags = torch.full(shape, TAG[c.kind], dtype=torch.int8,
                       device=c.data.device)
-    return Column("any", payload, c.valid, c.ctype, tags=tags)
+    return Column("any", data, c.valid, c.ctype, tags=tags)
+
+
+def list_to_any(c: Column) -> Column:
+    """A list column of a kind an "any" value holds as a list of "any"
+    values."""
+    if c.tags is not None:
+        return c
+    ek = c.elem_kind
+    if c.nested or c.fields is not None or ek not in HELD_KINDS:
+        from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
+        raise UnsupportedOnDevice(f"a list of {ek} among lists of other "
+                                  f"types")
+    data = float_bits(c.data) if ek == "float" else c.data.to(torch.int64)
+    tags = torch.full(c.data.shape[:2], TAG[ek], dtype=torch.int8,
+                      device=c.data.device)
+    return dataclasses.replace(c, data=data, tags=tags, host=None)
 
 
 def view(c: Column, rank: torch.Tensor
@@ -84,7 +127,7 @@ def view(c: Column, rank: torch.Tensor
     classes = torch.tensor([_CLASS_OF_TAG[k] for k in ANY_TAGS],
                            dtype=torch.int64, device=dev)
     cls = classes[tags]
-    p = c.data
+    p = payload(c)
     nf, nrest = num_view(p)
     is_int = tags == TAG["int"]
     is_float = tags == TAG["float"]
@@ -104,7 +147,22 @@ def equal(l: Column, r: Column, rank: torch.Tensor) -> torch.Tensor:
     apart): same class and same value."""
     lc, lf, li = view(l, rank)
     rc, rf, ri = view(r, rank)
-    return (lc == rc) & (lc >= 0) & (lf == rf) & (li == ri)
+    same = (lc == rc) & (lc >= 0) & (lf == rf) & (li == ri)
+    if l.kind == "any" and l.data.dim() > l.tags.dim() or \
+            r.kind == "any" and r.data.dim() > r.tags.dim():
+        same = same & (_extra_of(l) == _extra_of(r)).all(dim=-1)
+    return same
+
+
+def _extra_of(c: Column) -> torch.Tensor:
+    """:func:`extra` of "any" values; zeros for a plain column (a
+    duration column's days and seconds)."""
+    if c.kind == "duration":
+        return c.data[..., 1:]
+    if c.kind == "any":
+        return extra(c)
+    return torch.zeros(c.valid.shape + (2,), dtype=torch.int64,
+                       device=c.valid.device)
 
 
 def less(l: Column, r: Column, rank: torch.Tensor, or_equal: bool
@@ -116,7 +174,8 @@ def less(l: Column, r: Column, rank: torch.Tensor, or_equal: bool
     lt = (lf < rf) | ((lf == rf) & (li < ri))
     if or_equal:
         lt = lt | ((lf == rf) & (li == ri))
-    return lt, (lc == rc) & (lc >= 0)
+    # durations do not order
+    return lt, (lc == rc) & (lc >= 0) & (lc != _CLASS_OF_TAG["duration"])
 
 
 def sort_keys(c: Column, ascending: bool, nulls_last: bool,
@@ -127,8 +186,12 @@ def sort_keys(c: Column, ascending: bool, nulls_last: bool,
     if not nulls_last:
         null_key = -null_key
     cls, f, i = view(c, rank)
+    planes = [cls, f, i]
+    if c.data.dim() > c.tags.dim():
+        # a duration's days and seconds after its months
+        planes += list(extra(c).unbind(-1))
     keys = []
-    for k in (cls, f, i):
+    for k in planes:
         k = torch.where(c.valid, k, torch.zeros_like(k))
         keys.append(k if ascending else -k)
     return [null_key] + keys
@@ -139,5 +202,7 @@ def stack(cols: List[Column], device) -> Tuple[torch.Tensor, torch.Tensor]:
     k)`` "any" elements of a list literal of columns of several kinds
     (a null item's tag is 0)."""
     parts = [to_any(c) for c in cols]
+    if any(p.data.dim() > p.tags.dim() for p in parts):
+        parts = [widen(p) for p in parts]
     return (torch.stack([p.data for p in parts], dim=1),
             torch.stack([p.tags for p in parts], dim=1))

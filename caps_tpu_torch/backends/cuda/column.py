@@ -14,13 +14,17 @@ Kinds:
     duration int64 (capacity, 3): months, days, seconds
     any    int64 payload + ``tags`` int8: a value of one of ANY_TAGS per
            row (CTAny, and CTNumber elements): string code, 0/1, the
-           int, the float's bits, epoch µs, epoch days
+           int, the float's bits, epoch µs, epoch days; where a
+           duration is among the values the payload is (capacity, 3),
+           a duration's months, days and seconds, the others' payload
+           first and zeros after
     map    bool (capacity, K) presence of each key + ``fields``: key →
            child column (keys sorted; a key may be present and null)
     list   2D (capacity, max_len) + lens (+ elem_valid): the element
            kind's dtype — int32 for ids and string codes, int64 for
            ints, dates, datetimes and "any" payloads (+ ``tags``),
-           float64 for floats, bool for booleans; a list of lists is 3D
+           float64 for floats, bool for booleans; a list of durations
+           is int64 (capacity, max_len, 3); a list of lists is 3D
            (capacity, max_len, inner max_len) + inner_lens; a list of
            maps is presence (capacity, max_len, K) + ``fields`` of lists
     object —       host-only values; no device path
@@ -54,19 +58,19 @@ _DTYPES = {
 _NP_DTYPES = {
     "id": np.int32, "int": np.int64, "float": np.float64, "bool": np.bool_,
     "str": np.int32, "date": np.int64, "datetime": np.int64,
-    "any": np.int64,
+    "duration": np.int64, "any": np.int64,
 }
 
 # The kinds an "any" value may hold, by tag (int8).
-ANY_TAGS = ("str", "bool", "int", "float", "datetime", "date")
+ANY_TAGS = ("str", "bool", "int", "float", "datetime", "date", "duration")
 TAG = {k: i for i, k in enumerate(ANY_TAGS)}
 
 
 def list_elem_kind(ctype: CypherType) -> Optional[str]:
     """Element kind of a device-representable list type: rel/node ids,
-    int, float, str codes, bool, date, datetime, "any" (CTNumber and
-    CTAny elements), map.  None = no device representation (durations,
-    nested lists, an element type not known)."""
+    int, float, str codes, bool, date, datetime, duration, "any"
+    (CTNumber and CTAny elements), map.  None = no device
+    representation (nested lists, an element type not known)."""
     m = ctype.material
     if not isinstance(m, _CTList):
         return None
@@ -77,7 +81,7 @@ def list_elem_kind(ctype: CypherType) -> Optional[str]:
         return "any"
     return {CTInteger: "int", CTFloat: "float", CTString: "str",
             CTBoolean: "bool", CTDate: "date", CTDateTime: "datetime",
-            CTMap: "map"}.get(inner)
+            CTDuration: "duration", CTMap: "map"}.get(inner)
 
 
 def kind_for(ctype: CypherType) -> str:
@@ -245,15 +249,25 @@ def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
                   tags=None if lst.tags is None else lst.tags[row, j])
 
 
+def pad_width(t: torch.Tensor, width: int, fill=0) -> torch.Tensor:
+    """A list tensor (rows, w, ...) padded along its list axis to
+    ``width`` with ``fill``."""
+    return torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, width - t.shape[1]), value=fill)
+
+
 def list_dtype(elem_kind: str) -> torch.dtype:
     """The list matrix's dtype for an element kind."""
     return _DTYPES[elem_kind]
 
 
-def encode_any(x: Any, pool) -> Tuple[int, int]:
+def encode_any(x: Any, pool) -> Tuple[int, Any]:
     """(tag, int64 payload) of one non-null host value of an "any"
-    column; ValueError for a value no tag holds."""
-    from caps_tpu_torch.okapi.values import CypherDate, CypherDateTime
+    column (a duration's payload is its three fields); ValueError for a
+    value no tag holds."""
+    from caps_tpu_torch.okapi.values import (
+        CypherDate, CypherDateTime, CypherDuration,
+    )
     if isinstance(x, bool):
         return TAG["bool"], int(x)
     if isinstance(x, int):
@@ -268,6 +282,8 @@ def encode_any(x: Any, pool) -> Tuple[int, int]:
         return TAG["date"], x.days
     if isinstance(x, CypherDateTime):
         return TAG["datetime"], x.micros
+    if isinstance(x, CypherDuration):
+        return TAG["duration"], (x.months, x.days, x.seconds)
     raise ValueError(f"a value of type {type(x).__name__} among values "
                      f"of other types has no device representation")
 
@@ -304,10 +320,13 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
     data_np = np.zeros(capacity, dtype=_NP_DTYPES[kind])
     if kind == "any":
         tags_np = np.zeros(capacity, dtype=np.int8)
+        if any(_is_duration(v) for v in values):
+            data_np = np.zeros((capacity, 3), dtype=np.int64)
         for i, v in enumerate(values):
             if v is not None:
                 valid_np[i] = True
-                tags_np[i], data_np[i] = encode_any(v, pool)
+                tags_np[i], code = encode_any(v, pool)
+                put_payload(data_np, i, code)
         return Column(kind, _to(data_np, device), _to(valid_np, device),
                       ctype, tags=_to(tags_np, device))
     if kind == "str":
@@ -358,9 +377,13 @@ def _make_list(values, ctype, capacity: int, pool, device) -> Column:
     max_len = max((len(v) for v in values if v is not None), default=0)
     width = max(1, max_len)
     valid_np = np.zeros(capacity, dtype=bool)
-    data_np = np.zeros((capacity, width), dtype=_NP_DTYPES[ek])
+    data_np = np.zeros((capacity, width) + ((3,) if ek == "duration"
+                                            else ()), dtype=_NP_DTYPES[ek])
     tags_np = np.zeros((capacity, width), dtype=np.int8) \
         if ek == "any" else None
+    if ek == "any" and any(_is_duration(x) for v in values if v
+                           for x in v):
+        data_np = np.zeros((capacity, width, 3), dtype=np.int64)
     ev_np = np.ones((capacity, width), dtype=bool)
     lens_np = np.zeros(capacity, dtype=np.int32)
     for i, v in enumerate(values):
@@ -372,13 +395,28 @@ def _make_list(values, ctype, capacity: int, pool, device) -> Column:
             if x is None:
                 ev_np[i, j] = False
             elif ek == "any":
-                tags_np[i, j], data_np[i, j] = encode_any(x, pool)
+                tags_np[i, j], code = encode_any(x, pool)
+                put_payload(data_np, (i, j), code)
             else:
                 data_np[i, j] = encode_list_elem(x, ek, pool)
     return Column("list", _to(data_np, device), _to(valid_np, device),
                   ctype, _to(lens_np, device),
                   elem_valid=None if ev_np.all() else _to(ev_np, device),
                   tags=None if tags_np is None else _to(tags_np, device))
+
+
+def put_payload(data: np.ndarray, at, code) -> None:
+    """Store one "any" payload: a 3-wide payload array holds a plain
+    value's payload first and zeros after."""
+    if isinstance(code, tuple) or data[at].ndim == 0:
+        data[at] = code
+    else:
+        data[at] = (code, 0, 0)
+
+
+def _is_duration(x: Any) -> bool:
+    from caps_tpu_torch.okapi.values import CypherDuration
+    return isinstance(x, CypherDuration)
 
 
 def _make_map(values, capacity: int, pool, device) -> Column:
@@ -456,6 +494,8 @@ def encode_list_elem(x: Any, elem_kind: str, pool):
         return float(x)
     if elem_kind in ("date", "datetime"):
         return _host_temporal(x, elem_kind)
+    if elem_kind == "duration":
+        return (x.months, x.days, x.seconds)
     if elem_kind == "any":
         return encode_any(x, pool)[1]
     iv = int(x if not hasattr(x, "id") else x.id)
@@ -467,7 +507,8 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
     each tensor, converted by ``tolist``."""
     valid = col.valid[:n].cpu().tolist()
     if col.kind in ("any", "map", "duration") or (
-            col.kind == "list" and col.elem_kind in ("any", "map")):
+            col.kind == "list" and col.elem_kind in ("any", "map",
+                                                     "duration")):
         vals = _decoded(col, n, pool)
         return [v if ok else None for v, ok in zip(vals, valid)]
     conv = _converter(col.elem_kind if col.kind == "list" else col.kind,
@@ -538,14 +579,22 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
 
 
 def decode_any(tags: np.ndarray, payload: np.ndarray, pool) -> List[Any]:
-    """Host values of "any" payloads by their tags."""
-    from caps_tpu_torch.okapi.values import CypherDate, CypherDateTime
+    """Host values of "any" payloads by their tags (a payload of three
+    columns where durations are among them)."""
+    from caps_tpu_torch.okapi.values import (
+        CypherDate, CypherDateTime, CypherDuration,
+    )
+    wide = payload.tolist() if payload.ndim == 2 else None
+    if wide is not None:
+        payload = np.ascontiguousarray(payload[:, 0])
     floats = payload.view(np.float64).tolist()
     ints = payload.tolist()
     out: List[Any] = []
-    for t, i, f in zip(tags.tolist(), ints, floats):
+    for n, (t, i, f) in enumerate(zip(tags.tolist(), ints, floats)):
         k = ANY_TAGS[t]
-        if k == "int":
+        if k == "duration":
+            out.append(CypherDuration(*wide[n]))
+        elif k == "int":
             out.append(i)
         elif k == "float":
             out.append(f)
@@ -590,8 +639,9 @@ def literal_column(value: Any, ctype: CypherType, capacity: int,
         if kind == "list":
             ek = list_elem_kind(ctype)
             return Column(kind,
-                          torch.zeros((capacity, 1), dtype=list_dtype(ek),
-                                      device=device),
+                          torch.zeros((capacity, 1) + ((3,) if ek ==
+                                                       "duration" else ()),
+                                      dtype=list_dtype(ek), device=device),
                           torch.zeros(capacity, dtype=torch.bool,
                                       device=device), ctype,
                           torch.zeros(capacity, dtype=torch.int32,

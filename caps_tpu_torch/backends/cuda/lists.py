@@ -47,9 +47,11 @@ class Bound(NamedTuple):
     """A lambda variable's column over a compiler's rows.  ``kind`` is
     'node' or 'rel' where its values are entity ids (the oracle's static
     ``_elem_kind``), and ``mask`` marks the rows that hold one where that
-    varies by list position (a literal ``[n, 5]``); None = every row."""
+    varies by list position (a literal ``[n, 5]``); None = every row.
+    Where a list holds nodes and relationships (``[n, r]``), ``kind``
+    maps each of the two to the mask of the rows that hold one."""
     col: Column
-    kind: Optional[str] = None
+    kind: Optional[object] = None
     mask: Optional[torch.Tensor] = None
 
 
@@ -141,15 +143,18 @@ def _position_kind(kinds, width: int, device
     kind."""
     if not isinstance(kinds, list):
         return kinds, None
-    ents = {k for k in kinds if k is not None}
+    ents = sorted({k for k in kinds if k is not None})
     if not ents:
         return None, None
+
+    def positions(kind):
+        at = [k == kind for k in kinds[:width]]
+        return torch.tensor(at + [False] * (width - len(at)),
+                            dtype=torch.bool, device=device)
     if len(ents) > 1:
-        raise UnsupportedOnDevice("list of nodes and relationships")
-    kind = ents.pop()
-    at = [k == kind for k in kinds[:width]]
-    return kind, torch.tensor(at + [False] * (width - len(at)),
-                              dtype=torch.bool, device=device)
+        # nodes and relationships: each kind's positions
+        return {k: positions(k) for k in ents}, None
+    return ents[0], positions(ents[0])
 
 
 # -- the entity index ----------------------------------------------------
@@ -256,6 +261,19 @@ def bound_access(comp: DeviceExprCompiler, e: E.Expr) -> Optional[Column]:
     if not (isinstance(tgt, E.Var) and tgt.name in comp.bound):
         return None
     b = comp.bound[tgt.name]
+    if isinstance(b.kind, dict):
+        # nodes and relationships by position: each kind's access where
+        # it holds, through a compiler with the variable bound to it
+        out = comp._null()
+        for kind, held in b.kind.items():
+            m = held if b.mask is None else held & b.mask
+            sub = comp.child(comp.columns, comp.capacity, comp.row_ok,
+                             {**comp.bound, tgt.name: Bound(b.col, kind, m)})
+            part = bound_access(sub, e)
+            part = dataclasses.replace(part, valid=part.valid & m)
+            part, out = comp._unify(part, out)
+            out = comp._choose(m, part, out)
+        return out
     if b.kind is None:
         # a value that names no entity (the oracle's ``_entity_field``):
         # a map's entries, keys and itself, a temporal value's
@@ -413,12 +431,18 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
         return M.stack(comp, cols)
     kinds = {c.kind for c in values}
     inner = join_all(c.ctype for c in cols)
-    if kinds & {"list", "map", "duration"}:
+    if kinds & {"list", "map"}:
         raise UnsupportedOnDevice(f"list of {inner!r} on device (kinds "
                                   f"{', '.join(sorted(kinds))})")
     lens = torch.full((comp.capacity,), len(cols), dtype=torch.int32,
                       device=comp.device)
     ev = torch.stack([c.valid for c in cols], dim=1)
+    if kinds == {"duration"}:
+        data = torch.stack([torch.zeros((comp.capacity, 3), dtype=torch.int64,
+                                        device=comp.device) if _is_null(c)
+                            else c.data for c in cols], dim=1)
+        return Column("list", data, comp._full(True), CTList(inner), lens,
+                      elem_valid=ev)
     if not kinds:
         ek = "int"
     elif kinds <= {"id", "int"}:
@@ -444,8 +468,9 @@ def _nested_literal(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     F = torch.nn.functional
     lists = [c for c in cols if not _is_null(c)]
     kinds = {c.elem_kind for c in lists}
-    if len(kinds) != 1 or any(c.nested or c.tags is not None
-                              or c.fields is not None for c in lists):
+    if len(kinds) != 1 or kinds == {"duration"} or any(
+            c.nested or c.tags is not None or c.fields is not None
+            for c in lists):
         raise UnsupportedOnDevice("list of lists of different element "
                                   "kinds or of more than two levels")
     width = max(c.data.shape[1] for c in lists)
@@ -513,7 +538,11 @@ def _flatten(comp: DeviceExprCompiler, var: str, le: E.Expr,
     kind, pos = _position_kind(elem_kinds(comp.header, le), W, dev)
     if pos is not None:
         pos = pos[j]
-    bound = {k: Bound(b.col.take(row), b.kind,
+    if isinstance(kind, dict):
+        kind = {k: m[j] for k, m in kind.items()}
+    bound = {k: Bound(b.col.take(row),
+                      {kk: m[row] for kk, m in b.kind.items()}
+                      if isinstance(b.kind, dict) else b.kind,
                       None if b.mask is None else b.mask[row])
              for k, b in comp.bound.items()}
     bound[var] = Bound(elem, kind, pos)
@@ -533,10 +562,22 @@ def _adopt_errors(comp: DeviceExprCompiler, child: DeviceExprCompiler,
     comp._note_row_error(rows, child.error_what)
 
 
-def _verdicts(comp: DeviceExprCompiler, flat: _Flat, predicate: E.Expr):
+def _verdicts(comp: DeviceExprCompiler, flat: _Flat, predicate: E.Expr,
+              other_is_null: bool):
+    """The predicate's verdict per element row.  A value that is not a
+    boolean is a false verdict to a comprehension (it keeps an element
+    where its predicate is True) and a null one to a quantifier (the
+    oracle's ``_quantify`` counts it with the nulls)."""
     p = flat.child.compile(predicate)
-    if p.kind != "bool":
-        raise UnsupportedOnDevice(f"expected boolean, got {p.kind}")
+    if other_is_null and p.kind == "any":
+        from caps_tpu_torch.backends.cuda.column import TAG
+        p = Column("bool", p.data != 0, p.valid & (p.tags == TAG["bool"]),
+                   CTBoolean)
+    elif other_is_null and p.kind != "bool" and not _is_null(p):
+        p = Column("bool", torch.zeros_like(flat.ok),
+                   torch.zeros_like(flat.ok), CTBoolean)
+    else:
+        p = flat.child.as_bool(p)
     _adopt_errors(comp, flat.child, flat.width)
     return p
 
@@ -552,7 +593,7 @@ def comprehension(comp: DeviceExprCompiler,
     flat = _flatten(comp, e.var, e.list_expr, lst)
     keep = flat.ok
     if e.predicate is not None:
-        p = _verdicts(comp, flat, e.predicate)
+        p = _verdicts(comp, flat, e.predicate, other_is_null=False)
         keep = keep & p.valid & p.data
     if e.projection is not None:
         proj = flat.child.child(flat.child.columns, flat.child.capacity,
@@ -577,7 +618,8 @@ def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
     of "any" values and of maps too)."""
     valid = v.valid.reshape(cap, W)
     if v.kind == "list":  # a list of lists
-        if v.nested or v.tags is not None or v.fields is not None:
+        if v.nested or v.tags is not None or v.fields is not None \
+                or v.data.dim() > 2:
             raise UnsupportedOnDevice("list of more than two levels")
         data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep, valid)
         inner, _, _ = left_pack(v.lens.reshape(cap, W), keep)
@@ -593,9 +635,8 @@ def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
             fields[k] = pack_elements(c, keep, cap, W, CTList(c.ctype))
         return Column("list", data, comp_true(lens), ctype, lens,
                       elem_valid=ev, fields=fields)
-    if v.kind == "duration":
-        raise UnsupportedOnDevice("list of durations")
-    data, ev, lens = left_pack(v.data.reshape(cap, W), keep, valid)
+    data, ev, lens = left_pack(v.data.reshape(cap, W, *v.data.shape[1:]),
+                               keep, valid)
     tags = None
     if v.tags is not None:
         tags, _, _ = left_pack(v.tags.reshape(cap, W), keep)
@@ -616,7 +657,7 @@ def quantify(comp: DeviceExprCompiler,
     if lst is None:
         return comp._null()
     flat = _flatten(comp, e.var, e.list_expr, lst)
-    p = _verdicts(comp, flat, e.predicate)
+    p = _verdicts(comp, flat, e.predicate, other_is_null=True)
     cap, W = comp.capacity, flat.width
 
     def count(m):
@@ -666,8 +707,11 @@ def reduce(comp: DeviceExprCompiler, e: E.Reduce) -> Column:
         _adopt_errors(comp, child, 1)
         if _is_null(acc) or _is_null(out):
             out, acc = comp._promote(out, acc)
-        if "list" in (out.kind, acc.kind):
-            raise UnsupportedOnDevice("reduce: a list accumulator")
+        elif out.kind != acc.kind or (out.kind == "list"
+                                      and out.elem_kind != acc.elem_kind):
+            # the accumulator takes another kind (``s = 0`` then a
+            # string): "any" values, as the oracle's Python values are
+            out, acc = comp._unify(out, acc)
         if out.kind != acc.kind or "map" in (out.kind, acc.kind):
             raise UnsupportedOnDevice(f"reduce: the accumulator changes "
                                       f"kind from {acc.kind} to {out.kind}")

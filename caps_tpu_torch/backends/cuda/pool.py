@@ -190,10 +190,16 @@ class StringPool:
     def list_codes(self, codes: np.ndarray,
                    fn: Callable[[str], List[str]]
                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """(codes, lens) of fn(string) for each of ``codes``: row i of
-        the int32 matrix holds the codes of the strings fn gives for
-        ``codes[i]``, left-aligned; new strings are added to the pool."""
-        lists = [fn(self._strings[c]) for c in codes.tolist()]
+        """(codes, lens) of fn(string) for each of ``codes``
+        (:meth:`string_lists`)."""
+        return self.string_lists([fn(self._strings[c])
+                                  for c in codes.tolist()])
+
+    def string_lists(self, lists: List[List[str]]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(codes, lens) of lists of strings: row i of the int32 matrix
+        holds the codes of ``lists[i]``, left-aligned; new strings are
+        added to the pool."""
         width = max([1] + [len(x) for x in lists])
         out = np.zeros((len(lists), width), dtype=np.int32)
         for i, x in enumerate(lists):

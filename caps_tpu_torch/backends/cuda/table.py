@@ -33,7 +33,7 @@ from caps_tpu_torch import ops as OPS
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
     Column, column_to_host, elem_at, kind_for, list_dtype, list_elem_kind,
-    literal_column, make_column,
+    literal_column, make_column, null_like, pad_width,
 )
 from caps_tpu_torch.backends.cuda.expr import (
     DeviceExprCompiler, UnsupportedOnDevice,
@@ -557,9 +557,9 @@ class DeviceTable(Table):
     def filter(self, expr: Expr, header: RecordHeader,
                parameters) -> "DeviceTable":
         compiler = self._compiler(header, parameters)
-        pred = _named(compiler.compile, "filter", expr)
-        if pred.kind != "bool":
-            raise UnsupportedOnDevice("filter: predicate is not boolean")
+        # a value that is not a boolean is not true: the oracle keeps a
+        # row where its predicate is True
+        pred = compiler.as_bool(_named(compiler.compile, "filter", expr))
         self._raise_row_errors(compiler)
         mask = pred.data & pred.valid & self.row_ok
         return self._compact(mask)
@@ -984,20 +984,7 @@ class DeviceTable(Table):
         out_cap = self.backend.bucket(total)
         out: Dict[str, Column] = {}
         for c in self.columns:
-            a, b = self._cols[c], other._cols[c]
-            if a.kind != b.kind:
-                numeric = {"id", "int", "float"}
-                if "any" in (a.kind, b.kind) and {a.kind, b.kind} <= set(
-                        A.HELD_KINDS + ("any",)):
-                    a, b = A.to_any(a), A.to_any(b)
-                elif a.kind not in numeric or b.kind not in numeric:
-                    raise UnsupportedOnDevice(
-                        f"union_all: column {c!r} of kinds {a.kind} and "
-                        f"{b.kind}")
-                else:
-                    target = "float" if "float" in (a.kind, b.kind) \
-                        else "int"
-                    a, b = a.astype_kind(target), b.astype_kind(target)
+            a, b = _union_pair(self._cols[c], other._cols[c], c)
             out[c] = _concat_columns(a, self._n, b, other._n, out_cap,
                                      a.ctype.join(b.ctype))
         if self._live is None and other._live is None:
@@ -1165,8 +1152,12 @@ class DeviceTable(Table):
         dev = self.backend.device
         group_live = torch.arange(num_segments, device=dev) < n_groups
         col = cols[a.col]
-        if col.kind not in ("int", "float", "id", "bool"):
+        if col.kind not in ("int", "float", "id", "bool") and not (
+                a.kind == "percentile_disc"
+                and col.kind in ("str", "list")):
             raise UnsupportedOnDevice(f"group: {a.kind} over kind {col.kind}")
+        # (strings sort by the pool's rank: the ranked value is the
+        # string's own code, gathered below)
         vk = _sort_keys(col, True, True, self.backend, op="group")
         # grouped, group_keys_sorted[0] is already the ~row_ok key;
         # ungrouped it must be added: padding rows look valid
@@ -1189,8 +1180,12 @@ class DeviceTable(Table):
             # nearest rank: the 1-based rank ceil(p * n)
             rank = torch.ceil(p * counts.to(torch.float64)).to(torch.int64)
             r = torch.minimum((rank.clamp(min=1) - 1).clamp(min=0), top)
-            data = values[(starts + r).clamp(0, last)]
-            return Column(col.kind, data, (counts > 0) & group_live,
+            at = (starts + r).clamp(0, last)
+            if col.kind == "list":
+                out = col.take(p2[at])
+                out.valid = (counts > 0) & group_live
+                return out
+            return Column(col.kind, values[at], (counts > 0) & group_live,
                           col.ctype)
         pos = p * top.to(torch.float64)
         lo = torch.floor(pos).to(torch.int64)
@@ -1315,7 +1310,8 @@ class DeviceTable(Table):
         if a.kind == "collect":
             return self._collect_agg(a, col, ok, seg_id, num_segments,
                                      group_live, start_idx)
-        if col.kind == "any" and a.kind in ("min", "max"):
+        if col.kind in ("any", "list", "map", "duration") \
+                and a.kind in ("min", "max"):
             return self._extreme_agg(a, col, ok, seg_id, num_segments,
                                      group_live, start_idx)
         if col.kind == "any" and a.kind in ("sum", "avg"):
@@ -1388,15 +1384,16 @@ class DeviceTable(Table):
 
     def _extreme_agg(self, a: AggSpec, col: Column, ok, seg_id,
                      num_segments: int, group_live, start_idx) -> Column:
-        """min / max of "any" values in the global sort order (the
-        oracle's ``min(vals, key=order_key)``): one more stable sort by
-        (segment, kept first, the value), ascending for min and
-        descending for max, puts each group's answer at the head of its
-        block, which stays where it was (the rows are in group order
-        already); a tie keeps the first row, as ``min`` / ``max`` do."""
+        """min / max of "any" values, lists, maps or durations in the
+        global sort order (the oracle's ``min(vals, key=order_key)``):
+        one more stable sort by (segment, kept first, the value's sort
+        planes, those ORDER BY uses), ascending for min and descending
+        for max, puts each group's answer at the head of its block,
+        which stays where it was (the rows are in group order already);
+        a tie keeps the first row, as ``min`` / ``max`` do."""
         keys = [seg_id.to(torch.int64), (~ok).to(torch.int64)] + \
-            A.sort_keys(col, a.kind == "min", True,
-                        self.backend.rank_tensor())
+            _sort_keys(col, a.kind == "min", True, self.backend,
+                       op="group")
         p2 = self._sort_perm(keys)
         counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
         at = p2[start_idx.to(torch.int64).clamp(0, p2.shape[0] - 1)]
@@ -1416,16 +1413,16 @@ class DeviceTable(Table):
         if self.backend.consume_count((ok & ~is_int & ~is_float).sum()):
             raise ExprEvalError(f"{a.kind}() of a value that is not a "
                                 f"number")
-        ints = K.sorted_segment_agg(col.data, ok & is_int, seg_id,
-                                    num_segments, "sum")
-        floats = K.segment_agg(A.bits_float(col.data), ok & is_float, seg_id,
+        p = A.payload(col)
+        ints = K.sorted_segment_agg(p, ok & is_int, seg_id, num_segments,
+                                    "sum")
+        floats = K.segment_agg(A.bits_float(p), ok & is_float, seg_id,
                                num_segments, "sum")
-        has_float = K.segment_agg(col.data, ok & is_float, seg_id,
-                                  num_segments, "count") > 0
+        has_float = K.segment_agg(p, ok & is_float, seg_id, num_segments,
+                                  "count") > 0
         total = ints.to(torch.float64) + floats
         if a.kind == "avg":
-            counts = K.segment_agg(col.data, ok, seg_id, num_segments,
-                                   "count")
+            counts = K.segment_agg(p, ok, seg_id, num_segments, "count")
             return Column("float", total / counts.clamp(min=1),
                           (counts > 0) & group_live, CTFloat)
         tags = torch.where(has_float, A.TAG_FLOAT, A.TAG_INT).to(torch.int8)
@@ -1439,7 +1436,12 @@ class DeviceTable(Table):
         list matrix of the element kind's dtype, written by one flat
         scatter.  The kept rows are in group-sorted (stable) order, so
         each list holds its values in row order: the oracle's collect
-        order.  Nulls are dropped, so no element is null."""
+        order.  Nulls are dropped, so no element is null.  Lists, maps
+        and durations are gathered whole into the slots
+        (:meth:`_collect_rows`)."""
+        if col.kind in ("list", "map", "duration"):
+            return self._collect_rows(a, col, ok, seg_id, num_segments,
+                                      group_live, start_idx)
         if col.kind not in ("id", "int", "float", "str", "bool", "date",
                             "datetime", "any"):
             raise UnsupportedOnDevice(f"group: collect over kind {col.kind}")
@@ -1456,11 +1458,31 @@ class DeviceTable(Table):
         ek = list_elem_kind(a.result_type)
         if ek == "any" or col.kind == "any":
             ek, col = "any", A.to_any(col)
+            if col.data.dim() > 1:   # durations among the values
+                return self._collect_rows(a, col, ok, seg_id, num_segments,
+                                          group_live, start_idx)
         dtype = list_dtype(ek or col.kind)
+        counts, L, flat_idx = self._collect_slots(ok, seg_id, num_segments,
+                                                  start_idx)
+        sentinel = num_segments * L
+
+        def scatter(values, dtype):
+            flat = torch.zeros(sentinel + 1, dtype=dtype, device=dev)
+            flat.scatter_(0, flat_idx, values.to(dtype))
+            return flat[:-1].reshape(num_segments, L)
+        return Column("list", scatter(col.data, dtype), group_live,
+                      a.result_type, counts.to(torch.int32),
+                      tags=(None if col.tags is None
+                            else scatter(col.tags, torch.int8)))
+
+    def _collect_slots(self, ok, seg_id, num_segments: int, start_idx):
+        """(counts per group, the row width ``L``, each row's flat slot
+        ``group * L + rank`` or the sentinel ``groups * L`` for a row not
+        kept) of a collect.  The width is the longest list rounded up to
+        a power of two on the card, so a param-generic replay whose
+        longest list grows a little still fits the served width (the
+        lengths bound each row)."""
         counts = K.sorted_segment_agg(ok, ok, seg_id, num_segments, "count")
-        # the row width: the longest list rounded up to a power of two on
-        # the card, so a param-generic replay whose longest list grows a
-        # little still fits the served width (the lengths bound each row)
         longest = counts.max().clamp(min=1)
         width = torch.exp2(torch.ceil(torch.log2(
             longest.to(torch.float64)))).to(torch.int64)
@@ -1471,17 +1493,30 @@ class DeviceTable(Table):
         base = torch.where(sp > 0, c[(sp - 1).clamp(min=0)],
                            torch.zeros_like(sp))
         within = c - 1 - base
-        sentinel = num_segments * L
         flat_idx = torch.where(ok, seg_id.to(torch.int64) * L + within,
-                               torch.full_like(within, sentinel))
-        def scatter(values, dtype):
-            flat = torch.zeros(sentinel + 1, dtype=dtype, device=dev)
-            flat.scatter_(0, flat_idx, values.to(dtype))
-            return flat[:-1].reshape(num_segments, L)
-        return Column("list", scatter(col.data, dtype), group_live,
-                      a.result_type, counts.to(torch.int32),
-                      tags=(None if col.tags is None
-                            else scatter(col.tags, torch.int8)))
+                               torch.full_like(within, num_segments * L))
+        return counts, L, flat_idx
+
+    def _collect_rows(self, a: AggSpec, col: Column, ok, seg_id,
+                      num_segments: int, group_live, start_idx) -> Column:
+        """collect(x) of lists, maps or durations: each slot's source
+        row scattered into a ``(groups, L)`` index, the rows gathered
+        whole there (every per-row tensor of the column) and shaped into
+        one list per group (a list of lists, of maps or of durations)."""
+        from caps_tpu_torch.backends.cuda.lists import pack_elements
+        dev = self.backend.device
+        counts, L, flat_idx = self._collect_slots(ok, seg_id, num_segments,
+                                                  start_idx)
+        sentinel = num_segments * L
+        src = torch.zeros(sentinel + 1, dtype=torch.int64, device=dev)
+        src.scatter_(0, flat_idx, torch.arange(col.capacity, device=dev))
+        elems = col.take(src[:-1])
+        j = torch.arange(L, device=dev)[None, :]
+        keep = j < counts[:, None]
+        out = pack_elements(elems, keep, num_segments, L, a.result_type)
+        out.valid = group_live
+        out.elem_valid = None
+        return out
 
     # -- lists -----------------------------------------------------------
 
@@ -1669,52 +1704,123 @@ def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
     return {c: col.take(idx) for c, col in cols.items()}
 
 
+def _all_valid(col: Column, field: str) -> torch.Tensor:
+    """The mask ``field`` (``elem_valid`` or ``inner_valid``) of a list
+    column that has none: every element valid."""
+    shape = col.data.shape[:2] if field == "elem_valid" else col.data.shape
+    return torch.ones(shape, dtype=torch.bool, device=col.data.device)
+
+
+def _widen(col: Column, width: int) -> Column:
+    """A list column padded along its list axis to ``width`` (its map
+    entries' lists too)."""
+    if col.data.shape[1] >= width:
+        return col
+    fills = {"elem_valid": True, "inner_valid": True}
+    kw = {f: pad_width(getattr(col, f), width, fills.get(f, 0))
+          for f in ("data", "elem_valid", "inner_lens", "inner_valid",
+                    "tags") if getattr(col, f) is not None}
+    if col.fields is not None:
+        kw["fields"] = {k: _widen(c, width) for k, c in col.fields.items()}
+    return dataclasses.replace(col, host=None, **kw)
+
+
+def _union_pair(a: Column, b: Column, name: str) -> Tuple[Column, Column]:
+    """Two columns of one UNION output column brought to one kind: ids,
+    ints and floats to the wider number, values of other kinds that an
+    "any" value holds to "any" values, lists of two such element kinds
+    to lists of "any" values."""
+    if a.tags is not None and b.tags is not None \
+            and a.data.dim() != b.data.dim():
+        return A.widen(a), A.widen(b)   # durations among one side's
+    if a.kind == b.kind and (a.kind != "list" or a.elem_kind == b.elem_kind
+                             or {a.elem_kind, b.elem_kind} <= {"id", "int"}):
+        return a, b
+    numeric = {"id", "int", "float"}
+    held = set(A.HELD_KINDS + ("any",))
+    if a.kind in numeric and b.kind in numeric:
+        target = "float" if "float" in (a.kind, b.kind) else "int"
+        return a.astype_kind(target), b.astype_kind(target)
+    if a.kind == "list" == b.kind and not (a.nested or b.nested) \
+            and {a.elem_kind, b.elem_kind} <= held:
+        if {a.elem_kind, b.elem_kind} <= numeric:
+            dt = torch.float64 if "float" in (a.elem_kind, b.elem_kind) \
+                else torch.int64
+            return (dataclasses.replace(a, data=a.data.to(dt), host=None),
+                    dataclasses.replace(b, data=b.data.to(dt), host=None))
+        return _union_pair(A.list_to_any(a), A.list_to_any(b), name)
+    if {a.kind, b.kind} <= held:
+        return _union_pair(A.to_any(a), A.to_any(b), name)
+    raise UnsupportedOnDevice(f"union_all: column {name!r} of kinds "
+                              f"{a.kind} and {b.kind}")
+
+
 def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
                     ctype: CypherType) -> Column:
     """The first ``n_a`` rows of ``a`` then the first ``n_b`` of ``b``,
-    padded to ``out_cap``; list columns widen to the wider of the two."""
-    pad = out_cap - n_a - n_b
-    if a.kind == "map" or a.fields is not None or b.fields is not None:
-        raise UnsupportedOnDevice("union of maps")
-    if a.kind == "list":
-        if a.nested or b.nested or (a.tags is None) != (b.tags is None):
-            raise UnsupportedOnDevice("union of lists of lists or of "
-                                      "values of mixed types")
-        if a.data.dtype != b.data.dtype:
-            if a.data.dtype in (torch.int32, torch.int64) and \
-                    b.data.dtype in (torch.int32, torch.int64):
-                a = dataclasses.replace(a, data=a.data.long())
-                b = dataclasses.replace(b, data=b.data.long())
-            else:
-                raise UnsupportedOnDevice(
-                    f"union of lists of {a.elem_kind} and of {b.elem_kind}")
-        width = max(a.data.shape[1], b.data.shape[1])
+    padded to ``out_cap``: every per-row tensor concatenated, list axes
+    widened to the wider side; maps (and lists of maps) over the union
+    of their keys, a key absent on one side absent in its rows."""
+    if (a.fields is None) != (b.fields is None) or a.nested != b.nested \
+            or (a.tags is None) != (b.tags is None) \
+            or a.data.dim() != b.data.dim():
+        raise UnsupportedOnDevice(f"union of {a.kind} and {b.kind} values "
+                                  f"of different shapes")
+    fields = None
+    if a.fields is not None:
+        keys = sorted(set(a.fields) | set(b.fields))
+        fields, pres = {}, ([], [])
+        for k in keys:
+            ca, cb = a.fields.get(k), b.fields.get(k)
+            ca = null_like(cb, torch.zeros_like(cb.valid)) if ca is None \
+                else ca
+            cb = null_like(ca, torch.zeros_like(ca.valid)) if cb is None \
+                else cb
+            ca, cb = _union_pair(ca, cb, k)
+            fields[k] = _concat_columns(ca, n_a, cb, n_b, out_cap,
+                                        ca.ctype.join(cb.ctype))
+            for side, m in zip(pres, (a, b)):
+                side.append(m.data[..., list(m.fields).index(k)]
+                            if k in m.fields else
+                            torch.zeros(m.data.shape[:-1], dtype=torch.bool,
+                                        device=m.data.device))
 
-        def rows(m, n, fill):
-            return F.pad(m[:n], (0, width - m.shape[1]), value=fill)
+        def presence(side, m):
+            return (torch.stack(side, dim=-1) if side else
+                    torch.zeros(m.data.shape[:-1] + (0,), dtype=torch.bool,
+                                device=m.data.device))
+        a = dataclasses.replace(a, data=presence(pres[0], a))
+        b = dataclasses.replace(b, data=presence(pres[1], b))
+        if a.kind == "list":
+            # a list of maps: each key's list as wide as the lists
+            width = max(a.data.shape[1], b.data.shape[1])
+            fields = {k: _widen(c, width) for k, c in fields.items()}
+    fills = {"elem_valid": True, "inner_valid": True}
+    kw = {}
+    for f in _ROW_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None and y is None:
+            kw[f] = None
+            continue
+        fill = fills.get(f, 0)
+        # (only the validity masks of elements may be missing on one side)
+        x = _all_valid(a, f) if x is None else x
+        y = _all_valid(b, f) if y is None else y
+        if x.dtype != y.dtype:
+            x, y = x.to(torch.int64), y.to(torch.int64)
+        shape = [max(p, q) for p, q in zip(x.shape[1:], y.shape[1:])]
 
-        data = F.pad(torch.cat([rows(a.data, n_a, 0), rows(b.data, n_b, 0)]),
-                     (0, 0, 0, pad))
-        lens = F.pad(torch.cat([a.lens[:n_a], b.lens[:n_b]]), (0, pad))
-        valid = F.pad(torch.cat([a.valid[:n_a], b.valid[:n_b]]), (0, pad))
-        ev = None
-        if a.elem_valid is not None or b.elem_valid is not None:
-            ev = F.pad(torch.cat([rows(a.valid_elems(), n_a, True),
-                                  rows(b.valid_elems(), n_b, True)]),
-                       (0, 0, 0, pad), value=True)
-        tags = None
-        if a.tags is not None:
-            tags = F.pad(torch.cat([rows(a.tags, n_a, 0),
-                                    rows(b.tags, n_b, 0)]), (0, 0, 0, pad))
-        return Column("list", data, valid, ctype, lens, elem_valid=ev,
-                      tags=tags)
-
-    def rows_of(x, y):
-        both = torch.cat([x[:n_a], y[:n_b]])
-        return F.pad(both, (0, 0) * (both.dim() - 1) + (0, pad))
-    return Column(a.kind, rows_of(a.data, b.data),
-                  rows_of(a.valid, b.valid), ctype,
-                  tags=None if a.tags is None else rows_of(a.tags, b.tags))
+        def grow(t):
+            pad = []
+            for d in reversed(range(1, t.dim())):
+                pad += [0, shape[d - 1] - t.shape[d]]
+            return F.pad(t, pad, value=fill) if any(pad) else t
+        both = torch.cat([grow(x[:n_a]), grow(y[:n_b])])
+        rest = out_cap - n_a - n_b
+        kw[f] = F.pad(both, (0, 0) * (both.dim() - 1) + (0, rest),
+                      value=fill if f != "valid" else False)
+    return Column(a.kind, kw.pop("data"), kw.pop("valid"), ctype,
+                  kw.pop("lens"), fields=fields, **kw)
 
 
 # A list element's key where one int64 plane holds it (ids, string
@@ -1767,21 +1873,49 @@ def _list_sort_keys(col: Column, ascending: bool, nulls_last: bool,
     return keys
 
 
+def _element_sort_keys(col: Column, ascending: bool, nulls_last: bool,
+                       backend: DeviceBackend, op: str) -> List[torch.Tensor]:
+    """Sort planes of a list of lists, of maps or of durations in
+    ``order_key``'s order: the list's null key, then per position a tag
+    (0 past the length, 1 a value, 2 a null element, the largest) and
+    the element's own planes (:func:`_sort_keys` of the inner list, map
+    or duration), zero where the position holds no value."""
+    null_key = (~col.valid).to(torch.int64)
+    if not nulls_last:
+        null_key = -null_key
+    sign = 1 if ascending else -1
+    dev = col.data.device
+    rows = torch.arange(col.capacity, device=dev)
+    keys = [null_key]
+    for i in range(col.data.shape[1]):
+        inside = col.valid & (i < col.lens)
+        elem = elem_at(col, rows, torch.full_like(rows, i), inside)
+        tag = torch.where(inside, torch.where(elem.valid, 1, 2), 0)
+        keys.append(sign * tag.to(torch.int64))
+        for k in _sort_keys(elem, ascending, ascending, backend, op)[1:]:
+            keys.append(torch.where(elem.valid, k, torch.zeros_like(k)))
+    return keys
+
+
 def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
                backend: DeviceBackend, op: str) -> List[torch.Tensor]:
     """Transform one column into (null_key, data_key) int64/float64 arrays
     for an ascending lexicographic sort (a list column into its planes,
     :func:`_list_sort_keys`)."""
     if col.kind == "list":
-        if col.nested or col.fields is not None:
-            raise UnsupportedOnDevice(f"{op}: sorting by a list of lists "
-                                      f"or of maps")
+        if col.nested or col.fields is not None or col.data.dim() > 2:
+            # lists of lists, of maps, of durations, of "any" values
+            # with durations among them
+            return _element_sort_keys(col, ascending, nulls_last, backend,
+                                      op)
         return _list_sort_keys(col, ascending, nulls_last, backend)
     if col.kind == "any":
         return A.sort_keys(col, ascending, nulls_last, backend.rank_tensor())
     if col.kind == "map":
+        # a null entry is the largest value inside a map (order_key), so
+        # it sorts last ascending and first descending
         return M.sort_keys(col, ascending, nulls_last, lambda c: _sort_keys(
-            c, ascending, nulls_last, backend, op))
+            c, ascending, ascending, backend, op))
     null_key = (~col.valid).to(torch.int64)
     if not nulls_last:
         null_key = -null_key

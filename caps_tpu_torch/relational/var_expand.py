@@ -307,14 +307,15 @@ class VarExpandOp(RelationalOperator):
         for undirected patterns), the target mask, the 3-hop sparse
         correction lists, the largest id — built on the host once per
         graph and cached with the count closures' static structures.
-        None when an id is negative (no dense domain)."""
+        None when an id is negative (no dense domain) or the id domain
+        exceeds the matrix budget."""
         from caps_tpu_torch.backends.cuda.fused import _graph_key
         from caps_tpu_torch.relational.count_pattern import graph_static
         gk = _graph_key(self.graph)
         cache = graph_static(backend, gk)["matrix"] if gk is not None \
             else {}
         key = (tuple(self.rel_types), self.direction, self.target_labels,
-               self.upper == 3)
+               self.upper == 3, self._RING_MAX_MATRIX)
         if key not in cache:
             cache[key] = self._build_matrix_static(backend)
         return cache[key]
@@ -341,6 +342,15 @@ class VarExpandOp(RelationalOperator):
                 if int(vals[ok].min()) < 0:
                     return None
                 mx = max(mx, int(vals[ok].max()))
+        # refuse before anything is sized by the id domain (the mask, the
+        # correction vectors, the uploads), as the reference does; the
+        # bound also keeps every id inside the int32 edge arrays below
+        mesh = backend.mesh
+        n_shards = mesh.size if mesh is not None and mesh.devices.ndim == 1 \
+            else 1
+        if max(-(-(mx + 1) // n_shards) * n_shards, n_shards) \
+                > self._RING_MAX_MATRIX:
+            return None
         n_static = max(mx + 1, 1)
         tmask = np.zeros(n_static, dtype=np.int64)
         tmask[nids[nok]] = 1

@@ -84,8 +84,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 from caps_tpu_torch.obs import clock
 from caps_tpu_torch.obs.lockgraph import make_lock
@@ -985,20 +986,23 @@ class QueryServer:
                     continue
                 if isinstance(outcome, BaseException):
                     self.breaker.record_failure(family, outcome)
-                    self._finish(probe, outcome)
+                    done = [self._settle(probe, outcome)]
                     for req in live:
-                        self._finish(req, CircuitOpen(
+                        done.append(self._settle(req, CircuitOpen(
                             f"plan family circuit breaker re-opened by a "
                             f"failed half-open trial (retry after "
                             f"{self.breaker.cooldown_s:.3f}s)",
-                            retry_after_s=self.breaker.cooldown_s))
+                            retry_after_s=self.breaker.cooldown_s)))
                     # the probe (and its fast-failed siblings) are in the
-                    # ring by now: the dump carries their attempt history
+                    # ring by now: the dump carries their attempt
+                    # history, and is written before any handle completes
                     self.telemetry.auto_dump("breaker_trip")
                     self.event_log.emit(
                         "breaker.trip", request_id=probe.request_id,
                         family=self._family_label(probe),
                         trigger="failed_half_open_trial")
+                    for complete in done:
+                        complete()
                     return
                 self.breaker.record_success(family)
                 self._finish(probe, outcome)
@@ -1038,12 +1042,13 @@ class QueryServer:
                     self.breaker.abort_trial(family)
                 elif isinstance(outcome, BaseException):
                     self.breaker.record_failure(family, outcome)
-                    self._finish(req, outcome)
+                    complete = self._settle(req, outcome)
                     self.telemetry.auto_dump("breaker_trip")
                     self.event_log.emit(
                         "breaker.trip", request_id=req.request_id,
                         family=self._family_label(req),
                         trigger="failed_half_open_trial")
+                    complete()
                     continue
                 else:
                     self.breaker.record_success(family)
@@ -1129,15 +1134,16 @@ class QueryServer:
                         self._quarantine(req, replica)
             else:
                 self.breaker.record_success(self._family(req))
-            self._finish(req, outcome)
+            complete = self._settle(req, outcome)
             if tripped:
-                # AFTER the finish: the tripping request is in the
-                # flight ring, so the dump carries its attempt history
+                # the tripping request is in the flight ring, so the dump
+                # carries its attempt history; its handle completes after
                 self.telemetry.auto_dump("breaker_trip")
                 self.event_log.emit(
                     "breaker.trip", request_id=req.request_id,
                     family=self._family_label(req),
                     trigger="failure_threshold")
+            complete()
 
     def _note_device_outcomes(self, replica: DeviceReplica,
                               outcomes: List[Any]) -> None:
@@ -1354,11 +1360,17 @@ class QueryServer:
 
     def _finish(self, req: Request, outcome: Any) -> None:
         """Materialize (deadline-checked) and complete one handle."""
+        self._settle(req, outcome)()
+
+    def _settle(self, req: Request, outcome: Any) -> Callable[[], None]:
+        """Materialize (deadline-checked) and record one request in the
+        flight ring; returns the call that completes its handle.  A
+        breaker trip dumps the ring between the two, so a client that
+        sees the tripping failure finds the dump written."""
         if isinstance(outcome, BaseException):
             self._count_failure(outcome)
             self._flight(req, outcome)
-            req.handle._complete(exception=outcome)
-            return
+            return functools.partial(req.handle._complete, exception=outcome)
         rows = None
         try:
             with cancel_scope(req.scope), self._observed():
@@ -1369,15 +1381,15 @@ class QueryServer:
         except BaseException as ex:
             self._count_failure(ex)
             self._flight(req, ex)
-            req.handle._complete(exception=ex)
-            return
+            return functools.partial(req.handle._complete, exception=ex)
         self._note_ledger(req, outcome)
         self._store_result(req, rows)
         req.handle.info["latency_s"] = req.scope.elapsed()
         self._latency.observe(req.handle.info["latency_s"])
         self._completed.inc()
         self._flight(req, None, outcome)
-        req.handle._complete(result=outcome, rows=rows)
+        return functools.partial(req.handle._complete, result=outcome,
+                                 rows=rows)
 
     def _serve_cache_hit(self, req: Request, rows: list) -> None:
         """Complete a request AT ADMISSION from the result cache: no

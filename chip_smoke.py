@@ -61,6 +61,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 run against a numpy oracle, with launches, size reads,
                 peak allocated bytes and one exact replay's device busy
                 time (``torch.profiler``);
+     values, gaps — each in a session of its own over the slice's
+                arrays: temporal values, maps and mixed values (V1–V4),
+                then the expressions and aggregations the JAX package
+                answers on its host fallback (G1–G8 over the 2-hop rows
+                of ``$age``); each query cold and 5 exact replays (0 size
+                reads) against a numpy oracle, with its held-value reads,
+                K1–K3 launches, peak bytes and busy time;
   8. cyclic   — the seeded triangle on the slice's graph through the
                 multiway join (MultiwayJoinOp, K2 for every extend and
                 close): cold, 5 exact replays (0 size reads, no
@@ -355,6 +362,65 @@ CITY = "city0007"   # with AGE: about 14 seeds, the var-expand matrix form
 # The graph's dictionary-coded property and the seed filter.  1,000 cities
 # keep the group-by under the dense gate (S <= 4096), so it runs on K1.
 CITIES = 1000
+# The gaps phase: expressions and aggregations the JAX package answers on
+# its host fallback, over the 2-hop rows from the seeds of ``$age``.
+GAPS_MATCH = ("MATCH (a:Person)-[:KNOWS]->(:Person)-[:KNOWS]->(b:Person) "
+              "WHERE a.age = $age ")
+QUERY_GAPS = {
+    # A: a string function of a column argument, grouped on K1
+    "G1_substring": GAPS_MATCH + (
+        "RETURN substring(b.city, b.age % 2) AS s, count(*) AS n "
+        "ORDER BY n DESC, s LIMIT 20"),
+    # A: a string predicate with a column right side
+    "G2_starts_with": GAPS_MATCH + (
+        "AND b.city STARTS WITH left(a.city, 6) RETURN count(*) AS n"),
+    # A: range() of column bounds, unwound
+    "G3_range": GAPS_MATCH + (
+        "UNWIND range(0, b.age % 8) AS x RETURN x, count(*) AS n "
+        "ORDER BY x"),
+    # B: collect of maps per city
+    "G4_collect_maps": GAPS_MATCH + (
+        "RETURN b.city AS city, collect({age: b.age}) AS m "
+        "ORDER BY city LIMIT 20"),
+    # B: percentileDisc of strings per age
+    "G5_percentile_strings": GAPS_MATCH + (
+        "RETURN b.age AS age, percentileDisc(b.city, 0.5) AS p "
+        "ORDER BY age"),
+    # C: CASE between maps of different keys, grouped
+    "G6_case_maps": GAPS_MATCH + (
+        "RETURN CASE WHEN b.age > 50 THEN {k: b.city} "
+        "ELSE {k: b.age, old: false} END AS m, count(*) AS n"),
+    # D: arithmetic on values of mixed types, grouped
+    "G7_mixed_arith": GAPS_MATCH + (
+        "RETURN (CASE WHEN b.age > 50 THEN b.city ELSE b.age END) + 1 "
+        "AS v, count(*) AS n"),
+    # E: a list of durations collected per city, filtered by element
+    "G8_duration_lists": GAPS_MATCH + (
+        "WITH b.city AS city, collect(duration({days: b.age})) AS ds "
+        "RETURN city, size(ds) AS n, [d IN ds WHERE d.days > 80] AS old "
+        "ORDER BY city LIMIT 20"),
+}
+# Launches one exact replay of each gaps query makes at least: two joins
+# per hop on K2 for each; G1 groups by a string on K1 (the phase's pool
+# stays under 4,096 strings) and sorts its groups on K3; G3 and G5 sort
+# their grouped rows (8 and 72) on K3.
+MIN_GAPS_LAUNCHES = {
+    "G1_substring": {"expand_positions": 2, "segment_agg": 1,
+                     "bitonic_sort": 1},
+    "G2_starts_with": {"expand_positions": 2},
+    "G3_range": {"expand_positions": 2, "bitonic_sort": 1},
+    "G4_collect_maps": {"expand_positions": 2},
+    "G5_percentile_strings": {"expand_positions": 2, "bitonic_sort": 1},
+    "G6_case_maps": {"expand_positions": 2},
+    "G7_mixed_arith": {"expand_positions": 2},
+    "G8_duration_lists": {"expand_positions": 2},
+}
+# held-value reads of one exact replay of each: the strings G1 builds and
+# the pairs G2 decides, one each; G7's texts of the values and their
+# concatenation, three
+GAPS_HELD_READS = {"G1_substring": 1, "G2_starts_with": 2,
+                   "G7_mixed_arith": 3}
+
 AGE = 30
 
 # One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM rate and the
@@ -5605,6 +5671,191 @@ def check_prefetch(torch, main_args, dev):
             "library_call": "torch.index_select(...).mul_(2)"}
 
 
+def gaps_oracles(np, nodes, rels, age: int) -> dict:
+    """numpy answers of the gaps queries, from the 2-hop path counts to
+    each person (``hop_counts``); G2 propagates each 6-letter city
+    prefix's seeds on their own."""
+    person = nodes["Person"]
+    ages, cities = person["age"], person["city"]
+    names, codes = city_codes(np, nodes)
+    seeds = (ages == age).astype(np.int64)
+    _h1, hop2 = hop_counts(np, nodes, rels, seeds)
+    w = np.rint(hop2).astype(np.int64)
+    live = w > 0
+    out = {}
+    # G1: the substring's groups, top 20 by count then string
+    cut = ages % 2
+    per = {}
+    for start in (0, 1):
+        sel = live & (cut == start)
+        counts = np.bincount(codes[sel], weights=w[sel],
+                             minlength=len(names))
+        for name, n in zip(names, counts):
+            if n:
+                sub = str(name)[start:]
+                per[sub] = per.get(sub, 0) + int(round(n))
+    out["G1_substring"] = [{"s": k, "n": v} for k, v in sorted(
+        per.items(), key=lambda kv: (-kv[1], kv[0]))[:20]]
+    # G2: paths whose end's city starts with the first six letters of
+    # the seed's city
+    prefix = np.array([str(c)[:6] for c in names])
+    groups, group_of = np.unique(prefix, return_inverse=True)
+    total = 0
+    for g in range(len(groups)):
+        in_g = group_of[codes] == g
+        _h, h2 = hop_counts(np, nodes, rels, seeds * in_g)
+        total += int(round(h2[in_g].sum()))
+    out["G2_starts_with"] = [{"n": total}]
+    # G3: x in range(0, age % 8) for each path
+    top = ages % 8
+    out["G3_range"] = [{"x": x, "n": int(w[live & (top >= x)].sum())}
+                       for x in range(8) if w[live & (top >= x)].sum()]
+    # G4: per city (first 20 present) the multiset of ages
+    present = np.bincount(codes[live], minlength=len(names)) > 0
+    first = [i for i in range(len(names)) if present[i]][:20]
+    g4 = []
+    for i in first:
+        sel = live & (codes == i)
+        g4.append({"city": str(names[i]), "m": sorted(
+            int(a) for a, n in zip(ages[sel], w[sel]) for _ in range(n))})
+    out["G4_collect_maps"] = g4
+    # G5: per age the nearest-rank median city
+    g5 = []
+    for a in range(18, 90):
+        sel = live & (ages == a)
+        if not sel.any():
+            continue
+        counts = np.bincount(codes[sel], weights=w[sel],
+                             minlength=len(names)).astype(np.int64)
+        n = int(counts.sum())
+        rank = max(1, -(-n // 2))
+        at = int(np.searchsorted(np.cumsum(counts), rank))
+        g5.append({"age": a, "p": str(names[at])})
+    out["G5_percentile_strings"] = g5
+    # G6 / G7: a map or a mixed value per person, counted
+    old = ages > 50
+    g6, g7 = {}, {}
+    city_n = np.bincount(codes[live & old], weights=w[live & old],
+                         minlength=len(names))
+    age_n = np.bincount(ages[live & ~old], weights=w[live & ~old],
+                        minlength=90)
+    for i in np.flatnonzero(city_n):
+        g6[("city", str(names[i]))] = int(round(city_n[i]))
+        g7[str(names[i]) + "1"] = int(round(city_n[i]))
+    for a in np.flatnonzero(age_n):
+        g6[("age", int(a))] = int(round(age_n[a]))
+        g7[int(a) + 1] = int(round(age_n[a]))
+    out["G6_case_maps"] = sorted(g6.items(), key=repr)
+    out["G7_mixed_arith"] = sorted(g7.items(), key=repr)
+    # G8: per city (first 20 present) the count and the days over 80
+    g8 = []
+    for i in first:
+        sel = live & (codes == i)
+        days = [int(a) for a, n in zip(ages[sel], w[sel]) for _ in range(n)]
+        g8.append({"city": str(names[i]), "n": len(days),
+                   "old": sorted(d for d in days if d > 80)})
+    out["G8_duration_lists"] = g8
+    return out
+
+
+def gaps_norm(label: str, rows):
+    """A gaps query's rows in its oracle's form: collected lists as
+    sorted values, maps and mixed values as sortable keys."""
+    if label == "G4_collect_maps":
+        return [{"city": r["city"], "m": sorted(x["age"] for x in r["m"])}
+                for r in rows]
+    if label == "G6_case_maps":
+        return sorted(((("city", r["m"]["k"]) if "old" not in r["m"]
+                        else ("age", r["m"]["k"]), r["n"]) for r in rows),
+                      key=repr)
+    if label == "G7_mixed_arith":
+        return sorted(((r["v"], r["n"]) for r in rows), key=repr)
+    if label == "G8_duration_lists":
+        return [{"city": r["city"], "n": r["n"],
+                 "old": sorted(d.days for d in r["old"])} for r in rows]
+    return rows
+
+
+def run_gaps(torch, np, args, card: str, state):
+    """Expressions and aggregations the JAX package answers on its host
+    fallback, on the slice's graph in a session of its own: each query
+    over the 2-hop rows from the seeds of ``$age``, its cold run and 5
+    exact replays against its numpy oracle; per query the size reads
+    and held-value reads of one more exact replay (0 size reads), the
+    kernel calls and launches of the last exact replay (held to
+    ``MIN_GAPS_LAUNCHES``), peak allocated bytes and one exact replay
+    under the profiler."""
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    _session, _graph, nodes, rels, _ = state
+    t0 = time.perf_counter()
+    # a session of its own: the strings the queries build stay in its
+    # pool, off the later phases' dense group-bys
+    session = caps_tpu_torch.local_session()
+    graph = graph_from_numpy(session, nodes, rels)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    want = gaps_oracles(np, nodes, rels, AGE)
+    out = {"phase": "gaps", "card": card, "age": AGE, "ingest_s": ingest_s,
+           "oracle_s": time.perf_counter() - t1}
+    launches, calls, phase_launches = {}, {}, {}
+    for label, query in QUERY_GAPS.items():
+        recorders = query_recorders()
+        params = {"age": AGE}
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params, card, recorders=recorders)
+        got = gaps_norm(label, rows)
+        expect(label, got == want[label],
+               f"disagrees with numpy ({len(got)} rows, "
+               f"{len(want[label])} expected):\ngot  {got[:3]}\n"
+               f"want {want[label][:3]}", "gaps")
+        replay = graph.cypher(query, params)
+        expect(label, gaps_norm(label, replay.records.to_maps())
+               == want[label], "the counted replay disagrees with numpy",
+               "gaps")
+        expect(label, session.fused.last_mode == "replay",
+               f"the counted run was a {session.fused.last_mode}", "gaps")
+        info["replay_size_syncs"] = replay.metrics["size_syncs"]
+        info["replay_held_reads"] = replay.metrics["held_reads"]
+        expect(label, replay.metrics["size_syncs"] == 0,
+               f"an exact replay read {replay.metrics['size_syncs']} sizes",
+               "gaps")
+        expect(label, replay.metrics["held_reads"]
+               == GAPS_HELD_READS.get(label, 0),
+               f"an exact replay read held values "
+               f"{replay.metrics['held_reads']} times", "gaps")
+        check_query_launches(f"the gaps query {label}'s replay",
+                             info["replay_launches"],
+                             MIN_GAPS_LAUNCHES.get(label, {}))
+        info.update({
+            "rows": len(rows),
+            "k_launches": {k: info["replay_launches"].get(k, 0)
+                           for k in ("segment_agg", "expand_positions",
+                                     "bitonic_sort")},
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(query,
+                                            params).records.to_maps()),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]]})
+        launches[label] = info["replay_launches"]
+        for k, n in info["replay_launches"].items():
+            phase_launches[k] = phase_launches.get(k, 0) + n
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    expect("phase", not MIN_GAPS_LAUNCHES or all(
+        phase_launches.get(k, 0) for k in ("segment_agg", "expand_positions",
+                                           "bitonic_sort")),
+           f"K1, K2 or K3 never launched: {phase_launches}", "gaps")
+    out["phase_launches"] = phase_launches
+    out["pool_strings"] = len(session.backend.pool)
+    del graph, session
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"gaps": launches},
+            {f"gaps_{k}": v for k, v in calls.items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5654,6 +5905,9 @@ def main() -> int:
     values_launches, values_calls = run_values(torch, np, args, card, state)
     launches.update(values_launches)
     pattern_calls.update(values_calls)
+    gaps_launches, gaps_calls = run_gaps(torch, np, args, card, state)
+    launches.update(gaps_launches)
+    pattern_calls.update(gaps_calls)
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)

@@ -249,11 +249,27 @@ def test_new_property_expressions_are_computed_on_the_device_path():
 
 
 def test_an_expression_without_a_device_path_raises_naming_it():
+    """An expression the reference refuses too (``toUpper`` of an
+    integer) raises naming its cause."""
     from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
     g = create_graph(port_session(), SOCIAL)
-    with pytest.raises(UnsupportedOnDevice, match="is not a constant"):
+    with pytest.raises(UnsupportedOnDevice, match="toupper on non-string"):
         g.cypher("MATCH (a:Person) CONSTRUCT NEW "
-                 "(:C {v: substring(a.name, a.age)}) RETURN GRAPH")
+                 "(:C {v: toUpper(a.age)}) RETURN GRAPH")
+
+
+def test_a_string_function_of_column_arguments_builds_as_the_reference():
+    """``substring`` with a column argument sets the new nodes' property
+    on the device path, as the reference does."""
+    q = ("MATCH (a:Person) CONSTRUCT NEW "
+         "(:C {v: substring(a.name, a.age % 3), n: a.name}) RETURN GRAPH")
+
+    def scenario(s, create):
+        built = create(s, SOCIAL).cypher(q).graph
+        return rows(built, "MATCH (c:C) RETURN c.n AS n, c.v AS v "
+                           "ORDER BY n")
+    port, ref = Both().run(scenario)
+    assert port == ref
 
 
 def test_two_parameter_values_build_two_graphs():

@@ -432,17 +432,28 @@ def test_exact_replay_of_a_comprehension_reads_nothing(engines):
 
 
 @pytest.mark.parametrize("query,cause", [
-    ("MATCH (a:Person)-[r:KNOWS]->(b:Person) "
-     "RETURN [x IN [a, r] | 1] AS l", "list of nodes and relationships"),
     ("MATCH (a:Person) RETURN [[[a.age]]] AS l", "list of"),
-    ("MATCH (a:Person) RETURN [[a.age]] = [[1]] AS e",
-     "comparing lists of lists"),
-    ("MATCH (a:Person) RETURN substring(a.name, a.age) AS s",
-     "is not a constant"),
-    ("MATCH (a:Person) RETURN [duration({days: a.age})] AS l",
-     "list of CTDuration"),
-], ids=["nodes_and_relationships", "three_levels", "lists_of_lists_equal",
-        "string_function_column_argument", "list_of_durations"])
+    ("MATCH (a:Person) RETURN sum(a.xs) AS s", "group: sum over kind list"),
+], ids=["three_levels", "sum_of_lists"])
 def test_causes_left_out_raise_on_the_device_path(engines, query, cause):
+    """Causes still without a device path raise naming themselves: one
+    the reference answers (open, ROADMAP Queue 1) and one it refuses
+    too (a sum of lists is a TypeError there)."""
     with pytest.raises(UnsupportedOnDevice, match=cause):
         engines[0].cypher(query, {}).records.to_maps()
+
+
+@pytest.mark.parametrize("query", [
+    "MATCH (a:Person)-[r:KNOWS]->(b:Person) "
+    "RETURN [x IN [a, r] | 1] AS l, [x IN [a, r] | x.name] AS n",
+    "MATCH (a:Person) RETURN [[a.age]] = [[1]] AS e, "
+    "[[a.age, 2]] = [[a.age, 2]] AS f",
+    "MATCH (a:Person) RETURN substring(a.name, a.age % 3) AS s",
+    "MATCH (a:Person) RETURN [duration({days: coalesce(a.age, 0)})][0].days "
+    "AS d, size([duration({days: 1}), null]) AS n",
+], ids=["nodes_and_relationships", "lists_of_lists_equal",
+        "string_function_column_argument", "list_of_durations"])
+def test_causes_answered_on_the_device_path(engines, query):
+    """Causes that raised on the device path before now answer as the
+    JAX package and the port's oracle do."""
+    assert_same(engines, query)

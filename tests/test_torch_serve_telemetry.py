@@ -295,6 +295,35 @@ def test_breaker_trip_auto_dumps_with_attempt_histories():
         server.shutdown()
 
 
+def test_breaker_trip_dump_is_written_before_the_client_fails():
+    """The worker writes the breaker-trip dump before it completes the
+    tripping request's handle: a dump that takes its time is still there
+    when the client sees the failure."""
+    session = _session()
+    graph = create_graph(session, SOCIAL)
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        workers=2, breaker_threshold=1, breaker_cooldown_s=30.0))
+    dump = server.telemetry.auto_dump
+
+    def slow_dump(reason):
+        threading.Event().wait(0.3)
+        return dump(reason)
+
+    server.telemetry.auto_dump = slow_dump
+    try:
+        graph.cypher(Q_ORDER, {"min": 0})
+        with failing_operator("OrderBy", exc=RuntimeError("poison"),
+                              n_times=None):
+            with pytest.raises(Exception):
+                server.run(Q_ORDER, {"min": 0})
+        dumps = server.telemetry.flight_dumps
+        assert [d["reason"] for d in dumps] == ["breaker_trip"]
+        assert any(r["outcome"] == "QueryFailed"
+                   for r in dumps[-1]["records"])
+    finally:
+        server.shutdown()
+
+
 def test_device_quarantine_auto_dumps(fake_clock):
     session = _session()
     graph = create_graph(session, SOCIAL)

@@ -343,13 +343,19 @@ def test_union_all_closes_generic_replay_gaps():
 
 
 def test_union_all_refuses_kind_mismatch():
+    """A list beside a string has no device column (a list among values
+    of other types): the union refuses naming the column.  Integers
+    beside strings union as values of mixed types."""
     from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
-    from caps_tpu_torch.okapi.types import CTInteger, CTString
+    from caps_tpu_torch.okapi.types import CTInteger, CTList, CTString
     f = caps_tpu_torch.local_session(device="cpu").table_factory
-    a = f.from_columns({"x": [1]}, {"x": CTInteger})
+    a = f.from_columns({"x": [[1]]}, {"x": CTList(CTInteger)})
     b = f.from_columns({"x": ["s"]}, {"x": CTString})
     with pytest.raises(UnsupportedOnDevice, match="union_all"):
         a.union_all(b)
+    mixed = f.from_columns({"x": [1]}, {"x": CTInteger}).union_all(
+        f.from_columns({"x": ["s"]}, {"x": CTString}))
+    assert mixed.column_values("x") == [1, "s"]
 
 
 def test_multi_type_scans_union(graphs):
@@ -377,3 +383,43 @@ def test_union_queries_match_jax(query, graphs):
     port_g, jax_g = graphs
     assert _bag(port_g.cypher(query).records.to_maps()) == \
         _bag(jax_g.cypher(query).records.to_maps())
+
+
+def _large_id_graph(seed=5, n=80, e=400):
+    """80 ``:P`` nodes (a third also ``:Q``) with ids 2^40 + 13i and a
+    nullable ``k``, and 400 ``:K`` / ``:L`` edges among them."""
+    rng = np.random.RandomState(seed)
+    ids = [2 ** 40 + 13 * i for i in range(n)]
+    nodes = {}
+    for i, nid in enumerate(ids):
+        labels = ("P", "Q") if i % 3 == 0 else ("P",)
+        k = None if rng.rand() < 0.1 else int(rng.randint(0, 8))
+        nodes.setdefault(labels, []).append(
+            {"_id": nid, **({} if k is None else {"k": k})})
+    rels = {"K": [], "L": []}
+    for a, b in rng.randint(0, n, size=(e, 2)):
+        rels["K" if rng.rand() < 0.6 else "L"].append((ids[a], ids[b], {}))
+    return nodes, rels
+
+
+@pytest.mark.parametrize("pattern", [
+    "(a:P)-[:K*1..2]->(b)", "(a:P)-[:K*1..3]->(b)", "(a:P)-[:K*2..3]-(b)",
+    "(a:P)-[:K|L*1..2]->(b)"], ids=["1..2", "1..3", "undirected_2..3",
+                                    "two_types_1..2"])
+def test_large_ids_refuse_the_matrix_before_allocating(pattern):
+    """Ids near 2^40 put the dense id domain far past the matrix budget:
+    the var-expand refuses the matrix form before it sizes anything by
+    that domain and answers through joins, as the JAX package does."""
+    import caps_tpu
+    from util import make_graph
+    from test_torch_algo import port_make_graph
+    nodes, rels = _large_id_graph()
+    port = port_make_graph(caps_tpu_torch.local_session(device="cpu"),
+                           nodes, rels)
+    ref = make_graph(caps_tpu.local_session(backend="local"), nodes, rels)
+    q = f"MATCH {pattern} WHERE a.k = $k RETURN count(*) AS c"
+    for k in (2, 5):
+        got = port.cypher(q, {"k": k})
+        assert op_strategy(got, "VarExpand") == "join"
+        assert got.records.to_maps() == \
+            ref.cypher(q, {"k": k}).records.to_maps()
