@@ -24,14 +24,17 @@ Kinds:
            kind's dtype — int32 for ids and string codes, int64 for
            ints, dates, datetimes and "any" payloads (+ ``tags``),
            float64 for floats, bool for booleans; a list of durations
-           is int64 (capacity, max_len, 3); a list of lists is 3D
-           (capacity, max_len, inner max_len) + inner_lens; a list of
-           maps is presence (capacity, max_len, K) + ``fields`` of lists
+           is int64 (capacity, max_len, 3); a list of maps is presence
+           (capacity, max_len, K) + ``fields`` of lists; a list of lists,
+           at any depth, is int64 (capacity, max_len) + ``child``: each
+           element's row in a list column of the inner lists (itself a
+           list of any kind, nested again or not)
     object —       host-only values; no device path
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -54,11 +57,12 @@ _DTYPES = {
     "duration": torch.int64,
     "any": torch.int64,
     "map": torch.bool,
+    "list": torch.int64,   # a list of lists: the inner lists' child rows
 }
 _NP_DTYPES = {
     "id": np.int32, "int": np.int64, "float": np.float64, "bool": np.bool_,
     "str": np.int32, "date": np.int64, "datetime": np.int64,
-    "duration": np.int64, "any": np.int64,
+    "duration": np.int64, "any": np.int64, "list": np.int64,
 }
 
 # The kinds an "any" value may hold, by tag (int8).
@@ -69,12 +73,15 @@ TAG = {k: i for i, k in enumerate(ANY_TAGS)}
 def list_elem_kind(ctype: CypherType) -> Optional[str]:
     """Element kind of a device-representable list type: rel/node ids,
     int, float, str codes, bool, date, datetime, duration, "any"
-    (CTNumber and CTAny elements), map.  None = no device
-    representation (nested lists, an element type not known)."""
+    (CTNumber and CTAny elements), map, list (a list of lists, at any
+    depth).  None = no device representation (an element type not
+    known)."""
     m = ctype.material
     if not isinstance(m, _CTList):
         return None
     inner = m.inner.material if m.inner is not None else None
+    if isinstance(inner, _CTList):
+        return "list"
     if isinstance(inner, (_CTRelationship, _CTNode)):
         return "id"
     if isinstance(inner, _CTAny) or inner == CTNumber:
@@ -123,11 +130,11 @@ class Column:
     # element.  None where no element can be null (collect drops nulls,
     # a path's hop ids are never null).
     elem_valid: Optional[torch.Tensor] = None
-    # for a list of lists: int32 (capacity, max_len), each inner list's
-    # length, and bool (capacity, max_len, inner max_len), False on a
-    # null element of an inner list (None where there is none)
-    inner_lens: Optional[torch.Tensor] = None
-    inner_valid: Optional[torch.Tensor] = None
+    # for a list of lists: the inner lists, one row each, at any depth
+    # (``data`` holds each element's row; the rows are shared by every
+    # column taken from this one, so a gather of the outer rows moves
+    # no inner list)
+    child: Optional["Column"] = None
     # int8, the shape of ``data``: each "any" value's kind (ANY_TAGS)
     tags: Optional[torch.Tensor] = None
     # a map's (or a list of maps') key → child column (a list column of
@@ -137,22 +144,27 @@ class Column:
     @property
     def nested(self) -> bool:
         """A list of lists."""
-        return self.inner_lens is not None
+        return self.child is not None
+
+    @property
+    def depth(self) -> int:
+        """A list column's levels of lists (1 for a list of values)."""
+        return 1 + self.child.depth if self.nested else 1
 
     @property
     def elem_kind(self) -> str:
         """A list column's (innermost) element kind: its type's, else
         its dtype's (a list of no element type, or ids mixed with
         ints)."""
+        if self.nested:
+            return self.child.elem_kind
         if self.tags is not None:
             return "any"
         if self.fields is not None:
             return "map"
-        m = self.ctype.material
-        if self.nested and isinstance(m, _CTList) and m.inner is not None:
-            m = m.inner
-        k = list_elem_kind(m)
-        return _BY_DTYPE[self.data.dtype] if k in (None, "any", "map") else k
+        k = list_elem_kind(self.ctype)
+        return _BY_DTYPE[self.data.dtype] \
+            if k in (None, "any", "map", "list") else k
 
     def take(self, idx: torch.Tensor) -> "Column":
         """The rows ``idx`` of this column (every per-row tensor)."""
@@ -160,11 +172,10 @@ class Column:
             return None if x is None else x[idx]
         return Column(
             self.kind, self.data[idx], self.valid[idx], self.ctype,
-            t(self.lens), elem_valid=t(self.elem_valid),
-            inner_lens=t(self.inner_lens), inner_valid=t(self.inner_valid),
-            tags=t(self.tags),
+            t(self.lens), elem_valid=t(self.elem_valid), tags=t(self.tags),
             fields=(None if self.fields is None else
-                    {k: c.take(idx) for k, c in self.fields.items()}))
+                    {k: c.take(idx) for k, c in self.fields.items()}),
+            child=self.child)
 
     def to_device(self, device) -> "Column":
         """A copy of this column's tensors on ``device`` (the ingest-time
@@ -173,11 +184,10 @@ class Column:
             return None if x is None else x.to(device, copy=True)
         return Column(
             self.kind, t(self.data), t(self.valid), self.ctype, t(self.lens),
-            host=self.host, elem_valid=t(self.elem_valid),
-            inner_lens=t(self.inner_lens), inner_valid=t(self.inner_valid),
-            tags=t(self.tags),
+            host=self.host, elem_valid=t(self.elem_valid), tags=t(self.tags),
             fields=(None if self.fields is None else
-                    {k: c.to_device(device) for k, c in self.fields.items()}))
+                    {k: c.to_device(device) for k, c in self.fields.items()}),
+            child=None if self.child is None else self.child.to_device(device))
 
     def valid_elems(self) -> torch.Tensor:
         """bool (capacity, max_len): False on a null element of a list
@@ -210,37 +220,39 @@ class Column:
             return self
         return Column(kind, self.data.to(_DTYPES[kind]), self.valid,
                       self.ctype, self.lens, elem_valid=self.elem_valid,
-                      inner_lens=self.inner_lens,
-                      inner_valid=self.inner_valid)
+                      child=self.child)
 
 
 def null_like(col: Column, valid: torch.Tensor) -> Column:
     """A column of ``col``'s kind, type and shape holding only zeros,
-    with validity ``valid`` (all False: a null of that kind)."""
+    with validity ``valid`` (all False: a null of that kind; a list of
+    lists keeps its inner lists' rows)."""
     def z(x):
         return None if x is None else torch.zeros_like(x)
     return Column(col.kind, torch.zeros_like(col.data), valid, col.ctype,
-                  z(col.lens), elem_valid=None,
-                  inner_lens=z(col.inner_lens), tags=z(col.tags),
+                  z(col.lens), elem_valid=None, tags=z(col.tags),
                   fields=(None if col.fields is None else
                           {k: null_like(c, torch.zeros_like(c.valid))
-                           for k, c in col.fields.items()}))
+                           for k, c in col.fields.items()}),
+                  child=col.child)
 
 
 def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
             ok: torch.Tensor) -> Column:
     """The elements ``lst[row, j]`` (index tensors of one shape) as a
     column of the element kind over those positions, valid where ``ok``
-    and the element is not null."""
+    and the element is not null (of a list of lists: the inner lists'
+    rows, one level down)."""
     valid = ok & lst.valid_elems()[row, j]
     m = lst.ctype.material
     inner = m.inner if isinstance(m, _CTList) and m.inner is not None \
         else CTInteger
     if lst.nested:
-        return Column("list", lst.data[row, j], valid, inner,
-                      lst.inner_lens[row, j],
-                      elem_valid=(None if lst.inner_valid is None
-                                  else lst.inner_valid[row, j]))
+        out = lst.child.take(lst.data[row, j])
+        out.valid = out.valid & valid
+        if isinstance(inner.material, _CTList):
+            out.ctype = inner
+        return out
     if lst.fields is not None:
         return Column("map", lst.data[row, j], valid, CTMap, fields={
             k: elem_at(c, row, j, ok) for k, c in lst.fields.items()})
@@ -370,10 +382,15 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
                   host=(data_np, valid_np))
 
 
-def _make_list(values, ctype, capacity: int, pool, device) -> Column:
-    ek = list_elem_kind(ctype) or "id"
+def _make_list(values, ctype, capacity: int, pool, device,
+               default: str = "id") -> Column:
+    """Host lists (or None) → a list column; ``default`` is the element
+    kind of a list type that names none (only nulls and empty lists)."""
+    ek = list_elem_kind(ctype) or default
+    if ek == "list":
+        return _make_nested(values, ctype, capacity, pool, device)
     if ek == "map":
-        raise ValueError("list of maps from host values")
+        return _make_map_list(values, ctype, capacity, pool, device)
     max_len = max((len(v) for v in values if v is not None), default=0)
     width = max(1, max_len)
     valid_np = np.zeros(capacity, dtype=bool)
@@ -386,6 +403,98 @@ def _make_list(values, ctype, capacity: int, pool, device) -> Column:
         data_np = np.zeros((capacity, width, 3), dtype=np.int64)
     ev_np = np.ones((capacity, width), dtype=bool)
     lens_np = np.zeros(capacity, dtype=np.int32)
+    if not _list_native(values, ek, data_np, valid_np, ev_np, lens_np):
+        for i, v in enumerate(values):
+            if v is None:
+                continue
+            valid_np[i] = True
+            lens_np[i] = len(v)
+            for j, x in enumerate(v):
+                if x is None:
+                    ev_np[i, j] = False
+                elif ek == "any":
+                    tags_np[i, j], code = encode_any(x, pool)
+                    put_payload(data_np, (i, j), code)
+                else:
+                    data_np[i, j] = encode_list_elem(x, ek, pool)
+    return Column("list", _to(data_np, device), _to(valid_np, device),
+                  ctype, _to(lens_np, device),
+                  elem_valid=None if ev_np.all() else _to(ev_np, device),
+                  tags=None if tags_np is None else _to(tags_np, device))
+
+
+def _slots(values):
+    """Host lists (or None) laid out in bulk: (each row's presence and
+    length, each element's row and position, the elements in row then
+    position order)."""
+    n = len(values)
+    present = np.fromiter((v is not None for v in values), bool, n)
+    lens = np.fromiter((0 if v is None else len(v) for v in values),
+                       np.int64, n)
+    row = np.repeat(np.arange(n), lens)
+    pos = np.arange(row.shape[0]) - np.repeat(np.cumsum(lens) - lens, lens)
+    flat = list(itertools.chain.from_iterable(
+        v for v in values if v is not None))
+    return present, lens, row, pos, flat
+
+
+def _list_native(values, ek: str, data_np, valid_np, ev_np,
+                 lens_np) -> bool:
+    """Fill lists of ints, floats or booleans in bulk: the elements
+    flattened in row order, converted by the native runtime
+    (:func:`_ingest_native`) and placed by each row's offsets.  False
+    where the per-element loop must run (another kind, no runtime, a
+    value its converters reject)."""
+    if ek not in ("int", "float", "bool") or not len(values):
+        return False
+    present, lens, row, pos, flat = _slots(values)
+    fast = _ingest_native(flat, ek, len(flat)) if flat else \
+        (np.zeros(0, data_np.dtype), np.zeros(0, bool))
+    if fast is None:
+        return False
+    data_np[row, pos], ev_np[row, pos] = fast
+    valid_np[:len(values)] = present
+    lens_np[:len(values)] = lens
+    return True
+
+
+def _make_nested(values, ctype, capacity: int, pool, device) -> Column:
+    """Host lists of lists → a list of lists: the inner lists, in row
+    then element order, become the rows of a child column (of the inner
+    list type, nested again for a deeper list); each element holds its
+    inner list's row there (a null inner list a null element)."""
+    present, lens, row, pos, flat = _slots(values)
+    child = _make_list(flat, ctype.material.inner, max(1, len(flat)), pool,
+                       device, default="int")
+    child.host = None
+    width = max(1, int(lens.max(initial=0)))
+    data_np = np.zeros((capacity, width), dtype=np.int64)
+    ev_np = np.ones((capacity, width), dtype=bool)
+    valid_np = np.zeros(capacity, dtype=bool)
+    lens_np = np.zeros(capacity, dtype=np.int32)
+    data_np[row, pos] = np.arange(len(flat))
+    ev_np[row, pos] = np.fromiter((x is not None for x in flat), bool,
+                                  len(flat))
+    valid_np[:len(values)] = present
+    lens_np[:len(values)] = lens
+    return Column("list", _to(data_np, device), _to(valid_np, device),
+                  ctype, _to(lens_np, device),
+                  elem_valid=None if ev_np.all() else _to(ev_np, device),
+                  child=child)
+
+
+def _make_map_list(values, ctype, capacity: int, pool, device) -> Column:
+    """Host lists of maps → a list of maps: the presence of each key of
+    any map per element, and per key the list of its values (a list
+    column of the key's joined type)."""
+    from caps_tpu_torch.okapi.types import CTList, from_python, join_all
+    keys = sorted({k for v in values if v is not None for x in v
+                   if x is not None for k in x})
+    width = max([1] + [len(v) for v in values if v is not None])
+    present = np.zeros((capacity, width, len(keys)), dtype=bool)
+    ev_np = np.ones((capacity, width), dtype=bool)
+    valid_np = np.zeros(capacity, dtype=bool)
+    lens_np = np.zeros(capacity, dtype=np.int32)
     for i, v in enumerate(values):
         if v is None:
             continue
@@ -394,15 +503,24 @@ def _make_list(values, ctype, capacity: int, pool, device) -> Column:
         for j, x in enumerate(v):
             if x is None:
                 ev_np[i, j] = False
-            elif ek == "any":
-                tags_np[i, j], code = encode_any(x, pool)
-                put_payload(data_np, (i, j), code)
             else:
-                data_np[i, j] = encode_list_elem(x, ek, pool)
-    return Column("list", _to(data_np, device), _to(valid_np, device),
+                present[i, j] = [k in x for k in keys]
+    fields = {}
+    for k in keys:
+        vals = [None if v is None else
+                [None if x is None else x.get(k) for x in v] for v in values]
+        child_t = join_all(from_python(x) for v in vals if v is not None
+                           for x in v)
+        if child_t.material == from_python(None).material:
+            child_t = CTInteger
+        # (each row's list of one key's values is as long as its list
+        # of maps, so the key's list is as wide)
+        fields[k] = _make_list(vals, CTList(child_t), capacity, pool,
+                               device)
+    return Column("list", _to(present, device), _to(valid_np, device),
                   ctype, _to(lens_np, device),
                   elem_valid=None if ev_np.all() else _to(ev_np, device),
-                  tags=None if tags_np is None else _to(tags_np, device))
+                  fields=fields)
 
 
 def put_payload(data: np.ndarray, at, code) -> None:
@@ -507,8 +625,8 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
     each tensor, converted by ``tolist``."""
     valid = col.valid[:n].cpu().tolist()
     if col.kind in ("any", "map", "duration") or (
-            col.kind == "list" and col.elem_kind in ("any", "map",
-                                                     "duration")):
+            col.kind == "list" and (col.nested or col.elem_kind in (
+                "any", "map", "duration"))):
         vals = _decoded(col, n, pool)
         return [v if ok else None for v, ok in zip(vals, valid)]
     conv = _converter(col.elem_kind if col.kind == "list" else col.kind,
@@ -520,40 +638,25 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
         return [conv(v) if ok else None for v, ok in zip(vals, valid)]
     lens = col.lens[:n].cpu().tolist()
     ev = None if col.elem_valid is None else col.elem_valid[:n].cpu().tolist()
-    nested = col.nested
-    if nested:
-        inner = col.inner_lens[:n].cpu().tolist()
-        iv = (None if col.inner_valid is None
-              else col.inner_valid[:n].cpu().tolist())
-
-    def items(row, k, oks):
-        # (a null element's code is no string: decode only the others)
-        row = row[:k]
-        if oks is not None:
-            return [(x if conv is None else conv(x)) if ok else None
-                    for x, ok in zip(row, oks)]
-        return row if conv is None else [conv(x) for x in row]
-
     out: List[Any] = []
     for i in range(n):
         if not valid[i]:
             out.append(None)
             continue
-        if nested:
-            oks = ev[i] if ev is not None else [True] * lens[i]
-            out.append([items(r, inner[i][j], None if iv is None
-                              else iv[i][j]) if ok else None
-                        for j, (r, ok) in enumerate(
-                            zip(vals[i][:lens[i]], oks))])
+        row = vals[i][:lens[i]]
+        if ev is not None:
+            # (a null element's code is no string: decode only the others)
+            out.append([(x if conv is None else conv(x)) if ok else None
+                        for x, ok in zip(row, ev[i])])
         else:
-            out.append(items(vals[i], lens[i],
-                             None if ev is None else ev[i]))
+            out.append(row if conv is None else [conv(x) for x in row])
     return out
 
 
 def _decoded(col: Column, n: int, pool) -> List[Any]:
     """The first ``n`` rows of an "any", map, duration column (or a list
-    of "any" values or of maps) as host values, validity not applied."""
+    of "any" values, of maps or of lists) as host values, validity not
+    applied."""
     from caps_tpu_torch.okapi.values import CypherDuration, CypherMap
     if col.kind == "duration":
         return [CypherDuration(*r) for r in col.data[:n].cpu().tolist()]
@@ -566,16 +669,20 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
         kids = [column_to_host(col.fields[k], n, pool) for k in keys]
         return [CypherMap({k: kid[i] for k, kid, p in zip(keys, kids, ok)
                            if p}) for i, ok in enumerate(present)]
-    # a list of "any" values or of maps: its elements as a column, cut
+    # a list of "any" values, of maps or of lists: the elements of the
+    # valid rows as a column (one level down, for a list of lists), cut
     # into rows by the lengths
-    W = col.data.shape[1]
+    lens = np.where(col.valid[:n].cpu().numpy(),
+                    col.lens[:n].cpu().numpy(), 0).astype(np.int64)
+    total = int(lens.sum())
+    ends = np.cumsum(lens)
+    row = np.repeat(np.arange(n), lens)
+    j = np.arange(total) - np.repeat(ends - lens, lens)
     dev = col.data.device
-    flat = torch.arange(n * W, device=dev)
-    elems = column_to_host(elem_at(col, flat // W, flat % W,
-                                   torch.ones_like(flat, dtype=torch.bool)),
-                           n * W, pool)
-    lens = col.lens[:n].cpu().tolist()
-    return [elems[i * W:i * W + lens[i]] for i in range(n)]
+    at = (torch.from_numpy(row).to(dev), torch.from_numpy(j).to(dev))
+    elems = column_to_host(elem_at(col, *at, torch.ones(
+        total, dtype=torch.bool, device=dev)), total, pool)
+    return [elems[e - k:e] for e, k in zip(ends.tolist(), lens.tolist())]
 
 
 def decode_any(tags: np.ndarray, payload: np.ndarray, pool) -> List[Any]:
@@ -638,9 +745,22 @@ def literal_column(value: Any, ctype: CypherType, capacity: int,
     if value is None:
         if kind == "list":
             ek = list_elem_kind(ctype)
+            if ek == "list":
+                # a null list of lists: one null inner list to point at
+                child = literal_column(None, ctype.material.inner, 1, pool,
+                                       device)
+                return Column(kind, torch.zeros((capacity, 1),
+                                                dtype=torch.int64,
+                                                device=device),
+                              torch.zeros(capacity, dtype=torch.bool,
+                                          device=device), ctype,
+                              torch.zeros(capacity, dtype=torch.int32,
+                                          device=device), child=child)
+            # (a list of durations holds three fields an element, a list
+            # of maps the presence of no key)
+            tail = {"duration": (3,), "map": (0,)}.get(ek, ())
             return Column(kind,
-                          torch.zeros((capacity, 1) + ((3,) if ek ==
-                                                       "duration" else ()),
+                          torch.zeros((capacity, 1) + tail,
                                       dtype=list_dtype(ek), device=device),
                           torch.zeros(capacity, dtype=torch.bool,
                                       device=device), ctype,

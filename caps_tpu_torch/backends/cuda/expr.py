@@ -275,11 +275,10 @@ class DeviceExprCompiler:
         from caps_tpu_torch.backends.cuda.column import (
             _NP_DTYPES, encode_any, encode_list_elem, put_payload,
         )
-        from caps_tpu_torch.okapi.types import CTList, from_python, join_all
+        from caps_tpu_torch.okapi.types import from_python
         from caps_tpu_torch.okapi.values import CypherDuration
-        inner = join_all(from_python(v) for v in values) if values \
-            else CTInteger
-        ctype = CTList(inner)
+        ctype = from_python(values)   # (``[]``: a list of no type)
+        inner = ctype.material.inner
         if isinstance(inner.material, _CTList):
             return self._const_nested(values, ctype)
         ek = list_elem_kind(ctype)
@@ -317,48 +316,16 @@ class DeviceExprCompiler:
                       tags=rows(tags) if ek == "any" else None)
 
     def _const_nested(self, values, ctype) -> Column:
-        """A constant list of lists broadcast to every row (a null inner
-        list is a null element, a null in an inner list a null inner
-        element)."""
-        from caps_tpu_torch.backends.cuda.column import (
-            _NP_DTYPES, encode_list_elem,
-        )
-        inner = ctype.material.inner
-        ek = list_elem_kind(inner)
-        if ek is None and all(x is None for v in values if v is not None
-                              for x in v):
-            ek = "int"  # only nulls: no value to type the elements
-        if ek in (None, "any", "map"):
-            raise UnsupportedOnDevice(f"list of {inner!r} on device")
-        width = max(1, len(values))
-        deep = max([1] + [len(v) for v in values if v is not None])
-        data = np.zeros((width, deep), dtype=_NP_DTYPES[ek])
-        ok = np.ones(width, dtype=bool)
-        inner_ok = np.ones((width, deep), dtype=bool)
-        inner_lens = np.zeros(width, dtype=np.int32)
+        """A constant list of lists, at any depth, broadcast to every row:
+        its inner lists built once as a child column (a null inner list
+        is a null element), every row pointing at them."""
+        from caps_tpu_torch.backends.cuda.column import make_column
         try:
-            for i, v in enumerate(values):
-                if v is None:
-                    ok[i] = False
-                    continue
-                inner_lens[i] = len(v)
-                for j, x in enumerate(v):
-                    if x is None:
-                        inner_ok[i, j] = False
-                    else:
-                        data[i, j] = encode_list_elem(x, ek, self.pool)
+            col = make_column([values], ctype, 1, self.pool, self.device)
         except (ValueError, OverflowError) as ex:
             raise UnsupportedOnDevice(str(ex))
-
-        def rows(a):
-            return self._lut(a)[None].expand(self.capacity, *a.shape)
-
-        lens = torch.full((self.capacity,), len(values), dtype=torch.int32,
-                          device=self.device)
-        return Column("list", rows(data), self._full(True), ctype, lens,
-                      elem_valid=None if ok.all() else rows(ok),
-                      inner_lens=rows(inner_lens),
-                      inner_valid=None if inner_ok.all() else rows(inner_ok))
+        return col.take(torch.zeros(self.capacity, dtype=torch.int64,
+                                    device=self.device))
 
     def _index(self, e) -> Column:
         base = self.compile(e.expr)
@@ -455,9 +422,7 @@ class DeviceExprCompiler:
         return dataclasses.replace(
             base, data=pick(base.data), valid=base.valid & valid,
             lens=length.to(torch.int32), host=None,
-            elem_valid=pick(base.elem_valid, True),
-            inner_lens=pick(base.inner_lens),
-            inner_valid=pick(base.inner_valid, True), tags=pick(base.tags),
+            elem_valid=pick(base.elem_valid, True), tags=pick(base.tags),
             fields=(None if base.fields is None else {
                 k: self._sublist(c, start, length, valid, step)
                 for k, c in base.fields.items()}))
@@ -528,15 +493,20 @@ class DeviceExprCompiler:
 
     def _concat_lists(self, l: Column, r: Column) -> Column:
         """``a + b`` of two list columns of one element kind: each row's
-        elements of ``a`` then those of ``b``."""
+        elements of ``a`` then those of ``b`` (of two lists of lists of
+        one depth: over both sides' inner lists)."""
+        from caps_tpu_torch.backends.cuda.table import share_child
         from caps_tpu_torch.okapi.types import CTList
-        if l.elem_kind != r.elem_kind and not (
+        l, r = _nest_like(l, r)
+        if l.nested and r.nested and l.depth == r.depth:
+            l, r = share_child(l, r)
+        elif l.elem_kind != r.elem_kind and not (
                 l.fields or r.fields or l.nested or r.nested):
             l, r = A.list_to_any(l), A.list_to_any(r)
         if l.tags is not None and l.data.dim() != r.data.dim():
             l, r = A.widen(l), A.widen(r)
         if l.elem_kind != r.elem_kind or l.fields is not None \
-                or l.nested or r.nested:
+                or l.nested != r.nested:
             raise UnsupportedOnDevice("concatenation of lists of different "
                                       "element kinds")
         wl, wr = l.data.shape[1], r.data.shape[1]
@@ -570,7 +540,7 @@ class DeviceExprCompiler:
         return Column("list", concat(l.data, r.data, 0), l.valid & r.valid,
                       CTList(inner), l.lens + r.lens, elem_valid=ev,
                       tags=(None if l.tags is None
-                            else concat(l.tags, r.tags, 0)))
+                            else concat(l.tags, r.tags, 0)), child=l.child)
 
     def _concat_strings(self, e, l: Column, r: Column) -> Column:
         """``a + b`` of two strings: one of them a literal or parameter
@@ -1632,6 +1602,7 @@ class DeviceExprCompiler:
         if _is_null(l) or _is_null(r) or l.kind == "map" == r.kind:
             return self._promote(l, r)
         if l.kind == "list" and r.kind == "list":
+            l, r = _nest_like(l, r)
             if l.elem_kind == r.elem_kind or l.fields is not None \
                     or r.fields is not None or l.nested or r.nested:
                 return l, r
@@ -1665,23 +1636,24 @@ class DeviceExprCompiler:
         if a.tags is not None and b.tags is not None \
                 and a.data.dim() != b.data.dim():
             a, b = A.widen(a), A.widen(b)
-        if a.nested != b.nested or a.data.dtype != b.data.dtype \
+        a, b = _nest_like(a, b)
+        if a.nested != b.nested or a.depth != b.depth \
+                or a.data.dtype != b.data.dtype \
                 or a.data.dim() != b.data.dim() \
                 or (a.tags is None) != (b.tags is None) \
                 or (a.fields is None) != (b.fields is None):
             raise UnsupportedOnDevice("choosing between lists of different "
                                       "kinds")
+        if a.nested:
+            from caps_tpu_torch.backends.cuda.table import share_child
+            a, b = share_child(a, b)
         width = max(a.data.shape[1], b.data.shape[1])
-        inner = max(a.data.shape[2], b.data.shape[2]) if a.nested else 0
 
         def pick(x, y, fill):
             if x is None and y is None:
                 return None
             x, y = (torch.full_like(y if z is None else z, fill)
                     if z is None else z for z in (x, y))
-            if inner and x.dim() == 3:
-                x = F.pad(x, (0, inner - x.shape[2]), value=fill)
-                y = F.pad(y, (0, inner - y.shape[2]), value=fill)
             x, y = pad_width(x, width, fill), pad_width(y, width, fill)
             return torch.where(take.view(-1, *([1] * (x.dim() - 1))), x, y)
 
@@ -1691,11 +1663,8 @@ class DeviceExprCompiler:
         return Column("list", pick(a.data, b.data, 0),
                       torch.where(take, a.valid, b.valid), a.ctype,
                       torch.where(take, a.lens, b.lens), elem_valid=ev,
-                      inner_lens=(pick(a.inner_lens, b.inner_lens, 0)
-                                  if a.nested else None),
-                      inner_valid=(pick(a.inner_valid, b.inner_valid, True)
-                                   if a.nested else None),
-                      tags=None if a.tags is None else pick(a.tags, b.tags, 0))
+                      tags=None if a.tags is None else pick(a.tags, b.tags, 0),
+                      child=a.child)
 
     def _choose_maps(self, take: torch.Tensor, a: Column,
                      b: Column) -> Column:
@@ -2000,6 +1969,28 @@ def _list_as(c: Column, kind: str) -> Column:
     from caps_tpu_torch.backends.cuda.column import list_dtype
     return dataclasses.replace(c, data=c.data.to(list_dtype(kind)),
                                host=None)
+
+
+def _nest_like(l: Column, r: Column):
+    """Two list columns of which one is a list of lists and the other a
+    list of no element type (only empty lists and null elements, as
+    ``[]``): the latter as a list of lists over the former's inner
+    lists, its elements null."""
+    from caps_tpu_torch.okapi.types import CTVoid
+    for a, b in ((l, r), (r, l)):
+        m = b.ctype.material
+        if a.nested and not b.nested and isinstance(m, _CTList) and (
+                m.inner is None or m.inner.material in (CTVoid,
+                                                        CTNull.material)):
+            shape = b.data.shape[:2]
+            b = dataclasses.replace(
+                b, data=torch.zeros(shape, dtype=torch.int64,
+                                    device=b.data.device),
+                elem_valid=torch.zeros(shape, dtype=torch.bool,
+                                       device=b.data.device),
+                tags=None, fields=None, child=a.child, host=None)
+            return (a, b) if a is l else (b, a)
+    return l, r
 
 
 def _is_null(c: Column) -> bool:

@@ -33,7 +33,7 @@ from caps_tpu_torch.backends.cuda import anyvalue as A
 from caps_tpu_torch.backends.cuda import maps as M
 from caps_tpu_torch.backends.cuda.column import Column, elem_at, list_dtype
 from caps_tpu_torch.backends.cuda.expr import (
-    DeviceExprCompiler, UnsupportedOnDevice, _is_null,
+    DeviceExprCompiler, UnsupportedOnDevice, _is_null, _nest_like,
 )
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.okapi.types import (
@@ -463,40 +463,41 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
 
 
 def _nested_literal(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
-    """A list literal of lists: the items stacked into ``(capacity, k,
-    W)``, the narrower padded; a null item a null element."""
-    F = torch.nn.functional
+    """A list literal of lists: the items' rows, one item after another,
+    become the inner lists (a child of ``k * capacity`` rows, the items
+    brought to one kind); element ``i`` of row ``r`` is inner list ``i *
+    capacity + r``, a null item a null element."""
+    from caps_tpu_torch.backends.cuda.column import null_like
+    from caps_tpu_torch.backends.cuda.table import (
+        _concat_columns, _union_pair,
+    )
+    deep = max((c for c in cols if not _is_null(c)), key=lambda c: c.depth)
+    # (an item of no element type, ``[]``, is a list of lists too)
+    cols = [c if _is_null(c) else _nest_like(deep, c)[1] for c in cols]
     lists = [c for c in cols if not _is_null(c)]
-    kinds = {c.elem_kind for c in lists}
-    if len(kinds) != 1 or kinds == {"duration"} or any(
-            c.nested or c.tags is not None or c.fields is not None
-            for c in lists):
-        raise UnsupportedOnDevice("list of lists of different element "
-                                  "kinds or of more than two levels")
-    width = max(c.data.shape[1] for c in lists)
+    if len({c.depth for c in lists}) != 1:
+        raise UnsupportedOnDevice("list of lists of different depths")
     proto = lists[0]
-    zero = torch.zeros((comp.capacity, width), dtype=proto.data.dtype,
-                       device=comp.device)
-    none = torch.zeros(comp.capacity, dtype=torch.int32, device=comp.device)
-
-    def pad(t, fill):
-        return F.pad(t, (0, width - t.shape[1]), value=fill)
-
-    data = torch.stack([zero if _is_null(c) else pad(c.data, 0)
-                        for c in cols], dim=1)
-    inner_lens = torch.stack([none if _is_null(c) else c.lens for c in cols],
-                             dim=1)
-    iv = None
-    if any(c.elem_valid is not None for c in lists):
-        iv = torch.stack([torch.ones_like(zero, dtype=torch.bool)
-                          if _is_null(c) else pad(c.valid_elems(), True)
-                          for c in cols], dim=1)
-    lens = torch.full((comp.capacity,), len(cols), dtype=torch.int32,
+    for c in lists[1:]:
+        proto, _ = _union_pair(proto, c, "list item")
+    items = []
+    for c in cols:
+        c = null_like(proto, comp._full(False)) if _is_null(c) else c
+        items.append(_union_pair(proto, c, "list item")[1])
+    cap = comp.capacity
+    child, n = items[0], cap
+    for c in items[1:]:
+        child = _concat_columns(child, n, c, cap, n + cap,
+                                child.ctype.join(c.ctype))
+        n += cap
+    rows = torch.arange(cap, device=comp.device)
+    data = torch.stack([rows + i * cap for i in range(len(cols))], dim=1)
+    lens = torch.full((cap,), len(cols), dtype=torch.int32,
                       device=comp.device)
     return Column("list", data, comp._full(True),
                   CTList(join_all(c.ctype for c in cols)), lens,
                   elem_valid=torch.stack([c.valid for c in cols], dim=1),
-                  inner_lens=inner_lens, inner_valid=iv)
+                  child=child)
 
 
 # -- lambdas ---------------------------------------------------------------
@@ -617,17 +618,13 @@ def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
     row: the kept elements of each row, left-aligned (lists of lists,
     of "any" values and of maps too)."""
     valid = v.valid.reshape(cap, W)
-    if v.kind == "list":  # a list of lists
-        if v.nested or v.tags is not None or v.fields is not None \
-                or v.data.dim() > 2:
-            raise UnsupportedOnDevice("list of more than two levels")
-        data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep, valid)
-        inner, _, _ = left_pack(v.lens.reshape(cap, W), keep)
-        iv = None
-        if v.elem_valid is not None:
-            iv, _, _ = left_pack(v.elem_valid.reshape(cap, W, -1), keep)
+    if v.kind == "list":
+        # a list of lists, at any depth: the element rows become the
+        # inner lists, and each kept element holds its row
+        at = torch.arange(cap * W, device=v.data.device).reshape(cap, W)
+        data, ev, lens = left_pack(at, keep, valid)
         return Column("list", data, comp_true(lens), ctype, lens,
-                      elem_valid=ev, inner_lens=inner, inner_valid=iv)
+                      elem_valid=ev, child=v)
     if v.kind == "map":
         data, ev, lens = left_pack(v.data.reshape(cap, W, -1), keep, valid)
         fields = {}
@@ -763,8 +760,9 @@ def disjoint(comp: DeviceExprCompiler, e: E.Disjoint) -> Column:
     a, b = comp.compile(e.lhs), comp.compile(e.rhs)
     if _is_null(a) or _is_null(b):
         return comp._null()
-    if a.kind != "list" or b.kind != "list" or "any" in (
-            a.elem_kind, b.elem_kind) or "map" in (a.elem_kind, b.elem_kind):
+    if a.kind != "list" or b.kind != "list" or a.nested or b.nested \
+            or "any" in (a.elem_kind, b.elem_kind) \
+            or "map" in (a.elem_kind, b.elem_kind):
         raise UnsupportedOnDevice(f"Disjoint of kinds {a.kind}/{b.kind} "
                                   f"of {a.elem_kind}/{b.elem_kind}")
     dtype = torch.float64 if "float" in (a.elem_kind, b.elem_kind) \

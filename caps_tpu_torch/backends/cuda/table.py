@@ -481,11 +481,13 @@ class DeviceTable(Table):
         list lengths), padding included."""
         def size(col: Column) -> int:
             n = col.data.nbytes + col.valid.nbytes
-            for t in (col.lens, col.elem_valid, col.inner_lens,
-                      col.inner_valid, col.tags):
+            for t in (col.lens, col.elem_valid, col.tags):
                 if t is not None:
                     n += t.nbytes
-            return n + sum(size(c) for c in (col.fields or {}).values())
+            kids = list((col.fields or {}).values())
+            if col.child is not None:
+                kids.append(col.child)
+            return n + sum(size(c) for c in kids)
         return sum(size(col) for col in self._cols.values())
 
     # -- column ops ------------------------------------------------------
@@ -1675,13 +1677,14 @@ def _pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
                                      dtype=t.dtype, device=t.device)])
 
 
-_ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "inner_lens",
-               "inner_valid", "tags")
+_ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "tags")
 
 
 def _col_tensors(col: Column) -> List[torch.Tensor]:
     """Every per-row tensor of a column in a fixed order (a map's child
-    columns after its own), for a collective to carry."""
+    columns after its own), for a collective to carry.  A list of lists'
+    inner lists are no per-row tensor: they stay whole where they are,
+    and the carried rows point into them."""
     out = [getattr(col, f) for f in _ROW_FIELDS
            if getattr(col, f) is not None]
     for k in sorted(col.fields or {}):
@@ -1704,11 +1707,11 @@ def _gather_cols(cols: Dict[str, Column], idx: torch.Tensor
     return {c: col.take(idx) for c, col in cols.items()}
 
 
-def _all_valid(col: Column, field: str) -> torch.Tensor:
-    """The mask ``field`` (``elem_valid`` or ``inner_valid``) of a list
-    column that has none: every element valid."""
-    shape = col.data.shape[:2] if field == "elem_valid" else col.data.shape
-    return torch.ones(shape, dtype=torch.bool, device=col.data.device)
+def _all_valid(col: Column) -> torch.Tensor:
+    """The ``elem_valid`` of a list column that has none: every element
+    valid."""
+    return torch.ones(col.data.shape[:2], dtype=torch.bool,
+                      device=col.data.device)
 
 
 def _widen(col: Column, width: int) -> Column:
@@ -1716,10 +1719,10 @@ def _widen(col: Column, width: int) -> Column:
     entries' lists too)."""
     if col.data.shape[1] >= width:
         return col
-    fills = {"elem_valid": True, "inner_valid": True}
-    kw = {f: pad_width(getattr(col, f), width, fills.get(f, 0))
-          for f in ("data", "elem_valid", "inner_lens", "inner_valid",
-                    "tags") if getattr(col, f) is not None}
+    kw = {f: pad_width(getattr(col, f), width,
+                       True if f == "elem_valid" else 0)
+          for f in ("data", "elem_valid", "tags")
+          if getattr(col, f) is not None}
     if col.fields is not None:
         kw["fields"] = {k: _widen(c, width) for k, c in col.fields.items()}
     return dataclasses.replace(col, host=None, **kw)
@@ -1730,11 +1733,17 @@ def _union_pair(a: Column, b: Column, name: str) -> Tuple[Column, Column]:
     ints and floats to the wider number, values of other kinds that an
     "any" value holds to "any" values, lists of two such element kinds
     to lists of "any" values."""
+    if a.nested and b.nested:
+        # lists of lists: their inner lists brought to one kind
+        ca, cb = _union_pair(a.child, b.child, name)
+        return (dataclasses.replace(a, child=ca, host=None),
+                dataclasses.replace(b, child=cb, host=None))
     if a.tags is not None and b.tags is not None \
             and a.data.dim() != b.data.dim():
         return A.widen(a), A.widen(b)   # durations among one side's
-    if a.kind == b.kind and (a.kind != "list" or a.elem_kind == b.elem_kind
-                             or {a.elem_kind, b.elem_kind} <= {"id", "int"}):
+    if a.kind == b.kind and a.nested == b.nested and (
+            a.kind != "list" or a.elem_kind == b.elem_kind
+            or {a.elem_kind, b.elem_kind} <= {"id", "int"}):
         return a, b
     numeric = {"id", "int", "float"}
     held = set(A.HELD_KINDS + ("any",))
@@ -1760,12 +1769,15 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
     """The first ``n_a`` rows of ``a`` then the first ``n_b`` of ``b``,
     padded to ``out_cap``: every per-row tensor concatenated, list axes
     widened to the wider side; maps (and lists of maps) over the union
-    of their keys, a key absent on one side absent in its rows."""
+    of their keys, a key absent on one side absent in its rows; lists of
+    lists over both sides' inner lists (:func:`share_child`)."""
     if (a.fields is None) != (b.fields is None) or a.nested != b.nested \
             or (a.tags is None) != (b.tags is None) \
             or a.data.dim() != b.data.dim():
         raise UnsupportedOnDevice(f"union of {a.kind} and {b.kind} values "
                                   f"of different shapes")
+    if a.nested:
+        a, b = share_child(a, b)
     fields = None
     if a.fields is not None:
         keys = sorted(set(a.fields) | set(b.fields))
@@ -1795,17 +1807,16 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
             # a list of maps: each key's list as wide as the lists
             width = max(a.data.shape[1], b.data.shape[1])
             fields = {k: _widen(c, width) for k, c in fields.items()}
-    fills = {"elem_valid": True, "inner_valid": True}
     kw = {}
     for f in _ROW_FIELDS:
         x, y = getattr(a, f), getattr(b, f)
         if x is None and y is None:
             kw[f] = None
             continue
-        fill = fills.get(f, 0)
+        fill = True if f == "elem_valid" else 0
         # (only the validity masks of elements may be missing on one side)
-        x = _all_valid(a, f) if x is None else x
-        y = _all_valid(b, f) if y is None else y
+        x = _all_valid(a) if x is None else x
+        y = _all_valid(b) if y is None else y
         if x.dtype != y.dtype:
             x, y = x.to(torch.int64), y.to(torch.int64)
         shape = [max(p, q) for p, q in zip(x.shape[1:], y.shape[1:])]
@@ -1820,7 +1831,22 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
         kw[f] = F.pad(both, (0, 0) * (both.dim() - 1) + (0, rest),
                       value=fill if f != "valid" else False)
     return Column(a.kind, kw.pop("data"), kw.pop("valid"), ctype,
-                  kw.pop("lens"), fields=fields, **kw)
+                  kw.pop("lens"), fields=fields, child=a.child, **kw)
+
+
+def share_child(a: Column, b: Column) -> Tuple[Column, Column]:
+    """Two lists of lists over one child: their inner lists brought to
+    one kind and concatenated, ``b``'s elements moved past ``a``'s inner
+    lists (nothing moves where both already share one)."""
+    if a.child is b.child:
+        return a, b
+    ca, cb = _union_pair(a.child, b.child, "inner list")
+    n_a, n_b = ca.capacity, cb.capacity
+    child = _concat_columns(ca, n_a, cb, n_b, n_a + n_b,
+                            ca.ctype.join(cb.ctype))
+    return (dataclasses.replace(a, child=child, host=None),
+            dataclasses.replace(b, child=child, data=b.data + n_a,
+                                host=None))
 
 
 # A list element's key where one int64 plane holds it (ids, string

@@ -28,7 +28,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
   5. patterns — on a ``use_cost_model=False`` session (the fixed
                 heuristics' plans): the ``count(*)`` form on count
                 pushdown (``fused-spmv``: 5 exact replays with 0 size
-                reads, 24 rotating ``$age`` values against the oracle, the
+                reads, 8 rotating ``$age`` values against the oracle, the
                 join cascade of a ``use_count_pushdown=False`` session),
                 the 3-hop count and the cycle count (``cycle-probe``, on
                 the graph with its self-loops dropped) against the
@@ -44,7 +44,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
   6. unwind   — on the same session: collect then UNWIND, DISTINCT
                 count with percentileDisc and percentileCont, and a cross
                 join of about 13.3M rows; per query its cold run, exact
-                replays (0 size reads) and the warm phase's 24 rotating
+                replays (0 size reads) and the warm phase's 8 rotating
                 ``$age`` values, each against its numpy oracle, with
                 launches, size reads, peak allocated bytes and the
                 device busy time of one exact replay (``torch.profiler``);
@@ -57,7 +57,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ordered by two list keys (``nodes(p)`` through the
                 relationship index; with a city filter too, whose few
                 rows sort on K3); each cold, 5 exact replays (0 size
-                reads) and, for the first, the 24 rotating ages, every
+                reads) and, for the first, the 8 rotating ages, every
                 run against a numpy oracle, with launches, size reads,
                 peak allocated bytes and one exact replay's device busy
                 time (``torch.profiler``);
@@ -68,10 +68,23 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 of ``$age``); each query cold and 5 exact replays (0 size
                 reads) against a numpy oracle, with its held-value reads,
                 K1–K3 launches, peak bytes and busy time;
+     nested   — nested list columns, in a session of its own over the
+                slice's arrays with a seeded list-of-lists ``visits`` on
+                every person (0-8 inner lists of 0-6 int64 values; 10 %
+                null rows, 5 % null inner lists, 15 % null values),
+                ingested through ``from_columns`` (its seconds and device
+                bytes): N1 both levels unwound and grouped by city on
+                K1, N2 three levels collected over the 2-hop rows and
+                read back, N3 1-hop rows grouped and ordered by
+                ``visits``, N4 three levels of mixed values built by
+                comprehensions and folded, N5 inner lists compared
+                across a hop; each cold and 5 exact replays (0 size
+                reads) against a numpy oracle, with K1–K3 launches, peak
+                bytes and one exact replay's busy time and idle share;
   8. cyclic   — the seeded triangle on the slice's graph through the
                 multiway join (MultiwayJoinOp, K2 for every extend and
                 close): cold, 5 exact replays (0 size reads, no
-                synchronizing call), the 24 rotating ages, each against a
+                synchronizing call), the 8 rotating ages, each against a
                 numpy oracle, and the cascade; then bench config 10 at its
                 TPU size (100,000 :Person, uniform :KNOWS at densities 4,
                 8 and 16): the triangle, diamond and 4-cycle enumerated
@@ -115,24 +128,26 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 query against numpy, its minted ids disjoint from the
                 base's), the same edges ON the base (a union: the grouped
                 2-hop query gives the base's answer), and the overlay
-                (SET on the base's persons: the grouped query at age +
-                100 gives the base's answer); each CONSTRUCT's seconds
-                split into the driving MATCH, the entity build and the
-                table build, warm latencies, peak bytes and launches;
+                (SET on the persons of a base cut by 10, 100k persons and
+                1M edges, since the overlay copies its base on the host:
+                the grouped query at age + 100 gives that base's answer);
+                each CONSTRUCT's seconds split into the driving MATCH,
+                the entity build and the table build, warm latencies,
+                peak bytes and launches;
  12. fs       — the slice's graph stored through the port's
                 ``FSGraphSource`` as parquet (a temporary directory
                 outside the repository, removed at the end) and loaded
                 by a fresh session from the ``fs`` namespace: the
                 grouped query on it cold, 5 exact replays (0 size reads)
-                and the 24 rotating ages, each equal to the numpy oracle,
+                and the 8 rotating ages, each equal to the numpy oracle,
                 its replay's kernel calls held in the kernels phase; the
                 federated MATCH of BASELINE config 5 across
                 ``session.base`` and ``fs.social`` against numpy; store
                 and load seconds (the Arrow read, the column build, the
                 upload), bytes on disk, peak card memory;
- 13. graph500 — BASELINE config 4: ``rmat_edges(20, 16, seed=1)``
-                canonicalized (15,701,303 edges over 2^20 vertices; scale
-                22 cut to 20) and the triangle count on the default
+ 13. graph500 — BASELINE config 4: ``rmat_edges(18, 16, seed=1)``
+                canonicalized (3,806,326 edges over 2^18 vertices; scale
+                22 cut to 18) and the triangle count on the default
                 session (``CountCycle`` / ``cycle-probe``), cold and 3
                 exact replays against a scipy oracle run in a child
                 process meanwhile; edges joined per second, peak bytes,
@@ -153,7 +168,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 each procedure on a 2,000-node graph of 600,000 edges on
                 the ``dense-tile`` layout;
  15. serve    — ``QueryServer`` on the card over the slice's graph: 8
-                closed-loop clients send 2,000 requests (80 % the grouped
+                closed-loop clients send 600 requests (80 % the grouped
                 query, 20 % its ``count(*)`` form on count pushdown,
                 ``$age`` over the warm phase's rotating ages), each equal
                 to its oracle, against the same requests from one thread;
@@ -172,7 +187,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 ``mesh_shape=(4,), use_csr=False`` session (radix-exchange
                 joins, K2 on every shard's expansion, K1 once per shard
                 then the combine, K3), cold, 5 exact replays (0 size
-                reads), eager and the 24 rotating ages, each against the
+                reads), eager and the 8 rotating ages, each against the
                 numpy oracle and an unsharded session, each shard's K1
                 combine against the plain version over the whole column;
                 M2 the same query with every join a broadcast join
@@ -185,18 +200,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 the 3 healthy slots (2 shards, the power-of-two rule),
                 then M1 again; M7 a ``QueryServer`` whose graph a shard
                 group of 4 members serves (partitioned by city): 8
-                clients, 1,000 requests (routed single-city reads and
+                clients, 300 requests (routed single-city reads and
                 M1), a member lost under traffic and rebuilt, one write
                 read back.  Per query cold and warm latency, size reads,
                 dist joins, bytes between shards, launches, peak bytes
                 and one exact replay's busy time and idle share;
  17. fleet    — durability and the fleet with backend processes on the
                 card, each a new interpreter with its own CUDA context
-                building the same ``foaf`` graph (1M people, 10M edge
-                draws) from one spec: the grouped query through one
-                backend and through a router over three (one closed-loop
-                client per ``$age`` family, every reply equal to a numpy
-                oracle; requests/s, router latency, requests per backend,
+                building the same ``foaf`` graph (250k people, 2.5M edge
+                draws: the slice's cut by 4) from one spec: the grouped
+                query through one backend and through a router over three
+                (one closed-loop client per ``$age`` family, every reply
+                equal to a numpy oracle; requests/s, router latency, requests per backend,
                 ``utilization.gpu`` every 100 ms, each child's card
                 memory and kernel launches), the soak again with a
                 non-owner SIGKILLed (availability 1.0), a shipped write
@@ -218,9 +233,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 port's pure-Python oracle on the same graph, the strict
                 list's tests raising their causes; counts by suite;
  20. ldbc     — the LDBC-like reads IS1–IS7 and IC1–IC14 on the port's
-                generator: at scale 11 (about LDBC SF1) 3 parameter draws
+                generator: at scale 11 (about LDBC SF1) 2 parameter draws
                 each, equal to the port's CPU session; at scale 110
-                (about SF10) a cold run, 5 exact replays and 3 generic
+                (about SF10) a cold run, 5 exact replays and 2 generic
                 draws, each equal to an eager run, the device busy time
                 of one exact replay, and IS1/IS4/IS5 against numpy; a read
                 whose plan the cost model changed runs on a
@@ -235,10 +250,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
  23. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
-                unwind and lists queries, the multiway joins, the final
-                snapshot of the updates phase, IC12, a served batch and
-                the mesh phase's M1: every shard's K1 and K2 calls)
-                and at edge
+                unwind, lists, values, gaps and nested queries, the
+                multiway joins, the final snapshot of the updates phase,
+                IC12, a served batch and the mesh phase's M1: every
+                shard's K1 and K2 calls) and at edge
                 shapes (the segment
                 kernel: bit for bit, NaN and signed zeros included, and
                 two calls bitwise equal), with the median time of 20 launches (CUDA
@@ -421,6 +436,52 @@ MIN_GAPS_LAUNCHES = {
 GAPS_HELD_READS = {"G1_substring": 1, "G2_starts_with": 2,
                    "G7_mixed_arith": 3}
 
+# The nested phase: a seeded list-of-lists property on every person
+# (0-8 inner lists of 0-6 int64 values; null rows, null inner lists and
+# null values at these rates), queried from the seeds of ``$age``.
+NESTED_MAX_INNER = 8
+NESTED_MAX_VALUES = 6
+NESTED_NULLS = (0.10, 0.05, 0.15)   # rows, inner lists, values
+NESTED_SEEDS = "MATCH (a:Person) WHERE a.age = $age "
+NESTED_HOP = ("MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age ")
+QUERY_NESTED = {
+    # both levels unwound, grouped by city on K1 (K1 folds count, min and
+    # max), the groups ordered on K3
+    "N1_unwind_twice": NESTED_SEEDS + (
+        "UNWIND a.visits AS v UNWIND v AS x "
+        "RETURN a.city AS city, count(x) AS n, max(x) AS hi "
+        "ORDER BY n DESC, city LIMIT 20"),
+    # three levels built by collect over the 2-hop rows and read back
+    "N2_collect_three_levels": (
+        "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person) "
+        "WHERE a.age = $age WITH c.city AS city, collect([[b.age, c.age]]) "
+        "AS v RETURN city, size(v) AS n, "
+        "size([x IN v WHERE x[0][0] = $age]) AS k, v[0][0][0] AS first "
+        "ORDER BY city LIMIT 20"),
+    # grouped and ordered by the nested property
+    "N3_group_by_nested": NESTED_HOP + (
+        "RETURN b.visits AS v, count(*) AS n ORDER BY n DESC, v LIMIT 20"),
+    # three levels of mixed values built by comprehensions, folded
+    "N4_comprehensions": NESTED_SEEDS + (
+        "WITH [v IN a.visits WHERE size(v) > 2 | "
+        "[x IN v WHERE x IS NOT NULL | [x, a.city]]] AS l "
+        "RETURN count(*) AS c, sum(size(l)) AS s, sum(size(l[0])) AS s0, "
+        "count(l[0][0][1]) AS k"),
+    # inner lists compared element by element across a hop
+    "N5_equal_inner_lists": NESTED_HOP + (
+        "AND a.visits[0] = b.visits[0] RETURN count(*) AS n"),
+}
+# Launches one exact replay of each nested query makes at least: N1's
+# group-by on K1 and the sort of its 1,000 groups on K3; one join per
+# hop on K2 (N2 two, N3 and N5 one); N4 reads no join.
+MIN_NESTED_LAUNCHES = {
+    "N1_unwind_twice": {"segment_agg": 1, "bitonic_sort": 1},
+    "N2_collect_three_levels": {"expand_positions": 2},
+    "N3_group_by_nested": {"expand_positions": 1},
+    "N4_comprehensions": {},
+    "N5_equal_inner_lists": {"expand_positions": 1},
+}
+
 AGE = 30
 
 # One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM rate and the
@@ -438,7 +499,7 @@ KERNELS = {
     "prefetch_gather": ("caps_tpu_torch/ops/csrc/prefetch_gather.cu",
                         "caps_tpu/ops/probe.py:94"),
 }
-ROTATING = 24   # $age values of the warm phase's param-generic sequence
+ROTATING = 8    # $age values of the warm phase's param-generic sequence
 # Launches one exact replay of each values query makes at least: the
 # joins on K2, the sort of up to 16,384 rows on K3 (V1's ORDER BY of its
 # years); V1 groups, V3 orders and V4 deduplicates the seeds' 137,125
@@ -493,7 +554,7 @@ CYCLIC_WARM = 3
 # nodes), 110 about SF10 (BASELINE.md configs 2 and 3).
 LDBC_SCALES = (11.0, 110.0)
 LDBC_SEED = 7
-LDBC_DRAWS = 3
+LDBC_DRAWS = 2
 # The updates phase: 500 single-statement writes of the LDBC SNB
 # Interactive update shapes this graph's schema holds (IU-8-style edge
 # inserts, IU-1-style person creates, property sets, relationship and
@@ -520,9 +581,11 @@ CONSTRUCT_UNION = (
     "CATALOG CREATE GRAPH session.union { MATCH (a:Person)-[:KNOWS]->"
     "(b:Person) WHERE a.age = $age CONSTRUCT ON session.base "
     "NEW (a)-[:MET {w: b.age}]->(b) RETURN GRAPH }")
+# the overlay's base: the slice's graph cut by CONSTRUCT_CUT
+CONSTRUCT_CUT = 10
 CONSTRUCT_OVERLAY = (
     "CATALOG CREATE GRAPH session.older { MATCH (a:Person) "
-    "WHERE a.age = $age CONSTRUCT ON session.base CLONE a "
+    "WHERE a.age = $age CONSTRUCT ON session.small CLONE a "
     "SET a.age = a.age + 100 RETURN GRAPH }")
 QUERY_MET = ("MATCH (a)-[m:MET]->(b) RETURN b.city AS city, count(*) AS n, "
              "sum(m.w) AS w ORDER BY n DESC, city LIMIT 20")
@@ -530,7 +593,7 @@ QUERY_MET_COUNT = "MATCH ()-[m:MET]->() RETURN count(*) AS c"
 # The serve phase: closed-loop clients, the requests each sends, every
 # request's deadline, and the requests sent while replica 0 is lost.
 SERVE_CLIENTS = 8
-SERVE_REQUESTS = 2000
+SERVE_REQUESTS = 600
 SERVE_DEADLINE_S = 10.0
 SERVE_FAILOVER_REQUESTS = 200
 SERVE_PROFILED = 400   # requests of the run the profiler watches for 2 s
@@ -1208,7 +1271,7 @@ def run_patterns(torch, np, args, card: str, state) -> dict:
     hop1, hop2 = hop_counts(np, nodes, rels, seeds)
     heuristic_rows = {}
 
-    # -- 2 hops: exact replays, 24 rotating ages, the cascade ------------
+    # -- 2 hops: exact replays, 8 rotating ages, the cascade ------------
     rows, info, result = pattern_runs(torch, heur, hgraph, QUERY_COUNT,
                                       age, card)
     expect("count_2hop", rows == [{"c": int(round(hop2.sum()))}],
@@ -1431,7 +1494,7 @@ def rows_equal(got, want, float_ulps: int = 0) -> bool:
 def run_unwind(torch, np, args, card: str, state):
     """collect then UNWIND, DISTINCT aggregates with percentiles, and a
     cross join on the slice's graph: each query's cold run, exact
-    replays and the warm phase's 24 rotating ages (param-generic
+    replays and the warm phase's 8 rotating ages (param-generic
     replays), every run against its numpy oracle; the kernel calls of
     the last exact replay of each, its launches, and one more exact
     replay under the profiler."""
@@ -1825,7 +1888,7 @@ def run_values(torch, np, args, card: str, state):
     """Temporal values, maps, mixed-type values and strings built from
     columns on the slice's graph with born, joined and since added in
     bulk, in a session of its own: each query's cold run and 5 exact replays, V1 also over the
-    warm phase's 24 rotating ages (param-generic replays), every run
+    warm phase's 8 rotating ages (param-generic replays), every run
     against its numpy oracle; per query the size reads and held-value
     reads of one more exact replay, the kernel calls and launches of
     the last exact replay, and one exact replay under the profiler."""
@@ -2063,7 +2126,7 @@ def anchors_of(plan: str) -> str:
 def run_cyclic(torch, np, args, card: str, state):
     """Worst-case-optimal multiway joins on the card.  First the seeded
     triangle on the slice's graph: cold, 5 exact replays (0 size reads,
-    no synchronizing call), the warm phase's 24 rotating ages (generic
+    no synchronizing call), the warm phase's 8 rotating ages (generic
     replays), each against a numpy oracle and the port's cascade.  Then
     bench config 10 at its TPU size: 100,000 :Person and uniform :KNOWS
     at densities 4, 8 and 16, the triangle, diamond and 4-cycle
@@ -2832,10 +2895,12 @@ def run_construct(torch, np, args, card: str, state):
     minted ids disjoint from the base's; (2) the same :MET edges ON the
     base (a union), where the grouped 2-hop query still gives the base's
     answer, cold and 5 exact replays against the base's replays; (3)
-    the overlay (SET on the base's own persons), on which the grouped
-    query at age + 100 gives the base's answer and at
-    the old age none (the build copies every entity of the base into
-    Python dicts, ``_materialize_graph_into``, as the reference does).
+    the overlay (SET on the persons of a base cut by CONSTRUCT_CUT,
+    stored as ``session.small`` in a session of its own), on which the grouped query at age + 100
+    gives that base's answer and at the old age none (the build copies
+    every entity of its base into Python dicts,
+    ``_materialize_graph_into``, as the reference does: on the host, at
+    a cost that grows with the base, so the base is cut).
     Each CONSTRUCT's seconds split into the driving MATCH, the entity
     build (the overlay's copy of the base, ``materialize_s``, apart) and
     the table build; warm latencies, peak bytes and launches."""
@@ -2881,12 +2946,27 @@ def run_construct(torch, np, args, card: str, state):
     out["union"].update(query=info, base_replay_s=base_info["warm_s"],
                         base_replay_runs_s=base_info["warm_runs_s"])
 
-    # (3) the overlay: SET on the base's own persons
-    older, out["overlay"] = construct_run(torch, graph, CONSTRUCT_OVERLAY,
+    # (3) the overlay: SET on the own persons of a cut base, in a session
+    # of its own: a query family's re-plan history is the session's, not
+    # the graph's, so after the grouped query's re-plan on the slice's
+    # graph the same family on a graph 10 times smaller would re-plan
+    # every other run (as in the JAX package)
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    s_nodes, s_rels = make_graph(np, args.seed + 20,
+                                 args.persons // CONSTRUCT_CUT,
+                                 args.edges // CONSTRUCT_CUT, CITIES)
+    osession = caps_tpu_torch.local_session()
+    small = graph_from_numpy(osession, s_nodes, s_rels)
+    osession.catalog.store("small", small)
+    small_rows = oracle(np, s_nodes, s_rels, AGE)[0]
+    older, out["overlay"] = construct_run(torch, small, CONSTRUCT_OVERLAY,
                                           params)
-    rows, info, _ = pattern_runs(torch, session, older, QUERY_GROUPED,
+    out["overlay"]["base"] = {"persons": args.persons // CONSTRUCT_CUT,
+                              "edges": args.edges // CONSTRUCT_CUT}
+    rows, info, _ = pattern_runs(torch, osession, older, QUERY_GROUPED,
                                  {"age": AGE + 100}, card)
-    expect("overlay", rows == want_rows,
+    expect("overlay", rows == small_rows,
            f"age {AGE + 100}: {rows} != the base's age-{AGE} answer",
            "construct")
     expect_replays("overlay", info, 0, "construct")
@@ -2894,8 +2974,9 @@ def run_construct(torch, np, args, card: str, state):
     expect("overlay", none == [], f"age {AGE} still matches: {none}",
            "construct")
     out["overlay"]["query"] = info
-    for name in ("met", "union", "older"):
+    for name in ("met", "union"):
         session.catalog.delete(f"session.{name}")
+    del older, small, osession
     out.update(phase_s=time.perf_counter() - t_phase,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=ops.launches(), oracle="equal")
@@ -3430,7 +3511,7 @@ def run_serve(torch, np, args, card: str, state):
     default session's, checked in the slice phase): 8 closed-loop
     clients send SERVE_REQUESTS requests — 80 % the grouped 2-hop query,
     20 % its ``count(*)`` form, ``$age`` drawn from --seed over the warm
-    phase's 24 rotating ages — each held to its oracle, then the same
+    phase's 8 rotating ages — each held to its oracle, then the same
     requests from one thread; one ``cypher_batch`` of 8 exact replays
     (no size read, no synchronizing call before its rows are read, its
     K1–K3 calls kept for the kernels phase); the load again with the
@@ -3458,7 +3539,7 @@ def run_serve(torch, np, args, card: str, state):
     out = {"phase": "serve", "card": card, "session": "use_cost_model=False"}
     t_phase = time.perf_counter()
 
-    # the load: the warm phase's 24 rotating ages, kinds and ages from
+    # the load: the warm phase's 8 rotating ages, kinds and ages from
     # --seed; the oracles of every (kind, age)
     ages = [int(a) for a in np.random.default_rng(args.seed + 1).integers(
         18, 90, ROTATING)]
@@ -3760,13 +3841,16 @@ QUERY_FLEET_WRITTEN = ("MATCH (p:Person) WHERE p.v IS NOT NULL "
                        "RETURN p.name AS name, p.v AS v")
 FLEET_BACKEND = "cuda"      # the children's sessions ("cpu" to rehearse)
 FLEET_PER_BACKEND = 3       # read families (one $age each) per backend
-FLEET_SOAK_S = 10.0         # each read soak: 1 backend, 3, 3 with a kill
-FLEET_WRITE_SOAK_S = 8.0    # the durable write soak; the owner dies at 1/3
+FLEET_SOAK_S = 5.0          # each read soak: 1 backend, 3, 3 with a kill
+FLEET_WRITE_SOAK_S = 6.0    # the durable write soak; the owner dies at 1/3
 FLEET_HA_SOAK_S = 8.0       # the router HA soak under a chaos schedule
 FLEET_NAMES = 16            # persons the idempotent SETs rotate over
 FLEET_LEASE_TTL_S = 2.0
 FLEET_ROUTER_TTL_S = 1.0
 FLEET_WAL_APPENDS = 200     # appends timed per fsync policy
+# the fleet's graph is the slice's cut by this factor: six children build
+# it at once on the host's cores, and the zombie owner once more
+FLEET_CUT = 4
 
 
 def nvidia_smi(*query) -> list:
@@ -3982,8 +4066,8 @@ def wal_append_latency(payload, policies=("always", "rotate", "never")):
 
 def run_fleet(torch, np, args, card: str) -> dict:
     """Durability and the fleet with backend processes on the card, all
-    built from one ``foaf`` spec (``--persons`` people, ``--edges`` edge
-    draws, ``--seed``):
+    built from one ``foaf`` spec (``--persons`` people and ``--edges``
+    edge draws, each cut by FLEET_CUT, ``--seed``):
 
     1. read scaling: 3 backends (``spawn_backend``, ``versioned``,
        ``workers=2``), FLEET_PER_BACKEND families per backend (one $age
@@ -4024,8 +4108,8 @@ def run_fleet(torch, np, args, card: str) -> dict:
                                               ChaosSchedule)
     t_phase = time.perf_counter()
     out = {"phase": "fleet", "card": card, "backend": FLEET_BACKEND}
-    gspec = {"kind": "foaf", "n_people": args.persons,
-             "n_edges": args.edges, "seed": args.seed}
+    gspec = {"kind": "foaf", "n_people": args.persons // FLEET_CUT,
+             "n_edges": args.edges // FLEET_CUT, "seed": args.seed}
     store = tempfile.mkdtemp(prefix="caps-fleet-")
     out["graph"] = gspec
     out["durable_dir_fs"] = subprocess.run(
@@ -4053,7 +4137,8 @@ def run_fleet(torch, np, args, card: str) -> dict:
                               + [durable(f"d{i}") for i in range(3)],
                               spawn_backend)
         t0 = time.perf_counter()
-        arrays = foaf_arrays(args.persons, args.edges, args.seed)
+        arrays = foaf_arrays(gspec["n_people"], gspec["n_edges"],
+                             args.seed)
         oracle_s = time.perf_counter() - t0
         fleet.join(started)
         out["start"] = {"spawn_s": dict(fleet.spawn_s),
@@ -4482,7 +4567,7 @@ QUERY_VARLEN3_CITY = (
     "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
 # M7: the shard group's traffic, and the member loss under it
 SHARD_CLIENTS = 8
-SHARD_REQUESTS = 1000
+SHARD_REQUESTS = 300
 SHARD_LOSS_REQUESTS = 200
 SHARD_LOSS_FAULTS = 6
 QUERY_CITY = ("MATCH (p:Person {city: $c}) "
@@ -4719,7 +4804,7 @@ def run_mesh(torch, np, args, card: str, state) -> dict:
     m1["sharded_group_bys"] = combines
     m1["k1_calls"] = len(per_query[0].calls)
     m1["k2_calls"] = len(per_query[1].calls)
-    # eager and the 24 rotating ages (param-generic replays)
+    # eager and the 8 rotating ages (param-generic replays)
     with degraded_execution(no_plan_cache=True, no_fused=True):
         erows, _r, m1["eager_s"] = timed_query(torch, mgraph, QUERY_GROUPED,
                                                age)
@@ -4920,10 +5005,10 @@ def ldbc_rows_agree(query: str, got, want) -> bool:
 
 def run_ldbc(torch, np, args, card: str):
     """The LDBC-like reads (IS1–IS7, IC1–IC14) on the port's generator.
-    At the small scale every read with 3 parameter draws on the card
+    At the small scale every read with 2 parameter draws on the card
     equals the port's CPU session on the same graph; at the large scale
     each read runs cold, then 5 exact replays (each equal to an eager
-    run), 3 generic draws (each equal to its eager run) and one more
+    run), 2 generic draws (each equal to its eager run) and one more
     exact replay under the profiler, with IS1, IS4 and IS5 against
     numpy answers."""
     import caps_tpu_torch
@@ -5037,7 +5122,7 @@ def run_ldbc(torch, np, args, card: str):
 
 # -- phase graph500: BASELINE config 4 --------------------------------------
 
-GRAPH500_SCALE = 20          # BASELINE.md's scale 22, cut (PERF.md §4)
+GRAPH500_SCALE = 18          # BASELINE.md's scale 22, cut (PERF.md §4)
 GRAPH500_EDGEFACTOR = 16
 GRAPH500_SEED = 1
 GRAPH500_WARM = 3
@@ -5070,8 +5155,8 @@ def triangle_oracle(np, lo, hi, n: int, chunk: int = GRAPH500_CHUNK) -> int:
 
 
 def run_graph500(torch, np, args, card: str) -> None:
-    """BASELINE config 4 on the card: ``rmat_edges(20, 16, seed=1)``
-    canonicalized by ``triangle_graph`` (15,701,303 edges over 2^20
+    """BASELINE config 4 on the card: ``rmat_edges(18, 16, seed=1)``
+    canonicalized by ``triangle_graph`` (3,806,326 edges over 2^18
     vertices) on the default session, ``TRIANGLE_QUERY`` cold and 3
     exact replays, each equal to a host oracle (:func:`triangle_oracle`
     in a child process that draws the same edge list, run while this
@@ -5086,7 +5171,7 @@ def run_graph500(torch, np, args, card: str) -> None:
     from caps_tpu_torch.datasets import graph500 as g500
     out = {"phase": "graph500", "card": card, "scale": GRAPH500_SCALE,
            "edgefactor": GRAPH500_EDGEFACTOR, "seed": GRAPH500_SEED,
-           "cut": "BASELINE.md scale 22 -> 20"}
+           "cut": f"BASELINE.md scale 22 -> {GRAPH500_SCALE}"}
     t_phase = time.perf_counter()
     # the oracle in a child process, from the edge list it draws itself,
     # while this process builds the graph and the card counts
@@ -5856,6 +5941,263 @@ def run_gaps(torch, np, args, card: str, state):
             {f"gaps_{k}": v for k, v in calls.items()})
 
 
+def nested_visits(np, n: int, seed: int):
+    """The seeded ``visits`` property of ``n`` persons: (its flat numpy
+    arrays, the Python lists ``from_columns`` takes).  Each person has
+    0-``NESTED_MAX_INNER`` inner lists of 0-``NESTED_MAX_VALUES`` int64
+    values (null at ``NESTED_NULLS``: the row, an inner list, a
+    value)."""
+    rng = np.random.default_rng(seed + 18)
+    row_null = rng.random(n) < NESTED_NULLS[0]
+    n_inner = np.where(row_null, 0,
+                       rng.integers(0, NESTED_MAX_INNER + 1, n))
+    n_lists = int(n_inner.sum())
+    inner_null = rng.random(n_lists) < NESTED_NULLS[1]
+    inner_len = np.where(inner_null, 0, rng.integers(
+        0, NESTED_MAX_VALUES + 1, n_lists))
+    n_values = int(inner_len.sum())
+    value = rng.integers(0, 1000, n_values, dtype=np.int64)
+    value_null = rng.random(n_values) < NESTED_NULLS[2]
+    flat = value.tolist()
+    for i in np.flatnonzero(value_null).tolist():
+        flat[i] = None
+    ends = np.cumsum(inner_len)
+    inner = [flat[a:b] for a, b in zip((ends - inner_len).tolist(),
+                                       ends.tolist())]
+    for i in np.flatnonzero(inner_null).tolist():
+        inner[i] = None
+    row_end = np.cumsum(n_inner)
+    rows = [inner[a:b] for a, b in zip((row_end - n_inner).tolist(),
+                                       row_end.tolist())]
+    for i in np.flatnonzero(row_null).tolist():
+        rows[i] = None
+    arrays = {"row_null": row_null, "n_inner": n_inner,
+              "inner_null": inner_null, "inner_len": inner_len,
+              "value": value, "value_null": value_null,
+              # each inner list's person, each value's inner list
+              "inner_owner": np.repeat(np.arange(n), n_inner),
+              "value_owner": np.repeat(np.arange(n_lists), inner_len)}
+    return arrays, rows
+
+
+def nested_key(v):
+    """A nested list value as a hashable key (None stays None)."""
+    return None if v is None else tuple(
+        None if x is None else tuple(x) for x in v)
+
+
+def nested_order(v):
+    """openCypher's ascending order of a list of lists of ints: a prefix
+    first, a null (element or list) after every value."""
+    if v is None:
+        return (2,)
+    if isinstance(v, tuple):
+        return (1, tuple(nested_order(x) for x in v))
+    return (0, v)
+
+
+def nested_oracles(np, nodes, rels, vis, visits, age: int) -> dict:
+    """numpy answers of the nested queries from the seeded arrays (N2's
+    ``first``: the set of ages of the paths' middle nodes per city,
+    which the query's row order picks one of)."""
+    person = nodes["Person"]
+    ages = person["age"]
+    names, codes = city_codes(np, nodes)
+    k = rels["KNOWS"]
+    src, tgt = k["_src"], k["_tgt"]
+    n = len(ages)
+    seeds = (ages == age).astype(np.int64)
+    out = {}
+    # N1: the seeds' non-null values, counted and their largest by city
+    vperson = vis["inner_owner"][vis["value_owner"]]
+    rows_at = seeds[vperson] > 0
+    got = rows_at & ~vis["value_null"]
+    cnt = np.bincount(codes[vperson[got]], minlength=len(names))
+    hi = np.full(len(names), -1, dtype=np.int64)
+    np.maximum.at(hi, codes[vperson[got]], vis["value"][got])
+    present = np.bincount(codes[vperson[rows_at]], minlength=len(names)) > 0
+    n1 = [{"city": str(names[i]), "n": int(cnt[i]),
+           "hi": int(hi[i]) if cnt[i] else None}
+          for i in np.flatnonzero(present)]
+    out["N1_unwind_twice"] = sorted(n1, key=lambda r: (-r["n"],
+                                                       r["city"]))[:20]
+    # N2: 2-hop paths into each city, those whose middle node has $age,
+    # and the middle nodes' ages (a path may not use a loop twice)
+    mid = (ages == age).astype(np.float64)
+    hop1 = np.bincount(tgt, weights=seeds[src], minlength=n)
+    loops = src == tgt
+    w = hop1[src] - loops * seeds[src]
+    per = np.bincount(codes[tgt], weights=w, minlength=len(names))
+    per_k = np.bincount(codes[tgt], weights=w * mid[src],
+                        minlength=len(names))
+    firsts = {}
+    live = w > 0
+    # (city, age) pairs as one int64 each: ages are under 1,024
+    pairs = np.unique(codes[tgt[live]].astype(np.int64) * 1024
+                      + ages[src[live]])
+    for c, a in zip((pairs // 1024).tolist(), (pairs % 1024).tolist()):
+        firsts.setdefault(c, set()).add(a)
+    out["N2_collect_three_levels"] = [
+        {"city": str(names[i]), "n": int(round(per[i])),
+         "k": int(round(per_k[i])), "first": firsts[i]}
+        for i in np.flatnonzero(per > 0)[:20]]
+    # N3: the 1-hop rows' visits, grouped
+    groups = {}
+    for b, m in zip(np.flatnonzero(hop1).tolist(),
+                    hop1[hop1 > 0].astype(np.int64).tolist()):
+        key = nested_key(visits[b])
+        groups[key] = groups.get(key, 0) + m
+    out["N3_group_by_nested"] = sorted(
+        groups.items(), key=lambda kv: (-kv[1], nested_order(kv[0])))[:20]
+    # N4: per seed its inner lists longer than 2, and the first one's
+    # non-null values
+    inner_p = vis["inner_owner"]
+    long_ = (vis["inner_len"] > 2) & ~vis["inner_null"] & (seeds[inner_p] > 0)
+    nonnull = np.bincount(vis["value_owner"][~vis["value_null"]],
+                          minlength=len(inner_p))
+    _who, first_long = np.unique(inner_p[long_], return_index=True)
+    first_at = np.flatnonzero(long_)[first_long]
+    out["N4_comprehensions"] = [{
+        "c": int(seeds.sum()), "s": int(long_.sum()),
+        "s0": int(nonnull[first_at].sum()),
+        "k": int((nonnull[first_at] > 0).sum())}]
+    # N5: the hop's pairs whose first inner lists are equal: both there,
+    # equally long, no null value in either, the same values
+    start = np.cumsum(vis["n_inner"]) - vis["n_inner"]
+    has = vis["n_inner"] > 0
+    first = np.where(has, start, 0)
+    inner_ok = ~vis["inner_null"].copy()
+    bad = np.bincount(vis["value_owner"][vis["value_null"]],
+                      minlength=len(inner_p)) > 0
+    inner_ok &= ~bad
+    # one int64 code per inner list: its length, then its values in base
+    # 1000 (values are under 1000, lists at most 6 long)
+    pos = np.arange(len(vis["value"])) - np.repeat(
+        np.cumsum(vis["inner_len"]) - vis["inner_len"], vis["inner_len"])
+    code = vis["inner_len"].astype(np.int64).copy()
+    np.add.at(code, vis["value_owner"],
+              7 * vis["value"] * (1000 ** pos.astype(np.int64)))
+    pcode = np.where(has & inner_ok[first], code[first], -1)
+    pair = (seeds[src] > 0) & (pcode[src] >= 0) & (pcode[src] == pcode[tgt])
+    out["N5_equal_inner_lists"] = [{"n": int(pair.sum())}]
+    return out
+
+
+def nested_norm(label: str, rows, want):
+    """A nested query's rows in its oracle's form (N2's ``first`` kept
+    as the oracle's set where it is one of its members)."""
+    if label == "N2_collect_three_levels":
+        return [dict(r, first=w["first"] if r["first"] in w["first"]
+                     else r["first"]) for r, w in zip(rows, want)]
+    if label == "N3_group_by_nested":
+        return [(nested_key(r["v"]), r["n"]) for r in rows]
+    return rows
+
+
+def run_nested(torch, np, args, card: str, state):
+    """Nested list columns on the card: the slice's graph in a session of
+    its own with a seeded list-of-lists property ``visits`` on every
+    person, ingested through ``from_columns``; each query (``QUERY_NESTED``)
+    cold and 5 exact replays against its numpy oracle; per query the size
+    reads of one more exact replay (0), the kernel calls and launches of
+    the last exact replay (held to ``MIN_NESTED_LAUNCHES``), peak
+    allocated bytes and one exact replay under the profiler."""
+    import caps_tpu_torch
+    from caps_tpu_torch.okapi.types import CTInteger, CTList, CTString
+    from caps_tpu_torch.relational.entity_tables import (
+        NodeMapping, NodeTable, RelationshipMapping, RelationshipTable,
+    )
+    _session, _graph, nodes, rels, _ = state
+    t0 = time.perf_counter()
+    person = nodes["Person"]
+    vis, visits = nested_visits(np, len(person["_id"]), args.seed)
+    arrays_s = time.perf_counter() - t0
+    session = caps_tpu_torch.local_session()
+    f = session.table_factory
+    t1 = time.perf_counter()
+    people = f.from_columns(
+        {"_id": person["_id"], "age": person["age"], "city": person["city"],
+         "visits": visits},
+        {"_id": CTInteger, "age": CTInteger, "city": CTString,
+         "visits": CTList(CTList(CTInteger))})
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t1
+    col = people._cols["visits"]
+    visits_bytes = sum(t.nbytes for c in (col, col.child)
+                       for t in (c.data, c.valid, c.lens, c.elem_valid)
+                       if t is not None)
+    knows = f.from_columns(rels["KNOWS"], {c: CTInteger
+                                           for c in rels["KNOWS"]})
+    mapping = NodeMapping.on("_id").with_implied_labels("Person")
+    for key in ("age", "city", "visits"):
+        mapping = mapping.with_property(key)
+    graph = session.create_graph(
+        [NodeTable(mapping, people)],
+        [RelationshipTable(RelationshipMapping.on("KNOWS"), knows)])
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    want = nested_oracles(np, nodes, rels, vis, visits, AGE)
+    out = {"phase": "nested", "card": card, "age": AGE,
+           "arrays_s": arrays_s, "ingest_s": ingest_s, "graph_s": graph_s,
+           "oracle_s": time.perf_counter() - t2,
+           "visits": {"rows": len(visits),
+                      "inner_lists": int(vis["n_inner"].sum()),
+                      "values": int(vis["inner_len"].sum()),
+                      "width": int(col.data.shape[1]),
+                      "inner_width": int(col.child.data.shape[1]),
+                      "device_bytes": visits_bytes}}
+    launches, calls, phase_launches = {}, {}, {}
+    for label, query in QUERY_NESTED.items():
+        recorders = query_recorders()
+        params = {"age": AGE}
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params, card, recorders=recorders)
+        got = nested_norm(label, rows, want[label])
+        expect(label, got == want[label],
+               f"disagrees with numpy ({len(got)} rows, "
+               f"{len(want[label])} expected):\ngot  {got[:3]}\n"
+               f"want {want[label][:3]}", "nested")
+        replay = graph.cypher(query, params)
+        expect(label, nested_norm(label, replay.records.to_maps(),
+                                  want[label]) == want[label],
+               "the counted replay disagrees with numpy", "nested")
+        expect(label, session.fused.last_mode == "replay",
+               f"the counted run was a {session.fused.last_mode}", "nested")
+        info["replay_size_syncs"] = replay.metrics["size_syncs"]
+        expect(label, replay.metrics["size_syncs"] == 0,
+               f"an exact replay read {replay.metrics['size_syncs']} sizes",
+               "nested")
+        check_query_launches(f"the nested query {label}'s replay",
+                             info["replay_launches"],
+                             MIN_NESTED_LAUNCHES.get(label, {}))
+        info.update({
+            "rows": len(rows),
+            "k_launches": {k: info["replay_launches"].get(k, 0)
+                           for k in ("segment_agg", "expand_positions",
+                                     "bitonic_sort")},
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(query,
+                                            params).records.to_maps()),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]]})
+        launches[label] = info["replay_launches"]
+        for k, n in info["replay_launches"].items():
+            phase_launches[k] = phase_launches.get(k, 0) + n
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    expect("phase", not MIN_NESTED_LAUNCHES or all(
+        phase_launches.get(k, 0) for k in ("segment_agg", "expand_positions",
+                                           "bitonic_sort")),
+           f"K1, K2 or K3 never launched: {phase_launches}", "nested")
+    out["phase_launches"] = phase_launches
+    del graph, people, col, session
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return ({"nested": launches},
+            {f"nested_{k}": v for k, v in calls.items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5908,6 +6250,10 @@ def main() -> int:
     gaps_launches, gaps_calls = run_gaps(torch, np, args, card, state)
     launches.update(gaps_launches)
     pattern_calls.update(gaps_calls)
+    nested_launches, nested_calls = run_nested(torch, np, args, card,
+                                               state)
+    launches.update(nested_launches)
+    pattern_calls.update(nested_calls)
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)
@@ -6002,6 +6348,9 @@ def main() -> int:
             # one exact replay of each values-phase query
             "launches_values_replay": {
                 q: n.get(name, 0) for q, n in launches["values"].items()},
+            # one exact replay of each nested-phase query (N1-N5)
+            "launches_nested_replay": {
+                q: n.get(name, 0) for q, n in launches["nested"].items()},
             # one exact replay of the seeded triangle on the multiway join
             "launches_wcoj_triangle_replay": launches["wcoj_triangle"].get(
                 name, 0),

@@ -149,6 +149,9 @@ CASES = {
     "case_lists_of_lists": P + "RETURN CASE WHEN a.age > 30 THEN [[1]] "
                                "ELSE [[a.age, 2], []] END AS v",
     "slice_of_lists_of_lists": P + "RETURN [[a.age], [1, 2]][-1..] AS v",
+    "lists_of_lists_of_mixed_values": "RETURN [[1, 'a']] AS v",
+    "three_levels": P + "RETURN [[[a.age]]] AS v",
+    "collect_of_lists_of_lists": P + "RETURN collect([[a.age]]) AS v",
     # beyond the groups: further causes the census found
     "index_of_a_string": P + "RETURN a.name[0] AS v, a.xs[1.5] AS w",
     "head_last_of_a_string": P + "RETURN head(a.name) AS h, last(a.name) AS l",
@@ -251,11 +254,6 @@ OPEN = {
     "lists_of_two_depths": (
         P + "RETURN CASE WHEN a.age > 30 THEN [[1]] ELSE [1] END AS v",
         "choosing between lists of different kinds"),
-    "lists_of_lists_of_mixed_values": (
-        "RETURN [[1, 'a']] AS v", "more than two levels"),
-    "three_levels": (P + "RETURN [[[a.age]]] AS v", "more than two levels"),
-    "collect_of_lists_of_lists": (P + "RETURN collect([[a.age]]) AS v",
-                                  "more than two levels"),
     "concat_of_maps_and_values": (P + "RETURN [{k: a.age}] + [1] AS v",
                                   "concatenation of lists of different"),
     "to_string_of_a_map": (P + "RETURN toString({k: a.age}) AS v",

@@ -432,7 +432,7 @@ def test_exact_replay_of_a_comprehension_reads_nothing(engines):
 
 
 @pytest.mark.parametrize("query,cause", [
-    ("MATCH (a:Person) RETURN [[[a.age]]] AS l", "list of"),
+    ("MATCH (a:Person) RETURN [[[a.age]], 1] AS l", "list of"),
     ("MATCH (a:Person) RETURN sum(a.xs) AS s", "group: sum over kind list"),
 ], ids=["three_levels", "sum_of_lists"])
 def test_causes_left_out_raise_on_the_device_path(engines, query, cause):
