@@ -2,14 +2,22 @@
 
 An "any" value is a tag (int8, ``column.py ANY_TAGS``) and an int64
 payload: a string's pool code, a boolean's 0/1, the integer, the
-float's bits, a datetime's epoch microseconds, a date's epoch days.  A
-list of CTNumber or CTAny elements holds them in its matrix with a tag
-matrix beside it.
+float's bits, a datetime's epoch microseconds, a date's epoch days, a
+list's row in the column's ``child`` (the held lists, a list column of
+any kind), a map's row in its ``maps`` (the held maps, one map column).
+A list of CTNumber or CTAny elements holds them in its matrix with a
+tag matrix beside it (and its held lists and maps the same way).  The
+side columns are shared by every column taken from this one, so a
+gather of the rows moves no held list or map; where two columns of
+"any" values meet (a CASE, a UNION, a list literal) their side columns
+are concatenated once (:func:`share`).
 
 Every comparison goes through one view of a value, (class, f, i): the
 class is the value's rank in the global sort order (``okapi/values.py
-_ORDER_RANK``: string, boolean, number, datetime, date), and within a
-class ``f`` (float64) then ``i`` (int64) order the values.  A number's
+_ORDER_RANK``: map, list, string, boolean, number, datetime, date), and
+within a class ``f`` (float64) then ``i`` (int64) order the values (a
+held list or map orders and equals by its own planes: ``table.py
+_sort_keys``, ``expr.py equal_cols``).  A number's
 ``f`` is its nearest float and ``i`` what the value lies above that
 float (an integer beyond 2^53 against a float compares exactly, as
 Python compares them); a string's ``i`` is its rank in the pool, the
@@ -25,16 +33,24 @@ from typing import List, Tuple
 
 import torch
 
-from caps_tpu_torch.backends.cuda.column import ANY_TAGS, TAG, Column
+from caps_tpu_torch.backends.cuda.column import (
+    ANY_TAGS, TAG, Column, elem_at,
+)
+from caps_tpu_torch.okapi.types import CTAny
 
-# the class (sort rank) of each tag: ints and floats share one
-_CLASS_OF_TAG = {"str": 0, "bool": 1, "int": 2, "float": 2, "datetime": 3,
-                 "date": 4, "duration": 5}
-# plain kinds that an "any" value can hold
-HELD_KINDS = ("str", "bool", "int", "float", "datetime", "date",
-              "duration")
+# the class (sort rank) of each tag: ints and floats share one; maps then
+# lists before strings (an entity id's class is -1: ``view``)
+_CLASS_OF_TAG = {"map": -3, "list": -2, "str": 0, "bool": 1, "int": 2,
+                 "float": 2, "datetime": 3, "date": 4, "duration": 5}
+# the kinds of a list element that an "any" value holds as itself
+SCALAR_KINDS = ("str", "bool", "int", "float", "datetime", "date",
+                "duration")
+# the kinds of a column that an "any" value can hold
+HELD_KINDS = SCALAR_KINDS + ("list", "map")
 _TWO_63 = 2.0 ** 63
 TAG_INT, TAG_FLOAT = TAG["int"], TAG["float"]
+# the side column of each tag that an "any" value holds by its row
+SIDES = (("list", "child"), ("map", "maps"))
 
 
 def num_view(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,34 +97,122 @@ def extra(c: Column) -> torch.Tensor:
 
 
 def to_any(c: Column) -> Column:
-    """A column of a kind an "any" value holds, as "any" values."""
+    """A column of a kind an "any" value holds, as "any" values: a list
+    or map column becomes the side column of the values, each row
+    holding its own row (nothing is copied); an entity id is its
+    integer, as the oracle's values are."""
     if c.kind == "any":
         return c
-    if c.kind not in HELD_KINDS:
+    dev = c.data.device
+    if c.kind in ("list", "map"):
+        tags = torch.full((c.capacity,), TAG[c.kind], dtype=torch.int8,
+                          device=dev)
+        side = "child" if c.kind == "list" else "maps"
+        return Column("any", torch.arange(c.capacity, device=dev), c.valid,
+                      CTAny, tags=tags, **{side: c})
+    if c.kind == "id":
+        c = c.astype_kind("int")
+    if c.kind not in SCALAR_KINDS:
         from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
-        raise UnsupportedOnDevice(f"a {c.kind} among values of other types")
+        raise UnsupportedOnDevice(f"a value of kind {c.kind} has no device "
+                                  f"representation as a mixed value")
     data = float_bits(c.data) if c.kind == "float" \
         else c.data.to(torch.int64)
     shape = c.data.shape[:-1] if c.kind == "duration" else c.data.shape
-    tags = torch.full(shape, TAG[c.kind], dtype=torch.int8,
-                      device=c.data.device)
+    tags = torch.full(shape, TAG[c.kind], dtype=torch.int8, device=dev)
     return Column("any", data, c.valid, c.ctype, tags=tags)
 
 
 def list_to_any(c: Column) -> Column:
-    """A list column of a kind an "any" value holds as a list of "any"
-    values."""
+    """A list column as a list of "any" values: a list of lists holds
+    its inner lists (the same rows of the same child), a list of maps
+    its maps (the elements laid out as one map column, a row each), a
+    list of ids their integers."""
     if c.tags is not None:
         return c
-    ek = c.elem_kind
-    if c.nested or c.fields is not None or ek not in HELD_KINDS:
+    dev = c.data.device
+    shape = c.data.shape[:2]
+    if c.nested:
+        return dataclasses.replace(
+            c, tags=torch.full(shape, TAG["list"], dtype=torch.int8,
+                               device=dev), host=None)
+    if c.fields is not None:
+        cap, W = shape
+        flat = torch.arange(cap * W, device=dev)
+        side = elem_at(c, flat // W, flat % W, torch.ones_like(
+            flat, dtype=torch.bool))
+        return Column("list", flat.reshape(cap, W), c.valid, c.ctype, c.lens,
+                      elem_valid=c.elem_valid,
+                      tags=torch.full(shape, TAG["map"], dtype=torch.int8,
+                                      device=dev), maps=side)
+    ek = "int" if c.elem_kind == "id" else c.elem_kind
+    if ek not in SCALAR_KINDS:
         from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
-        raise UnsupportedOnDevice(f"a list of {ek} among lists of other "
-                                  f"types")
+        raise UnsupportedOnDevice(f"a list of {ek} has no device "
+                                  f"representation as mixed values")
     data = float_bits(c.data) if ek == "float" else c.data.to(torch.int64)
-    tags = torch.full(c.data.shape[:2], TAG[ek], dtype=torch.int8,
-                      device=c.data.device)
+    tags = torch.full(shape, TAG[ek], dtype=torch.int8, device=dev)
     return dataclasses.replace(c, data=data, tags=tags, host=None)
+
+
+def held(c: Column, kind: str, where: torch.Tensor = None):
+    """The lists (``kind`` 'list') or maps ('map') that "any" values hold,
+    one per row of ``c`` (a gather of the side column at the payloads),
+    valid where the row holds one (and ``where``); None where ``c``
+    holds none."""
+    side = getattr(c, dict(SIDES)[kind])
+    if side is None:
+        return None
+    p = payload(c).clamp(0, side.capacity - 1)
+    out = side.take(p)
+    ok = c.valid & (c.tags == TAG[kind])
+    out.valid = out.valid & ok if where is None else out.valid & ok & where
+    return out
+
+
+def _offset(c: Column, kind: str, n: int) -> torch.Tensor:
+    """``c``'s payload with ``n`` added where a value of ``kind`` is
+    held: its rows moved past ``n`` rows of another side column."""
+    hit = c.tags == TAG[kind]
+    if c.data.dim() > c.tags.dim():
+        first = torch.where(hit, c.data[..., 0] + n, c.data[..., 0])
+        return torch.cat([first[..., None], c.data[..., 1:]], dim=-1)
+    return torch.where(hit, c.data + n, c.data)
+
+
+def share(a: Column, b: Column) -> Tuple[Column, Column]:
+    """Two columns of "any" values (or lists of them) over one side
+    column of each kind: the held lists (maps) of both brought to one
+    kind and concatenated, ``b``'s payloads moved past ``a``'s rows
+    (nothing moves where both share one, or one side holds none)."""
+    from caps_tpu_torch.backends.cuda.table import (
+        _concat_columns, _union_pair,
+    )
+    for kind, attr in SIDES:
+        sa, sb = getattr(a, attr), getattr(b, attr)
+        if sb is None or sa is sb:
+            continue
+        if sa is None:
+            a = dataclasses.replace(a, **{attr: sb})
+            continue
+        ca, cb = _union_pair(sa, sb, "held value")
+        n_a, n_b = ca.capacity, cb.capacity
+        side = _concat_columns(ca, n_a, cb, n_b, n_a + n_b,
+                               ca.ctype.join(cb.ctype))
+        b = dataclasses.replace(b, data=_offset(b, kind, n_a), host=None,
+                                **{attr: side})
+        a = dataclasses.replace(a, host=None, **{attr: side})
+    return a, b
+
+
+def share_all(cols: List[Column]) -> List[Column]:
+    """:func:`share` over several columns: one side column of each kind
+    for all of them."""
+    out = list(cols)
+    for i in range(1, len(out)):
+        out[0], out[i] = share(out[0], out[i])
+    sides = {attr: getattr(out[0], attr) for _kind, attr in SIDES}
+    return [dataclasses.replace(c, **sides) for c in out]
 
 
 def view(c: Column, rank: torch.Tensor
@@ -139,6 +243,9 @@ def view(c: Column, rank: torch.Tensor
     if rank.shape[0]:
         i = torch.where(is_str, rank[p.clamp(0, rank.shape[0] - 1)].to(
             torch.int64), i)
+    # (a held list's or map's payload is a row, no value: its own planes
+    # order it)
+    i = torch.where(cls < 0, torch.zeros_like(i), i)
     return cls, f, i
 
 
@@ -197,12 +304,91 @@ def sort_keys(c: Column, ascending: bool, nulls_last: bool,
     return [null_key] + keys
 
 
-def stack(cols: List[Column], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(payload, tags) of scalar columns side by side: ``(capacity,
-    k)`` "any" elements of a list literal of columns of several kinds
-    (a null item's tag is 0)."""
-    parts = [to_any(c) for c in cols]
+def stack(cols: List[Column]) -> Column:
+    """Columns of several kinds side by side as ``(capacity, k)`` "any"
+    elements, the list of a list literal (a null item's tag is 0): the
+    lists and maps among them held in one side column each."""
+    parts = share_all([to_any(c) for c in cols])
     if any(p.data.dim() > p.tags.dim() for p in parts):
         parts = [widen(p) for p in parts]
-    return (torch.stack([p.data for p in parts], dim=1),
-            torch.stack([p.tags for p in parts], dim=1))
+    return Column("list", torch.stack([p.data for p in parts], dim=1),
+                  parts[0].valid, parts[0].ctype,
+                  tags=torch.stack([p.tags for p in parts], dim=1),
+                  child=parts[0].child, maps=parts[0].maps)
+
+
+def identity_planes(c: Column) -> List[torch.Tensor]:
+    """int64 planes of a column, one value per row, equal exactly where
+    two rows hold the same value (the same kind, the same bits: 1 and
+    1.0 differ, as their texts do): validity, then the value's own
+    planes, zero where the value is null; a list's length and each
+    position's planes, a map's presence and each key's planes, an "any"
+    value's tag and payload with its held list's or map's planes."""
+    v = c.valid
+    out = [v.to(torch.int64)]
+
+    def masked(planes):
+        return [torch.where(v, p, torch.zeros_like(p)) for p in planes]
+    if c.kind == "list":
+        out.append(torch.where(v, c.lens.to(torch.int64), 0))
+        rows = torch.arange(c.capacity, device=v.device)
+        for j in range(c.data.shape[1]):
+            inside = v & (j < c.lens)
+            out += identity_planes(elem_at(c, rows, torch.full_like(rows, j),
+                                           inside))
+        return out
+    if c.kind == "map":
+        for j, f in enumerate(c.fields.values()):
+            here = v & c.data[:, j]
+            out.append(here.to(torch.int64))
+            out += identity_planes(dataclasses.replace(f, valid=f.valid
+                                                       & here))
+        return out
+    if c.kind == "any":
+        side = torch.zeros_like(v)
+        for kind, _attr in SIDES:
+            side = side | (c.tags == TAG[kind])
+        data = c.data if c.data.dim() > 1 else c.data[:, None]
+        out += masked([c.tags.to(torch.int64)] + [
+            torch.where(side, torch.zeros_like(p), p)
+            for p in data.unbind(1)])
+        for kind, _attr in SIDES:
+            h = held(c, kind)
+            if h is not None:
+                out += identity_planes(h)
+        return out
+    if c.kind == "float":
+        data = c.data.contiguous().view(torch.int64)
+    else:
+        data = c.data.to(torch.int64)
+    return out + masked(list(data.unbind(1)) if data.dim() > 1 else [data])
+
+
+def as_list(c: Column) -> Column:
+    """"any" values as one list per row, a list of "any" values: a held
+    list as itself, another value as a list of one (the oracle's ``+``
+    and UNWIND of a value that is not a list); null where ``c`` is."""
+    from caps_tpu_torch.backends.cuda.column import pad_width
+    from caps_tpu_torch.okapi.types import CTList
+    dev = c.data.device
+    single = Column("list", c.data[:, None], c.valid, CTList(CTAny),
+                    torch.ones(c.capacity, dtype=torch.int32, device=dev),
+                    tags=c.tags[:, None], child=c.child, maps=c.maps)
+    h = held(c, "list")
+    if h is None:
+        return single
+    h, single = share(list_to_any(h), single)
+    if h.data.dim() != single.data.dim():
+        h, single = widen(h), widen(single)
+    take = c.tags == TAG["list"]
+    width = max(h.data.shape[1], 1)
+
+    def pick(x, y, fill):
+        x, y = pad_width(x, width, fill), pad_width(y, width, fill)
+        return torch.where(take.view(-1, *([1] * (x.dim() - 1))), x, y)
+    return Column("list", pick(h.data, single.data, 0), c.valid,
+                  CTList(CTAny), torch.where(take, h.lens, single.lens),
+                  elem_valid=pick(h.valid_elems(), single.valid_elems(),
+                                  True),
+                  tags=pick(h.tags, single.tags, 0), child=h.child,
+                  maps=h.maps)

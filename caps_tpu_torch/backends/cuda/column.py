@@ -14,12 +14,15 @@ Kinds:
     duration int64 (capacity, 3): months, days, seconds
     any    int64 payload + ``tags`` int8: a value of one of ANY_TAGS per
            row (CTAny, and CTNumber elements): string code, 0/1, the
-           int, the float's bits, epoch µs, epoch days; where a
-           duration is among the values the payload is (capacity, 3),
-           a duration's months, days and seconds, the others' payload
-           first and zeros after
+           int, the float's bits, epoch µs, epoch days; a list's row in
+           ``child`` (the held lists, a list column of any kind), a
+           map's row in ``maps`` (the held maps, one map column over
+           the union of their keys); where a duration is among the
+           values the payload is (capacity, 3), a duration's months,
+           days and seconds, the others' payload first and zeros after
     map    bool (capacity, K) presence of each key + ``fields``: key →
-           child column (keys sorted; a key may be present and null)
+           child column (keys in the order they print: a literal's
+           order; a key may be present and null)
     list   2D (capacity, max_len) + lens (+ elem_valid): the element
            kind's dtype — int32 for ids and string codes, int64 for
            ints, dates, datetimes and "any" payloads (+ ``tags``),
@@ -42,7 +45,7 @@ import torch
 
 from caps_tpu_torch.okapi.types import (
     CTBoolean, CTDate, CTDateTime, CTDuration, CTFloat, CTInteger, CTMap,
-    CTNumber, CTString, CypherType, _CTAny, _CTList, _CTNode,
+    CTAny, CTNumber, CTString, CypherType, _CTAny, _CTList, _CTNode,
     _CTRelationship,
 )
 
@@ -66,7 +69,8 @@ _NP_DTYPES = {
 }
 
 # The kinds an "any" value may hold, by tag (int8).
-ANY_TAGS = ("str", "bool", "int", "float", "datetime", "date", "duration")
+ANY_TAGS = ("str", "bool", "int", "float", "datetime", "date", "duration",
+            "list", "map")
 TAG = {k: i for i, k in enumerate(ANY_TAGS)}
 
 
@@ -133,18 +137,23 @@ class Column:
     # for a list of lists: the inner lists, one row each, at any depth
     # (``data`` holds each element's row; the rows are shared by every
     # column taken from this one, so a gather of the outer rows moves
-    # no inner list)
+    # no inner list); for "any" values (or a list of them): the lists
+    # they hold, shared the same way (a held list's payload is its row)
     child: Optional["Column"] = None
     # int8, the shape of ``data``: each "any" value's kind (ANY_TAGS)
     tags: Optional[torch.Tensor] = None
     # a map's (or a list of maps') key → child column (a list column of
-    # the list's shape for a list of maps), keys sorted
+    # the list's shape for a list of maps), keys in print order
     fields: Optional[Dict[str, "Column"]] = None
+    # for "any" values (or a list of them): the maps they hold, one map
+    # column shared as ``child`` is (a held map's payload is its row)
+    maps: Optional["Column"] = None
 
     @property
     def nested(self) -> bool:
-        """A list of lists."""
-        return self.child is not None
+        """A list of lists (a list of "any" values holds its lists in
+        ``child`` too, but is no list of lists)."""
+        return self.child is not None and self.tags is None
 
     @property
     def depth(self) -> int:
@@ -175,7 +184,7 @@ class Column:
             t(self.lens), elem_valid=t(self.elem_valid), tags=t(self.tags),
             fields=(None if self.fields is None else
                     {k: c.take(idx) for k, c in self.fields.items()}),
-            child=self.child)
+            child=self.child, maps=self.maps)
 
     def to_device(self, device) -> "Column":
         """A copy of this column's tensors on ``device`` (the ingest-time
@@ -187,7 +196,8 @@ class Column:
             host=self.host, elem_valid=t(self.elem_valid), tags=t(self.tags),
             fields=(None if self.fields is None else
                     {k: c.to_device(device) for k, c in self.fields.items()}),
-            child=None if self.child is None else self.child.to_device(device))
+            child=None if self.child is None else self.child.to_device(device),
+            maps=None if self.maps is None else self.maps.to_device(device))
 
     def valid_elems(self) -> torch.Tensor:
         """bool (capacity, max_len): False on a null element of a list
@@ -234,7 +244,7 @@ def null_like(col: Column, valid: torch.Tensor) -> Column:
                   fields=(None if col.fields is None else
                           {k: null_like(c, torch.zeros_like(c.valid))
                            for k, c in col.fields.items()}),
-                  child=col.child)
+                  child=col.child, maps=col.maps)
 
 
 def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
@@ -258,7 +268,8 @@ def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
             k: elem_at(c, row, j, ok) for k, c in lst.fields.items()})
     ek = lst.elem_kind
     return Column(ek, lst.data[row, j].to(_DTYPES[ek]), valid, inner,
-                  tags=None if lst.tags is None else lst.tags[row, j])
+                  tags=None if lst.tags is None else lst.tags[row, j],
+                  child=lst.child, maps=lst.maps)
 
 
 def pad_width(t: torch.Tensor, width: int, fill=0) -> torch.Tensor:
@@ -273,13 +284,49 @@ def list_dtype(elem_kind: str) -> torch.dtype:
     return _DTYPES[elem_kind]
 
 
-def encode_any(x: Any, pool) -> Tuple[int, Any]:
+class HeldValues:
+    """The lists and maps among host "any" values, gathered as they are
+    encoded (:func:`encode_any`): each one's payload is its row in the
+    side column built from them (``child``, ``maps``)."""
+
+    def __init__(self):
+        self.lists: List[Any] = []
+        self.maps: List[Any] = []
+
+    def add(self, x: Any) -> Tuple[int, int]:
+        if isinstance(x, dict):
+            self.maps.append(x)
+            return TAG["map"], len(self.maps) - 1
+        self.lists.append(list(x))
+        return TAG["list"], len(self.lists) - 1
+
+    def sides(self, pool, device) -> Dict[str, Optional["Column"]]:
+        """``child`` and ``maps`` of the column that holds them."""
+        from caps_tpu_torch.okapi.types import CTList, from_python, join_all
+        child = maps = None
+        if self.lists:
+            t = join_all(from_python(v) for v in self.lists)
+            if not isinstance(t.material, _CTList):
+                t = CTList(CTAny)
+            child = _make_list(self.lists, t, len(self.lists), pool, device,
+                               default="int")
+            child.host = None
+        if self.maps:
+            maps = _make_map(self.maps, len(self.maps), pool, device)
+        return {"child": child, "maps": maps}
+
+
+def encode_any(x: Any, pool, held: Optional[HeldValues] = None
+               ) -> Tuple[int, Any]:
     """(tag, int64 payload) of one non-null host value of an "any"
-    column (a duration's payload is its three fields); ValueError for a
-    value no tag holds."""
+    column (a duration's payload is its three fields; a list's or a
+    map's its row among ``held``); ValueError for a value no tag
+    holds."""
     from caps_tpu_torch.okapi.values import (
         CypherDate, CypherDateTime, CypherDuration,
     )
+    if held is not None and isinstance(x, (list, tuple, dict)):
+        return held.add(x)
     if isinstance(x, bool):
         return TAG["bool"], int(x)
     if isinstance(x, int):
@@ -334,13 +381,15 @@ def make_column(values: Union[Sequence[Any], np.ndarray], ctype: CypherType,
         tags_np = np.zeros(capacity, dtype=np.int8)
         if any(_is_duration(v) for v in values):
             data_np = np.zeros((capacity, 3), dtype=np.int64)
+        held = HeldValues()
         for i, v in enumerate(values):
             if v is not None:
                 valid_np[i] = True
-                tags_np[i], code = encode_any(v, pool)
+                tags_np[i], code = encode_any(v, pool, held)
                 put_payload(data_np, i, code)
         return Column(kind, _to(data_np, device), _to(valid_np, device),
-                      ctype, tags=_to(tags_np, device))
+                      ctype, tags=_to(tags_np, device),
+                      **held.sides(pool, device))
     if kind == "str":
         codes = np.asarray(pool.encode_many(values), dtype=np.int32)
         data_np[:n] = np.where(codes >= 0, codes, 0)
@@ -403,6 +452,7 @@ def _make_list(values, ctype, capacity: int, pool, device,
         data_np = np.zeros((capacity, width, 3), dtype=np.int64)
     ev_np = np.ones((capacity, width), dtype=bool)
     lens_np = np.zeros(capacity, dtype=np.int32)
+    held = HeldValues()
     if not _list_native(values, ek, data_np, valid_np, ev_np, lens_np):
         for i, v in enumerate(values):
             if v is None:
@@ -413,14 +463,15 @@ def _make_list(values, ctype, capacity: int, pool, device,
                 if x is None:
                     ev_np[i, j] = False
                 elif ek == "any":
-                    tags_np[i, j], code = encode_any(x, pool)
+                    tags_np[i, j], code = encode_any(x, pool, held)
                     put_payload(data_np, (i, j), code)
                 else:
                     data_np[i, j] = encode_list_elem(x, ek, pool)
     return Column("list", _to(data_np, device), _to(valid_np, device),
                   ctype, _to(lens_np, device),
                   elem_valid=None if ev_np.all() else _to(ev_np, device),
-                  tags=None if tags_np is None else _to(tags_np, device))
+                  tags=None if tags_np is None else _to(tags_np, device),
+                  **held.sides(pool, device))
 
 
 def _slots(values):
@@ -488,8 +539,8 @@ def _make_map_list(values, ctype, capacity: int, pool, device) -> Column:
     any map per element, and per key the list of its values (a list
     column of the key's joined type)."""
     from caps_tpu_torch.okapi.types import CTList, from_python, join_all
-    keys = sorted({k for v in values if v is not None for x in v
-                   if x is not None for k in x})
+    keys = list(dict.fromkeys(k for v in values if v is not None for x in v
+                              if x is not None for k in x))
     width = max([1] + [len(v) for v in values if v is not None])
     present = np.zeros((capacity, width, len(keys)), dtype=bool)
     ev_np = np.ones((capacity, width), dtype=bool)
@@ -539,9 +590,10 @@ def _is_duration(x: Any) -> bool:
 
 def _make_map(values, capacity: int, pool, device) -> Column:
     """Host maps (dicts, or None) → a map column over the union of their
-    keys; each key's child column of its values' joined type."""
+    keys (in the order first seen); each key's child column of its
+    values' joined type."""
     from caps_tpu_torch.okapi.types import from_python, join_all
-    keys = sorted({k for v in values if v is not None for k in v})
+    keys = list(dict.fromkeys(k for v in values if v is not None for k in v))
     valid_np = np.zeros(capacity, dtype=bool)
     present = np.zeros((capacity, len(keys)), dtype=bool)
     fields = {}
@@ -637,6 +689,9 @@ def column_to_host(col: Column, n: int, pool) -> List[Any]:
             return [v if ok else None for v, ok in zip(vals, valid)]
         return [conv(v) if ok else None for v, ok in zip(vals, valid)]
     lens = col.lens[:n].cpu().tolist()
+    if col.elem_valid is None and conv is None:
+        return [row[:k] if ok else None
+                for row, k, ok in zip(vals, lens, valid)]
     ev = None if col.elem_valid is None else col.elem_valid[:n].cpu().tolist()
     out: List[Any] = []
     for i in range(n):
@@ -662,7 +717,7 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
         return [CypherDuration(*r) for r in col.data[:n].cpu().tolist()]
     if col.kind == "any":
         return decode_any(col.tags[:n].cpu().numpy(),
-                          col.data[:n].cpu().numpy(), pool)
+                          col.data[:n].cpu().numpy(), pool, col)
     if col.kind == "map":
         keys = list(col.fields)
         present = col.data[:n].cpu().tolist()
@@ -685,34 +740,47 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
     return [elems[e - k:e] for e, k in zip(ends.tolist(), lens.tolist())]
 
 
-def decode_any(tags: np.ndarray, payload: np.ndarray, pool) -> List[Any]:
+def decode_any(tags: np.ndarray, payload: np.ndarray, pool,
+               held: Optional[Column] = None) -> List[Any]:
     """Host values of "any" payloads by their tags (a payload of three
-    columns where durations are among them)."""
+    columns where durations are among them), each kind decoded in bulk;
+    a held list or map is read from ``held``'s side columns (only the
+    rows the payloads name)."""
     from caps_tpu_torch.okapi.values import (
         CypherDate, CypherDateTime, CypherDuration,
     )
-    wide = payload.tolist() if payload.ndim == 2 else None
+    wide = payload if payload.ndim == 2 else None
     if wide is not None:
         payload = np.ascontiguousarray(payload[:, 0])
-    floats = payload.view(np.float64).tolist()
-    ints = payload.tolist()
-    out: List[Any] = []
-    for n, (t, i, f) in enumerate(zip(tags.tolist(), ints, floats)):
+    out: List[Any] = [None] * len(tags)
+    for t in np.unique(tags).tolist():
         k = ANY_TAGS[t]
-        if k == "duration":
-            out.append(CypherDuration(*wide[n]))
+        at = np.flatnonzero(tags == t)
+        p = payload[at]
+        if k in ("list", "map"):
+            side = None if held is None else \
+                held.child if k == "list" else held.maps
+            if side is None:
+                continue   # (a null row's tag; no value is held)
+            rows = torch.from_numpy(np.clip(p, 0, side.capacity - 1))
+            vals = column_to_host(side.take(rows.to(side.data.device)),
+                                  int(at.size), pool)
+        elif k == "duration":
+            vals = [CypherDuration(*r) for r in wide[at].tolist()]
         elif k == "int":
-            out.append(i)
+            vals = p.tolist()
         elif k == "float":
-            out.append(f)
+            vals = p.view(np.float64).tolist()
         elif k == "str":
-            out.append(pool.decode(i))
+            vals = pool.decode_many(p)
         elif k == "bool":
-            out.append(bool(i))
+            vals = (p != 0).tolist()
         elif k == "date":
-            out.append(CypherDate(i))
+            vals = [CypherDate(x) for x in p.tolist()]
         else:
-            out.append(CypherDateTime(i))
+            vals = [CypherDateTime(x) for x in p.tolist()]
+        for i, v in zip(at.tolist(), vals):
+            out[i] = v
     return out
 
 

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    Column, decode_any, elem_at, list_elem_kind, null_like, pad_width,
+    TAG, Column, column_to_host, decode_any, elem_at, list_elem_kind,
+    null_like, pad_width,
 )
 from caps_tpu_torch.ir import exprs as E
 from caps_tpu_torch.okapi.types import (
@@ -246,10 +247,12 @@ class DeviceExprCompiler:
         return self._null()
 
     def _any_component(self, c: Column, key: str) -> Column:
-        """``x.key`` of "any" values: a date's or datetime's component,
-        null for the other kinds."""
-        from caps_tpu_torch.backends.cuda.column import TAG
+        """``x.key`` of "any" values: a held map's entry, a date's or
+        datetime's component, null for the other kinds."""
         out = self._null()
+        if c.maps is not None:
+            out = self._per_kind(c, {"map": lambda h: M.field(self, h, key)},
+                                 "property", others=False)
         for kind in ("date", "datetime", "duration"):
             if kind == "duration" and c.data.dim() == c.tags.dim():
                 continue
@@ -258,8 +261,8 @@ class DeviceExprCompiler:
             if v is None:
                 continue
             hit = c.valid & (c.tags == TAG[kind])
-            here = Column("int", v, hit, CTInteger)
-            out = here if _is_null(out) else self._choose(hit, here, out)
+            here, out = self._unify(Column("int", v, hit, CTInteger), out)
+            out = self._choose(hit, here, out)
         return out
 
     def _null(self) -> Column:
@@ -288,6 +291,10 @@ class DeviceExprCompiler:
             raise UnsupportedOnDevice(f"list of {inner!r} on device")
         if ek == "map":
             return M.stack(self, [self._literal(v) for v in values])
+        if ek == "any" and any(isinstance(v, (list, tuple, dict))
+                               for v in values):
+            # lists and maps among the values: held by row
+            return self._const_nested(values, ctype)
         width = max(1, len(values))
         wide = ek == "duration" or ek == "any" and any(
             isinstance(v, CypherDuration) for v in values)
@@ -316,9 +323,10 @@ class DeviceExprCompiler:
                       tags=rows(tags) if ek == "any" else None)
 
     def _const_nested(self, values, ctype) -> Column:
-        """A constant list of lists, at any depth, broadcast to every row:
-        its inner lists built once as a child column (a null inner list
-        is a null element), every row pointing at them."""
+        """A constant list of lists, at any depth (or of values among
+        which lists and maps are held), broadcast to every row: its inner
+        lists built once as a child column (a null inner list is a null
+        element), every row pointing at them."""
         from caps_tpu_torch.backends.cuda.column import make_column
         try:
             col = make_column([values], ctype, 1, self.pool, self.device)
@@ -328,7 +336,16 @@ class DeviceExprCompiler:
                                     device=self.device))
 
     def _index(self, e) -> Column:
-        base = self.compile(e.expr)
+        return self._index_of(self.compile(e.expr), e)
+
+    def _index_of(self, base: Column, e) -> Column:
+        """``base[e.idx]`` of a compiled base: a list's element, a map's
+        entry, of "any" values the held list's or map's; null for any
+        other value."""
+        if base.kind == "any":
+            return self._per_kind(base, {
+                k: (lambda h: self._index_of(h, e)) for k in ("list", "map")},
+                "indexing", others=False)
         if base.kind == "map" and isinstance(e.idx, (E.Lit, E.Param)) \
                 and isinstance(self._constant(e.idx), str):
             return M.field(self, base, self._constant(e.idx))
@@ -346,6 +363,57 @@ class DeviceExprCompiler:
         i = torch.where(i < 0, i + base.lens, i)  # negative = from the end
         inb = (i >= 0) & (i < base.lens)
         return self._element(base, i, idx.valid & inb)
+
+    def _per_kind(self, c: Column, parts, what: str,
+                  others: bool = True) -> Column:
+        """A function of "any" values by the kind each row holds:
+        ``parts`` maps 'list', 'map' and 'str' to the function of a
+        column of that kind (the held lists or maps, the strings), each
+        answering the rows that hold one.  A row holding another value is
+        an error of its row where ``others`` (the oracle's TypeError),
+        else null."""
+        out, covered = self._null(), self._full(False)
+        for kind, fn in parts.items():
+            hit = c.valid & (c.tags == TAG[kind])
+            if kind == "str":
+                src = Column("str", A.payload(c).to(torch.int32), hit,
+                             CTString)
+            else:
+                src = A.held(c, kind)
+                if src is None:
+                    continue
+            covered = covered | hit
+            part = fn(src)
+            if _is_null(part):
+                continue
+            part = dataclasses.replace(part, valid=part.valid & hit)
+            part, out = self._unify(part, out)
+            out = self._choose(hit, part, out)
+        if others:
+            self._note_row_error(c.valid & ~covered,
+                                 f"{what} of a value of another type")
+        return out
+
+    def iterated(self, c: Column) -> Column:
+        """What UNWIND iterates in each row, as the oracle's Python loop
+        does: a list's elements, a string's characters (each held string
+        split once, :meth:`_held_string_lists`), a map's keys in print
+        order, of "any" values the held value's; any other value is an
+        error of its row."""
+        if _is_null(c) or c.kind == "list":
+            return c
+        if c.kind == "str":
+            return self._held_string_lists([c.data], c.valid, lambda rows: [
+                list(t) for t in self.pool.decode_many(rows[:, 0])])
+        if c.kind == "map":
+            names = list(c.fields)
+            return L._names_list(self, names, [c.data[:, j] for j in range(
+                len(names))], c.valid)
+        if c.kind == "any":
+            return self._per_kind(c, {k: self.iterated for k in (
+                "list", "str", "map")}, "UNWIND")
+        self._note_row_error(c.valid, f"UNWIND of a value of kind {c.kind}")
+        return self._null()
 
     def _map_entry(self, m: Column, key: Column) -> Column:
         """``m[key]`` with a column key: each row the entry its key
@@ -431,9 +499,15 @@ class DeviceExprCompiler:
         """``list[lower..upper]``: from ``lower`` up to but not including
         ``upper``, each counted from the end when negative and clamped
         into the list."""
-        base = self.compile(e.expr)
+        return self._slice_of(self.compile(e.expr), e)
+
+    def _slice_of(self, base: Column, e) -> Column:
         if _is_null(base):
             return self._null()
+        if base.kind == "any":
+            return self._per_kind(base, {k: (lambda h: self._slice_of(h, e))
+                                         for k in ("list", "str")},
+                                  "slicing")
         if base.kind == "str":
             return self._slice_string(base, e)
         if base.kind != "list":
@@ -492,23 +566,22 @@ class DeviceExprCompiler:
         return self._held_string_lists(planes, s.valid, apply)
 
     def _concat_lists(self, l: Column, r: Column) -> Column:
-        """``a + b`` of two list columns of one element kind: each row's
-        elements of ``a`` then those of ``b`` (of two lists of lists of
-        one depth: over both sides' inner lists)."""
+        """``a + b`` of two list columns: each row's elements of ``a``
+        then those of ``b`` (of two lists of lists: over both sides'
+        inner lists; of lists of other kinds or of maps: as lists of
+        "any" values over both sides' held lists and maps)."""
         from caps_tpu_torch.backends.cuda.table import share_child
         from caps_tpu_torch.okapi.types import CTList
         l, r = _nest_like(l, r)
-        if l.nested and r.nested and l.depth == r.depth:
+        if l.nested and r.nested:
             l, r = share_child(l, r)
-        elif l.elem_kind != r.elem_kind and not (
-                l.fields or r.fields or l.nested or r.nested):
+        elif l.elem_kind != r.elem_kind or l.nested or r.nested \
+                or l.fields is not None or r.fields is not None:
             l, r = A.list_to_any(l), A.list_to_any(r)
-        if l.tags is not None and l.data.dim() != r.data.dim():
-            l, r = A.widen(l), A.widen(r)
-        if l.elem_kind != r.elem_kind or l.fields is not None \
-                or l.nested != r.nested:
-            raise UnsupportedOnDevice("concatenation of lists of different "
-                                      "element kinds")
+        if l.tags is not None:
+            if l.data.dim() != r.data.dim():
+                l, r = A.widen(l), A.widen(r)
+            l, r = A.share(l, r)
         wl, wr = l.data.shape[1], r.data.shape[1]
         width = wl + wr
         jl = torch.arange(wl, device=self.device)[None, :]
@@ -540,7 +613,8 @@ class DeviceExprCompiler:
         return Column("list", concat(l.data, r.data, 0), l.valid & r.valid,
                       CTList(inner), l.lens + r.lens, elem_valid=ev,
                       tags=(None if l.tags is None
-                            else concat(l.tags, r.tags, 0)), child=l.child)
+                            else concat(l.tags, r.tags, 0)), child=l.child,
+                      maps=l.maps)
 
     def _concat_strings(self, e, l: Column, r: Column) -> Column:
         """``a + b`` of two strings: one of them a literal or parameter
@@ -644,7 +718,16 @@ class DeviceExprCompiler:
     def _held_rows(self, cols, ok: torch.Tensor):
         """The distinct rows of several int64 planes among the rows
         ``ok`` (read to the host, counted) and each row's position among
-        them: a stable sort by the planes, the neighbours that differ,
+        them (:meth:`_distinct`)."""
+        _perm, change, ordered, pos = self._distinct(cols, ok)
+        rows = self._read_held(torch.stack(ordered[1:], dim=1)[change])
+        return rows, pos
+
+    def _distinct(self, cols, ok: torch.Tensor):
+        """The rows ``ok`` grouped by the values of several int64 planes:
+        (the stable sort's permutation by the planes, the sorted rows
+        that start a distinct value, the sorted keys, each row's position
+        among the distinct values): a sort, the neighbours that differ,
         their running count scattered back."""
         keys = [(~ok).to(torch.int64)] + [torch.where(ok, c,
                                                       torch.zeros_like(c))
@@ -655,15 +738,13 @@ class DeviceExprCompiler:
         group = torch.cumsum(change.to(torch.int64), 0) - 1
         pos = torch.empty_like(group)
         pos[perm] = group.clamp(min=0)
-        rows = self._read_held(torch.stack(ordered[1:], dim=1)[change])
-        return rows, pos
+        return perm, change, ordered, pos
 
     def _convert_any(self, c: Column, name: str) -> Column:
         """toInteger / toFloat / toBoolean of "any" values, row by row
         by kind, as each kind's own conversion: strings parse, numbers
         convert (an integer of a float truncates), a boolean is itself
         to toBoolean and null to the others, other values null."""
-        from caps_tpu_torch.backends.cuda.column import TAG
         out = self._null()
         for kind in ("str", "int", "float", "bool"):
             hit = c.valid & (c.tags == TAG[kind])
@@ -719,17 +800,21 @@ class DeviceExprCompiler:
                                 dtype=torch.int32))
             return Column("str", codes, c.valid, CTString)
         from caps_tpu_torch.okapi import values as V
+        holds = c.child is not None or c.maps is not None
         if c.kind == "float":
             planes = [c.data.contiguous().view(torch.int64)]
-        elif c.kind == "any":
+        elif c.kind == "any" and not holds:
             planes = [c.tags, c.data]   # (the payload may be 3-wide)
         elif c.kind in ("int", "date", "datetime", "duration"):
             planes = [c.data]
-        elif c.kind == "list" and not (c.nested or c.fields) \
+        elif c.kind == "list" and not (holds or c.fields) \
                 and c.elem_kind in ("int", "id", "float", "str", "bool"):
             return self._list_text(c)
+        elif c.kind in ("list", "map", "any"):
+            return self._value_text(c)
         else:
-            raise UnsupportedOnDevice(f"toString on kind {c.kind}")
+            raise UnsupportedOnDevice(f"toString of a value of kind "
+                                      f"{c.kind}")
         one = {"int": str, "date": lambda d: V.CypherDate(d).iso(),
                "datetime": lambda us: V.CypherDateTime(us).iso()}
 
@@ -776,6 +861,34 @@ class DeviceExprCompiler:
             return out
         return self._format_held([c.lens, data, c.valid_elems()], c.valid,
                                  fmt)
+
+    def _value_text(self, c: Column) -> Column:
+        """toString of lists, maps and "any" values that hold them: the
+        oracle's ``_to_str`` of the host value (``str`` of the Python
+        list or dict, temporal values by their ``iso()`` text).  Each
+        distinct value the valid live rows hold is read to the host once
+        (:meth:`_held_values`) and formatted."""
+        values, pos = self._held_values(c, c.valid)
+        if not values:
+            return Column("str", torch.zeros_like(c.valid, dtype=torch.int32),
+                          c.valid, CTString)
+        codes = np.array(self.pool.encode_many([_text(v) for v in values]),
+                         dtype=np.int32)
+        return Column("str", self._lut(codes)[pos], c.valid, CTString)
+
+    def _held_values(self, c: Column, valid: torch.Tensor):
+        """(the distinct values of the rows ``valid`` that are live, as
+        host values, and each row's position among them): the rows
+        grouped by the values' exact planes (``anyvalue.identity_planes``)
+        on the device, one row of each distinct value taken and read to
+        the host (one counted read, ``held_reads``, however deep the
+        values)."""
+        perm, change, _keys, pos = self._distinct(A.identity_planes(c),
+                                                  valid & self.row_ok)
+        if self.backend is not None:
+            self.backend.held_reads += 1
+        rep = perm[change]
+        return column_to_host(c.take(rep), int(rep.shape[0]), self.pool), pos
 
     def _pair_text(self, rows: np.ndarray):
         """The concatenations of (left, right) string code pairs packed
@@ -923,7 +1036,6 @@ class DeviceExprCompiler:
         """date() / datetime() of "any" values, row by row by kind: a
         string parses, a date or datetime converts; another value is an
         error of its row, as the oracle's ``temporal_construct``."""
-        from caps_tpu_torch.backends.cuda.column import TAG
         out = None
         kinds = ("str",) if target == "duration" else ("str", "date",
                                                        "datetime")
@@ -1020,7 +1132,6 @@ class DeviceExprCompiler:
             return c
         data = torch.full_like(c.valid, other)
         if c.kind == "any":
-            from caps_tpu_torch.backends.cuda.column import TAG
             data = torch.where(c.tags == TAG["bool"], A.payload(c) != 0,
                                data)
         return Column("bool", data, c.valid, CTBoolean)
@@ -1031,7 +1142,6 @@ class DeviceExprCompiler:
         not empty, a temporal value always."""
         if c.kind == "bool" or _is_null(c):
             return c
-        from caps_tpu_torch.backends.cuda.column import TAG
         if c.kind == "str":
             lengths = self.pool.lengths_array()
             data = self._full(False) if lengths.shape[0] == 0 else \
@@ -1053,6 +1163,11 @@ class DeviceExprCompiler:
                 | (c.tags == TAG["float"]) | (c.tags == TAG["bool"]),
                 torch.where(c.tags == TAG["str"], text, num),
                 self._full(True))
+            for kind, _attr in A.SIDES:
+                h = A.held(c, kind)
+                if h is not None:
+                    data = torch.where(c.tags == TAG[kind],
+                                       self._truth(h).data, data)
         else:
             data = self._full(True)
         return Column("bool", data, c.valid, CTBoolean)
@@ -1106,6 +1221,10 @@ class DeviceExprCompiler:
         False where the answer is null (a null operand, or a null among
         the elements or entries it hangs on)."""
         valid = l.valid & r.valid
+        if _is_null(l) or _is_null(r):
+            return self._full(False), valid
+        if "any" in (l.kind, r.kind):
+            return self._any_equal(l, r, valid)
         if l.kind == "list" or r.kind == "list":
             eq, known = self._list_equal(l, r)
             return eq, valid & known
@@ -1114,10 +1233,6 @@ class DeviceExprCompiler:
                 return self._full(False), valid
             eq, known = M.equal(l, r, self.equal_cols)
             return eq, valid & known
-        if _is_null(l) or _is_null(r):
-            return self._full(False), valid
-        if "any" in (l.kind, r.kind):
-            return A.equal(l, r, self._rank()), valid
         if l.kind == "duration" and r.kind == "duration":
             return (l.data == r.data).all(dim=1), valid
         try:
@@ -1127,6 +1242,24 @@ class DeviceExprCompiler:
             # mismatched kinds: never equal
             eq = self._full(False)
         return eq, valid
+
+    def _any_equal(self, l: Column, r: Column, valid: torch.Tensor):
+        """:meth:`equal_cols` where a side holds "any" values: values of
+        one class compare by value, held lists element by element and
+        held maps key by key (through :meth:`equal_cols`)."""
+        if l.kind == "id" or r.kind == "id":
+            return A.equal(l, r, self._rank()), valid
+        a, b = A.to_any(l), A.to_any(r)
+        eq, known = A.equal(a, b, self._rank()), valid
+        for kind, _attr in A.SIDES:
+            both = valid & (a.tags == TAG[kind]) & (b.tags == TAG[kind])
+            ha, hb = A.held(a, kind, both), A.held(b, kind, both)
+            if ha is None or hb is None:
+                continue
+            e2, k2 = self.equal_cols(ha, hb)
+            eq = torch.where(both, e2, eq)
+            known = torch.where(both, k2, known)
+        return eq, known
 
     def _equality(self, e) -> Column:
         eq, valid = self.equal_cols(self.compile(e.lhs), self.compile(e.rhs))
@@ -1193,20 +1326,40 @@ class DeviceExprCompiler:
     def _ordering(self, e) -> Column:
         l = self.compile(e.lhs)
         r = self.compile(e.rhs)
-        valid = l.valid & r.valid
+        a, b = (l, r) if isinstance(e, (E.LessThan, E.LessThanOrEqual)) \
+            else (r, l)
+        out, known = self.less_cols(a, b, or_equal=isinstance(
+            e, (E.LessThanOrEqual, E.GreaterThanOrEqual)))
+        return Column("bool", out, known, CTBoolean)
+
+    def less_cols(self, l: Column, r: Column, or_equal: bool):
+        """``cypher_lt`` (or the oracle's ``_lte``) of two columns as
+        (answer, known): ``known`` False where the answer is null (a null
+        operand, values of two classes, maps, durations)."""
         if _is_null(l) or _is_null(r):
-            return self._null()
-        if "any" in (l.kind, r.kind) and "list" not in (l.kind, r.kind):
+            return self._full(False), self._full(False)
+        valid = l.valid & r.valid
+        if l.kind == "list" and r.kind == "list":
+            return self._list_less(l, r, or_equal)
+        if "any" in (l.kind, r.kind):
             if {l.kind, r.kind} - set(A.HELD_KINDS + ("any", "id")):
-                return self._null()  # a map or duration: incomparable
-            lt = isinstance(e, (E.LessThan, E.LessThanOrEqual))
-            a, b = (l, r) if lt else (r, l)
-            out, known = A.less(a, b, self._rank(),
-                                or_equal=isinstance(e, (E.LessThanOrEqual,
-                                                        E.GreaterThanOrEqual)))
-            return Column("bool", out, valid & known, CTBoolean)
+                return self._full(False), self._full(False)
+            out, known = A.less(l, r, self._rank(), or_equal=or_equal)
+            known = valid & known
+            if l.kind != "id" and r.kind != "id":
+                # held lists compare element by element
+                a, b = A.to_any(l), A.to_any(r)
+                both = valid & (a.tags == TAG["list"]) \
+                    & (b.tags == TAG["list"])
+                ha, hb = A.held(a, "list", both), A.held(b, "list", both)
+                if ha is not None and hb is not None:
+                    o2, k2 = self._list_less(ha, hb, or_equal)
+                    out = torch.where(both, o2, out)
+                    known = torch.where(both, k2, known)
+            return out, known
         if l.kind in ("duration", "map") or r.kind in ("duration", "map"):
-            return self._null()  # durations and maps do not order
+            # durations and maps do not order
+            return self._full(False), self._full(False)
         if l.kind == "str" and r.kind == "str":
             rank = self._lut(self.pool.rank_array())
             ld = _gather(rank, l.data) if rank.shape[0] else l.data
@@ -1216,21 +1369,41 @@ class DeviceExprCompiler:
                 l2, r2 = self._promote(l, r)
             except UnsupportedOnDevice:
                 # values of incomparable types: the comparison is null
-                return self._null()
+                return self._full(False), self._full(False)
             if l2.kind == "list":
-                raise UnsupportedOnDevice("ordering of lists")
+                return self._full(False), self._full(False)
             ld, rd = l2.data, r2.data
             if l2.kind == "bool":
                 ld, rd = ld.to(torch.int8), rd.to(torch.int8)
-        if isinstance(e, E.LessThan):
-            out = ld < rd
-        elif isinstance(e, E.LessThanOrEqual):
-            out = ld <= rd
-        elif isinstance(e, E.GreaterThan):
-            out = ld > rd
-        else:
-            out = ld >= rd
-        return Column("bool", out, valid, CTBoolean)
+        return (ld <= rd if or_equal else ld < rd), valid
+
+    def _list_less(self, l: Column, r: Column, or_equal: bool):
+        """``cypher_lt`` of two list columns (the oracle's loop): the
+        first position where the elements differ decides, an element pair
+        that does not compare makes the answer null, and where one list
+        is the other's prefix the shorter is less; ``_lte`` adds
+        ``cypher_equals``."""
+        valid = l.valid & r.valid
+        lt, decided, unknown = (self._full(False) for _ in range(3))
+        for i, (x, y) in enumerate(zip(self._elements(l),
+                                       self._elements(r))):
+            inside = valid & (i < l.lens) & (i < r.lens) & ~decided \
+                & ~unknown
+            o1, k1 = self.less_cols(x, y, False)
+            o2, k2 = self.less_cols(y, x, False)
+            unknown = unknown | (inside & (~k1 | (~o1 & ~k2)))
+            less = inside & k1 & o1
+            more = inside & k1 & ~o1 & k2 & o2
+            lt = lt | less
+            decided = decided | less | more
+        rest = valid & ~decided & ~unknown
+        lt = torch.where(rest, l.lens < r.lens, lt)
+        known = valid & ~unknown
+        if not or_equal:
+            return lt, known
+        eq, keq = self.equal_cols(l, r)
+        hit = (known & lt) | (keq & eq)
+        return hit, hit | (known & keq)
 
     def _string_predicate(self, e) -> Column:
         """STARTS WITH / ENDS WITH / CONTAINS / =~: a constant right
@@ -1272,7 +1445,6 @@ class DeviceExprCompiler:
         if c.kind == "str":
             return c
         if c.kind == "any":
-            from caps_tpu_torch.backends.cuda.column import TAG
             is_str = c.tags == TAG["str"]
             p = A.payload(c)
             return Column("str", torch.where(is_str, p, torch.zeros_like(p)
@@ -1289,17 +1461,14 @@ class DeviceExprCompiler:
                 return self._null()
             if rhs.kind == "str":
                 return self._in_string(l, rhs)
-            if rhs.kind != "list":
-                raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
+            rhs = self._iterable(rhs)
             return Column("bool", self._full(False),
                           rhs.valid & (rhs.lens == 0), CTBoolean)
         if l.kind not in ("str", "int", "id", "float", "bool"):
             # a list, map, temporal or "any" value looked up: element by
             # element (:meth:`_in_list_by_element`)
-            rhs = self.compile(e.rhs)
-            if rhs.kind != "list":
-                raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
-            return self._in_list_column(l, rhs)
+            return self._in_list_column(l, self._iterable(
+                self.compile(e.rhs)))
         if isinstance(e.rhs, E.ListLit) and all(
                 isinstance(i, E.Lit) for i in e.rhs.items):
             values = [i.value for i in e.rhs.items]
@@ -1311,9 +1480,7 @@ class DeviceExprCompiler:
             rhs = self.compile(e.rhs)
             if rhs.kind == "str":
                 return self._in_string(l, rhs)
-            if rhs.kind != "list":
-                raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
-            return self._in_list_column(l, rhs)
+            return self._in_list_column(l, self._iterable(rhs))
         has_null = any(v is None for v in values)
         values = [v for v in values if v is not None]
         if l.kind == "str":
@@ -1342,6 +1509,16 @@ class DeviceExprCompiler:
             self._full(False)
         valid = l.valid & (found | (not has_null))
         return Column("bool", found, valid, CTBoolean)
+
+    def _iterable(self, rhs: Column) -> Column:
+        """The right side of ``IN`` as a list column: a list itself, a
+        map's keys or "any" values' iteration (:meth:`iterated`); the
+        other kinds raise, as the oracle's loop does."""
+        if rhs.kind in ("map", "any"):
+            rhs = self.iterated(rhs)
+        if rhs.kind != "list":
+            raise UnsupportedOnDevice(f"IN over kind {rhs.kind}")
+        return rhs
 
     def _in_list_column(self, l: Column, rhs: Column) -> Column:
         """``x IN list`` against a list column, row by row (e.g. a hop's
@@ -1411,17 +1588,20 @@ class DeviceExprCompiler:
         r = self.compile(e.rhs)
         if _is_null(l) or _is_null(r):
             return self._null()
-        if "any" in (l.kind, r.kind) and "list" not in (l.kind, r.kind):
+        if "any" in (l.kind, r.kind):
             return self._any_arith(e, l, r)
         temporal = ("date", "datetime", "duration")
         if l.kind in temporal or r.kind in temporal:
             return self._temporal_arith(e, l, r)
-        if isinstance(e, E.Add) and "str" in (l.kind, r.kind) \
-                and "list" not in (l.kind, r.kind):
+        if isinstance(e, E.Add) and "str" in (l.kind, r.kind):
             # a string and a value: the value's text (``_to_str``)
             l, r = self._to_string(l), self._to_string(r)
             return self._concat_strings(e, l, r)
-        if isinstance(e, E.Add) and l.kind == "list" and r.kind == "list":
+        if isinstance(e, E.Add) and "list" in (l.kind, r.kind):
+            # a list and a value: the value as a list of one (the
+            # oracle's ``[a] + b``)
+            l, r = (c if c.kind == "list" else L.stack_items(self, [c])
+                    for c in (l, r))
             return self._concat_lists(l, r)
         return self._numeric_arith(e, l, r)
 
@@ -1482,8 +1662,41 @@ class DeviceExprCompiler:
         or booleans, else a float; ``^`` always a float); temporal
         values follow :meth:`_temporal_arith` (null with a number); a
         string in another operation is an error of its row.  The result
-        is an "any" column."""
-        from caps_tpu_torch.backends.cuda.column import TAG
+        is an "any" column; ``+`` with a held list on either side and no
+        string concatenates the two as lists (a value as a list of one),
+        and another operation on a held list or map is an error of its
+        row, as the oracle's Python operators raise."""
+        out = self._any_scalar_arith(e, l, r)
+        a, b = A.to_any(l), A.to_any(r)
+        if a.child is None and a.maps is None and b.child is None \
+                and b.maps is None:
+            return out
+        valid = a.valid & b.valid
+
+        def of(t, *kinds):
+            hit = torch.zeros_like(valid)
+            for k in kinds:
+                hit = hit | (t == TAG[k])
+            return hit
+        temporal = of(a.tags, "date", "datetime", "duration") \
+            | of(b.tags, "date", "datetime", "duration")
+        strs = of(a.tags, "str") | of(b.tags, "str")
+        held = valid & ~temporal & (of(a.tags, "list", "map")
+                                    | of(b.tags, "list", "map"))
+        listy = held & ~strs & (of(a.tags, "list") | of(b.tags, "list"))
+        if isinstance(e, E.Add):
+            self._note_row_error(held & ~strs & ~listy,
+                                 "unsupported operand types for add: a map")
+            cat = A.to_any(self._concat_lists(A.as_list(a), A.as_list(b)))
+            cat, out = self._unify(cat, out)
+            return self._choose(listy, cat, out)
+        self._note_row_error(held, f"unsupported operand types for "
+                             f"{type(e).__name__.lower()}: a list or a map")
+        return out
+
+    def _any_scalar_arith(self, e, l: Column, r: Column) -> Column:
+        """:meth:`_any_arith` of the rows that hold neither a list nor a
+        map (null on those)."""
         a, b = A.to_any(l), A.to_any(r)
         wide = a.data.dim() > a.tags.dim() or b.data.dim() > b.tags.dim()
         pa, pb = A.payload(a), A.payload(b)
@@ -1603,10 +1816,13 @@ class DeviceExprCompiler:
             return self._promote(l, r)
         if l.kind == "list" and r.kind == "list":
             l, r = _nest_like(l, r)
-            if l.elem_kind == r.elem_kind or l.fields is not None \
-                    or r.fields is not None or l.nested or r.nested:
+            if l.nested and r.nested or (l.fields is not None
+                                         and r.fields is not None) \
+                    or not (l.nested or r.nested or l.fields or r.fields) \
+                    and l.elem_kind == r.elem_kind:
                 return l, r
-            if {l.elem_kind, r.elem_kind} <= {"int", "float", "id"}:
+            if not (l.nested or r.nested or l.fields or r.fields) and {
+                    l.elem_kind, r.elem_kind} <= {"int", "float", "id"}:
                 kind = "float" if "float" in (l.elem_kind, r.elem_kind) \
                     else "int"
                 return _list_as(l, kind), _list_as(r, kind)
@@ -1623,21 +1839,23 @@ class DeviceExprCompiler:
         it)."""
         if a.kind == "map" or b.kind == "map":
             return self._choose_maps(take, a, b)
-        if a.kind == "any" and a.data.dim() != b.data.dim():
-            a, b = A.widen(a), A.widen(b)
+        if a.tags is not None and b.tags is not None:
+            # "any" values (or lists of them): over one side column of
+            # held lists and one of held maps
+            if a.data.dim() != b.data.dim():
+                a, b = A.widen(a), A.widen(b)
+            a, b = A.share(a, b)
         if a.kind != "list":
             t = take.view(-1, *([1] * (a.data.dim() - 1)))
             return Column(a.kind, torch.where(t, a.data, b.data),
                           torch.where(take, a.valid, b.valid), a.ctype,
                           tags=(None if a.tags is None
-                                else torch.where(take, a.tags, b.tags)))
+                                else torch.where(take, a.tags, b.tags)),
+                          child=a.child, maps=a.maps)
         if a.fields is not None and b.fields is not None:
             return self._choose_maps(take, a, b)
-        if a.tags is not None and b.tags is not None \
-                and a.data.dim() != b.data.dim():
-            a, b = A.widen(a), A.widen(b)
         a, b = _nest_like(a, b)
-        if a.nested != b.nested or a.depth != b.depth \
+        if a.nested != b.nested \
                 or a.data.dtype != b.data.dtype \
                 or a.data.dim() != b.data.dim() \
                 or (a.tags is None) != (b.tags is None) \
@@ -1664,7 +1882,7 @@ class DeviceExprCompiler:
                       torch.where(take, a.valid, b.valid), a.ctype,
                       torch.where(take, a.lens, b.lens), elem_valid=ev,
                       tags=None if a.tags is None else pick(a.tags, b.tags, 0),
-                      child=a.child)
+                      child=a.child, maps=a.maps)
 
     def _choose_maps(self, take: torch.Tensor, a: Column,
                      b: Column) -> Column:
@@ -1674,7 +1892,7 @@ class DeviceExprCompiler:
         if a.kind != b.kind or a.fields is None or b.fields is None:
             raise UnsupportedOnDevice("choosing between a map and another "
                                       "value")
-        keys = sorted(set(a.fields) | set(b.fields))
+        keys = list(a.fields) + [k for k in b.fields if k not in a.fields]
         no = torch.zeros(a.data.shape[:-1], dtype=torch.bool,
                          device=self.device)
 
@@ -1799,6 +2017,12 @@ class DeviceExprCompiler:
             return self._null()  # the oracle's _to_bool of other values
         if name == "tostring":
             return self._to_string(args[0])
+        if name in _HELD_FUNCTIONS and args[0].kind == "any":
+            # of the list, map or string each row holds
+            one = E.FunctionExpr(name, (E.Var("_x"),))
+            return self._per_kind(args[0], {
+                k: (lambda h: self._function(one, {"_x": h}))
+                for k in _HELD_FUNCTIONS[name]}, f"{name}()")
         if name in _STRING_FUNCTIONS:
             return self._string_function(name, e, args)
         if name in ("head", "last", "tail") or (
@@ -1914,6 +2138,14 @@ _STRING_PREDICATES: Dict[type, Callable[[str, str], bool]] = {
 }
 
 
+# Functions of one list or string argument (size of a map too), by the
+# kinds of "any" values they take.
+_HELD_FUNCTIONS: Dict[str, tuple] = {
+    **dict.fromkeys(("head", "last", "tail", "reverse"), ("list", "str")),
+    **dict.fromkeys(("size", "length"), ("list", "map", "str")),
+}
+
+
 # Functions of a string and constant further arguments, each given as a
 # maker of the string -> value function (the oracle's semantics).
 _STRING_FUNCTIONS: Dict[str, Callable] = {
@@ -1988,7 +2220,7 @@ def _nest_like(l: Column, r: Column):
                                     device=b.data.device),
                 elem_valid=torch.zeros(shape, dtype=torch.bool,
                                        device=b.data.device),
-                tags=None, fields=None, child=a.child, host=None)
+                tags=None, fields=None, child=a.child, maps=None, host=None)
             return (a, b) if a is l else (b, a)
     return l, r
 

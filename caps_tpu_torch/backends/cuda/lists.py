@@ -422,8 +422,9 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     """Columns as the elements of one list per row: stacked into
     ``(capacity, k)``, a null item a null element; entities become their
     ids.  Ids mixed with ints give an int list (the oracle's values are
-    ints too); values of several kinds give a list of "any" values;
-    maps a list of maps, lists a list of lists."""
+    ints too); values of several kinds give a list of "any" values
+    (lists and maps among them held by row, ``anyvalue.py``); maps a
+    list of maps, lists a list of lists."""
     values = [c for c in cols if not _is_null(c)]
     if values and all(c.kind == "list" for c in values):
         return _nested_literal(comp, cols)
@@ -431,9 +432,6 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
         return M.stack(comp, cols)
     kinds = {c.kind for c in values}
     inner = join_all(c.ctype for c in cols)
-    if kinds & {"list", "map"}:
-        raise UnsupportedOnDevice(f"list of {inner!r} on device (kinds "
-                                  f"{', '.join(sorted(kinds))})")
     lens = torch.full((comp.capacity,), len(cols), dtype=torch.int32,
                       device=comp.device)
     ev = torch.stack([c.valid for c in cols], dim=1)
@@ -450,10 +448,11 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     elif len(kinds) == 1 and "any" not in kinds:
         ek = next(iter(kinds))
     else:
-        data, tags = A.stack([c if not _is_null(c) else comp._literal(0)
-                              for c in cols], comp.device)
-        return Column("list", data, comp._full(True), CTList(inner), lens,
-                      elem_valid=ev, tags=tags)
+        out = A.stack([c if not _is_null(c) else comp._literal(0)
+                       for c in cols])
+        return dataclasses.replace(out, valid=comp._full(True),
+                                   ctype=CTList(inner), lens=lens,
+                                   elem_valid=ev)
     dtype = list_dtype(ek)
     data = torch.stack([c.data.to(dtype) if not _is_null(c) else
                         torch.zeros(comp.capacity, dtype=dtype,
@@ -465,7 +464,8 @@ def stack_items(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
 def _nested_literal(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     """A list literal of lists: the items' rows, one item after another,
     become the inner lists (a child of ``k * capacity`` rows, the items
-    brought to one kind); element ``i`` of row ``r`` is inner list ``i *
+    brought to one kind: lists of other depths or kinds as lists of
+    "any" values); element ``i`` of row ``r`` is inner list ``i *
     capacity + r``, a null item a null element."""
     from caps_tpu_torch.backends.cuda.column import null_like
     from caps_tpu_torch.backends.cuda.table import (
@@ -475,8 +475,6 @@ def _nested_literal(comp: DeviceExprCompiler, cols: List[Column]) -> Column:
     # (an item of no element type, ``[]``, is a list of lists too)
     cols = [c if _is_null(c) else _nest_like(deep, c)[1] for c in cols]
     lists = [c for c in cols if not _is_null(c)]
-    if len({c.depth for c in lists}) != 1:
-        raise UnsupportedOnDevice("list of lists of different depths")
     proto = lists[0]
     for c in lists[1:]:
         proto, _ = _union_pair(proto, c, "list item")
@@ -638,7 +636,7 @@ def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
     if v.tags is not None:
         tags, _, _ = left_pack(v.tags.reshape(cap, W), keep)
     return Column("list", data, comp_true(lens), ctype, lens, elem_valid=ev,
-                  tags=tags)
+                  tags=tags, child=v.child, maps=v.maps)
 
 
 def comp_true(like: torch.Tensor) -> torch.Tensor:
@@ -682,7 +680,8 @@ def reduce(comp: DeviceExprCompiler, e: E.Reduce) -> Column:
     rows; step ``j`` binds ``acc`` to the running column and ``x`` to
     element ``j`` and updates the rows whose list is that long.  The
     accumulator keeps the kind of the init (or of the first step, for a
-    null init); a body that changes it raises."""
+    null init); a body that changes it makes it "any" values (lists and
+    maps held by row)."""
     lst = _list_operand(comp, e.list_expr, "reduce")
     acc = comp.compile(e.init)
     if lst is None:
@@ -704,12 +703,12 @@ def reduce(comp: DeviceExprCompiler, e: E.Reduce) -> Column:
         _adopt_errors(comp, child, 1)
         if _is_null(acc) or _is_null(out):
             out, acc = comp._promote(out, acc)
-        elif out.kind != acc.kind or (out.kind == "list"
-                                      and out.elem_kind != acc.elem_kind):
-            # the accumulator takes another kind (``s = 0`` then a
-            # string): "any" values, as the oracle's Python values are
+        else:
+            # the accumulator may take another kind (``s = 0`` then a
+            # string or a map): "any" values, as the oracle's Python
+            # values are
             out, acc = comp._unify(out, acc)
-        if out.kind != acc.kind or "map" in (out.kind, acc.kind):
+        if out.kind != acc.kind:
             raise UnsupportedOnDevice(f"reduce: the accumulator changes "
                                       f"kind from {acc.kind} to {out.kind}")
         ctype = acc.ctype if not _is_null(acc) else out.ctype

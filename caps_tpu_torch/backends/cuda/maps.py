@@ -1,8 +1,8 @@
 """Maps on the device.
 
-A map column has a key set fixed when the expression compiles (sorted,
-as the reference's maps print and order) and, per row, which of those
-keys it holds: ``data`` is bool ``(capacity, K)``, and ``fields`` maps
+A map column has a key set fixed when the expression compiles (in the
+order the reference's maps print: a literal's order, then the keys a
+CASE or UNION adds) and, per row, which of those keys it holds: ``data`` is bool ``(capacity, K)``, and ``fields`` maps
 each key to a child column.  A key can be present and null (``{a:
 null}``) or absent (``properties(n)`` of a node without that property),
 as the reference's dicts tell them apart.  A list of maps is the same
@@ -26,9 +26,9 @@ from caps_tpu_torch.okapi.types import CTMap
 
 def make(fields: Mapping[str, Column], present: Mapping[str, torch.Tensor],
          valid: torch.Tensor) -> Column:
-    """A map column of children and their presence masks, by key (the
-    keys sorted here)."""
-    keys = sorted(fields)
+    """A map column of children and their presence masks, by key (in
+    the order of ``fields``)."""
+    keys = list(fields)
     data = (torch.stack([present[k] for k in keys], dim=1) if keys else
             torch.zeros((valid.shape[0], 0), dtype=torch.bool,
                         device=valid.device))
@@ -94,8 +94,9 @@ def field(comp, m: Column, key: str) -> Column:
 def keys(comp, m: Column) -> Column:
     """``keys(m)``: the present keys, sorted, as a string list."""
     from caps_tpu_torch.backends.cuda.lists import _names_list
-    names = list(m.fields)
-    return _names_list(comp, names, [m.data[:, j] for j in range(len(names))],
+    names = sorted(m.fields)
+    at = list(m.fields)
+    return _names_list(comp, names, [m.data[:, at.index(k)] for k in names],
                        m.valid)
 
 
@@ -136,7 +137,9 @@ def sort_keys(c: Column, ascending: bool, nulls_last: bool,
     if not nulls_last:
         null_key = -null_key
     sign = 1 if ascending else -1
-    present = c.data & c.valid[:, None]
+    names = sorted(c.fields)
+    order = [list(c.fields).index(k) for k in names]
+    present = (c.data & c.valid[:, None])[:, order]
     K = present.shape[1]
     # any key after position j present
     later = torch.zeros_like(present)
@@ -145,7 +148,7 @@ def sort_keys(c: Column, ascending: bool, nulls_last: bool,
         after = torch.flip(torch.cumsum(rev, dim=1), dims=[1]) > 0
         later[:, :-1] = after[:, 1:]
     keys = [null_key]
-    for j, (_k, child) in enumerate(c.fields.items()):
+    for j, child in enumerate(c.fields[k] for k in names):
         tag = torch.where(present[:, j], 1,
                           torch.where(later[:, j], 2, 0)).to(torch.int64)
         keys.append(sign * tag)
@@ -161,7 +164,8 @@ def stack(comp, cols: List[Column]) -> Column:
     where an item lacks the key); a null item a null element."""
     from caps_tpu_torch.backends.cuda.expr import _is_null
     from caps_tpu_torch.backends.cuda.lists import stack_items
-    names = sorted({k for c in cols if not _is_null(c) for k in c.fields})
+    names = list(dict.fromkeys(k for c in cols if not _is_null(c)
+                               for k in c.fields))
     no = comp._full(False)
     present, fields = [], {}
     for k in names:

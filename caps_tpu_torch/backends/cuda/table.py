@@ -485,8 +485,7 @@ class DeviceTable(Table):
                 if t is not None:
                     n += t.nbytes
             kids = list((col.fields or {}).values())
-            if col.child is not None:
-                kids.append(col.child)
+            kids += [c for c in (col.child, col.maps) if c is not None]
             return n + sum(size(c) for c in kids)
         return sum(size(col) for col in self._cols.values())
 
@@ -1475,7 +1474,8 @@ class DeviceTable(Table):
         return Column("list", scatter(col.data, dtype), group_live,
                       a.result_type, counts.to(torch.int32),
                       tags=(None if col.tags is None
-                            else scatter(col.tags, torch.int8)))
+                            else scatter(col.tags, torch.int8)),
+                      child=col.child, maps=col.maps)
 
     def _collect_slots(self, ok, seg_id, num_segments: int, start_idx):
         """(counts per group, the row width ``L``, each row's flat slot
@@ -1526,9 +1526,14 @@ class DeviceTable(Table):
                 out_type: CypherType) -> "DeviceTable":
         """UNWIND: one output row per element of ``list_col``, in row
         order then element order; null and empty lists give no row, a
-        null element a row holding null."""
+        null element a row holding null.  A string, a map or "any"
+        values unwind as the oracle iterates them (``iterated``)."""
         col = self._cols[list_col]
         rest = {c: v for c, v in self._cols.items() if c != list_col}
+        if col.kind in ("str", "map", "any"):
+            comp = self._compiler(RecordHeader(), {})
+            col = comp.iterated(col)
+            self._raise_row_errors(comp)
         if col.kind != "list":
             # UNWIND of a value that is not a list: one row holding the
             # value itself, none for null
@@ -1730,9 +1735,9 @@ def _widen(col: Column, width: int) -> Column:
 
 def _union_pair(a: Column, b: Column, name: str) -> Tuple[Column, Column]:
     """Two columns of one UNION output column brought to one kind: ids,
-    ints and floats to the wider number, values of other kinds that an
-    "any" value holds to "any" values, lists of two such element kinds
-    to lists of "any" values."""
+    ints and floats to the wider number, values of two kinds (lists and
+    maps among them) to "any" values, lists of two element kinds or
+    depths to lists of "any" values."""
     if a.nested and b.nested:
         # lists of lists: their inner lists brought to one kind
         ca, cb = _union_pair(a.child, b.child, name)
@@ -1750,9 +1755,9 @@ def _union_pair(a: Column, b: Column, name: str) -> Tuple[Column, Column]:
     if a.kind in numeric and b.kind in numeric:
         target = "float" if "float" in (a.kind, b.kind) else "int"
         return a.astype_kind(target), b.astype_kind(target)
-    if a.kind == "list" == b.kind and not (a.nested or b.nested) \
-            and {a.elem_kind, b.elem_kind} <= held:
-        if {a.elem_kind, b.elem_kind} <= numeric:
+    if a.kind == "list" == b.kind:
+        if not (a.nested or b.nested or a.fields or b.fields) \
+                and {a.elem_kind, b.elem_kind} <= numeric:
             dt = torch.float64 if "float" in (a.elem_kind, b.elem_kind) \
                 else torch.int64
             return (dataclasses.replace(a, data=a.data.to(dt), host=None),
@@ -1770,7 +1775,8 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
     padded to ``out_cap``: every per-row tensor concatenated, list axes
     widened to the wider side; maps (and lists of maps) over the union
     of their keys, a key absent on one side absent in its rows; lists of
-    lists over both sides' inner lists (:func:`share_child`)."""
+    lists over both sides' inner lists (:func:`share_child`), "any"
+    values over both sides' held lists and maps (``anyvalue.share``)."""
     if (a.fields is None) != (b.fields is None) or a.nested != b.nested \
             or (a.tags is None) != (b.tags is None) \
             or a.data.dim() != b.data.dim():
@@ -1778,9 +1784,11 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
                                   f"of different shapes")
     if a.nested:
         a, b = share_child(a, b)
+    if a.tags is not None:
+        a, b = A.share(a, b)
     fields = None
     if a.fields is not None:
-        keys = sorted(set(a.fields) | set(b.fields))
+        keys = list(a.fields) + [k for k in b.fields if k not in a.fields]
         fields, pres = {}, ([], [])
         for k in keys:
             ca, cb = a.fields.get(k), b.fields.get(k)
@@ -1831,7 +1839,8 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
         kw[f] = F.pad(both, (0, 0) * (both.dim() - 1) + (0, rest),
                       value=fill if f != "valid" else False)
     return Column(a.kind, kw.pop("data"), kw.pop("valid"), ctype,
-                  kw.pop("lens"), fields=fields, child=a.child, **kw)
+                  kw.pop("lens"), fields=fields, child=a.child, maps=a.maps,
+                  **kw)
 
 
 def share_child(a: Column, b: Column) -> Tuple[Column, Column]:
@@ -1929,14 +1938,22 @@ def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
     for an ascending lexicographic sort (a list column into its planes,
     :func:`_list_sort_keys`)."""
     if col.kind == "list":
-        if col.nested or col.fields is not None or col.data.dim() > 2:
+        if col.child is not None or col.fields is not None \
+                or col.maps is not None or col.data.dim() > 2:
             # lists of lists, of maps, of durations, of "any" values
-            # with durations among them
+            # with durations, lists or maps among them
             return _element_sort_keys(col, ascending, nulls_last, backend,
                                       op)
         return _list_sort_keys(col, ascending, nulls_last, backend)
     if col.kind == "any":
-        return A.sort_keys(col, ascending, nulls_last, backend.rank_tensor())
+        # the class orders a held list or map among the other values, and
+        # its own planes (zero on the other rows) among its kind
+        keys = A.sort_keys(col, ascending, nulls_last, backend.rank_tensor())
+        for kind, _attr in A.SIDES:
+            h = A.held(col, kind)
+            if h is not None:
+                keys += _sort_keys(h, ascending, ascending, backend, op)[1:]
+        return keys
     if col.kind == "map":
         # a null entry is the largest value inside a map (order_key), so
         # it sorts last ascending and first descending

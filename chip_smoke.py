@@ -81,6 +81,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 across a hop; each cold and 5 exact replays (0 size
                 reads) against a numpy oracle, with K1–K3 launches, peak
                 bytes and one exact replay's busy time and idle share;
+     mixed    — lists and maps among values of other types, in a session
+                of its own over the slice's arrays: X1 a list-or-string
+                CASE grouped and ordered, X2 a string, a list and a map
+                unwound and counted DISTINCT, X3 toString of a map
+                grouped on K1, X4 a reduce whose accumulator turns into
+                maps over the 2-hop rows, X5 a UNION ALL of a list and a
+                string column, X6 lists of two depths chosen and
+                compared; each cold and 5 exact replays (0 size reads)
+                against a numpy oracle, with its held-value reads, K1–K3
+                launches, peak bytes and one exact replay's busy time
+                and idle share;
   8. cyclic   — the seeded triangle on the slice's graph through the
                 multiway join (MultiwayJoinOp, K2 for every extend and
                 close): cold, 5 exact replays (0 size reads, no
@@ -250,7 +261,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
  23. kernels  — each kernel wrapper against its plain PyTorch version on
                 the card, on the inputs of every call one exact replay
                 made (of the grouped query, the var-expand forms, the
-                unwind, lists, values, gaps and nested queries, the
+                unwind, lists, values, gaps, nested and mixed queries,
+                the
                 multiway joins, the final snapshot of the updates phase,
                 IC12, a served batch and the mesh phase's M1: every
                 shard's K1 and K2 calls) and at edge
@@ -481,6 +493,55 @@ MIN_NESTED_LAUNCHES = {
     "N4_comprehensions": {},
     "N5_equal_inner_lists": {"expand_positions": 1},
 }
+
+# The mixed phase: lists and maps among values of other types ("any"
+# values holding a list or a map by its row), over the 1- and 2-hop rows
+# from the seeds of ``$age``, one query per group of the census's causes.
+MIXED_HOP = "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.age = $age "
+QUERY_MIXED = {
+    # CASE between a list and a string, grouped and ordered (lists first)
+    "X1_group_list_or_string": MIXED_HOP + (
+        "RETURN CASE WHEN b.age > 50 THEN [b.age % 5] ELSE b.city END AS v, "
+        "count(*) AS n ORDER BY n DESC, v LIMIT 20"),
+    # a list literal of a string, a list and a map, unwound, DISTINCT
+    "X2_unwind_distinct": MIXED_HOP + (
+        "UNWIND [b.city, [b.age % 7], {age: b.age}] AS x "
+        "RETURN count(DISTINCT x) AS n, count(*) AS m"),
+    # toString of a map (one held read a run), grouped by the text on K1
+    "X3_to_string_map": MIXED_HOP + (
+        "RETURN toString({city: b.city, age: b.age % 2}) AS s, "
+        "count(*) AS n ORDER BY n DESC, s LIMIT 20"),
+    # reduce whose accumulator turns from an int into maps, over 2 hops
+    "X4_reduce_to_map": (
+        "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person) "
+        "WHERE a.age = $age "
+        "WITH reduce(s = 0, x IN [b.age, c.age] | {k: x}) AS s "
+        "RETURN s.k AS k, count(*) AS n ORDER BY k"),
+    # UNION ALL of a list column and a string column
+    "X5_union_list_string": MIXED_HOP + (
+        "RETURN [b.age] AS v UNION ALL "
+        "MATCH (a:Person) WHERE a.age = $age RETURN a.city AS v"),
+    # CASE between lists of two depths, compared with = at both depths
+    "X6_two_depths_equal": MIXED_HOP + (
+        "WITH CASE WHEN b.age > 50 THEN [[b.age % 3]] ELSE [b.age % 3] END "
+        "AS l RETURN l = [[1]] AS e, l = [1] AS f, count(*) AS n"),
+}
+# Launches one exact replay of each mixed query makes at least: one join
+# per hop on K2; X1's and X3's groups (about 1,005 and 2,000) and X4's 72
+# sorted on K3; X3 groups by one string on K1 (the phase's pool stays
+# under 4,096 strings: 1,000 cities and X3's 2,000 texts).
+MIN_MIXED_LAUNCHES = {
+    "X1_group_list_or_string": {"expand_positions": 1, "bitonic_sort": 1},
+    "X2_unwind_distinct": {"expand_positions": 1},
+    "X3_to_string_map": {"expand_positions": 1, "segment_agg": 1,
+                         "bitonic_sort": 1},
+    "X4_reduce_to_map": {"expand_positions": 2, "bitonic_sort": 1},
+    "X5_union_list_string": {"expand_positions": 1},
+    "X6_two_depths_equal": {"expand_positions": 1},
+}
+# held-value reads of one exact replay: X3's maps read once to be
+# formatted
+MIXED_HELD_READS = {"X3_to_string_map": 1}
 
 AGE = 30
 
@@ -5861,6 +5922,70 @@ def gaps_norm(label: str, rows):
     return rows
 
 
+def run_queries(torch, session, graph, phase: str, queries, want, norm,
+                min_launches, held_reads, out, card):
+    """Each query of a phase (``queries``: label -> text, over ``$age``)
+    cold and 5 exact replays against its oracle (``want[label]``, the
+    rows in ``norm(label, rows)``'s form); per query the size reads of
+    one more exact replay (0) and, where ``held_reads`` is given, its
+    held-value reads (``held_reads.get(label, 0)``), the kernel calls and
+    launches of the last exact replay (held to ``min_launches``), peak
+    allocated bytes and one exact replay under the profiler, written to
+    ``out``; the phase must launch K1, K2 and K3 where ``min_launches``
+    is set.  Returns ({phase: launches by label}, {phase_label: calls})."""
+    launches, calls, phase_launches = {}, {}, {}
+    for label, query in queries.items():
+        recorders = query_recorders()
+        params = {"age": AGE}
+        rows, info, result = pattern_runs(torch, session, graph, query,
+                                          params, card, recorders=recorders)
+        got = norm(label, rows)
+        expect(label, got == want[label],
+               f"disagrees with numpy ({len(got)} rows, "
+               f"{len(want[label])} expected):\ngot  {list(got)[:3]}\n"
+               f"want {list(want[label])[:3]}", phase)
+        replay = graph.cypher(query, params)
+        expect(label, norm(label, replay.records.to_maps()) == want[label],
+               "the counted replay disagrees with numpy", phase)
+        expect(label, session.fused.last_mode == "replay",
+               f"the counted run was a {session.fused.last_mode}", phase)
+        info["replay_size_syncs"] = replay.metrics["size_syncs"]
+        expect(label, replay.metrics["size_syncs"] == 0,
+               f"an exact replay read {replay.metrics['size_syncs']} sizes",
+               phase)
+        if held_reads is not None:
+            info["replay_held_reads"] = replay.metrics["held_reads"]
+            expect(label, replay.metrics["held_reads"]
+                   == held_reads.get(label, 0),
+                   f"an exact replay read held values "
+                   f"{replay.metrics['held_reads']} times", phase)
+        check_query_launches(f"the {phase} query {label}'s replay",
+                             info["replay_launches"],
+                             min_launches.get(label, {}))
+        info.update({
+            "rows": len(rows),
+            "k_launches": {k: info["replay_launches"].get(k, 0)
+                           for k in ("segment_agg", "expand_positions",
+                                     "bitonic_sort")},
+            "profile_exact_replay": device_profile(
+                torch, lambda: graph.cypher(query,
+                                            params).records.to_maps()),
+            "operators": [[m["op"], m["seconds"], m["rows"]]
+                          for m in result.metrics["operators"]]})
+        launches[label] = info["replay_launches"]
+        for k, n in info["replay_launches"].items():
+            phase_launches[k] = phase_launches.get(k, 0) + n
+        calls[label] = {r.name: r.calls for r in recorders}
+        out[label] = info
+    expect("phase", not min_launches or all(
+        phase_launches.get(k, 0) for k in ("segment_agg", "expand_positions",
+                                           "bitonic_sort")),
+           f"K1, K2 or K3 never launched: {phase_launches}", phase)
+    out["phase_launches"] = phase_launches
+    return ({phase: launches},
+            {f"{phase}_{k}": v for k, v in calls.items()})
+
+
 def run_gaps(torch, np, args, card: str, state):
     """Expressions and aggregations the JAX package answers on its host
     fallback, on the slice's graph in a session of its own: each query
@@ -5884,61 +6009,14 @@ def run_gaps(torch, np, args, card: str, state):
     want = gaps_oracles(np, nodes, rels, AGE)
     out = {"phase": "gaps", "card": card, "age": AGE, "ingest_s": ingest_s,
            "oracle_s": time.perf_counter() - t1}
-    launches, calls, phase_launches = {}, {}, {}
-    for label, query in QUERY_GAPS.items():
-        recorders = query_recorders()
-        params = {"age": AGE}
-        rows, info, result = pattern_runs(torch, session, graph, query,
-                                          params, card, recorders=recorders)
-        got = gaps_norm(label, rows)
-        expect(label, got == want[label],
-               f"disagrees with numpy ({len(got)} rows, "
-               f"{len(want[label])} expected):\ngot  {got[:3]}\n"
-               f"want {want[label][:3]}", "gaps")
-        replay = graph.cypher(query, params)
-        expect(label, gaps_norm(label, replay.records.to_maps())
-               == want[label], "the counted replay disagrees with numpy",
-               "gaps")
-        expect(label, session.fused.last_mode == "replay",
-               f"the counted run was a {session.fused.last_mode}", "gaps")
-        info["replay_size_syncs"] = replay.metrics["size_syncs"]
-        info["replay_held_reads"] = replay.metrics["held_reads"]
-        expect(label, replay.metrics["size_syncs"] == 0,
-               f"an exact replay read {replay.metrics['size_syncs']} sizes",
-               "gaps")
-        expect(label, replay.metrics["held_reads"]
-               == GAPS_HELD_READS.get(label, 0),
-               f"an exact replay read held values "
-               f"{replay.metrics['held_reads']} times", "gaps")
-        check_query_launches(f"the gaps query {label}'s replay",
-                             info["replay_launches"],
-                             MIN_GAPS_LAUNCHES.get(label, {}))
-        info.update({
-            "rows": len(rows),
-            "k_launches": {k: info["replay_launches"].get(k, 0)
-                           for k in ("segment_agg", "expand_positions",
-                                     "bitonic_sort")},
-            "profile_exact_replay": device_profile(
-                torch, lambda: graph.cypher(query,
-                                            params).records.to_maps()),
-            "operators": [[m["op"], m["seconds"], m["rows"]]
-                          for m in result.metrics["operators"]]})
-        launches[label] = info["replay_launches"]
-        for k, n in info["replay_launches"].items():
-            phase_launches[k] = phase_launches.get(k, 0) + n
-        calls[label] = {r.name: r.calls for r in recorders}
-        out[label] = info
-    expect("phase", not MIN_GAPS_LAUNCHES or all(
-        phase_launches.get(k, 0) for k in ("segment_agg", "expand_positions",
-                                           "bitonic_sort")),
-           f"K1, K2 or K3 never launched: {phase_launches}", "gaps")
-    out["phase_launches"] = phase_launches
+    found = run_queries(torch, session, graph, "gaps", QUERY_GAPS, want,
+                        gaps_norm, MIN_GAPS_LAUNCHES, GAPS_HELD_READS, out,
+                        card)
     out["pool_strings"] = len(session.backend.pool)
     del graph, session
     out["phase_s"] = time.perf_counter() - t0
     emit(out)
-    return ({"gaps": launches},
-            {f"gaps_{k}": v for k, v in calls.items()})
+    return found
 
 
 def nested_visits(np, n: int, seed: int):
@@ -6147,55 +6225,126 @@ def run_nested(torch, np, args, card: str, state):
                       "width": int(col.data.shape[1]),
                       "inner_width": int(col.child.data.shape[1]),
                       "device_bytes": visits_bytes}}
-    launches, calls, phase_launches = {}, {}, {}
-    for label, query in QUERY_NESTED.items():
-        recorders = query_recorders()
-        params = {"age": AGE}
-        rows, info, result = pattern_runs(torch, session, graph, query,
-                                          params, card, recorders=recorders)
-        got = nested_norm(label, rows, want[label])
-        expect(label, got == want[label],
-               f"disagrees with numpy ({len(got)} rows, "
-               f"{len(want[label])} expected):\ngot  {got[:3]}\n"
-               f"want {want[label][:3]}", "nested")
-        replay = graph.cypher(query, params)
-        expect(label, nested_norm(label, replay.records.to_maps(),
-                                  want[label]) == want[label],
-               "the counted replay disagrees with numpy", "nested")
-        expect(label, session.fused.last_mode == "replay",
-               f"the counted run was a {session.fused.last_mode}", "nested")
-        info["replay_size_syncs"] = replay.metrics["size_syncs"]
-        expect(label, replay.metrics["size_syncs"] == 0,
-               f"an exact replay read {replay.metrics['size_syncs']} sizes",
-               "nested")
-        check_query_launches(f"the nested query {label}'s replay",
-                             info["replay_launches"],
-                             MIN_NESTED_LAUNCHES.get(label, {}))
-        info.update({
-            "rows": len(rows),
-            "k_launches": {k: info["replay_launches"].get(k, 0)
-                           for k in ("segment_agg", "expand_positions",
-                                     "bitonic_sort")},
-            "profile_exact_replay": device_profile(
-                torch, lambda: graph.cypher(query,
-                                            params).records.to_maps()),
-            "operators": [[m["op"], m["seconds"], m["rows"]]
-                          for m in result.metrics["operators"]]})
-        launches[label] = info["replay_launches"]
-        for k, n in info["replay_launches"].items():
-            phase_launches[k] = phase_launches.get(k, 0) + n
-        calls[label] = {r.name: r.calls for r in recorders}
-        out[label] = info
-    expect("phase", not MIN_NESTED_LAUNCHES or all(
-        phase_launches.get(k, 0) for k in ("segment_agg", "expand_positions",
-                                           "bitonic_sort")),
-           f"K1, K2 or K3 never launched: {phase_launches}", "nested")
-    out["phase_launches"] = phase_launches
+    found = run_queries(
+        torch, session, graph, "nested", QUERY_NESTED, want,
+        lambda label, rows: nested_norm(label, rows, want[label]),
+        MIN_NESTED_LAUNCHES, None, out, card)
     del graph, people, col, session
     out["phase_s"] = time.perf_counter() - t0
     emit(out)
-    return ({"nested": launches},
-            {f"nested_{k}": v for k, v in calls.items()})
+    return found
+
+
+def mixed_oracles(np, nodes, rels, age: int) -> dict:
+    """numpy answers of the mixed queries, from the 1- and 2-hop path
+    counts to each person (``hop_counts``)."""
+    person = nodes["Person"]
+    ages = person["age"]
+    names, codes = city_codes(np, nodes)
+    seeds = (ages == age).astype(np.int64)
+    h1, h2 = hop_counts(np, nodes, rels, seeds)
+    w1, w2 = np.rint(h1).astype(np.int64), np.rint(h2).astype(np.int64)
+    live = w1 > 0
+    old = ages > 50
+    out = {}
+    # X1: [age % 5] for the old, the city for the rest; lists order first
+    per = {}
+    for r in range(5):
+        n = int(w1[live & old & (ages % 5 == r)].sum())
+        if n:
+            per[(0, r)] = n
+    city_n = np.bincount(codes[live & ~old], weights=w1[live & ~old],
+                         minlength=len(names))
+    for i in np.flatnonzero(city_n):
+        per[(1, str(names[i]))] = int(round(city_n[i]))
+    top = sorted(per.items(), key=lambda kv: (-kv[1], kv[0]))[:20]
+    out["X1_group_list_or_string"] = [
+        {"v": [k[1]] if k[0] == 0 else k[1], "n": n} for k, n in top]
+    # X2: the distinct cities, ages mod 7 and ages among the hop's ends
+    n_distinct = (len(np.unique(codes[live])) + len(np.unique(
+        ages[live] % 7)) + len(np.unique(ages[live])))
+    out["X2_unwind_distinct"] = [{"n": n_distinct,
+                                  "m": 3 * int(w1.sum())}]
+    # X3: the text of {city, age % 2} per end, counted, top 20
+    texts = {}
+    for parity in (0, 1):
+        sel = live & (ages % 2 == parity)
+        counts = np.bincount(codes[sel], weights=w1[sel],
+                             minlength=len(names))
+        for i in np.flatnonzero(counts):
+            texts[f"{{'city': '{names[i]}', 'age': {parity}}}"] = \
+                int(round(counts[i]))
+    out["X3_to_string_map"] = [{"s": t, "n": n} for t, n in sorted(
+        texts.items(), key=lambda kv: (-kv[1], kv[0]))[:20]]
+    # X4: the last map's k is the 2-hop end's age
+    by_age = np.bincount(ages, weights=w2, minlength=90)
+    out["X4_reduce_to_map"] = [{"k": int(a), "n": int(round(by_age[a]))}
+                               for a in np.flatnonzero(by_age)]
+    # X5: [b.age] per 1-hop row, then the seeds' cities
+    bag = {}
+    for a, n in zip(*np.unique(np.repeat(ages[live], w1[live]),
+                               return_counts=True)):
+        bag[("list", int(a))] = int(n)
+    for i, n in zip(*np.unique(codes[seeds > 0], return_counts=True)):
+        bag[("str", str(names[i]))] = int(n)
+    out["X5_union_list_string"] = bag
+    # X6: [[age % 3]] for the old, [age % 3] for the rest, against [[1]]
+    # and [1]
+    one = ages % 3 == 1
+    e, f = old & one, ~old & one
+    groups = {}
+    for key in ((True, False), (False, True), (False, False)):
+        n = int(w1[live & (e == key[0]) & (f == key[1])].sum())
+        if n:
+            groups[key] = n
+    out["X6_two_depths_equal"] = groups
+    return out
+
+
+def mixed_norm(label: str, rows):
+    """A mixed query's rows in its oracle's form: the union's rows as a
+    bag, the comparison's groups as a dict."""
+    if label == "X5_union_list_string":
+        bag = {}
+        for r in rows:
+            v = r["v"]
+            key = ("list", v[0]) if isinstance(v, list) and len(v) == 1 \
+                else ("str", v)
+            bag[key] = bag.get(key, 0) + 1
+        return bag
+    if label == "X6_two_depths_equal":
+        return {(r["e"], r["f"]): r["n"] for r in rows}
+    return rows
+
+
+def run_mixed(torch, np, args, card: str, state):
+    """Lists and maps among values of other types on the card, on the
+    slice's graph in a session of its own (the texts X3 builds stay in
+    its pool): each query (``QUERY_MIXED``) cold and 5 exact replays
+    against its numpy oracle; per query the size reads (0) and held-value
+    reads of one more exact replay, the kernel calls and launches of the
+    last exact replay (held to ``MIN_MIXED_LAUNCHES``), peak allocated
+    bytes and one exact replay under the profiler."""
+    import caps_tpu_torch
+    from caps_tpu_torch.interop import graph_from_numpy
+    _session, _graph, nodes, rels, _ = state
+    t0 = time.perf_counter()
+    session = caps_tpu_torch.local_session()
+    graph = graph_from_numpy(session, nodes, rels)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    want = mixed_oracles(np, nodes, rels, AGE)
+    out = {"phase": "mixed", "card": card, "age": AGE, "ingest_s": ingest_s,
+           "oracle_s": time.perf_counter() - t1}
+    found = run_queries(torch, session, graph, "mixed", QUERY_MIXED, want,
+                        mixed_norm, MIN_MIXED_LAUNCHES, MIXED_HELD_READS, out,
+                        card)
+    out["pool_strings"] = len(session.backend.pool)
+    del graph, session
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return found
 
 
 def main() -> int:
@@ -6254,6 +6403,9 @@ def main() -> int:
                                                state)
     launches.update(nested_launches)
     pattern_calls.update(nested_calls)
+    mixed_launches, mixed_calls = run_mixed(torch, np, args, card, state)
+    launches.update(mixed_launches)
+    pattern_calls.update(mixed_calls)
     cyclic_launches, cyclic_calls = run_cyclic(torch, np, args, card, state)
     launches.update(cyclic_launches)
     pattern_calls.update(cyclic_calls)
@@ -6351,6 +6503,9 @@ def main() -> int:
             # one exact replay of each nested-phase query (N1-N5)
             "launches_nested_replay": {
                 q: n.get(name, 0) for q, n in launches["nested"].items()},
+            # one exact replay of each mixed-phase query (X1-X6)
+            "launches_mixed_replay": {
+                q: n.get(name, 0) for q, n in launches["mixed"].items()},
             # one exact replay of the seeded triangle on the multiway join
             "launches_wcoj_triangle_replay": launches["wcoj_triangle"].get(
                 name, 0),

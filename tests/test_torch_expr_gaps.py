@@ -20,7 +20,8 @@ string functions and predicates with column arguments and ``range()``
 with column bounds (A), aggregations of lists, maps, durations and
 strings (B), maps (C), mixed-type values and lists compared element by
 element (D), lists of durations and lists of lists (E), and the causes
-the census found beyond those.
+the census found beyond those, among them lists and maps among values
+of other types.
 """
 import math
 
@@ -239,32 +240,21 @@ CASES = {
         "'2020-01-01' ELSE date('2021-01-02') END) AS v, datetime(CASE WHEN "
         "a.age > 30 THEN '2020-01-01T10:00' ELSE date('2021-01-02') END) "
         "AS w",
+    # lists and maps among values of other types ("any" values that hold
+    # a list or a map by its row), and toString of maps and lists
+    "map_among_other_values": P + "RETURN CASE WHEN a.age > 30 THEN {k: 1} "
+                                  "ELSE 1 END AS v",
+    "list_among_other_values": P + "RETURN [a.xs, 1] AS v",
+    "union_of_a_list_and_a_string": P + "RETURN a.xs AS v UNION ALL "
+                                        "MATCH (c:City) RETURN c.name AS v",
+    "lists_of_two_depths": P + "RETURN CASE WHEN a.age > 30 THEN [[1]] "
+                               "ELSE [1] END AS v",
+    "concat_of_maps_and_values": P + "RETURN [{k: a.age}] + [1] AS v",
+    "to_string_of_a_map": P + "RETURN toString({k: a.age}) AS v",
+    "to_string_of_temporal_lists": P + "RETURN toString([date('2020-01-01')]) "
+                                       "AS v",
+    "reduce_to_a_map": P + "RETURN reduce(s = 0, x IN a.xs | {k: x}) AS v",
 }
-
-# causes the reference answers and the port does not yet (ROADMAP Queue 1,
-# census: open); each raises naming itself
-OPEN = {
-    "map_among_other_values": (
-        P + "RETURN CASE WHEN a.age > 30 THEN {k: 1} ELSE 1 END AS v",
-        "a map among values of other types"),
-    "list_among_other_values": (P + "RETURN [a.xs, 1] AS v", "list of"),
-    "union_of_a_list_and_a_string": (
-        P + "RETURN a.xs AS v UNION ALL MATCH (c:City) RETURN c.name AS v",
-        "union_all: column 'v' of kinds list and str"),
-    "lists_of_two_depths": (
-        P + "RETURN CASE WHEN a.age > 30 THEN [[1]] ELSE [1] END AS v",
-        "choosing between lists of different kinds"),
-    "concat_of_maps_and_values": (P + "RETURN [{k: a.age}] + [1] AS v",
-                                  "concatenation of lists of different"),
-    "to_string_of_a_map": (P + "RETURN toString({k: a.age}) AS v",
-                           "toString on kind map"),
-    "to_string_of_temporal_lists": (
-        P + "RETURN toString([date('2020-01-01')]) AS v",
-        "toString on kind list"),
-    "reduce_to_a_map": (P + "RETURN reduce(s = 0, x IN a.xs | {k: x}) AS v",
-                        "a map among values of other types"),
-}
-
 
 @pytest.fixture(scope="module")
 def engines():
@@ -336,13 +326,6 @@ def test_an_exact_replay_reads_no_size(engines, name):
     assert again.metrics["size_syncs"] == 0
     assert again.records.to_maps() == first.records.to_maps()
     assert again.metrics["held_reads"] == first.metrics["held_reads"]
-
-
-@pytest.mark.parametrize("name", list(OPEN))
-def test_open_causes_raise_naming_themselves(engines, name):
-    query, cause = OPEN[name]
-    with pytest.raises(UnsupportedOnDevice, match=cause):
-        engines[0].cypher(query).records.to_maps()
 
 
 def test_a_cause_both_packages_refuse_raises_naming_it(engines):

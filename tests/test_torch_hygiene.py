@@ -38,6 +38,23 @@ def test_port_imports_no_jax_and_no_jax_package(path):
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_every_reference_example_has_a_port():
+    reference = sorted(p.name for p in (ROOT / "examples").glob("*.py")
+                       if not p.name.startswith("torch_"))
+    assert [p.name for p in EXAMPLE_FILES] == [f"torch_{n}"
+                                               for n in reference]
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_examples_import_no_jax_and_no_jax_package(path):
+    test_port_imports_no_jax_and_no_jax_package(path)
+    assert "caps_tpu_torch" in set(_imported_modules(path))
+
+
 def test_local_session_defaults_to_the_card():
     assert inspect.signature(caps_tpu_torch.local_session) \
         .parameters["device"].default == "cuda"

@@ -343,19 +343,23 @@ def test_union_all_closes_generic_replay_gaps():
 
 
 def test_union_all_refuses_kind_mismatch():
-    """A list beside a string has no device column (a list among values
-    of other types): the union refuses naming the column.  Integers
-    beside strings union as values of mixed types."""
+    """Entity ids beside strings have no device column: the union
+    refuses naming the column.  Integers beside strings union as values
+    of mixed types, and so does a list beside a string (the list held
+    by its row in the column's child, not copied)."""
     from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
-    from caps_tpu_torch.okapi.types import CTInteger, CTList, CTString
+    from caps_tpu_torch.okapi.types import CTInteger, CTList, CTNode, CTString
     f = caps_tpu_torch.local_session(device="cpu").table_factory
-    a = f.from_columns({"x": [[1]]}, {"x": CTList(CTInteger)})
+    ids = f.from_columns({"x": [1]}, {"x": CTNode()})
     b = f.from_columns({"x": ["s"]}, {"x": CTString})
     with pytest.raises(UnsupportedOnDevice, match="union_all"):
-        a.union_all(b)
-    mixed = f.from_columns({"x": [1]}, {"x": CTInteger}).union_all(
-        f.from_columns({"x": ["s"]}, {"x": CTString}))
+        ids.union_all(b)
+    mixed = f.from_columns({"x": [1]}, {"x": CTInteger}).union_all(b)
     assert mixed.column_values("x") == [1, "s"]
+    a = f.from_columns({"x": [[1]]}, {"x": CTList(CTInteger)})
+    held = a.union_all(b)
+    assert held.column_values("x") == [[1], "s"]
+    assert held._cols["x"].child is a._cols["x"]
 
 
 def test_multi_type_scans_union(graphs):
