@@ -29,12 +29,13 @@ then the value (``_order_key``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Any, Callable, List, Tuple
 
+import numpy as np
 import torch
 
 from caps_tpu_torch.backends.cuda.column import (
-    ANY_TAGS, TAG, Column, elem_at,
+    ANY_TAGS, TAG, Column, decode_any, elem_at, map_in_order,
 )
 from caps_tpu_torch.okapi.types import CTAny
 
@@ -317,51 +318,113 @@ def stack(cols: List[Column]) -> Column:
                   child=parts[0].child, maps=parts[0].maps)
 
 
-def identity_planes(c: Column) -> List[torch.Tensor]:
-    """int64 planes of a column, one value per row, equal exactly where
-    two rows hold the same value (the same kind, the same bits: 1 and
-    1.0 differ, as their texts do): validity, then the value's own
+def identity(c: Column) -> Tuple[List[torch.Tensor], Callable]:
+    """(planes, decode) of a column.  The planes are int64, one value
+    per row, equal exactly where two rows hold the same value (the same
+    kind, the same bits: 1 and 1.0 differ, as their texts do; a map's
+    keys in the same print order): validity, then the value's own
     planes, zero where the value is null; a list's length and each
-    position's planes, a map's presence and each key's planes, an "any"
-    value's tag and payload with its held list's or map's planes."""
+    position's planes, a map's presence (and each key's place in its
+    row's order) and each key's planes, an "any" value's tag and payload
+    with its held list's or map's planes.  ``decode(rows, pool)`` turns
+    an int64 matrix of rows of those planes into host values (None for a
+    null row), so the distinct values of a column are read to the host
+    in one transfer however deep they are."""
     v = c.valid
-    out = [v.to(torch.int64)]
+    planes = [v.to(torch.int64)]
 
-    def masked(planes):
-        return [torch.where(v, p, torch.zeros_like(p)) for p in planes]
+    def masked(ps):
+        return [torch.where(v, p, torch.zeros_like(p)) for p in ps]
+
+    def part(col: Column) -> Callable:
+        """``col``'s planes appended; its decoder of their columns."""
+        ps, dec = identity(col)
+        at = slice(len(planes), len(planes) + len(ps))
+        planes.extend(ps)
+        return lambda m, pool: dec(m[:, at], pool)
+
     if c.kind == "list":
-        out.append(torch.where(v, c.lens.to(torch.int64), 0))
+        planes.append(torch.where(v, c.lens.to(torch.int64), 0))
         rows = torch.arange(c.capacity, device=v.device)
-        for j in range(c.data.shape[1]):
-            inside = v & (j < c.lens)
-            out += identity_planes(elem_at(c, rows, torch.full_like(rows, j),
-                                           inside))
-        return out
+        elems = [part(elem_at(c, rows, torch.full_like(rows, j),
+                              v & (j < c.lens)))
+                 for j in range(c.data.shape[1])]
+
+        def decode(m, pool):
+            cols = [d(m, pool) for d in elems]
+            return [[col[i] for col in cols[:n]] if ok else None
+                    for i, (ok, n) in enumerate(m[:, :2].tolist())]
+        return planes, decode
     if c.kind == "map":
+        keys = list(c.fields)
+        at, kids = [], []
         for j, f in enumerate(c.fields.values()):
             here = v & c.data[:, j]
-            out.append(here.to(torch.int64))
-            out += identity_planes(dataclasses.replace(f, valid=f.valid
-                                                       & here))
-        return out
+            at.append(len(planes))
+            planes.append(here.to(torch.int64))
+            if c.order is not None:
+                planes.append(torch.where(here, c.order[:, j].to(
+                    torch.int64), 0))
+            kids.append(part(dataclasses.replace(f, valid=f.valid & here)))
+
+        def decode(m, pool):
+            vals = [d(m, pool) for d in kids]
+            out = []
+            for i, r in enumerate(m.tolist()):
+                ranks = None if c.order is None else [r[a + 1] for a in at]
+                out.append(map_in_order(keys, [r[a] for a in at],
+                                        [x[i] for x in vals], ranks)
+                           if r[0] else None)
+            return out
+        return planes, decode
     if c.kind == "any":
         side = torch.zeros_like(v)
         for kind, _attr in SIDES:
             side = side | (c.tags == TAG[kind])
         data = c.data if c.data.dim() > 1 else c.data[:, None]
-        out += masked([c.tags.to(torch.int64)] + [
+        w = data.shape[1]
+        planes += masked([c.tags.to(torch.int64)] + [
             torch.where(side, torch.zeros_like(p), p)
             for p in data.unbind(1)])
-        for kind, _attr in SIDES:
-            h = held(c, kind)
-            if h is not None:
-                out += identity_planes(h)
-        return out
+        helds = {TAG[kind]: part(h) for kind, _attr in SIDES
+                 if (h := held(c, kind)) is not None}
+
+        def decode(m, pool):
+            ok = m[:, 0] != 0
+            tags = m[:, 1].astype(np.int8)
+            out = _fill(ok, decode_any(tags[ok], m[ok, 2] if w == 1
+                                       else m[ok, 2:2 + w], pool))
+            for tag, d in helds.items():
+                vals = d(m, pool)
+                for i in np.flatnonzero(ok & (tags == tag)).tolist():
+                    out[i] = vals[i]
+            return out
+        return planes, decode
+    if c.kind not in SCALAR_KINDS + ("id",):
+        from caps_tpu_torch.backends.cuda.expr import UnsupportedOnDevice
+        raise UnsupportedOnDevice(f"a value of kind {c.kind} has no "
+                                  f"host form")
     if c.kind == "float":
         data = c.data.contiguous().view(torch.int64)
     else:
         data = c.data.to(torch.int64)
-    return out + masked(list(data.unbind(1)) if data.dim() > 1 else [data])
+    planes += masked(list(data.unbind(1)) if data.dim() > 1 else [data])
+    tag = TAG["int" if c.kind == "id" else c.kind]
+
+    def decode(m, pool):
+        ok = m[:, 0] != 0
+        tags = np.full(int(ok.sum()), tag, dtype=np.int8)
+        return _fill(ok, decode_any(tags, m[ok, 1] if m.shape[1] == 2
+                                    else m[ok, 1:], pool))
+    return planes, decode
+
+
+def _fill(ok: np.ndarray, vals: List[Any]) -> List[Any]:
+    """``vals`` placed at the rows ``ok``, None at the others."""
+    out: List[Any] = [None] * len(ok)
+    for i, x in zip(np.flatnonzero(ok).tolist(), vals):
+        out[i] = x
+    return out
 
 
 def as_list(c: Column) -> Column:

@@ -22,7 +22,8 @@ Kinds:
            days and seconds, the others' payload first and zeros after
     map    bool (capacity, K) presence of each key + ``fields``: key →
            child column (keys in the order they print: a literal's
-           order; a key may be present and null)
+           order; a key may be present and null) + ``order`` where rows
+           print their keys in orders of their own
     list   2D (capacity, max_len) + lens (+ elem_valid): the element
            kind's dtype — int32 for ids and string codes, int64 for
            ints, dates, datetimes and "any" payloads (+ ``tags``),
@@ -148,6 +149,11 @@ class Column:
     # for "any" values (or a list of them): the maps they hold, one map
     # column shared as ``child`` is (a held map's payload is its row)
     maps: Optional["Column"] = None
+    # for a map (or a list of maps) whose rows print their keys in
+    # orders of their own (a CASE, a UNION or ingested dicts of several
+    # key orders): int8, the shape of ``data``, each key's place in its
+    # row's order; None where every row prints them in ``fields``' order
+    order: Optional[torch.Tensor] = None
 
     @property
     def nested(self) -> bool:
@@ -184,7 +190,7 @@ class Column:
             t(self.lens), elem_valid=t(self.elem_valid), tags=t(self.tags),
             fields=(None if self.fields is None else
                     {k: c.take(idx) for k, c in self.fields.items()}),
-            child=self.child, maps=self.maps)
+            child=self.child, maps=self.maps, order=t(self.order))
 
     def to_device(self, device) -> "Column":
         """A copy of this column's tensors on ``device`` (the ingest-time
@@ -197,7 +203,8 @@ class Column:
             fields=(None if self.fields is None else
                     {k: c.to_device(device) for k, c in self.fields.items()}),
             child=None if self.child is None else self.child.to_device(device),
-            maps=None if self.maps is None else self.maps.to_device(device))
+            maps=None if self.maps is None else self.maps.to_device(device),
+            order=t(self.order))
 
     def valid_elems(self) -> torch.Tensor:
         """bool (capacity, max_len): False on a null element of a list
@@ -265,7 +272,8 @@ def elem_at(lst: Column, row: torch.Tensor, j: torch.Tensor,
         return out
     if lst.fields is not None:
         return Column("map", lst.data[row, j], valid, CTMap, fields={
-            k: elem_at(c, row, j, ok) for k, c in lst.fields.items()})
+            k: elem_at(c, row, j, ok) for k, c in lst.fields.items()},
+            order=None if lst.order is None else lst.order[row, j])
     ek = lst.elem_kind
     return Column(ek, lst.data[row, j].to(_DTYPES[ek]), valid, inner,
                   tags=None if lst.tags is None else lst.tags[row, j],
@@ -543,6 +551,7 @@ def _make_map_list(values, ctype, capacity: int, pool, device) -> Column:
                               if x is not None for k in x))
     width = max([1] + [len(v) for v in values if v is not None])
     present = np.zeros((capacity, width, len(keys)), dtype=bool)
+    order = np.zeros((capacity, width, len(keys)), dtype=np.int8)
     ev_np = np.ones((capacity, width), dtype=bool)
     valid_np = np.zeros(capacity, dtype=bool)
     lens_np = np.zeros(capacity, dtype=np.int32)
@@ -556,6 +565,7 @@ def _make_map_list(values, ctype, capacity: int, pool, device) -> Column:
                 ev_np[i, j] = False
             else:
                 present[i, j] = [k in x for k in keys]
+                order[i, j] = _print_ranks(x, keys)
     fields = {}
     for k in keys:
         vals = [None if v is None else
@@ -571,7 +581,9 @@ def _make_map_list(values, ctype, capacity: int, pool, device) -> Column:
     return Column("list", _to(present, device), _to(valid_np, device),
                   ctype, _to(lens_np, device),
                   elem_valid=None if ev_np.all() else _to(ev_np, device),
-                  fields=fields)
+                  fields=fields, order=_order_plane(
+                      [x for v in values if v is not None for x in v
+                       if x is not None], order, keys, device))
 
 
 def put_payload(data: np.ndarray, at, code) -> None:
@@ -596,6 +608,10 @@ def _make_map(values, capacity: int, pool, device) -> Column:
     keys = list(dict.fromkeys(k for v in values if v is not None for k in v))
     valid_np = np.zeros(capacity, dtype=bool)
     present = np.zeros((capacity, len(keys)), dtype=bool)
+    order = np.zeros((capacity, len(keys)), dtype=np.int8)
+    for i, v in enumerate(values):
+        if v is not None:
+            order[i] = _print_ranks(v, keys)
     fields = {}
     for j, k in enumerate(keys):
         vals = [None if v is None else v.get(k) for v in values]
@@ -606,7 +622,35 @@ def _make_map(values, capacity: int, pool, device) -> Column:
         fields[k] = make_column(vals, child_t, capacity, pool, device)
     valid_np[:len(values)] = [v is not None for v in values]
     return Column("map", _to(present, device), _to(valid_np, device), CTMap,
-                  fields=fields)
+                  fields=fields, order=_order_plane(
+                      [v for v in values if v is not None], order, keys,
+                      device))
+
+
+def _print_ranks(m, keys) -> List[int]:
+    """Each of ``keys``' place in the host map ``m``'s own key order (0
+    for a key it lacks)."""
+    at = {k: r for r, k in enumerate(m)}
+    return [at.get(k, 0) for k in keys]
+
+
+def _order_plane(maps, order: np.ndarray, keys, device):
+    """The ``order`` of a map column (or a list of maps) built on the
+    host from the host maps ``maps``: None where each prints its keys in
+    the column's order."""
+    if all(list(m) == [k for k in keys if k in m] for m in maps):
+        return None
+    return _to(order, device)
+
+
+def map_in_order(keys, present, vals, ranks=None):
+    """A host map of the present keys' values, in the order of their
+    ranks (in ``keys``' order where there are none)."""
+    from caps_tpu_torch.okapi.values import CypherMap
+    at = [j for j, p in enumerate(present) if p]
+    if ranks is not None:
+        at.sort(key=lambda j: ranks[j])
+    return CypherMap({keys[j]: vals[j] for j in at})
 
 
 def _ingest_native(values, kind: str, n: int):
@@ -712,7 +756,7 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
     """The first ``n`` rows of an "any", map, duration column (or a list
     of "any" values, of maps or of lists) as host values, validity not
     applied."""
-    from caps_tpu_torch.okapi.values import CypherDuration, CypherMap
+    from caps_tpu_torch.okapi.values import CypherDuration
     if col.kind == "duration":
         return [CypherDuration(*r) for r in col.data[:n].cpu().tolist()]
     if col.kind == "any":
@@ -722,8 +766,10 @@ def _decoded(col: Column, n: int, pool) -> List[Any]:
         keys = list(col.fields)
         present = col.data[:n].cpu().tolist()
         kids = [column_to_host(col.fields[k], n, pool) for k in keys]
-        return [CypherMap({k: kid[i] for k, kid, p in zip(keys, kids, ok)
-                           if p}) for i, ok in enumerate(present)]
+        ranks = None if col.order is None else col.order[:n].cpu().tolist()
+        return [map_in_order(keys, ok, [kid[i] for kid in kids],
+                             None if ranks is None else ranks[i])
+                for i, ok in enumerate(present)]
     # a list of "any" values, of maps or of lists: the elements of the
     # valid rows as a column (one level down, for a list of lists), cut
     # into rows by the lengths

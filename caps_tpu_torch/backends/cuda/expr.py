@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from caps_tpu_torch.backends.cuda import kernels as K
 from caps_tpu_torch.backends.cuda.column import (
-    TAG, Column, column_to_host, decode_any, elem_at, list_elem_kind,
+    TAG, Column, elem_at, list_elem_kind,
     null_like, pad_width,
 )
 from caps_tpu_torch.ir import exprs as E
@@ -408,7 +408,7 @@ class DeviceExprCompiler:
         if c.kind == "map":
             names = list(c.fields)
             return L._names_list(self, names, [c.data[:, j] for j in range(
-                len(names))], c.valid)
+                len(names))], c.valid, c.order)
         if c.kind == "any":
             return self._per_kind(c, {k: self.iterated for k in (
                 "list", "str", "map")}, "UNWIND")
@@ -491,6 +491,7 @@ class DeviceExprCompiler:
             base, data=pick(base.data), valid=base.valid & valid,
             lens=length.to(torch.int32), host=None,
             elem_valid=pick(base.elem_valid, True), tags=pick(base.tags),
+            order=pick(base.order),
             fields=(None if base.fields is None else {
                 k: self._sublist(c, start, length, valid, step)
                 for k, c in base.fields.items()}))
@@ -786,10 +787,10 @@ class DeviceExprCompiler:
 
     def _to_string(self, c: Column) -> Column:
         """toString of a column: a string is itself, a boolean 'true' or
-        'false'; numbers, temporal values and "any" values format their
-        held values on the host (:meth:`_format_held`) as the oracle's
-        ``_to_str`` does (``str`` of the number, ``iso()`` of the
-        temporal value)."""
+        'false'; any other value is formatted on the host as the oracle's
+        ``_to_str`` formats it (``str`` of the number, the list or the
+        dict, ``iso()`` of a temporal value), each distinct value the
+        valid live rows hold read once (:meth:`_held_values`)."""
         if c.kind == "str":
             return c
         if c.kind == "bool":
@@ -799,75 +800,9 @@ class DeviceExprCompiler:
                 torch.full_like(c.data, self.pool.encode("false"),
                                 dtype=torch.int32))
             return Column("str", codes, c.valid, CTString)
-        from caps_tpu_torch.okapi import values as V
-        holds = c.child is not None or c.maps is not None
-        if c.kind == "float":
-            planes = [c.data.contiguous().view(torch.int64)]
-        elif c.kind == "any" and not holds:
-            planes = [c.tags, c.data]   # (the payload may be 3-wide)
-        elif c.kind in ("int", "date", "datetime", "duration"):
-            planes = [c.data]
-        elif c.kind == "list" and not (holds or c.fields) \
-                and c.elem_kind in ("int", "id", "float", "str", "bool"):
-            return self._list_text(c)
-        elif c.kind in ("list", "map", "any"):
-            return self._value_text(c)
-        else:
+        if c.kind not in A.HELD_KINDS + ("any",):
             raise UnsupportedOnDevice(f"toString of a value of kind "
                                       f"{c.kind}")
-        one = {"int": str, "date": lambda d: V.CypherDate(d).iso(),
-               "datetime": lambda us: V.CypherDateTime(us).iso()}
-
-        def fmt(rows):
-            if c.kind == "float":
-                return [str(v) for v in rows[:, 0].view(np.float64).tolist()]
-            if c.kind == "duration":
-                return [V.CypherDuration(*r).iso() for r in rows.tolist()]
-            if c.kind == "any":
-                return [_text(v) for v in decode_any(
-                    rows[:, 0].astype(np.int8),
-                    rows[:, 1] if rows.shape[1] == 2 else rows[:, 1:],
-                    self.pool)]
-            return [one[c.kind](v) for v in rows[:, 0].tolist()]
-        return self._format_held(planes, c.valid, fmt)
-
-    def _list_text(self, c: Column) -> Column:
-        """toString of a list of numbers, strings or booleans: the
-        oracle's ``str`` of the Python list, a null element ``None``.
-        Each held (length, elements, their validity) row is formatted
-        once."""
-        ek = c.elem_kind
-        data = c.data.contiguous().view(torch.int64) if ek == "float" \
-            else c.data.to(torch.int64)
-        W = data.shape[1]
-
-        def fmt(rows):
-            out = []
-            for r in rows.tolist():
-                n, vals, oks = r[0], r[1:1 + W], r[1 + W:]
-                items = []
-                for v, ok in zip(vals[:n], oks[:n]):
-                    if not ok:
-                        items.append(None)
-                    elif ek == "float":
-                        items.append(float(np.int64(v).view(np.float64)))
-                    elif ek == "str":
-                        items.append(self.pool.decode(v))
-                    elif ek == "bool":
-                        items.append(bool(v))
-                    else:
-                        items.append(v)
-                out.append(str(items))
-            return out
-        return self._format_held([c.lens, data, c.valid_elems()], c.valid,
-                                 fmt)
-
-    def _value_text(self, c: Column) -> Column:
-        """toString of lists, maps and "any" values that hold them: the
-        oracle's ``_to_str`` of the host value (``str`` of the Python
-        list or dict, temporal values by their ``iso()`` text).  Each
-        distinct value the valid live rows hold is read to the host once
-        (:meth:`_held_values`) and formatted."""
         values, pos = self._held_values(c, c.valid)
         if not values:
             return Column("str", torch.zeros_like(c.valid, dtype=torch.int32),
@@ -879,16 +814,13 @@ class DeviceExprCompiler:
     def _held_values(self, c: Column, valid: torch.Tensor):
         """(the distinct values of the rows ``valid`` that are live, as
         host values, and each row's position among them): the rows
-        grouped by the values' exact planes (``anyvalue.identity_planes``)
+        grouped by the values' exact planes (``anyvalue.identity``)
         on the device, one row of each distinct value taken and read to
         the host (one counted read, ``held_reads``, however deep the
         values)."""
-        perm, change, _keys, pos = self._distinct(A.identity_planes(c),
-                                                  valid & self.row_ok)
-        if self.backend is not None:
-            self.backend.held_reads += 1
-        rep = perm[change]
-        return column_to_host(c.take(rep), int(rep.shape[0]), self.pool), pos
+        planes, decode = A.identity(c)
+        rows, pos = self._held_rows(planes, valid & self.row_ok)
+        return decode(rows, self.pool), pos
 
     def _pair_text(self, rows: np.ndarray):
         """The concatenations of (left, right) string code pairs packed
@@ -1913,9 +1845,17 @@ class DeviceExprCompiler:
             t = take.view(-1, *([1] * (pa.dim() - 1)))
             present[k] = torch.where(t, pa, pb)
         valid = torch.where(take, a.valid, b.valid)
+        width = None if a.kind == "map" else max(a.data.shape[1],
+                                                  b.data.shape[1])
+        order = None
+        if not M.in_order([a, b], keys):
+            ra, rb = M.ranks(a, keys), M.ranks(b, keys)
+            if width is not None:
+                ra, rb = pad_width(ra, width), pad_width(rb, width)
+            order = torch.where(take.view(-1, *([1] * (ra.dim() - 1))),
+                                ra, rb)
         if a.kind == "map":
-            return M.make(fields, present, valid)
-        width = max(a.data.shape[1], b.data.shape[1])
+            return M.make(fields, present, valid, order)
         data = (torch.stack([pad_width(present[k], width, False)
                              for k in keys], dim=2) if keys else
                 torch.zeros((self.capacity, width, 0), dtype=torch.bool,
@@ -1927,7 +1867,7 @@ class DeviceExprCompiler:
                              pad_width(b.valid_elems(), width, True))
         return Column("list", data, valid, a.ctype,
                       torch.where(take, a.lens, b.lens), elem_valid=ev,
-                      fields=fields)
+                      fields=fields, order=order)
 
     def _function(self, e: E.FunctionExpr,
                   given=None) -> Column:  # noqa: C901

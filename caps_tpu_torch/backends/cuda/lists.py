@@ -334,8 +334,10 @@ def bound_access(comp: DeviceExprCompiler, e: E.Expr) -> Optional[Column]:
 
 
 def _names_list(comp: DeviceExprCompiler, names: List[str],
-                keeps: List[torch.Tensor], valid: torch.Tensor) -> Column:
-    """Per row, the names whose ``keep`` holds, in order, as a string
+                keeps: List[torch.Tensor], valid: torch.Tensor,
+                order: Optional[torch.Tensor] = None) -> Column:
+    """Per row, the names whose ``keep`` holds, in order (each row's
+    own where ``order`` gives each name's place in it), as a string
     list (labels(), keys())."""
     if not names:
         return Column("list", torch.zeros((comp.capacity, 1),
@@ -346,9 +348,12 @@ def _names_list(comp: DeviceExprCompiler, names: List[str],
                                   device=comp.device))
     codes = torch.tensor([comp.pool.encode(n) for n in names],
                          dtype=torch.int32, device=comp.device)
-    data, _ev, lens = left_pack(
-        codes[None, :].expand(comp.capacity, len(names)),
-        torch.stack(keeps, dim=1))
+    codes = codes[None, :].expand(comp.capacity, len(names))
+    keep = torch.stack(keeps, dim=1)
+    if order is not None:
+        at = torch.argsort(order.to(torch.int64), dim=1, stable=True)
+        codes, keep = torch.gather(codes, 1, at), torch.gather(keep, 1, at)
+    data, _ev, lens = left_pack(codes, keep)
     return Column("list", data, valid, CTList(CTString), lens)
 
 
@@ -628,8 +633,10 @@ def pack_elements(v: Column, keep: torch.Tensor, cap: int, W: int,
         fields = {}
         for k, c in v.fields.items():
             fields[k] = pack_elements(c, keep, cap, W, CTList(c.ctype))
+        order = None if v.order is None else \
+            left_pack(v.order.reshape(cap, W, -1), keep)[0]
         return Column("list", data, comp_true(lens), ctype, lens,
-                      elem_valid=ev, fields=fields)
+                      elem_valid=ev, fields=fields, order=order)
     data, ev, lens = left_pack(v.data.reshape(cap, W, *v.data.shape[1:]),
                                keep, valid)
     tags = None

@@ -2,8 +2,11 @@
 
 A map column has a key set fixed when the expression compiles (in the
 order the reference's maps print: a literal's order, then the keys a
-CASE or UNION adds) and, per row, which of those keys it holds: ``data`` is bool ``(capacity, K)``, and ``fields`` maps
-each key to a child column.  A key can be present and null (``{a:
+CASE or UNION adds) and, per row, which of those keys it holds:
+``data`` is bool ``(capacity, K)``, and ``fields`` maps each key to a
+child column.  Where rows print their keys in orders of their own (a
+CASE of ``{b: 1, a: 2}`` and ``{a: 3, b: 4}``), ``order`` holds each
+key's place in its row's order (:func:`ranks`, :func:`in_order`).  A key can be present and null (``{a:
 null}``) or absent (``properties(n)`` of a node without that property),
 as the reference's dicts tell them apart.  A list of maps is the same
 with list columns as children (``column.py``).
@@ -25,15 +28,43 @@ from caps_tpu_torch.okapi.types import CTMap
 
 
 def make(fields: Mapping[str, Column], present: Mapping[str, torch.Tensor],
-         valid: torch.Tensor) -> Column:
+         valid: torch.Tensor, order: torch.Tensor = None) -> Column:
     """A map column of children and their presence masks, by key (in
-    the order of ``fields``)."""
+    the order of ``fields``, or each row's ``order``)."""
     keys = list(fields)
     data = (torch.stack([present[k] for k in keys], dim=1) if keys else
             torch.zeros((valid.shape[0], 0), dtype=torch.bool,
                         device=valid.device))
     return Column("map", data, valid, CTMap,
-                  fields={k: fields[k] for k in keys})
+                  fields={k: fields[k] for k in keys}, order=order)
+
+
+def in_order(ms: List[Column], keys: List[str]) -> bool:
+    """True where every map (or list of maps) of ``ms`` prints its keys
+    in the order they have in ``keys``: a column of them needs no
+    ``order``."""
+    return all(m.order is None and list(m.fields) == [
+        k for k in keys if k in m.fields] for m in ms)
+
+
+def ranks(m: Column, keys: List[str]) -> torch.Tensor:
+    """int8, ``m.data``'s shape over ``keys``: each key's place in each
+    row's print order of the map (or list of maps) ``m`` (its ``order``,
+    else its keys' order; 0 for a key ``m`` lacks)."""
+    own = list(m.fields)
+    shape = m.data.shape[:-1]
+    out = []
+    for k in keys:
+        if k not in own:
+            out.append(torch.zeros(shape, dtype=torch.int8,
+                                   device=m.data.device))
+        elif m.order is not None:
+            out.append(m.order[..., own.index(k)])
+        else:
+            out.append(torch.full(shape, own.index(k), dtype=torch.int8,
+                                  device=m.data.device))
+    return (torch.stack(out, dim=-1) if out else
+            torch.zeros(shape + (0,), dtype=torch.int8, device=m.data.device))
 
 
 def literal(comp, e: E.MapLit) -> Column:
@@ -183,9 +214,14 @@ def stack(comp, cols: List[Column]) -> Column:
     data = (torch.stack(present, dim=2) if names else
             torch.zeros((cap, len(cols), 0), dtype=torch.bool,
                         device=comp.device))
+    maps = [c for c in cols if not _is_null(c)]
+    order = None if in_order(maps, names) else torch.stack([
+        ranks(c, names) if not _is_null(c) else torch.zeros(
+            (cap, len(names)), dtype=torch.int8, device=comp.device)
+        for c in cols], dim=1)
     from caps_tpu_torch.okapi.types import CTList
     lens = torch.full((cap,), len(cols), dtype=torch.int32,
                       device=comp.device)
     return Column("list", data, comp._full(True), CTList(CTMap), lens,
                   elem_valid=torch.stack([c.valid for c in cols], dim=1),
-                  fields=fields)
+                  fields=fields, order=order)

@@ -1682,7 +1682,7 @@ def _pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
                                      dtype=t.dtype, device=t.device)])
 
 
-_ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "tags")
+_ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "tags", "order")
 
 
 def _col_tensors(col: Column) -> List[torch.Tensor]:
@@ -1692,7 +1692,7 @@ def _col_tensors(col: Column) -> List[torch.Tensor]:
     and the carried rows point into them."""
     out = [getattr(col, f) for f in _ROW_FIELDS
            if getattr(col, f) is not None]
-    for k in sorted(col.fields or {}):
+    for k in col.fields or {}:
         out += _col_tensors(col.fields[k])
     return out
 
@@ -1703,7 +1703,7 @@ def _col_from(col: Column, it) -> Column:
     kw = {f: next(it) for f in _ROW_FIELDS if getattr(col, f) is not None}
     if col.fields is not None:
         kw["fields"] = {k: _col_from(col.fields[k], it)
-                        for k in sorted(col.fields)}
+                        for k in col.fields}
     return dataclasses.replace(col, host=None, **kw)
 
 
@@ -1726,7 +1726,7 @@ def _widen(col: Column, width: int) -> Column:
         return col
     kw = {f: pad_width(getattr(col, f), width,
                        True if f == "elem_valid" else 0)
-          for f in ("data", "elem_valid", "tags")
+          for f in ("data", "elem_valid", "tags", "order")
           if getattr(col, f) is not None}
     if col.fields is not None:
         kw["fields"] = {k: _widen(c, width) for k, c in col.fields.items()}
@@ -1809,8 +1809,11 @@ def _concat_columns(a: Column, n_a: int, b: Column, n_b: int, out_cap: int,
             return (torch.stack(side, dim=-1) if side else
                     torch.zeros(m.data.shape[:-1] + (0,), dtype=torch.bool,
                                 device=m.data.device))
-        a = dataclasses.replace(a, data=presence(pres[0], a))
-        b = dataclasses.replace(b, data=presence(pres[1], b))
+        order = not M.in_order([a, b], keys)
+        a = dataclasses.replace(a, data=presence(pres[0], a), order=(
+            M.ranks(a, keys) if order else None))
+        b = dataclasses.replace(b, data=presence(pres[1], b), order=(
+            M.ranks(b, keys) if order else None))
         if a.kind == "list":
             # a list of maps: each key's list as wide as the lists
             width = max(a.data.shape[1], b.data.shape[1])

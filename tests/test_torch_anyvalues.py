@@ -20,7 +20,7 @@ import pytest
 import caps_tpu
 import caps_tpu_torch
 from caps_tpu_torch.ir import exprs as E
-from caps_tpu_torch.okapi.types import CTAny
+from caps_tpu_torch.okapi.types import CTAny, CTMap
 from caps_tpu_torch.relational.header import RecordHeader
 from caps_tpu_torch.relational.table import ExprEvalError
 from test_torch_algo import port_make_graph
@@ -168,6 +168,79 @@ def test_a_held_list_stays_in_its_child_on_a_filter():
     out = kept._cols["x"]
     assert out.child is col.child and out.maps is col.maps
     assert kept.column_values("x") == [v for v in values if v is not None]
+
+
+KEY_ORDERS = {
+    "case_of_two_orders": P + "RETURN toString(CASE WHEN a.age > 30 THEN "
+        "{b: 1, a: 2} ELSE {a: 3, b: 4} END) AS t",
+    "held_maps_of_two_orders": P + "RETURN toString(CASE WHEN a.age > 40 "
+        "THEN {b: a.age, a: 2} WHEN a.age > 20 THEN {a: 3, c: [1], b: 4} "
+        "ELSE 1 END) AS t",
+    "union_of_two_orders": P + "RETURN {b: a.age, a: 1} AS v UNION ALL "
+        "MATCH (a:Person) RETURN {a: 2, b: a.age} AS v",
+    "list_literal_of_two_orders": P + "UNWIND [{b: a.age, a: 2}, "
+        "{a: 3, b: a.age}] AS m RETURN toString(m) AS t, m AS v",
+    "slices_of_two_orders": P + "RETURN toString([{b: a.age, a: 1}, "
+        "{a: 2, b: 3}][1..]) AS s, toString(reverse([{b: a.age, a: 1}, "
+        "{a: 2, b: 3}])) AS r",
+    "collect_of_two_orders": LIVES + "RETURN c.name AS c, "
+        "toString(collect(CASE WHEN a.age > 30 THEN {b: a.age, a: 1} "
+        "ELSE {a: 2, b: 0} END)) AS t",
+    "unwind_keys_of_two_orders": P + "UNWIND CASE WHEN a.age > 30 THEN "
+        "{b: 1, a: 2} ELSE {a: 3, b: 4} END AS k WITH a, collect(k) AS ks "
+        "RETURN a.name AS n, ks",
+}
+
+
+def _in_key_order(graph, query):
+    """The rows as text, each map's keys in its own order."""
+    return sorted(repr([m[c] for c in sorted(m)])
+                  for m in graph.cypher(query).records.to_maps())
+
+
+@pytest.mark.parametrize("name", list(KEY_ORDERS))
+def test_maps_keep_each_rows_key_order(engines, name):
+    """A column of maps whose rows hold their keys in orders of their
+    own (a CASE, a UNION, a list literal or collect of differently
+    ordered maps) prints and iterates each row's keys in its own order,
+    as the reference's dicts do."""
+    query = KEY_ORDERS[name]
+    port, ref, own = (_in_key_order(g, query) for g in engines)
+    assert port == ref, f"JAX package differs on {query!r}"
+    assert port == own, f"port oracle differs on {query!r}"
+
+
+def test_ingested_maps_keep_their_key_order():
+    """Host dicts of several key orders, ingested as maps or among "any"
+    values, come back in their own orders."""
+    s = caps_tpu_torch.local_session(device="cpu")
+    maps = [{"b": 1, "a": 2}, {"a": 3, "b": 4}, None, {"c": 5, "a": 6}]
+    mixed = [{"b": 1, "a": 2}, "x", {"a": 3, "b": [4]}, 7]
+    table = s.table_factory.from_columns({"m": maps, "x": mixed},
+                                         {"m": CTMap, "x": CTAny})
+    assert [None if v is None else list(v.items())
+            for v in table.column_values("m")] == \
+        [None if v is None else list(v.items()) for v in maps]
+    assert [list(v.items()) if isinstance(v, dict) else v
+            for v in table.column_values("x")] == \
+        [list(v.items()) if isinstance(v, dict) else v for v in mixed]
+
+
+def test_to_string_reads_its_held_values_once():
+    """toString of values nested at any depth reads the distinct values
+    to the host in one counted transfer each, and an exact replay reads
+    as many and no size."""
+    s = caps_tpu_torch.local_session(device="cpu")
+    nodes, rels = arrays()
+    g = port_make_graph(s, nodes, rels)
+    for query, reads in ((CASES["to_string_of_nested_maps"], 1),
+                         (KEY_ORDERS["held_maps_of_two_orders"], 1),
+                         (CASES["to_string_of_lists_of_any_kind"], 4)):
+        first = g.cypher(query)
+        assert first.metrics["held_reads"] == reads, query
+        again = g.cypher(query)
+        assert again.metrics["held_reads"] == reads
+        assert again.metrics["size_syncs"] == 0
 
 
 def test_a_cause_both_packages_refuse_raises_naming_it(engines):

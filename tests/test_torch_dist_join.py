@@ -194,6 +194,29 @@ def test_dist_join_carries_list_columns():
                 use_ring=False), [LIST_Q], "dist_joins")
 
 
+MAP_Q = ("MATCH (a:P) WHERE a.v < 12 WITH a, CASE WHEN a.v > 5 "
+         "THEN {z: a.v, a: a.v % 3} ELSE {a: 'x', y: a.v, z: 0} END AS m "
+         "MATCH (a)-[r:T]->(b:P) "
+         "RETURN m, toString(m) AS t, m.z AS z, m.a AS ma, m.y AS y, "
+         "keys(m) AS k, b.v AS v")
+
+
+def test_dist_join_carries_maps_in_their_key_order():
+    """A map column whose rows print their keys in orders of their own
+    (``{z: …, a: …}`` beside ``{a: …, y: …, z: …}``) rides the exchange
+    with its presence and its order in line with its keys: entries,
+    keys and the text of each row are the JAX package's (which answers
+    maps through its host fallback, so joins them unsharded)."""
+    (got, pm, want, _jm, plain), = _run_both(
+        dict(mesh_shape=(4,), use_csr=False, broadcast_join_threshold=0),
+        [MAP_Q])
+    assert pm["dist_joins"] > 0
+    assert len(want) > 0 and {r["t"] for r in want} >= {
+        "{'z': 6, 'a': 0}", "{'a': 'x', 'y': 0, 'z': 0}"}
+    assert Bag(got) == want
+    assert Bag(got) == plain
+
+
 # -- the pieces, against the JAX functions ------------------------------------
 
 def test_salted_dest_equals_the_jax_function():
