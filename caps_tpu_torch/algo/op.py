@@ -157,7 +157,11 @@ class AlgoProcedureOp(RelationalOperator):
         backend = self._backend()
         dev = backend.device
         nvar, rvar = "__algo_n", "__algo_r"
+        from caps_tpu_torch.backends.cuda.sharded import whole
         n_header, n_table = self.graph.scan_node(nvar, ())
+        # the fixpoints run on one device: row-resident scans gather to
+        # the lead first
+        n_table = whole(n_table)
         idc = n_table._cols[n_header.column(E.Var(nvar))]
         top = torch.full((), _TOP, dtype=torch.int64, device=dev)
         keys = torch.where(idc.valid & n_table.row_ok,
@@ -172,6 +176,7 @@ class AlgoProcedureOp(RelationalOperator):
                           top)
 
         r_header, r_table = self.graph.scan_rel(rvar, ())
+        r_table = whole(r_table)
         rv = E.Var(rvar)
         s = r_table._cols[r_header.column(E.StartNode(rv))]
         t = r_table._cols[r_header.column(E.EndNode(rv))]

@@ -229,7 +229,9 @@ once per trace of a `shard_map` program, so there they count per
 compile).  `backend.ici_bytes` / `.ici_payload_bytes` (and the per-query
 `ici_bytes` metrics) count the bytes that cross between shards; on a
 virtual mesh, whose shards share one card, that is a copy within the
-card's memory.
+card's memory.  `backend.gathers` / `.gather_bytes` (and the per-query
+`gathers` / `gather_bytes` metrics) count the gathers of row-resident
+tables to the lead device and their bytes, which `ici_bytes` includes.
 
 ```python
 from caps_tpu_torch.obs.metrics import MetricsRegistry

@@ -35,6 +35,7 @@ from typing import (
     Any, Callable, Dict, FrozenSet, List, Mapping, Optional, Tuple,
 )
 
+from caps_tpu_torch.backends.cuda.sharded import ShardedTable
 from caps_tpu_torch.backends.cuda.table import (
     DeviceBackend, DeviceTable, FusedReplayMismatch,
 )
@@ -422,7 +423,8 @@ class FusedExecutor:
                 table = getattr(getattr(state.get("result"), "records",
                                         None), "table", None)
                 bad = (table.prime_exact(viol)
-                       if isinstance(table, DeviceTable) else bool(viol))
+                       if isinstance(table, (DeviceTable, ShardedTable))
+                       else bool(viol))
                 if bad:
                     raise FusedReplayMismatch(
                         "generic replay relation violated (an actual "

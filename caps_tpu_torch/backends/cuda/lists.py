@@ -182,6 +182,11 @@ class EntityIndex:
                              else graph.scan_rel(_IX))
         finally:
             backend.count_mode = mode
+        from caps_tpu_torch.backends.cuda.sharded import whole
+        from caps_tpu_torch.backends.cuda.table import _on_device
+        # a probe of the whole scan: a row-resident one gathers first,
+        # onto the compiling shard's device
+        table = _on_device(whole(table), backend)
         self.kind = kind
         self.header = header
         self.columns = table._cols
@@ -226,7 +231,7 @@ def entity_index(comp: DeviceExprCompiler, kind: str) -> EntityIndex:
         raise UnsupportedOnDevice("entity access in a list expression "
                                   "without a graph")
     backend = comp.backend
-    return ctx.index(("cuda", kind),
+    return ctx.index(("cuda", kind, str(backend.device)),
                      lambda g: EntityIndex(backend, g, kind))
 
 

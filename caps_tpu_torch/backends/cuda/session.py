@@ -103,7 +103,8 @@ class CUDACypherSession(RelationalCypherSession):
         generic0 = self.fused.generic_replays
         # the mesh's communication accounting, as per-query deltas
         dist0 = (be.ici_bytes, be.dist_joins, be.broadcast_joins,
-                 be.ici_payload_bytes, be.salted_joins)
+                 be.ici_payload_bytes, be.salted_joins, be.gathers,
+                 be.gather_bytes)
         if not use_fused:
             result = super()._cypher_on_graph(graph, query, parameters)
         else:
@@ -138,7 +139,8 @@ class CUDACypherSession(RelationalCypherSession):
             result.metrics["held_reads"] = be.held_reads - held0
             for name, v0 in zip(("ici_bytes", "dist_joins",
                                  "broadcast_joins", "ici_payload_bytes",
-                                 "salted_joins"), dist0):
+                                 "salted_joins", "gathers",
+                                 "gather_bytes"), dist0):
                 result.metrics[name] = getattr(be, name) - v0
             if be.mesh is not None:
                 result.metrics["mesh"] = be.mesh.describe()
@@ -214,6 +216,8 @@ class CUDACypherSession(RelationalCypherSession):
             "backend.dist_joins": self.backend.dist_joins,
             "backend.broadcast_joins": self.backend.broadcast_joins,
             "backend.salted_joins": self.backend.salted_joins,
+            "backend.gathers": self.backend.gathers,
+            "backend.gather_bytes": self.backend.gather_bytes,
         })
         return snap
 
@@ -243,9 +247,18 @@ class CUDACypherSession(RelationalCypherSession):
         surviving shard slots (the largest power-of-two prefix, so
         bucketed capacities stay divisible; a 2-D mesh regroups the
         survivors by their DCN row and keeps rows slice-contiguous),
-        re-place every column of every catalog graph (and of
-        ``graphs``) on the new lead device, and rebuild each
-        relationship table's CSR.  Returns the new shard count.
+        re-place every table of every catalog graph (and of ``graphs``)
+        over the survivors, and rebuild each relationship table's CSR.
+        Returns the new shard count.
+
+        A table is rebuilt on the new lead first (``sharded.recover``):
+        from its columns' ingest mirrors where each has one (a lost
+        card's buffers are unreadable; the mirror is the replica, as in
+        the JAX package), else from its blocks, read only from
+        ``healthy`` slots — a table that needs a lost slot's block and
+        has a column without a mirror raises, before the session
+        changes.  It is then placed anew: row-resident where its rows
+        divide over the new mesh, whole on the new lead otherwise.
 
         A re-shard changes the shard count and with it every recorded
         size stream (bin capacities, per-shard output sizes): the fused
@@ -255,6 +268,10 @@ class CUDACypherSession(RelationalCypherSession):
 
         ``healthy``: the surviving mesh slots (default: those whose
         ``health_check`` passes)."""
+        from caps_tpu_torch.backends.cuda.sharded import (
+            ShardedTable, place_table, recover,
+        )
+        from caps_tpu_torch.backends.cuda.table import DeviceTable
         from caps_tpu_torch.okapi.catalog import SessionGraphDataSource
         from caps_tpu_torch.parallel.mesh import mesh_from_slots
         be = self.backend
@@ -273,34 +290,48 @@ class CUDACypherSession(RelationalCypherSession):
                     by_row.append(keep)
             width = 1 << (min(len(v) for v in by_row).bit_length() - 1)
             rows = [v[:width] for v in by_row]
-            be.mesh = mesh_from_slots(rows)
             survivors = [d for r in rows for d in r]
         else:
             k = 1 << (len(healthy).bit_length() - 1)
-            survivors = list(healthy[:k])
-            be.mesh = mesh_from_slots(survivors)
-        lead = getattr(survivors[0], "device", self.device)
-        be.device = self.device = torch.device(lead)
-        be.fused_count_static.clear()
-        be.fused_count_fns.clear()
-        be.algo_fns.clear()
+            rows = survivors = list(healthy[:k])
+        lead = torch.device(getattr(survivors[0], "device", self.device))
+        home = old.slots[0] if old is not None else None
 
         targets = list(graphs or [])
         for ns in self.catalog.namespaces:
             src = self.catalog.source(ns)
             if isinstance(src, SessionGraphDataSource):
                 targets.extend(src.graph(g) for g in src.graph_names())
-        from caps_tpu_torch.backends.cuda.table import DeviceTable
-        seen = set()
+        # every table whole on the new lead, before the session changes
+        wholes = {}
         for g in targets:
             for et in (tuple(getattr(g, "node_tables", ()))
                        + tuple(getattr(g, "rel_tables", ()))):
                 t = et.table
-                if id(t) in seen or not isinstance(t, DeviceTable):
+                if id(t) in wholes:
                     continue
-                seen.add(id(t))
-                t._cols = {c: col.to_device(be.device)
-                           for c, col in t._cols.items()}
+                name = getattr(et.mapping, "rel_type", None) or ":".join(
+                    sorted(getattr(et.mapping, "labels", ())))
+                if isinstance(t, ShardedTable):
+                    wholes[id(t)] = (t, recover(
+                        be, t.parts, [p.backend.slot for p in t.parts],
+                        healthy, lead, name))
+                elif isinstance(t, DeviceTable):
+                    wholes[id(t)] = (t, recover(
+                        be, [t], [home], healthy if home is not None
+                        else [None], lead, name))
+
+        be.mesh = mesh_from_slots(rows)
+        be.device = self.device = lead
+        be.fused_count_static.clear()
+        be.fused_count_fns.clear()
+        be.algo_fns.clear()
+        placed = {k: (t, place_table(w)) for k, (t, w) in wholes.items()}
+        for g in targets:
+            for et in (tuple(getattr(g, "node_tables", ()))
+                       + tuple(getattr(g, "rel_tables", ()))):
+                if id(et.table) in placed:
+                    et.table = placed[id(et.table)][1]
             for rt in getattr(g, "rel_tables", ()):
                 # rebuild the CSR physical layout on the new placement
                 self._factory.prepare_rel_table(rt)

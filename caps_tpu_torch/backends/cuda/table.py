@@ -41,6 +41,10 @@ from caps_tpu_torch.backends.cuda.expr import (
 from caps_tpu_torch.backends.cuda import anyvalue as A
 from caps_tpu_torch.backends.cuda import maps as M
 from caps_tpu_torch.backends.cuda.pool import make_pool
+from caps_tpu_torch.backends.cuda.sharded import (
+    ShardedTable, assemble, base_backend, place_rows, place_table,
+    split_column, split_table, whole,
+)
 from caps_tpu_torch.relational.table import ExprEvalError
 from caps_tpu_torch.ir.exprs import Expr
 from caps_tpu_torch.obs import active_tracer
@@ -121,6 +125,10 @@ class DeviceBackend:
         self.dist_joins = 0       # radix exchange joins executed
         self.broadcast_joins = 0  # broadcast joins executed
         self.salted_joins = 0     # radix joins that salted hot keys
+        # row-resident tables gathered to the lead (sharded.py): how
+        # often, and their bytes (counted in ici_bytes too)
+        self.gathers = 0
+        self.gather_bytes = 0
         # last cost-model distribution decision (relational/cost.py
         # choose_dist_strategy)
         self.last_dist_decision: Optional[Dict] = None
@@ -145,16 +153,17 @@ class DeviceBackend:
     def bucket(self, n: int) -> int:
         return max(1, self.shapes.bucket(n))
 
-    def place_column(self, col: Column) -> Column:
-        """The placement seam every ingested column passes.  Nothing
-        moves, also on a mesh: a column keeps its rows whole on the lead
-        device (there is no partitioner to keep 1/n of a table per card);
-        the hand-scheduled paths pad to a shard multiple and split rows
-        where they run (``parallel/collectives.shard_blocks``).  Fault
-        injection (testing/faults.py ``abort_write``,
+    def place_column(self, col: Column):
+        """The placement seam every placed column passes (ingest, literal
+        and row-index columns, compaction, a replica's and a re-shard's
+        tables), the JAX package's ``place_column``: on a mesh, a column
+        whose row count divides over the shards comes back as its
+        per-slot blocks (a list, DCN-major, block ``i`` on slot ``i``'s
+        device: ``sharded.py``); anything else stays whole (the column
+        itself).  Fault injection (testing/faults.py ``abort_write``,
         ``flaky_compaction``, ``flaky_ingest``, ``corrupt_shard``) wraps
         it."""
-        return col
+        return place_rows(self, col)
 
     def tombstone_tensor(self, values, dtype: torch.dtype) -> torch.Tensor:
         """A snapshot's tombstone ids on the device, sorted and padded
@@ -337,6 +346,9 @@ class DeviceBackend:
             bad = actual < served
         else:  # exact
             bad = actual != served
+        # a shard's check lands on the session's device, where the flag
+        # is read
+        bad = bad.to(self.device)
         self._replay_viol = (bad if self._replay_viol is None
                              else self._replay_viol | bad)
         # any non-stat relation check downstream of a served __obj__
@@ -508,26 +520,39 @@ class DeviceTable(Table):
         out[dst] = self._cols[src]
         return self._with_cols(out)
 
-    def with_literal_column(self, name, value, ctype) -> "DeviceTable":
+    def with_literal_column(self, name, value, ctype) -> Table:
         try:
             col = self.backend.place_column(
                 literal_column(value, ctype, self.capacity,
                                self.backend.pool, self.backend.device))
         except ValueError as ex:
             raise UnsupportedOnDevice(f"with_literal_column: {ex}")
-        out = dict(self._cols)
-        out[name] = col
-        return self._with_cols(out)
+        return self._with_placed(name, col)
 
-    def with_row_index(self, name: str) -> "DeviceTable":
+    def with_row_index(self, name: str, offset: int = 0) -> Table:
+        """Each row's capacity slot (plus ``offset``: a block's place in
+        its row-resident table)."""
         dev = self.backend.device
         col = self.backend.place_column(
-            Column("int", torch.arange(self.capacity, dtype=torch.int64,
-                                       device=dev),
+            Column("int", torch.arange(offset, offset + self.capacity,
+                                       dtype=torch.int64, device=dev),
                    torch.ones(self.capacity, dtype=torch.bool, device=dev),
                    CTInteger))
+        return self._with_placed(name, col)
+
+    def _with_placed(self, name: str, placed) -> Table:
+        """This table with a placed column added: where the seam split
+        it over the mesh, the table's other columns follow it into
+        per-slot blocks (the JAX package places the new column
+        row-sharded beside them)."""
+        if isinstance(placed, list):
+            mesh = self.backend.mesh
+            cols = {c: split_column(col, mesh)
+                    for c, col in self._cols.items()}
+            cols[name] = placed
+            return assemble(self.backend, cols, self._n, self._live)
         out = dict(self._cols)
-        out[name] = col
+        out[name] = placed
         return self._with_cols(out)
 
     def _compiler(self, header: RecordHeader, parameters
@@ -628,12 +653,12 @@ class DeviceTable(Table):
         count, hi = both.tolist()
         return hi if count else None
 
-    def place(self) -> "DeviceTable":
+    def place(self) -> Table:
         """This table with every column passed through the backend's
         placement seam (``DeviceBackend.place_column``), as an ingested
-        table's are: compaction's folded base is a new placement."""
-        return self._with_cols({c: self.backend.place_column(col)
-                                for c, col in self._cols.items()})
+        table's are: compaction's folded base is a new placement
+        (row-resident on a mesh where its rows divide)."""
+        return place_table(self)
 
     def _compact(self, mask: torch.Tensor) -> "DeviceTable":
         new_n, live = self.backend.consume_rows(K.mask_count(mask))
@@ -642,7 +667,10 @@ class DeviceTable(Table):
                            live=live)
 
     def join(self, other: Table, how: str,
-             pairs: Sequence[Tuple[str, str]]) -> "DeviceTable":
+             pairs: Sequence[Tuple[str, str]]) -> Table:
+        if self.backend.mesh is not None or isinstance(other, ShardedTable):
+            # on a mesh the join's output is placed over the shards
+            return mesh_join(self, other, how, pairs)
         assert isinstance(other, DeviceTable)
         shared = set(self.columns) & set(other.columns)
         if shared:
@@ -653,7 +681,8 @@ class DeviceTable(Table):
             raise UnsupportedOnDevice(f"join: {how} join")
         return self._sort_merge_join(other, how, pairs)
 
-    def _join_key(self, col: Column, side: str = "l") -> torch.Tensor:
+    @staticmethod
+    def _join_key(col: Column, side: str = "l") -> torch.Tensor:
         if col.kind in ("id", "int", "str", "bool", "date", "datetime"):
             return col.data.to(torch.int64)
         if col.kind == "float":
@@ -691,44 +720,34 @@ class DeviceTable(Table):
             rcol._join_sort = (key, res)
         return res
 
-    def _csr_for(self, other: "DeviceTable", rcol: Column):
-        """The device-resident CSR for a build-side column, if the ingest
-        hook (DeviceTableFactory.prepare_rel_table) attached one and the
-        table still has the exact shape it was built for."""
-        if not self.backend.config.use_csr:
-            return None
-        cached = getattr(rcol, "_csr", None)
-        if (cached is not None and other._live is None
-                and cached[0] == (other._n,)):
-            return cached[1]
-        return None
-
-    def _masked_left_key(self, lcol: Column) -> torch.Tensor:
+    @staticmethod
+    def _masked_left_key(lcol: Column) -> torch.Tensor:
         """Probe key with null values folded to the never-matching
         sentinel; liveness (row_ok) stays separate from key validity."""
-        key = self._join_key(lcol)
+        key = DeviceTable._join_key(lcol)
         return torch.where(lcol.valid, key, torch.full_like(key, K._L_NULL))
 
-    def _sort_merge_join(self, other: "DeviceTable", how: str,
-                         pairs: Sequence[Tuple[str, str]]) -> "DeviceTable":
+    def _sort_merge_join(self, other: Table, how: str,
+                         pairs: Sequence[Tuple[str, str]],
+                         csr=None) -> "DeviceTable":
+        """The single-program join: a CSR probe (``csr``, else the one
+        the build column carries) or a sort of the build side and a
+        binary search, then the expand-positions kernel.  A
+        row-resident build side comes with its CSR: each of its blocks
+        serves the matched rows it holds (``ShardedTable.take_rows``)."""
         lc, rc = pairs[0]
-        lcol, rcol = self._cols[lc], other._cols[rc]
+        lcol = self._cols[lc]
         l_ok = self.row_ok
         left_join = how == "left"
-        csr = self._csr_for(other, rcol)
         if csr is None:
-            # No resident adjacency to probe: on a mesh, schedule the
-            # exchange by hand (radix exchange / broadcast join,
-            # parallel/dist_join.py)
-            dist = self._dist_join(other, how, pairs)
-            if dist is not None:
-                return dist
+            csr = _csr_of(other, rc)
         if csr is not None:
             # CSR probe: two indptr gathers per row, no sort, no search
             counts, lo = csr.probe(self._masked_left_key(lcol), l_ok)
             perm = csr.perm
         else:
-            rk_sorted, perm = self._cached_right_sort(other, rcol)
+            rk_sorted, perm = self._cached_right_sort(other,
+                                                      other._cols[rc])
             counts, lo = K.probe_count(self._masked_left_key(lcol), l_ok,
                                        rk_sorted)
         total, live = self.backend.consume_rows(
@@ -738,193 +757,16 @@ class DeviceTable(Table):
         l_idx, r_idx, out_valid, r_matched = OPS.join_expand_via_positions(
             counts, lo, perm, l_ok, out_cap, left_join)
         out_cols = _gather_cols(self._cols, l_idx)
-        right = _gather_cols(other._cols, r_idx)
+        if isinstance(other, ShardedTable):
+            right = other.take_rows(r_idx.long(),
+                                    getattr(self.backend, "slot", None))
+        else:
+            right = _gather_cols(other._cols, r_idx)
         for c, col in right.items():
             out_cols[c] = dataclasses.replace(col,
                                               valid=col.valid & r_matched)
         out = DeviceTable(self.backend, out_cols, total, live=live)
         return out._extra_pair_filter(pairs, left_join)
-
-    def _detect_hot_keys(self, l_key, l_ok, n: int, keep_top: int = 0):
-        """Host-side probe-key sample → (sorted hot-key array, auto salt).
-        A key is hot when its sampled frequency exceeds
-        ``join_hot_factor`` × the per-shard fair share; the suggested
-        salt spreads the hottest key back under the fair share (SURVEY.md
-        §5.8).  ``keep_top``: when no key crosses the threshold, still
-        return the ``keep_top`` most frequent sampled keys (a manual salt
-        must engage on the heaviest keys)."""
-        cfg = self.backend.config
-        H = cfg.join_hot_capacity
-        S = min(4096, int(l_key.shape[0]))
-        # one read through the record/replay stream: a fused replay
-        # serves the recorded sample with no read
-        sample, ok = self.backend.consume_obj(
-            lambda: (l_key[:S].cpu().numpy(), l_ok[:S].cpu().numpy()))
-        live = sample[ok]
-        if live.shape[0] == 0:
-            return np.zeros((0,), np.int64), 1
-        vals, counts = np.unique(live, return_counts=True)
-        fair = max(1.0, live.shape[0] / n)
-        hot_mask = counts > cfg.join_hot_factor * fair
-        hot_vals = vals[hot_mask]
-        if hot_vals.shape[0] > H:  # keep the heaviest H
-            order = np.argsort(counts[hot_mask])[::-1][:H]
-            hot_vals = hot_vals[order]
-        salt = 1
-        if hot_vals.shape[0]:
-            need = int(np.ceil(counts.max() / fair))
-            salt = 2
-            while salt < min(n, need):
-                salt *= 2
-            salt = min(salt, n)
-        elif keep_top:
-            hot_vals = vals[np.argsort(counts)[::-1][:keep_top]]
-        return np.sort(hot_vals.astype(np.int64)), salt
-
-    def _dist_join(self, other: "DeviceTable", how: str,
-                   pairs: Sequence[Tuple[str, str]]
-                   ) -> Optional["DeviceTable"]:
-        """Hand-scheduled distributed join over the mesh
-        (parallel/dist_join.py): broadcast join for small build sides,
-        radix exchange with SURGICAL hot-key salting (only detected-hot
-        keys replicate) otherwise.  Both sides pad to a shard multiple;
-        every per-row tensor of a column (list matrices included) rides
-        the exchange.  Returns None when the config or join kind rules
-        it out — a planned strategy: the caller then runs its
-        single-program join."""
-        be = self.backend
-        cfg = be.config
-        if (be.mesh is None or not cfg.use_dist_join
-                or how not in ("inner", "left")):
-            return None
-        n = be.n_shards
-        if n <= 1:
-            return None
-        from caps_tpu_torch.parallel import dist_join as DJ
-        from caps_tpu_torch.relational.cost import choose_dist_strategy
-        lc, rc = pairs[0]
-        lcol, rcol = self._cols[lc], other._cols[rc]
-        # null keys fold to the sentinel; liveness stays separate so
-        # LEFT joins retain null-key rows
-        l_key = self._masked_left_key(lcol)
-        r_key = self._join_key(rcol, side="r")
-        l_ok = self.row_ok
-        r_ok = rcol.valid & other.row_ok
-        left_join = how == "left"
-
-        cap_l = -(-self.capacity // n) * n
-        cap_r = -(-other.capacity // n) * n
-        l_key, l_ok = _pad_rows(l_key, cap_l), _pad_rows(l_ok, cap_l)
-        r_key, r_ok = _pad_rows(r_key, cap_r), _pad_rows(r_ok, cap_r)
-        l_names, r_names = list(self._cols), list(other._cols)
-        l_arrs = [_pad_rows(t, cap_l) for c in l_names
-                  for t in _col_tensors(self._cols[c])]
-        r_arrs = [_pad_rows(t, cap_r) for c in r_names
-                  for t in _col_tensors(other._cols[c])]
-
-        KEY_OK_BYTES = 9  # int64 key + bool validity channel
-
-        def row_bytes(arrs) -> int:
-            return KEY_OK_BYTES + sum(
-                a.element_size() * int(np.prod(a.shape[1:], dtype=np.int64))
-                for a in arrs)
-
-        # the SAME model function the planner's EXPLAIN annotation
-        # consults, pricing actual row counts
-        strategy, decision = choose_dist_strategy(self._n, other._n, n, cfg)
-        be.last_dist_decision = {"strategy": strategy, **decision}
-        tr = active_tracer()
-        if strategy == "broadcast":
-            bp1 = DJ.broadcast_join_phase1(be.mesh, l_key, l_ok, r_key,
-                                           r_ok, left_join)
-            out_cap_dev = be.bucket(max(1, be.consume_count(
-                bp1.max_total, relation="cap")))
-            res = DJ.broadcast_join_phase2(be.mesh, bp1, l_key, l_ok, r_key,
-                                           r_ok, l_arrs, r_arrs, out_cap_dev,
-                                           left_join)
-            # each shard receives the other (n-1) shards of the build
-            # side; wire = padded buffers, payload = live rows measured
-            # on the device
-            wire = (KEY_OK_BYTES + row_bytes(r_arrs)) * cap_r * (n - 1)
-            be.ici_bytes += wire
-            payload = (KEY_OK_BYTES + row_bytes(r_arrs)) \
-                * be.consume_count(bp1.live_r, relation="stat") * (n - 1)
-            be.ici_payload_bytes += payload
-            be.broadcast_joins += 1
-            if tr.enabled:
-                tr.event("dist_join.broadcast", kind="collective",
-                         bytes=wire, payload_bytes=payload, shards=n)
-        else:
-            manual = cfg.join_salt > 1
-            # a manual salt must engage even when detection finds no
-            # outlier: salt the heaviest sampled key
-            hot_np, auto_salt = self._detect_hot_keys(
-                l_key, l_ok, n, keep_top=1 if manual else 0)
-            salt = cfg.join_salt if manual else auto_salt
-            # the salt must divide the shard count for distinct
-            # sub-bucket targets (power-of-2 meshes: round down)
-            salt = max(1, min(salt, n))
-            while n % salt:
-                salt -= 1
-            H = max(1, cfg.join_hot_capacity)
-            hot = np.full((H,), np.iinfo(np.int64).max, np.int64)
-            hot[:hot_np.shape[0]] = hot_np[:H]
-            hot_keys = torch.from_numpy(np.sort(hot)).to(be.device)
-
-            local_cap = max(cap_l, cap_r) // n
-            bin_cap = min(local_cap, max(8, -(-local_cap * 2 // n)))
-            # hot sub-buckets carry only the replicated hot build rows
-            hot_bin_cap = bin_cap if salt <= 1 else \
-                min(local_cap, max(8, bin_cap // 2))
-            wire_total = 0  # across bin-widening retries
-            while True:
-                p1 = DJ.radix_join_phase1(be.mesh, hot_keys, l_key, l_ok,
-                                          r_key, r_ok, l_arrs, r_arrs,
-                                          bin_cap, salt, hot_bin_cap)
-                # of each shard's n bins, n-1 leave it (bin i stays on
-                # shard i); hot sub-buckets are the smaller buffers
-                wire = (row_bytes(l_arrs) * bin_cap
-                        + row_bytes(r_arrs)
-                        * (bin_cap + (salt - 1) * hot_bin_cap)) * n * (n - 1)
-                be.ici_bytes += wire
-                wire_total += wire
-                if be.consume_count(p1.dropped, relation="exact") == 0:
-                    break
-                if bin_cap >= local_cap and hot_bin_cap >= local_cap:
-                    raise RuntimeError(
-                        "dist join: rows dropped at the safe bin bound")
-                bin_cap = min(local_cap, bin_cap * 2)
-                hot_bin_cap = min(local_cap, hot_bin_cap * 2)
-            payload_bytes = (
-                row_bytes(l_arrs) * be.consume_count(p1.sent_l,
-                                                     relation="stat")
-                + row_bytes(r_arrs) * be.consume_count(p1.sent_r,
-                                                       relation="stat"))
-            be.ici_payload_bytes += payload_bytes
-            if tr.enabled:
-                tr.event("dist_join.radix", kind="collective",
-                         bytes=wire_total, payload_bytes=payload_bytes,
-                         shards=n, salt=salt)
-            total_dev = be.consume_count(
-                p1.max_left if left_join else p1.max_total, relation="cap")
-            out_cap_dev = be.bucket(max(1, total_dev))
-            res = DJ.radix_join_phase2(be.mesh, p1, out_cap_dev, left_join)
-            be.dist_joins += 1
-            if salt > 1:
-                be.salted_joins += 1
-
-        l_valid, r_valid, l_out, r_out = res
-        out_cols: Dict[str, Column] = {}
-        for names, cols, datas, side_valid in (
-                (l_names, self._cols, l_out, l_valid),
-                (r_names, other._cols, r_out, r_valid)):
-            it = iter(datas)
-            for c in names:
-                col = _col_from(cols[c], it)
-                out_cols[c] = dataclasses.replace(
-                    col, valid=col.valid & side_valid)
-        tmp = DeviceTable(be, out_cols, int(l_valid.shape[0]))
-        return tmp._compact(l_valid)._extra_pair_filter(pairs, left_join)
 
     def _extra_pair_filter(self, pairs: Sequence[Tuple[str, str]],
                            left_join: bool) -> "DeviceTable":
@@ -977,6 +819,7 @@ class DeviceTable(Table):
         return DeviceTable(self.backend, out_cols, total, live=live)
 
     def union_all(self, other: Table) -> "DeviceTable":
+        other = whole(other)
         assert isinstance(other, DeviceTable)
         if set(self.columns) != set(other.columns):
             raise ValueError(f"union column mismatch: {self.columns} vs "
@@ -1068,6 +911,12 @@ class DeviceTable(Table):
         if fast is not None:
             return fast
         return self._group_device(by, aggs)
+
+    def _group_dense_cuda(self, by: Sequence[str], aggs: Sequence[AggSpec]
+                          ) -> Optional["DeviceTable"]:
+        """The dense histogram group-by (:func:`dense_group`), or None
+        where its shape does not fit."""
+        return dense_group(self.backend, self, by, aggs)
 
     def _group_device(self, by: Sequence[str],
                       aggs: Sequence[AggSpec]) -> "DeviceTable":
@@ -1196,101 +1045,6 @@ class DeviceTable(Table):
         vhi = values[(starts + hi).clamp(0, last)].to(torch.float64)
         data = vlo * (1.0 - frac) + vhi * frac
         return Column("float", data, (counts > 0) & group_live, CTFloat)
-
-    def _group_dense_cuda(self, by: Sequence[str], aggs: Sequence[AggSpec]
-                          ) -> Optional["DeviceTable"]:
-        """Sort-free group-by over a dictionary-coded key: the string pool
-        makes group keys a *dense* int domain, so grouping is a histogram
-        (the segment-aggregation kernel, ops/segment.py).  Returns None
-        when the shape does not fit (the sorted path then runs)."""
-        if len(by) != 1:
-            return None
-        if any(a.distinct or a.kind == "collect" for a in aggs):
-            return None
-        key_col = self._cols.get(by[0])
-        if key_col is None or key_col.kind not in ("str", "bool"):
-            return None
-        domain = len(self.backend.pool) if key_col.kind == "str" else 2
-        S = domain + 1  # one slot for the null-key group
-        if S > DENSE_GROUP_MAX_SEGMENTS or S > self.capacity * 64:
-            return None
-        for a in aggs:
-            if a.kind not in ("count_star", "count", "min", "max"):
-                return None
-            if a.kind in ("min", "max"):
-                c = self._cols.get(a.col)
-                if c is None or c.kind not in ("int", "id"):
-                    return None
-        row_ok = self.row_ok
-        # int64 min/max ride the int32 kernel only when the values fit
-        for c in {a.col for a in aggs if a.kind in ("min", "max")}:
-            col = self._cols[c]
-            if col.kind == "int":
-                ok = col.valid & row_ok
-                zero = torch.zeros_like(col.data)
-                lo = self.backend.consume_count(
-                    torch.where(ok, col.data, zero).min(), relation="lo")
-                hi = self.backend.consume_count(
-                    torch.where(ok, col.data, zero).max(), relation="cap")
-                if not (-2**31 < lo and hi < 2**31):
-                    return None
-
-        dev = self.backend.device
-        OPS.ensure_kernels("basic", dev)
-        backend = self.backend
-        # on a mesh the kernel runs once per shard's row block and the
-        # partials combine (the JAX package's sharded Pallas group-by)
-        sharded = (backend.mesh is not None
-                   and self.capacity % backend.n_shards == 0)
-
-        def agg_kernel(codes_, ok_, vals_, kind_):
-            if sharded:
-                return OPS.dense_segment_agg_sharded(
-                    backend.mesh, codes_, ok_, vals_, S, kind_)
-            return OPS.dense_segment_agg(codes_, ok_, vals_, S, kind_)
-
-        codes = torch.where(key_col.valid & row_ok,
-                            key_col.data.to(torch.int32),
-                            torch.full_like(key_col.data, domain,
-                                            dtype=torch.int32)).contiguous()
-        counts_all = agg_kernel(codes, row_ok, codes, "count")
-        count_cache: Dict[str, torch.Tensor] = {}
-
-        def count_of(col_name: str) -> torch.Tensor:
-            if col_name not in count_cache:
-                col = self._cols[col_name]
-                count_cache[col_name] = agg_kernel(
-                    codes, col.valid & row_ok, codes, "count")
-            return count_cache[col_name]
-
-        slots = torch.arange(S, device=dev)
-        live = torch.ones(S, dtype=torch.bool, device=dev)
-        out: Dict[str, Column] = {}
-        if key_col.kind == "str":
-            out[by[0]] = Column("str", slots.to(torch.int32), slots < domain,
-                                key_col.ctype)
-        else:
-            out[by[0]] = Column("bool", slots == 1, slots < domain,
-                                key_col.ctype)
-        for a in aggs:
-            if a.kind == "count_star":
-                out[a.name] = Column("int", counts_all.to(torch.int64), live,
-                                     CTInteger)
-            elif a.kind == "count":
-                out[a.name] = Column("int", count_of(a.col).to(torch.int64),
-                                     live, CTInteger)
-            else:  # min / max over int/id
-                col = self._cols[a.col]
-                agg = agg_kernel(
-                    codes, col.valid & row_ok,
-                    col.data.to(torch.int32).contiguous(),
-                    "min_i32" if a.kind == "min" else "max_i32")
-                has = count_of(a.col) > 0
-                out[a.name] = Column(col.kind, agg.to(
-                    torch.int64 if col.kind == "int" else torch.int32),
-                    has, col.ctype)
-        dense = DeviceTable(self.backend, out, S)
-        return dense._compact(counts_all > 0)
 
     def _one_agg(self, a: AggSpec, cols: Dict[str, Column], seg_id,
                  num_segments: int, row_ok, n_groups: int,
@@ -1989,6 +1743,394 @@ def _sort_keys(col: Column, ascending: bool, nulls_last: bool,
     return [null_key, data]
 
 
+def _pad_column(col: Column, cap: int) -> Column:
+    """``col``'s per-row tensors zero-padded to ``cap`` rows (padding
+    rows null)."""
+    if col.capacity == cap:
+        return col
+    kw = {f: _pad_rows(getattr(col, f), cap) for f in _ROW_FIELDS
+          if getattr(col, f) is not None}
+    if col.fields is not None:
+        kw["fields"] = {k: _pad_column(c, cap) for k, c in col.fields.items()}
+    return dataclasses.replace(col, host=None, **kw)
+
+
+def _on_device(table: "DeviceTable", backend) -> "DeviceTable":
+    """A whole table on a shard view's device (itself where it lies
+    there already)."""
+    if table.backend.device == backend.device:
+        return table
+    cols = {c: col.to_device(backend.device) for c, col in
+            table._cols.items()}
+    return DeviceTable(backend, cols, table._n, live=None if table._live
+                       is None else table._live.to(backend.device))
+
+
+def _csr_of(table, rc: str):
+    """The device-resident CSR the ingest hook
+    (``DeviceTableFactory.prepare_rel_table``) attached to a build-side
+    column, where the table still has the exact rows it was built for (a
+    row-resident table's rides its first block's column)."""
+    if not table.backend.config.use_csr:
+        return None
+    if isinstance(table, ShardedTable):
+        if any(p._live is not None for p in table.parts):
+            return None
+        col, key = table.parts[0]._cols[rc], _csr_key(table)
+    else:
+        if table._live is not None:
+            return None
+        col, key = table._cols[rc], (table._n,)
+    cached = getattr(col, "_csr", None)
+    return cached[1] if cached is not None and cached[0] == key else None
+
+
+def _csr_key(table: "ShardedTable") -> tuple:
+    return ("rows",) + tuple(p._n for p in table.parts)
+
+
+def _csr_on(csr, device):
+    """The CSR on a shard's device: copied there once, kept beside it."""
+    if csr is None or csr.indptr.device == device:
+        return csr
+    copies = csr.__dict__.setdefault("_copies", {})
+    key = str(device)
+    if key not in copies:
+        copies[key] = dataclasses.replace(csr, indptr=csr.indptr.to(device),
+                                          perm=csr.perm.to(device))
+    return copies[key]
+
+
+def mesh_join(left, right, how: str, pairs: Sequence[Tuple[str, str]]):
+    """A join on a mesh, its output row-resident.  Without a CSR on the
+    build column, the hand-scheduled exchange (:func:`dist_join`) reads
+    both sides' resident blocks.  A CSR probe, a sort-merge join with
+    ``use_dist_join`` off and a cross join probe each of the left side's
+    blocks against the whole right side (a row-resident right side
+    gathered first, the all_gather GSPMD inserts before a probe); a whole
+    left side's output is placed over the shards."""
+    be = base_backend(left.backend)
+    shared = set(left.columns) & set(right.columns)
+    if shared:
+        raise ValueError(f"join column collision: {shared}")
+    if how != "cross" and how not in ("inner", "left"):
+        raise UnsupportedOnDevice(f"join: {how} join")
+    csr = None if how == "cross" else _csr_of(right, pairs[0][1])
+    if (how != "cross" and csr is None and be.mesh is not None
+            and be.n_shards > 1 and be.config.use_dist_join):
+        return dist_join(be, left, right, how, pairs)
+    # a CSR probe reads only the matched rows of a row-resident build
+    # side, where they reside; a sort of the build side gathers it
+    r = right if csr is not None and isinstance(right, ShardedTable) \
+        else whole(right)
+
+    def one(t, rt):
+        if how == "cross":
+            return t._cross_join(rt)
+        return t._sort_merge_join(rt, how, pairs,
+                                  csr=_csr_on(csr, t.backend.device))
+    if isinstance(left, ShardedTable):
+        return ShardedTable(be, [one(p, r if isinstance(r, ShardedTable)
+                                     else _on_device(r, p.backend))
+                                 for p in left.parts])
+    return place_table(one(left, r))
+
+
+def _detect_hot_keys(be, l_keys, l_oks, n: int, keep_top: int = 0):
+    """Host-side probe-key sample → (sorted hot-key array, auto salt).
+    The sample is the first live probe keys in row order, read from the
+    shards' blocks in one transfer.  A key is hot when its sampled
+    frequency exceeds ``join_hot_factor`` × the per-shard fair share; the
+    suggested salt spreads the hottest key back under the fair share
+    (SURVEY.md §5.8).  ``keep_top``: when no key crosses the threshold,
+    still return the ``keep_top`` most frequent sampled keys (a manual
+    salt must engage on the heaviest keys)."""
+    cfg = be.config
+    H = cfg.join_hot_capacity
+    S = 4096
+
+    def sample():
+        lead = be.device
+        keys = torch.cat([k[:S].to(lead) for k in l_keys])
+        oks = torch.cat([o[:S].to(lead) for o in l_oks])
+        return keys.cpu().numpy(), oks.cpu().numpy()
+    # one read through the record/replay stream: a fused replay serves
+    # the recorded sample with no read
+    sample_np, ok = be.consume_obj(sample)
+    live = sample_np[ok][:S]
+    if live.shape[0] == 0:
+        return np.zeros((0,), np.int64), 1
+    vals, counts = np.unique(live, return_counts=True)
+    fair = max(1.0, live.shape[0] / n)
+    hot_mask = counts > cfg.join_hot_factor * fair
+    hot_vals = vals[hot_mask]
+    if hot_vals.shape[0] > H:  # keep the heaviest H
+        order = np.argsort(counts[hot_mask])[::-1][:H]
+        hot_vals = hot_vals[order]
+    salt = 1
+    if hot_vals.shape[0]:
+        need = int(np.ceil(counts.max() / fair))
+        salt = 2
+        while salt < min(n, need):
+            salt *= 2
+        salt = min(salt, n)
+    elif keep_top:
+        hot_vals = vals[np.argsort(counts)[::-1][:keep_top]]
+    return np.sort(hot_vals.astype(np.int64)), salt
+
+
+def dist_join(be, left, right, how: str,
+              pairs: Sequence[Tuple[str, str]]) -> "ShardedTable":
+    """Hand-scheduled distributed join over the mesh
+    (parallel/dist_join.py): broadcast join for small build sides,
+    radix exchange with SURGICAL hot-key salting (only detected-hot
+    keys replicate) otherwise.  Both sides enter as per-shard blocks: a
+    row-resident table's own (realigned where a column's blocks differ
+    in kind or width), a whole table's rows split for the stage; every
+    per-row tensor of a column (list matrices included) rides the
+    exchange.  Each shard's output stays on its shard."""
+    from caps_tpu_torch.parallel import dist_join as DJ
+    from caps_tpu_torch.relational.cost import choose_dist_strategy
+    cfg = be.config
+    n = be.n_shards
+    mesh = be.mesh
+    lt = (left.realigned() if isinstance(left, ShardedTable)
+          else split_table(left, mesh))
+    rt = (right.realigned() if isinstance(right, ShardedTable)
+          else split_table(right, mesh))
+    lc, rc = pairs[0]
+    left_join = how == "left"
+    # null keys fold to the sentinel; liveness stays separate so LEFT
+    # joins retain null-key rows
+    lk = [DeviceTable._masked_left_key(p._cols[lc]) for p in lt.parts]
+    lok = [p.row_ok for p in lt.parts]
+    rk = [DeviceTable._join_key(p._cols[rc], side="r") for p in rt.parts]
+    rok = [p._cols[rc].valid & p.row_ok for p in rt.parts]
+    l_names, r_names = list(lt.columns), list(rt.columns)
+    l_arrs = [[t for c in l_names for t in _col_tensors(p._cols[c])]
+              for p in lt.parts]
+    r_arrs = [[t for c in r_names for t in _col_tensors(p._cols[c])]
+              for p in rt.parts]
+    cap_l = sum(p.capacity for p in lt.parts)
+    cap_r = sum(p.capacity for p in rt.parts)
+
+    KEY_OK_BYTES = 9  # int64 key + bool validity channel
+
+    def row_bytes(arrs) -> int:
+        return KEY_OK_BYTES + sum(
+            a.element_size() * int(np.prod(a.shape[1:], dtype=np.int64))
+            for a in arrs)
+
+    # the SAME model function the planner's EXPLAIN annotation consults,
+    # pricing actual row counts
+    strategy, decision = choose_dist_strategy(lt.size, rt.size, n, cfg)
+    be.last_dist_decision = {"strategy": strategy, **decision}
+    tr = active_tracer()
+    if strategy == "broadcast":
+        bp1 = DJ.broadcast_join_phase1(mesh, lk, lok, rk, rok, left_join)
+        out_cap_dev = be.bucket(max(1, be.consume_count(
+            bp1.max_total, relation="cap")))
+        res = DJ.broadcast_join_phase2(mesh, bp1, lk, lok, rk, rok, l_arrs,
+                                       r_arrs, out_cap_dev, left_join)
+        # each shard receives the other (n-1) shards of the build side;
+        # wire = padded buffers, payload = live rows measured on the
+        # device
+        wire = (KEY_OK_BYTES + row_bytes(r_arrs[0])) * cap_r * (n - 1)
+        be.ici_bytes += wire
+        payload = (KEY_OK_BYTES + row_bytes(r_arrs[0])) \
+            * be.consume_count(bp1.live_r, relation="stat") * (n - 1)
+        be.ici_payload_bytes += payload
+        be.broadcast_joins += 1
+        if tr.enabled:
+            tr.event("dist_join.broadcast", kind="collective",
+                     bytes=wire, payload_bytes=payload, shards=n)
+    else:
+        manual = cfg.join_salt > 1
+        # a manual salt must engage even when detection finds no
+        # outlier: salt the heaviest sampled key
+        hot_np, auto_salt = _detect_hot_keys(
+            be, lk, lok, n, keep_top=1 if manual else 0)
+        salt = cfg.join_salt if manual else auto_salt
+        # the salt must divide the shard count for distinct sub-bucket
+        # targets (power-of-2 meshes: round down)
+        salt = max(1, min(salt, n))
+        while n % salt:
+            salt -= 1
+        H = max(1, cfg.join_hot_capacity)
+        hot = np.full((H,), np.iinfo(np.int64).max, np.int64)
+        hot[:hot_np.shape[0]] = hot_np[:H]
+        hot_keys = torch.from_numpy(np.sort(hot)).to(be.device)
+
+        # no shard sends more rows to one bin than its largest block
+        local_cap = max(p.capacity for p in lt.parts + rt.parts)
+        bin_cap = min(local_cap, max(8, -(-local_cap * 2 // n)))
+        # hot sub-buckets carry only the replicated hot build rows
+        hot_bin_cap = bin_cap if salt <= 1 else \
+            min(local_cap, max(8, bin_cap // 2))
+        wire_total = 0  # across bin-widening retries
+        while True:
+            p1 = DJ.radix_join_phase1(mesh, hot_keys, lk, lok, rk, rok,
+                                      l_arrs, r_arrs, bin_cap, salt,
+                                      hot_bin_cap)
+            # of each shard's n bins, n-1 leave it (bin i stays on shard
+            # i); hot sub-buckets are the smaller buffers
+            wire = (row_bytes(l_arrs[0]) * bin_cap
+                    + row_bytes(r_arrs[0])
+                    * (bin_cap + (salt - 1) * hot_bin_cap)) * n * (n - 1)
+            be.ici_bytes += wire
+            wire_total += wire
+            if be.consume_count(p1.dropped, relation="exact") == 0:
+                break
+            if bin_cap >= local_cap and hot_bin_cap >= local_cap:
+                raise RuntimeError(
+                    "dist join: rows dropped at the safe bin bound")
+            bin_cap = min(local_cap, bin_cap * 2)
+            hot_bin_cap = min(local_cap, hot_bin_cap * 2)
+        payload_bytes = (
+            row_bytes(l_arrs[0]) * be.consume_count(p1.sent_l,
+                                                    relation="stat")
+            + row_bytes(r_arrs[0]) * be.consume_count(p1.sent_r,
+                                                      relation="stat"))
+        be.ici_payload_bytes += payload_bytes
+        if tr.enabled:
+            tr.event("dist_join.radix", kind="collective",
+                     bytes=wire_total, payload_bytes=payload_bytes,
+                     shards=n, salt=salt)
+        total_dev = be.consume_count(
+            p1.max_left if left_join else p1.max_total, relation="cap")
+        out_cap_dev = be.bucket(max(1, total_dev))
+        res = DJ.radix_join_phase2(mesh, p1, out_cap_dev, left_join)
+        be.dist_joins += 1
+        if salt > 1:
+            be.salted_joins += 1
+
+    parts = []
+    for s, (l_valid, r_valid, l_out, r_out) in enumerate(res):
+        out_cols: Dict[str, Column] = {}
+        for names, cols, datas, side_valid in (
+                (l_names, lt.parts[s]._cols, l_out, l_valid),
+                (r_names, rt.parts[s]._cols, r_out, r_valid)):
+            it = iter(datas)
+            for c in names:
+                col = _col_from(cols[c], it)
+                out_cols[c] = dataclasses.replace(
+                    col, valid=col.valid & side_valid)
+        view = lt.parts[s].backend
+        tmp = DeviceTable(view, out_cols, int(l_valid.shape[0]))
+        parts.append(tmp._compact(l_valid)._extra_pair_filter(pairs,
+                                                              left_join))
+    return ShardedTable(be, parts)
+
+
+def dense_group(backend, table, by: Sequence[str], aggs: Sequence[AggSpec]):
+    """Sort-free group-by over a dictionary-coded key: the string pool
+    makes group keys a *dense* int domain, so grouping is a histogram
+    (the segment-aggregation kernel, ops/segment.py).  On a mesh the
+    kernel runs once per shard's block — a row-resident table's
+    resident blocks; a whole table whose rows divide over the mesh is
+    split into blocks here, where the stage begins (the JAX package
+    shards the same tables) — and the partials combine on the lead
+    (the JAX package's sharded Pallas group-by).  Returns None when the
+    shape does not fit (the sorted path then runs)."""
+    if len(by) != 1:
+        return None
+    if any(a.distinct or a.kind == "collect" for a in aggs):
+        return None
+    mesh = backend.mesh
+    if mesh is not None and not isinstance(table, ShardedTable) \
+            and table.capacity % mesh.size == 0:
+        table = split_table(table, mesh)
+    sharded = isinstance(table, ShardedTable)
+    parts = table.parts if sharded else [table]
+    key_cols = [p._cols.get(by[0]) for p in parts]
+    if key_cols[0] is None or any(c.kind not in ("str", "bool")
+                                  or c.kind != key_cols[0].kind
+                                  for c in key_cols):
+        return None
+    kind = key_cols[0].kind
+    domain = len(backend.pool) if kind == "str" else 2
+    S = domain + 1  # one slot for the null-key group
+    if S > DENSE_GROUP_MAX_SEGMENTS or S > table.capacity * 64:
+        return None
+    for a in aggs:
+        if a.kind not in ("count_star", "count", "min", "max"):
+            return None
+        if a.kind in ("min", "max"):
+            cs = [p._cols.get(a.col) for p in parts]
+            if cs[0] is None or any(c.kind not in ("int", "id")
+                                    or c.kind != cs[0].kind for c in cs):
+                return None
+    row_oks = [p.row_ok for p in parts]
+    dev = backend.device
+    # int64 min/max ride the int32 kernel only when the values fit
+    for c in {a.col for a in aggs if a.kind in ("min", "max")}:
+        cols = [p._cols[c] for p in parts]
+        if cols[0].kind == "int":
+            los, his = [], []
+            for col, row_ok in zip(cols, row_oks):
+                vals = torch.where(col.valid & row_ok, col.data,
+                                   torch.zeros_like(col.data))
+                los.append(vals.min().to(dev))
+                his.append(vals.max().to(dev))
+            lo = backend.consume_count(torch.stack(los).min(), relation="lo")
+            hi = backend.consume_count(torch.stack(his).max(),
+                                       relation="cap")
+            if not (-2**31 < lo and hi < 2**31):
+                return None
+
+    for d in {str(p.backend.device): p.backend.device for p in parts}.values():
+        OPS.ensure_kernels("basic", d)
+
+    def agg_kernel(codes_, ok_, vals_, kind_):
+        if sharded:
+            return OPS.dense_segment_agg_sharded(mesh, codes_, ok_, vals_, S,
+                                                 kind_)
+        return OPS.dense_segment_agg(codes_[0], ok_[0], vals_[0], S, kind_)
+
+    codes = [torch.where(kc.valid & ok, kc.data.to(torch.int32),
+                         torch.full_like(kc.data, domain, dtype=torch.int32)
+                         ).contiguous()
+             for kc, ok in zip(key_cols, row_oks)]
+    counts_all = agg_kernel(codes, row_oks, codes, "count")
+    count_cache: Dict[str, torch.Tensor] = {}
+
+    def count_of(col_name: str) -> torch.Tensor:
+        if col_name not in count_cache:
+            count_cache[col_name] = agg_kernel(
+                codes, [p._cols[col_name].valid & ok
+                        for p, ok in zip(parts, row_oks)], codes, "count")
+        return count_cache[col_name]
+
+    slots = torch.arange(S, device=dev)
+    live = torch.ones(S, dtype=torch.bool, device=dev)
+    out: Dict[str, Column] = {}
+    key_type = key_cols[0].ctype
+    if kind == "str":
+        out[by[0]] = Column("str", slots.to(torch.int32), slots < domain,
+                            key_type)
+    else:
+        out[by[0]] = Column("bool", slots == 1, slots < domain, key_type)
+    for a in aggs:
+        if a.kind == "count_star":
+            out[a.name] = Column("int", counts_all.to(torch.int64), live,
+                                 CTInteger)
+        elif a.kind == "count":
+            out[a.name] = Column("int", count_of(a.col).to(torch.int64),
+                                 live, CTInteger)
+        else:  # min / max over int/id
+            cols = [p._cols[a.col] for p in parts]
+            agg = agg_kernel(
+                codes, [c.valid & ok for c, ok in zip(cols, row_oks)],
+                [c.data.to(torch.int32).contiguous() for c in cols],
+                "min_i32" if a.kind == "min" else "max_i32")
+            has = count_of(a.col) > 0
+            out[a.name] = Column(cols[0].kind, agg.to(
+                torch.int64 if cols[0].kind == "int" else torch.int32),
+                has, cols[0].ctype)
+    dense = DeviceTable(base_backend(backend), out, S)
+    return dense._compact(counts_all > 0)
+
+
 class DeviceTableFactory(TableFactory):
     def __init__(self, backend: DeviceBackend):
         self.backend = backend
@@ -2002,9 +2144,25 @@ class DeviceTableFactory(TableFactory):
         if not self.backend.config.use_csr:
             return
         t = rel_table.table
+        m = rel_table.mapping
+        if isinstance(t, ShardedTable):
+            # the CSR indexes the whole table's rows (a probe gathers
+            # the build side); it rides the first block's column
+            for name in (m.source_col, m.target_col):
+                col = t.parts[0]._cols.get(name)
+                if col is None or getattr(col, "_csr", None) is not None:
+                    continue
+                host = t.host_column(name)
+                if host is None:
+                    continue
+                n = t.size
+                csr = OPS.build_csr(host[0][:n], host[1][:n],
+                                    self.backend.bucket(n),
+                                    self.backend.device)
+                col._csr = (_csr_key(t), csr)
+            return
         if not isinstance(t, DeviceTable):
             return
-        m = rel_table.mapping
         for name in (m.source_col, m.target_col):
             col = t._cols.get(name)
             if col is None or col.kind not in ("id", "int"):
@@ -2021,10 +2179,10 @@ class DeviceTableFactory(TableFactory):
             col._csr = ((t._n,), csr)
 
     def from_columns(self, data: Mapping[str, Sequence[Any]],
-                     types: Mapping[str, CypherType]) -> DeviceTable:
+                     types: Mapping[str, CypherType]) -> Table:
         n = len(next(iter(data.values()))) if data else 0
         cap = self.backend.bucket(n)
-        cols: Dict[str, Column] = {}
+        cols: Dict[str, Any] = {}
         # a failed ingest must not leave the strings it interned behind
         pool_mark = self.backend.pool.mark()
         try:
@@ -2043,7 +2201,7 @@ class DeviceTableFactory(TableFactory):
         except Exception:
             self.backend.pool.rollback(pool_mark)
             raise
-        return DeviceTable(self.backend, cols, n)
+        return assemble(self.backend, cols, n)
 
     def unit(self) -> DeviceTable:
         return DeviceTable(self.backend, {}, 1)

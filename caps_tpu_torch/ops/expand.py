@@ -112,11 +112,14 @@ def expand_positions_cuda(counts: torch.Tensor, lo: torch.Tensor,
     counts, lo = counts.contiguous(), lo.contiguous()
     scan_tiles, tiles, words = expand_geometry(cap_l, out_cap)
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
-    status = _library().expand_positions(
-        counts.data_ptr(), int(counts.dtype == torch.int64), lo.data_ptr(),
-        int(lo.dtype == torch.int64), cap_l, out_cap, scan_tiles, tiles,
-        scratch.data_ptr(), l_idx.data_ptr(), r_pos.data_ptr(),
-        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    # launched on the tensors' card (a shard's, on a mesh)
+    with torch.cuda.device(dev):
+        status = _library().expand_positions(
+            counts.data_ptr(), int(counts.dtype == torch.int64),
+            lo.data_ptr(), int(lo.dtype == torch.int64), cap_l, out_cap,
+            scan_tiles, tiles, scratch.data_ptr(), l_idx.data_ptr(),
+            r_pos.data_ptr(), valid.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     ops.check_cuda(status, "expand_positions")
     ops.count_launch("expand_positions")
     return l_idx, r_pos, valid

@@ -67,9 +67,12 @@ def prefetch_gather_cuda(x: torch.Tensor, blk: torch.Tensor, tile: int
         raise ValueError("prefetch_gather_cuda: sizes exceed int32")
     out = torch.empty(tile * n_tiles, dtype=torch.int32, device=x.device)
     bad = torch.zeros((), dtype=torch.int32, device=x.device)
-    status = _library().prefetch_gather(
-        x.data_ptr(), blk.data_ptr(), tile, n_tiles, n_src, out.data_ptr(),
-        bad.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    # launched on the tensors' card (a shard's, on a mesh)
+    with torch.cuda.device(x.device):
+        status = _library().prefetch_gather(
+            x.data_ptr(), blk.data_ptr(), tile, n_tiles, n_src,
+            out.data_ptr(), bad.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     ops.check_cuda(status, "prefetch_gather")
     ops.count_launch("prefetch_gather")
     return out, bad

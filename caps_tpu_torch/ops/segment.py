@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -217,11 +217,13 @@ def dense_segment_agg_cuda(codes: torch.Tensor, ok: torch.Tensor,
     acc, ticket = state.data_ptr(), state.data_ptr() + 4 * MAX_SEGMENTS
     kind_id = KINDS.index(kind)
     for base, w in windows:
-        status = lib.segment_agg(
-            codes.data_ptr(), ok.data_ptr(), values.data_ptr(), n, head,
-            int(vector), base, w, kind_id, blocks, acc,
-            partials.data_ptr(), ticket,
-            out.data_ptr() + base * out.element_size(), stream)
+        # launched on the tensors' card (a shard's, on a mesh)
+        with torch.cuda.device(dev):
+            status = lib.segment_agg(
+                codes.data_ptr(), ok.data_ptr(), values.data_ptr(), n, head,
+                int(vector), base, w, kind_id, blocks, acc,
+                partials.data_ptr(), ticket,
+                out.data_ptr() + base * out.element_size(), stream)
         ops.check_cuda(status, "segment_agg")
         ops.count_launch("segment_agg")
     return out
@@ -284,9 +286,10 @@ def dense_segment_agg_plain(codes: torch.Tensor, ok: torch.Tensor,
                                include_self=True)[:S]
 
 
-def dense_segment_agg_sharded(mesh, codes: torch.Tensor, ok: torch.Tensor,
-                              values: torch.Tensor, num_segments: int,
-                              kind: str) -> torch.Tensor:
+def dense_segment_agg_sharded(mesh, codes: Sequence[torch.Tensor],
+                              ok: Sequence[torch.Tensor],
+                              values: Sequence[torch.Tensor],
+                              num_segments: int, kind: str) -> torch.Tensor:
     """Distributed histogram, the counterpart of the JAX package's
     ``dense_segment_agg_sharded`` (rows split over every mesh axis): the
     kernel runs once per shard on the shard's row block
@@ -296,17 +299,17 @@ def dense_segment_agg_sharded(mesh, codes: torch.Tensor, ok: torch.Tensor,
     ``pmax`` for min and max, which fold as the JAX package's do: a NaN
     partial never wins, ±0 keep the earlier shard's sign, and an empty
     slot keeps its identity).  Within a shard the kernel's own rules
-    hold (module docstring).  The row count must divide over the
-    shards."""
-    from caps_tpu_torch.parallel.collectives import global_sum, pmax, \
-        pmin, shard_blocks
+    hold (module docstring).  ``codes``, ``ok`` and ``values`` are
+    each shard's resident block: lists, one per shard, each on its
+    shard's device."""
+    from caps_tpu_torch.parallel.collectives import global_sum, pmax, pmin
     if kind == "count":
         values = codes
+    if not len(codes) == len(ok) == len(values) == mesh.size:
+        raise ValueError(f"{len(codes)} blocks for {mesh.size} shards")
     parts = [dense_segment_agg(c.contiguous(), o.contiguous(),
                                v.contiguous(), num_segments, kind)
-             for c, o, v in zip(shard_blocks(codes, mesh),
-                                shard_blocks(ok, mesh),
-                                shard_blocks(values, mesh))]
+             for c, o, v in zip(codes, ok, values)]
     reduce = (pmin if kind.startswith("min") else
               pmax if kind.startswith("max") else global_sum)
     return reduce(parts, [mesh.lead])[0]

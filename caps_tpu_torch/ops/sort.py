@@ -138,10 +138,12 @@ def bitonic_sort_perm_cuda(planes: Sequence[torch.Tensor]) -> torch.Tensor:
         ptrs, stacked = None, torch.stack(planes)
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
     tmp = torch.empty(cap if passes else 0, dtype=torch.int32, device=dev)
-    status = _library().bitonic_sort_perm(
-        ptrs, None if stacked is None else stacked.data_ptr(), n_planes,
-        cap, chunk, smem, perm.data_ptr(), tmp.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # launched on the tensors' card (a shard's, on a mesh)
+    with torch.cuda.device(dev):
+        status = _library().bitonic_sort_perm(
+            ptrs, None if stacked is None else stacked.data_ptr(), n_planes,
+            cap, chunk, smem, perm.data_ptr(), tmp.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     ops.check_cuda(status, "bitonic_sort")
     ops.count_launch("bitonic_sort")
     return perm

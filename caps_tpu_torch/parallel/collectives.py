@@ -15,7 +15,11 @@ stage reads, copying across cards where two shards' devices differ:
     global_sum / pmax / pmin    all-reduces — global aggregates
 
 The per-shard helpers (``shard_of``, ``salted_dest``, ``bin_positions``)
-compute one shard's destinations.
+compute one shard's destinations.  A stage reads each shard's resident
+block of a row-resident table (``backends/cuda/sharded.py``): a list of
+per-shard tensors.  A whole table is placed or split once where a stage
+begins, not inside it; ``shard_blocks`` cuts a whole node vector (a
+frontier, a mask) into the shards' node blocks.
 
 ``note_collective`` counts every call when it RUNS (the JAX package's
 wrappers run once per trace, so it counts per compile): the counters

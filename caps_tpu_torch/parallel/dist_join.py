@@ -30,9 +30,11 @@ exchanged partitions and each shard's probe stay with their shards
 between the phases (the JAX package's two programs probe twice).
 
 Each JAX ``shard_map`` body is a sequence of per-shard stages here,
-split at its collectives (``parallel/collectives.py``); the inputs come
-whole (padded to a shard multiple) and are split into shard blocks, and
-the outputs are concatenated in shard order on the lead device.
+split at its collectives (``parallel/collectives.py``).  The inputs are
+each shard's resident blocks (a row-resident table's, or a whole
+table's rows split for the stage), one list entry per shard, and each
+shard's output stays on its shard, as the JAX package places a join's
+row indices row-sharded.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 
 from caps_tpu_torch.parallel.collectives import (
     bin_index, bin_positions, broadcast_concat, exchange_binned, global_sum,
-    pmax, salted_dest, shard_blocks,
+    pmax, salted_dest,
 )
 
 # Join-key sentinels (backends/cuda/kernels.py): nulls never match.
@@ -136,32 +138,34 @@ def _probe_partition(rk, rok, lk, lok):
     return counts, lo, perm
 
 
-def _exchange_packed(packed, flats, n, cap, devices, mesh):
-    """Each packed tensor split into shard blocks, binned and
-    exchanged: per shard, the received (n * cap, ...) rows of each."""
+def _exchange_packed(packed, flats, n, cap, devices):
+    """Each shard's packed tensors binned and exchanged (``packed[s]``:
+    shard ``s``'s, one layout on every shard): per shard, the received
+    (n * cap, ...) rows of each."""
     out = [[] for _ in range(n)]
-    for p in packed:
-        fill = False if p.dtype == torch.bool else 0
-        got = exchange_binned(shard_blocks(p, mesh), flats, n, cap,
+    for j in range(len(packed[0])):
+        fill = False if packed[0][j].dtype == torch.bool else 0
+        got = exchange_binned([p[j] for p in packed], flats, n, cap,
                               devices, fill)
         for s in range(n):
             out[s].append(got[s])
     return out
 
 
-def radix_join_phase1(mesh, hot_keys: torch.Tensor, l_key, l_ok, r_key,
-                      r_ok, l_arrs: Sequence[torch.Tensor],
-                      r_arrs: Sequence[torch.Tensor], bin_cap: int,
-                      salt: int, hot_bin_cap: int) -> Phase1:
+def radix_join_phase1(mesh, hot_keys: torch.Tensor, lk, lok, rk, rok,
+                      l_arrs: Sequence[Sequence[torch.Tensor]],
+                      r_arrs: Sequence[Sequence[torch.Tensor]],
+                      bin_cap: int, salt: int, hot_bin_cap: int) -> Phase1:
     """Exchange both sides, sort each shard's received build partition,
-    count matches per received probe row.  ``hot_keys`` (sorted, padded)
-    drives surgical salting; with ``salt == 1`` it is ignored.  A row's
-    key and validity ride its side's exchange with its columns (a dead
-    slot's key is never read: the probe folds it to the sentinel)."""
+    count matches per received probe row.  Every argument but
+    ``hot_keys`` is a list with one entry per shard: the shard's keys,
+    live masks and per-row tensors (its blocks).  ``hot_keys`` (sorted,
+    padded) drives surgical salting; with ``salt == 1`` it is ignored.
+    A row's key and validity ride its side's exchange with its columns
+    (a dead slot's key is never read: the probe folds it to the
+    sentinel)."""
     n = mesh.size
     devices = mesh.shard_devices
-    lk, lok = shard_blocks(l_key, mesh), shard_blocks(l_ok, mesh)
-    rk, rok = shard_blocks(r_key, mesh), shard_blocks(r_ok, mesh)
     hot = [hot_keys.to(d) for d in devices]
 
     # probe side: one exchange; ONLY hot keys round-robin over the salt
@@ -181,22 +185,22 @@ def radix_join_phase1(mesh, hot_keys: torch.Tensor, l_key, l_ok, r_key,
         flats.append(bin_index(dest, pos, n, bin_cap))
         drops.append(drop)
         sent_l.append(_off_home(dest, s, n))
-    l_cols = [l_key, l_ok] + list(l_arrs)
-    l_packed, l_layout = _pack(l_cols)
+    l_packed = [_pack([lk[s], lok[s]] + list(l_arrs[s])) for s in range(n)]
+    l_layout = l_packed[0][1]
     l_recv = [[t.reshape((-1,) + tuple(t.shape[2:])) for t in got]
-              for got in _exchange_packed(l_packed, flats, n, bin_cap,
-                                          devices, mesh)]
+              for got in _exchange_packed([p for p, _ in l_packed], flats,
+                                          n, bin_cap, devices)]
 
     # build side: copy 0 carries every row; copies 1..salt-1 carry ONLY
     # hot rows (smaller bins — the surgical part)
-    hot_r = _is_hot(r_key, hot_keys) if salt > 1 else None
+    hot_r = [_is_hot(rk[s], hot[s]) for s in range(n)] if salt > 1 \
+        else None
     r_parts = [[] for _ in range(n)]
     sent_r = []
     r_layout = None
     for c in range(max(salt, 1)):
         cap_c = bin_cap if c == 0 else hot_bin_cap
-        ok_c = r_ok if c == 0 else (r_ok & hot_r)
-        okb = shard_blocks(ok_c, mesh)
+        okb = rok if c == 0 else [o & h for o, h in zip(rok, hot_r)]
         flats_r = []
         for s in range(n):
             sid = torch.full(rk[s].shape, c, dtype=torch.int32,
@@ -206,8 +210,11 @@ def radix_join_phase1(mesh, hot_keys: torch.Tensor, l_key, l_ok, r_key,
             drops.append(drop)
             sent_r.append(_off_home(dest, s, n))
             flats_r.append(bin_index(dest, pos, n, cap_c))
-        r_packed, r_layout = _pack([r_key, ok_c] + list(r_arrs))
-        got = _exchange_packed(r_packed, flats_r, n, cap_c, devices, mesh)
+        r_packed = [_pack([rk[s], okb[s]] + list(r_arrs[s]))
+                    for s in range(n)]
+        r_layout = r_packed[0][1]
+        got = _exchange_packed([p for p, _ in r_packed], flats_r, n, cap_c,
+                               devices)
         for s in range(n):
             r_parts[s].append(got[s])
     r_recv = [[torch.cat([part[j] for part in r_parts[s]], dim=1).reshape(
@@ -216,7 +223,7 @@ def radix_join_phase1(mesh, hot_keys: torch.Tensor, l_key, l_ok, r_key,
 
     lok_out, counts_out, lo_out, perm_out, rok_out = [], [], [], [], []
     totals, lefts = [], []
-    n_l, n_r = len(l_cols), 2 + len(r_arrs)
+    n_l, n_r = 2 + len(l_arrs[0]), 2 + len(r_arrs[0])
     for s in range(n):
         lk_s, lok_s = _unpack(l_recv[s], l_layout, n_l)[:2]
         rk_s, rok_s = _unpack(r_recv[s], r_layout, n_r)[:2]
@@ -278,8 +285,8 @@ def _expand_shard(counts, lo, perm, lok, rok, out_cap_dev: int,
 
 def radix_join_phase2(mesh, p1: Phase1, out_cap_dev: int, left_join: bool):
     """Expand each shard's matches into ``out_cap_dev`` output rows;
-    returns (l_valid, r_valid, left columns, right columns), whole on
-    the lead device in shard order."""
+    returns per shard (l_valid, r_valid, left columns, right columns),
+    each on its shard."""
     lv, rv, l_out, r_out = [], [], [], []
     for s in range(mesh.size):
         l_idx, r_idx, l_valid, r_valid = _expand_shard(
@@ -289,23 +296,15 @@ def radix_join_phase2(mesh, p1: Phase1, out_cap_dev: int, left_join: bool):
         rv.append(r_valid)
         l_out.append([a[l_idx] for a in p1.l_recv[s]])
         r_out.append([a[r_idx] for a in p1.r_recv[s]])
-    return _gather_out(mesh, lv, rv, l_out, r_out, p1.l_layout,
-                       p1.r_layout, p1.n_l, p1.n_r)
+    return _per_shard(lv, rv, l_out, r_out, p1.l_layout, p1.r_layout,
+                      p1.n_l, p1.n_r)
 
 
-def _gather_out(mesh, lv, rv, l_out, r_out, l_layout, r_layout, n_l, n_r):
-    """The shards' outputs concatenated on the lead device, the packed
-    columns unpacked (the key and validity columns dropped)."""
-    lead = mesh.lead
-
-    def cat(xs):
-        return torch.cat([x.to(lead) for x in xs])
-
-    def columns(outs, layout, n_cols):
-        packed = [cat([o[j] for o in outs]) for j in range(len(outs[0]))]
-        return _unpack(packed, layout, n_cols)[2:]
-    return (cat(lv), cat(rv), columns(l_out, l_layout, n_l),
-            columns(r_out, r_layout, n_r))
+def _per_shard(lv, rv, l_out, r_out, l_layout, r_layout, n_l, n_r):
+    """Each shard's (l_valid, r_valid, left columns, right columns), the
+    packed columns unpacked (the key and validity columns dropped)."""
+    return [(lv[s], rv[s], _unpack(l_out[s], l_layout, n_l)[2:],
+             _unpack(r_out[s], r_layout, n_r)[2:]) for s in range(len(lv))]
 
 
 @dataclasses.dataclass
@@ -323,14 +322,13 @@ class BroadcastPhase1:
     live_r: torch.Tensor
 
 
-def broadcast_join_phase1(mesh, l_key, l_ok, r_key, r_ok,
+def broadcast_join_phase1(mesh, lk, lok, rk, rok,
                           left_join: bool) -> BroadcastPhase1:
     """Gather the (small) build side's keys to every shard once, sort
-    them and count each local probe row's matches."""
+    them and count each local probe row's matches (every argument but
+    ``left_join`` one entry per shard)."""
     n = mesh.size
     devices = mesh.shard_devices
-    lk, lok = shard_blocks(l_key, mesh), shard_blocks(l_ok, mesh)
-    rk, rok = shard_blocks(r_key, mesh), shard_blocks(r_ok, mesh)
     rk_all = broadcast_concat([_where_key(o, k, _R_NULL)
                                for o, k in zip(rok, rk)], devices)
     rok_all = broadcast_concat(rok, devices)
@@ -351,24 +349,21 @@ def broadcast_join_phase1(mesh, l_key, l_ok, r_key, r_ok,
         live_r=global_sum([o.sum() for o in rok], lead)[0])
 
 
-def broadcast_join_phase2(mesh, p1: BroadcastPhase1, l_key, l_ok, r_key,
-                          r_ok, l_arrs: Sequence[torch.Tensor],
-                          r_arrs: Sequence[torch.Tensor], out_cap_dev: int,
-                          left_join: bool):
+def broadcast_join_phase2(mesh, p1: BroadcastPhase1, lk, lok, rk, rok,
+                          l_arrs: Sequence[Sequence[torch.Tensor]],
+                          r_arrs: Sequence[Sequence[torch.Tensor]],
+                          out_cap_dev: int, left_join: bool):
     """Gather the build side's columns and expand each shard's matches
-    (phase 1's probes) into ``out_cap_dev`` output rows; returns
-    (l_valid, r_valid, left columns, right columns), whole on the lead
-    device in shard order.  The probe side never moves."""
+    (phase 1's probes) into ``out_cap_dev`` output rows; returns per
+    shard (l_valid, r_valid, left columns, right columns), each on its
+    shard.  The probe side never moves."""
     n = mesh.size
     devices = mesh.shard_devices
-    lok = shard_blocks(l_ok, mesh)
-    l_cols = [l_key, l_ok] + list(l_arrs)
-    l_packed, l_layout = _pack(l_cols)
-    r_cols = [r_key, r_ok] + list(r_arrs)
-    r_packed, r_layout = _pack(r_cols)
-    la = [shard_blocks(p, mesh) for p in l_packed]
-    r_all = [broadcast_concat(shard_blocks(p, mesh), devices)
-             for p in r_packed]
+    l_packed = [_pack([lk[s], lok[s]] + list(l_arrs[s])) for s in range(n)]
+    r_packed = [_pack([rk[s], rok[s]] + list(r_arrs[s])) for s in range(n)]
+    l_layout, r_layout = l_packed[0][1], r_packed[0][1]
+    r_all = [broadcast_concat([p[j] for p, _ in r_packed], devices)
+             for j in range(len(r_packed[0][0]))]
     lv, rv, l_out, r_out = [], [], [], []
     for s in range(n):
         l_idx, r_idx, l_valid, r_valid = _expand_shard(
@@ -376,7 +371,7 @@ def broadcast_join_phase2(mesh, p1: BroadcastPhase1, l_key, l_ok, r_key,
             out_cap_dev, left_join)
         lv.append(l_valid)
         rv.append(r_valid)
-        l_out.append([a[s][l_idx] for a in la])
+        l_out.append([a[l_idx] for a in l_packed[s][0]])
         r_out.append([a[s][r_idx] for a in r_all])
-    return _gather_out(mesh, lv, rv, l_out, r_out, l_layout, r_layout,
-                       len(l_cols), len(r_cols))
+    return _per_shard(lv, rv, l_out, r_out, l_layout, r_layout,
+                      2 + len(l_arrs[0]), 2 + len(r_arrs[0]))

@@ -19,9 +19,10 @@ from typing import List, Sequence
 import torch
 
 from caps_tpu_torch.parallel.collectives import (
-    broadcast_concat, exchange_by_shard, global_sum, ring_shift, shard_blocks,
-    shard_of,
+    broadcast_concat, exchange_by_shard, global_sum, ring_shift,
+    shard_blocks, shard_of,
 )
+from caps_tpu_torch.parallel.ring import edge_blocks
 
 
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int
@@ -57,15 +58,17 @@ def two_hop_count_kernel(name_codes, edge_src: Sequence[torch.Tensor],
 
 
 def make_sharded_two_hop(mesh, n_nodes: int):
-    """The sharded 2-hop step for a mesh: edges sharded over the mesh,
-    node vector replicated, outputs on the lead device."""
+    """The sharded 2-hop step for a mesh: edges sharded over the mesh
+    (each shard's resident blocks, lists), node vector replicated,
+    outputs on the lead device."""
     devices = mesh.shard_devices
 
     def step(name_codes, edge_src, edge_dst, edge_ok, seed_code):
         codes = [name_codes.to(d) for d in devices]
         return two_hop_count_kernel(
-            codes, shard_blocks(edge_src, mesh), shard_blocks(edge_dst, mesh),
-            shard_blocks(edge_ok, mesh), seed_code, n_nodes=n_nodes,
+            codes, *edge_blocks(mesh, edge_src=edge_src,
+                                edge_dst=edge_dst, edge_ok=edge_ok),
+            seed_code, n_nodes=n_nodes,
             devices=devices)
     return step
 

@@ -267,19 +267,24 @@ def _ring_hop(cnt_blocks, edge_src, edge_dst, edge_ok, *, n_nodes: int,
     return [o[0] for o in out]
 
 
-def _check_divides(name: str, length: int, n_shards: int) -> None:
-    if length % n_shards:
-        raise ValueError(
-            f"{name} length {length} must divide over {n_shards} shards; "
-            f"pad (with ok=False rows) to a multiple of the shard count")
+def edge_blocks(mesh, **arrays):
+    """Each edge array's per-shard resident blocks (lists, one block
+    per shard), checked."""
+    out = []
+    for name, blocks in arrays.items():
+        if len(blocks) != mesh.size:
+            raise ValueError(f"{name}: {len(blocks)} blocks for "
+                             f"{mesh.size} shards")
+        out.append(list(blocks))
+    return out
 
 
 def make_ring_khop(mesh, n_nodes: int, n_hops: int, masked: bool = False):
-    """The ring-scheduled k-hop expansion: seed counts (node blocks) and
-    edges (edge shards) come in whole and are split over the mesh; the
-    result is the total path count and the final frontier.  With
-    ``masked``, a node mask multiplies the frontier after every hop (the
-    planner's per-hop node-existence/label mask)."""
+    """The ring-scheduled k-hop expansion: seed counts (node blocks)
+    come in whole and are split over the mesh; the edges are each
+    shard's resident blocks (lists).  The result is the total path count and the final frontier.
+    With ``masked``, a node mask multiplies the frontier after every hop
+    (the planner's per-hop node-existence/label mask)."""
     from caps_tpu_torch.parallel.collectives import global_sum, \
         shard_blocks
     n_shards = mesh.size
@@ -288,17 +293,13 @@ def make_ring_khop(mesh, n_nodes: int, n_hops: int, masked: bool = False):
     devices = mesh.shard_devices
 
     def call(seed, edge_src, edge_dst, edge_ok, mask=None):
-        for name, arr in (("edge_src", edge_src), ("edge_dst", edge_dst),
-                          ("edge_ok", edge_ok)):
-            _check_divides(name, arr.shape[0], n_shards)
+        es, ed, eo = edge_blocks(mesh, edge_src=edge_src,
+                                  edge_dst=edge_dst, edge_ok=edge_ok)
         if seed.shape[0] != n_nodes:
             raise ValueError(f"seed length {seed.shape[0]} != n_nodes "
                              f"{n_nodes}")
         if masked != (mask is not None):
             raise ValueError("mask must be passed iff masked=True")
-        es, ed, eo = (shard_blocks(edge_src, mesh),
-                      shard_blocks(edge_dst, mesh),
-                      shard_blocks(edge_ok, mesh))
         blk = shard_blocks(seed, mesh)
         mblk = shard_blocks(mask, mesh) if masked else None
         for _ in range(n_hops):
@@ -345,10 +346,11 @@ def make_ring_varexpand(mesh, n_nodes: int, lengths: tuple,
     """Ring-scheduled var-length expand: the per-seed PATH-count matrix
     over the union of ``lengths`` (each in 0..2), with the
     relationship-isomorphism correction at length 2 (``correction`` as
-    in :func:`ring_varexpand_reference`).  Inputs come whole: F0 (seeds,
-    n_nodes) splits on its node axis, edges split into edge shards, the
-    target mask into node blocks.  Returns the whole (seeds, n_nodes)
-    multiplicity matrix on the lead device."""
+    in :func:`ring_varexpand_reference`).  F0 (seeds, n_nodes) splits on
+    its node axis and the target mask into node blocks; the edges are
+    resident blocks (lists, one per shard).
+    Returns the whole (seeds, n_nodes) multiplicity matrix on the lead
+    device."""
     from caps_tpu_torch.parallel.collectives import shard_blocks
     n_shards = mesh.size
     if n_nodes % n_shards:
@@ -361,12 +363,8 @@ def make_ring_varexpand(mesh, n_nodes: int, lengths: tuple,
     devices = mesh.shard_devices
 
     def call(f0, edge_src, edge_dst, edge_ok, tmask):
-        for name, arr in (("edge_src", edge_src), ("edge_dst", edge_dst),
-                          ("edge_ok", edge_ok)):
-            _check_divides(name, arr.shape[0], n_shards)
-        es, ed, eo = (shard_blocks(edge_src, mesh),
-                      shard_blocks(edge_dst, mesh),
-                      shard_blocks(edge_ok, mesh))
+        es, ed, eo = edge_blocks(mesh, edge_src=edge_src,
+                                  edge_dst=edge_dst, edge_ok=edge_ok)
         f0b = _split_matrix(f0, mesh)
         tm = shard_blocks(tmask, mesh)
         out = [torch.zeros_like(b) for b in f0b]
@@ -392,7 +390,7 @@ def make_ring_varexpand3(mesh, n_nodes: int, lengths: tuple,
     """Ring-scheduled var-expand for lengths up to 3 (the terms of
     :func:`ring_varexpand3_reference`).  Extra inputs beyond
     :func:`make_ring_varexpand`'s: the two weighted sparse edge lists
-    (sp13 / spT as (src, dst, w) triples, edge-sharded)."""
+    (sp13 / spT as (src, dst, w) triples of per-shard blocks)."""
     from caps_tpu_torch.parallel.collectives import shard_blocks
     n_shards = mesh.size
     if n_nodes % n_shards:
@@ -405,15 +403,12 @@ def make_ring_varexpand3(mesh, n_nodes: int, lengths: tuple,
 
     def call(f0, e_src, e_dst, e_ok, tmask, s13_src, s13_dst, s13_w,
              st_src, st_dst, st_w):
-        for name, arr in (("edge_src", e_src), ("s13", s13_src),
-                          ("st", st_src)):
-            _check_divides(name, arr.shape[0], n_shards)
-
-        def blocks(*ts):
-            return [shard_blocks(t, mesh) for t in ts]
-        es, ed, eo = blocks(e_src, e_dst, e_ok)
-        s13s, s13d, s13w = blocks(s13_src, s13_dst, s13_w)
-        sts, std_, stw = blocks(st_src, st_dst, st_w)
+        es, ed, eo = edge_blocks(mesh, edge_src=e_src, edge_dst=e_dst,
+                                  edge_ok=e_ok)
+        s13s, s13d, s13w = edge_blocks(mesh, s13=s13_src, s13_dst=s13_dst,
+                                        s13_w=s13_w)
+        sts, std_, stw = edge_blocks(mesh, st=st_src, st_dst=st_dst,
+                                      st_w=st_w)
         f0b = _split_matrix(f0, mesh)
         tm = shard_blocks(tmask, mesh)
 

@@ -27,11 +27,12 @@ The lowering is *exact* there and the matcher refuses longer chains,
 leaving them on the join path.
 
 On a 1-D device mesh, uniform unmasked chains ride the ring schedule
-(``parallel/ring.py``, strategy "ring").  Other chains (and every chain
-on a 2-D mesh) run the same segment-sums unsharded, on the whole edge
-table on the mesh's lead device, and report "spmv": the JAX package
-lets GSPMD shard them and reports "spmv-sharded".  Counts are int64 throughout; ids are cast to int32 only under
-``_MAX_DOMAIN``.
+(``parallel/ring.py``, strategy "ring").  Other chains on a mesh (every
+chain on a 2-D one) run "spmv-sharded", as in the JAX package: each
+shard segment-sums its resident edge block into a frontier, and the
+shards' frontiers combine with ``global_sum`` at every hop (the
+all-reduce GSPMD inserts).  Counts are int64 throughout; ids are cast
+to int32 only under ``_MAX_DOMAIN``.
 """
 from __future__ import annotations
 
@@ -440,7 +441,8 @@ class CountPatternOp(RelationalOperator):
     # -- array extraction --------------------------------------------------
 
     def _node_ids(self, spec: NodeSpec):
-        """(ids, ok) tensors for the nodes matching a NodeSpec."""
+        """Per block, (ids, ok) tensors of the nodes matching a
+        NodeSpec."""
         header, t = self.graph.scan_node(spec.var, spec.labels)
         params = self.context.parameters
         for pred in spec.preds:
@@ -448,19 +450,32 @@ class CountPatternOp(RelationalOperator):
         return self._column_arrays(t, header.column(E.Var(spec.var)))
 
     def _rel_arrays(self, types: Tuple[str, ...]):
+        """Per shard block, the (src, ok) and (tgt, ok) arrays of the
+        relationships of ``types``: a row-resident scan's own blocks; a
+        whole scan on a mesh (several types gathered) split into shard
+        blocks once, here."""
+        from caps_tpu_torch.backends.cuda.sharded import (
+            ShardedTable, split_table,
+        )
         tmp = "__cnt_rel"
         header, t = self.graph.scan_rel(tmp, types)
+        mesh = self._backend.mesh
+        if mesh is not None and not isinstance(t, ShardedTable):
+            t = split_table(t, mesh)
         src = self._column_arrays(t, header.column(E.StartNode(E.Var(tmp))))
         tgt = self._column_arrays(t, header.column(E.EndNode(E.Var(tmp))))
         return src, tgt
 
     @staticmethod
     def _column_arrays(table, col: str):
-        """(values, ok) device tensors of an integer id column."""
-        c = table._cols[col]
-        if c.kind not in ("id", "int"):
+        """(values, ok) device tensors of an integer id column, one pair
+        per resident block (one for a whole table)."""
+        from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+        parts = table.parts if isinstance(table, ShardedTable) else [table]
+        if any(p._cols[col].kind not in ("id", "int") for p in parts):
             raise _Unsuitable(f"non-integer id column {col}")
-        return c.data, (c.valid & table.row_ok)
+        return [(p._cols[col].data, p._cols[col].valid & p.row_ok)
+                for p in parts]
 
     # -- execution ---------------------------------------------------------
 
@@ -1090,13 +1105,13 @@ class CountPatternOp(RelationalOperator):
         backend = self._backend
         mx = torch.full((), -1, dtype=torch.int64, device=backend.device)
         mn = torch.zeros((), dtype=torch.int64, device=backend.device)
-        for vals, ok in parts:
+        for vals, ok in (b for blocks in parts for b in blocks):
             if vals.shape[0]:
                 v = vals.to(torch.int64)
                 mx = torch.maximum(mx, torch.where(
-                    ok, v, torch.full_like(v, -1)).max())
+                    ok, v, torch.full_like(v, -1)).max().to(mx.device))
                 mn = torch.minimum(mn, torch.where(
-                    ok, v, torch.zeros_like(v)).min())
+                    ok, v, torch.zeros_like(v)).min().to(mn.device))
         n = backend.consume_count(
             torch.where(mn < 0, torch.full_like(mx, _MAX_DOMAIN), mx),
             relation="cap") + 1
@@ -1106,14 +1121,27 @@ class CountPatternOp(RelationalOperator):
             raise _Unsuitable(f"node-id domain {n} too large or negative")
         return n
 
-    @staticmethod
-    def _indicator(ids, ok, n: int) -> torch.Tensor:
-        """0/1 int64 node indicator: ``index_add_`` into n + 1 slots (a
-        native atomic add on the card), dead rows routed to slot n."""
-        safe = torch.where(ok, ids, torch.full_like(ids, n)).long()
-        vec = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
-        vec.index_add_(0, safe, ok.to(torch.int64))
-        return vec[:n].clamp(max=1)
+    def _indicator(self, blocks, n: int) -> torch.Tensor:
+        """0/1 int64 node indicator on the lead device: each block
+        ``index_add_``s its live ids into n + 1 slots (a native atomic
+        add on the card, dead rows routed to slot n); the blocks' vectors
+        combine with ``global_sum``."""
+        parts = []
+        for ids, ok in blocks:
+            safe = torch.where(ok, ids, torch.full_like(ids, n)).long()
+            vec = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+            parts.append(vec.index_add_(0, safe, ok.to(torch.int64))[:n])
+        return self._combine(parts)[0].clamp(max=1)
+
+    def _combine(self, parts, devices=None):
+        """The blocks' partial vectors summed (``global_sum``, the
+        all-reduce GSPMD inserts; one block is its own sum), on each of
+        ``devices`` (default: the lead)."""
+        from caps_tpu_torch.parallel.collectives import global_sum
+        devices = devices or [self._backend.device]
+        if len(parts) == 1:
+            return [parts[0].to(d) for d in devices]
+        return global_sum(parts, devices)
 
     def _compute_pushdown(self):
         fused = self._fused_total()
@@ -1125,7 +1153,7 @@ class CountPatternOp(RelationalOperator):
             # closure path; walks-only 3-hop chains may continue below
             raise _Unsuitable("3-hop isomorphism correction is fused-only")
 
-        seed_ids, seed_ok = self._node_ids(self.seed)
+        seed_ids = self._node_ids(self.seed)
         rel_cache: Dict[Tuple[str, ...], tuple] = {}
         for h in self.hops:
             key = tuple(sorted(set(h.rel_types)))
@@ -1144,23 +1172,25 @@ class CountPatternOp(RelationalOperator):
         else:
             mask_ids = [self._node_ids(h.target) for h in self.hops]
 
-        domain_parts = [(seed_ids, seed_ok)]
+        domain_parts = [seed_ids]
         for (src, tgt) in rel_cache.values():
             domain_parts += [src, tgt]
         domain_parts += mask_ids
         n = self._domain(domain_parts)
 
-        seed_vec = self._indicator(seed_ids, seed_ok, n)
-        mask_vecs = [self._indicator(m[0], m[1], n) for m in mask_ids]
+        seed_vec = self._indicator(seed_ids, n)
+        mask_vecs = [self._indicator(m, n) for m in mask_ids]
         end_mask = mask_vecs[0] if self.is_varlen else mask_vecs[-1]
 
         def hop_arrays(h: HopSpec):
-            (src, src_ok), (tgt, tgt_ok) = rel_cache[
-                tuple(sorted(set(h.rel_types)))]
-            ok = src_ok & tgt_ok
-            frm, to = (src, tgt) if h.direction == Direction.OUTGOING \
-                else (tgt, src)
-            return frm, to, ok
+            """Per resident edge block, (frm, to, ok)."""
+            src_b, tgt_b = rel_cache[tuple(sorted(set(h.rel_types)))]
+            out = []
+            for (src, src_ok), (tgt, tgt_ok) in zip(src_b, tgt_b):
+                frm, to = (src, tgt) if h.direction == Direction.OUTGOING \
+                    else (tgt, src)
+                out.append((frm, to, src_ok & tgt_ok))
+            return out
 
         mesh = self._backend.mesh
         ring_total = self._try_ring(mesh, n, seed_vec, mask_vecs,
@@ -1168,7 +1198,7 @@ class CountPatternOp(RelationalOperator):
         if ring_total is not None:
             total = ring_total
         else:
-            self.strategy = "spmv"
+            self.strategy = "spmv-sharded" if mesh is not None else "spmv"
             total = torch.zeros((), dtype=torch.int64,
                                 device=seed_vec.device)
             x = seed_vec
@@ -1179,16 +1209,7 @@ class CountPatternOp(RelationalOperator):
                     xl = x * end_mask if self.is_varlen else x
                     total = total + xl.sum()
                 if length < max(self.lengths):
-                    frm, to, ok = hop_arrays(self.hops[length])
-                    safe_frm = torch.where(ok, frm,
-                                           torch.zeros_like(frm)).long()
-                    safe_to = torch.where(ok, to,
-                                          torch.full_like(to, n)).long()
-                    contrib = torch.where(ok, x[safe_frm], torch.zeros_like(
-                        x[safe_frm]))
-                    nxt = torch.zeros(n + 1, dtype=torch.int64,
-                                      device=x.device)
-                    x = nxt.index_add_(0, safe_to, contrib)[:n]
+                    x = self._hop(x, hop_arrays(self.hops[length]), n)
                     if not self.is_varlen:
                         x = x * mask_vecs[length]
 
@@ -1200,6 +1221,22 @@ class CountPatternOp(RelationalOperator):
             total = total - self._len2_correction(n, seed_vec, corr_masks)
 
         return self._emit(total)
+
+    def _hop(self, x: torch.Tensor, edges, n: int) -> torch.Tensor:
+        """One SpMV hop of the frontier ``x`` (on the lead): each edge
+        block, on its shard, segment-sums its sources' counts by
+        destination; the shards' partial frontiers combine with
+        ``global_sum``."""
+        parts = []
+        for frm, to, ok in edges:
+            xs = x.to(frm.device)
+            safe_frm = torch.where(ok, frm, torch.zeros_like(frm)).long()
+            safe_to = torch.where(ok, to, torch.full_like(to, n)).long()
+            contrib = torch.where(ok, xs[safe_frm], torch.zeros_like(
+                xs[safe_frm]))
+            nxt = torch.zeros(n + 1, dtype=torch.int64, device=xs.device)
+            parts.append(nxt.index_add_(0, safe_to, contrib)[:n])
+        return self._combine(parts)[0]
 
     def _try_ring(self, mesh, n, seed_vec, mask_vecs, hop_arrays):
         """Uniform unmasked chains on a 1-D mesh ride the ring schedule
@@ -1225,16 +1262,17 @@ class CountPatternOp(RelationalOperator):
         from caps_tpu_torch.parallel.ring import ring_khop_cached
         s = mesh.size
         n_pad = ((n + s - 1) // s) * s
-        frm, to, ok = hop_arrays(self.hops[0])
-        e_pad = ((int(frm.shape[0]) + s - 1) // s) * s
 
         def pad(a, length, fill):
             return torch.cat([a, torch.full((length - a.shape[0],), fill,
                                             dtype=a.dtype, device=a.device)])
-        zero = torch.zeros_like(frm)
-        frm_p = pad(torch.where(ok, frm, zero).to(torch.int32), e_pad, 0)
-        to_p = pad(torch.where(ok, to, zero).to(torch.int32), e_pad, 0)
-        ok_p = pad(ok, e_pad, False)
+        # the resident edge blocks as the ring's per-shard operands
+        frm_p, to_p, ok_p = ([], [], [])
+        for frm, to, ok in hop_arrays(self.hops[0]):
+            zero = torch.zeros_like(frm)
+            frm_p.append(torch.where(ok, frm, zero).to(torch.int32))
+            to_p.append(torch.where(ok, to, zero).to(torch.int32))
+            ok_p.append(ok)
         seed_p = pad(seed_vec, n_pad, 0)
         if self.is_varlen:
             # intermediate endpoints unmasked; the end mask applies to
@@ -1261,21 +1299,25 @@ class CountPatternOp(RelationalOperator):
         inter = _corr_intersection(h1, h2)
         if inter is None:
             return 0  # disjoint scans: an edge can't repeat
-        (src, src_ok), (tgt, tgt_ok) = self._rel_arrays(
-            tuple(sorted(inter)))
-        ok = src_ok & tgt_ok
-        a, b, near2, far2 = _corr_roles(h1, h2, src, tgt)
-        cond = ok & (near2 == b)
+        src_b, tgt_b = self._rel_arrays(tuple(sorted(inter)))
+        lead = seed_vec.device
+        total = torch.zeros((), dtype=torch.int64, device=lead)
+        for (src, src_ok), (tgt, tgt_ok) in zip(src_b, tgt_b):
+            ok = src_ok & tgt_ok
+            a, b, near2, far2 = _corr_roles(h1, h2, src, tgt)
+            cond = ok & (near2 == b)
 
-        def at(vec, ids):
-            if vec is None:
-                return 1
-            return vec[ids.clamp(0, n - 1).long()]
+            def at(vec, ids):
+                if vec is None:
+                    return 1
+                return vec.to(ids.device)[ids.clamp(0, n - 1).long()]
 
-        safe_a = torch.where(cond, a, torch.zeros_like(a))
-        term = at(seed_vec, safe_a) * at(corr_masks[0], b) \
-            * at(corr_masks[1], far2)
-        return torch.where(cond, term, torch.zeros_like(term)).sum()
+            safe_a = torch.where(cond, a, torch.zeros_like(a))
+            term = at(seed_vec, safe_a) * at(corr_masks[0], b) \
+                * at(corr_masks[1], far2)
+            total = total + torch.where(cond, term, torch.zeros_like(
+                term)).sum().to(lead)
+        return total
 
     def _emit_fused(self, data, valid):
         """Wrap the closure's already-padded output column."""

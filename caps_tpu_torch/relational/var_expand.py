@@ -43,6 +43,17 @@ from caps_tpu_torch.relational.table import Table
 DEFAULT_UNBOUNDED_UPPER = 10
 
 
+def _resident(t: torch.Tensor, mesh) -> List[torch.Tensor]:
+    """A graph-static edge array as per-shard resident blocks: padded
+    to a shard multiple, each block its own storage on its slot."""
+    from caps_tpu_torch.parallel.collectives import shard_blocks
+    k = -(-max(t.shape[0], 1) // mesh.size) * mesh.size
+    t = torch.cat([t, torch.zeros(k - t.shape[0], dtype=t.dtype,
+                                  device=t.device)])
+    return [b.clone() if b.device == t.device else b
+            for b in shard_blocks(t, mesh)]
+
+
 def synth_header(table: Table) -> RecordHeader:
     """A header mapping every physical column to ``Var(col)`` — used for
     internal columnar filtering where no user-level header applies."""
@@ -144,10 +155,17 @@ class VarExpandOp(RelationalOperator):
         on_ring = mesh is not None and mesh.devices.ndim == 1
         n_shards = mesh.size if on_ring else 1
 
+        from caps_tpu_torch.backends.cuda.sharded import (
+            ShardedTable, place_table,
+        )
         parent_header, parent_table = self.children[0].result
         src_id_col = parent_header.column(E.Var(self.source))
-        pcol = parent_table._cols.get(src_id_col)
-        if pcol is None or pcol.kind not in ("id", "int"):
+        # the seeds: each resident block's (one for a whole table)
+        pparts = (parent_table.parts if isinstance(parent_table,
+                                                   ShardedTable)
+                  else [parent_table])
+        pcols = [p._cols.get(src_id_col) for p in pparts]
+        if any(c is None or c.kind not in ("id", "int") for c in pcols):
             return None
         static = self._matrix_static(backend)
         if static is None:
@@ -162,22 +180,26 @@ class VarExpandOp(RelationalOperator):
         # nothing.  "cap" sizes are exact outside generic replay, where
         # a served bound only adds dead (all-zero) seed rows.
         mx = static["mx"]
-        pids = pcol.data.to(torch.int64)
-        p_ok = pcol.valid & parent_table.row_ok
-        if backend.consume_count((p_ok & (pids < 0)).any().to(torch.int64),
-                                 relation="exact"):
+        seeds = [(c.data.to(torch.int64), c.valid & p.row_ok)
+                 for c, p in zip(pcols, pparts)]
+        if backend.consume_count(torch.stack([
+                (p_ok & (pids < 0)).any().to(dev)
+                for pids, p_ok in seeds]).any().to(torch.int64),
+                relation="exact"):
             return None
-        if pids.shape[0]:
-            mx = max(mx, backend.consume_count(
-                torch.where(p_ok, pids, torch.full_like(pids, -1)).max(),
+        if sum(pids.shape[0] for pids, _ in seeds):
+            mx = max(mx, backend.consume_count(torch.stack([
+                torch.where(p_ok, pids, torch.full_like(pids, -1)).max(
+                ).to(dev) for pids, p_ok in seeds if pids.shape[0]]).max(),
                 relation="cap"))
         n_pad = max(-(-(mx + 1) // n_shards) * n_shards, n_shards)
         if n_pad > self._RING_MAX_MATRIX:
             return None  # a single frontier row exceeds the budget
         # (large SEED sets are fine — the execution below chunks them)
         is_seed = torch.zeros(n_pad + 1, dtype=torch.bool, device=dev)
-        is_seed[torch.where(p_ok, pids, torch.full_like(pids, n_pad)
-                            ).clamp(0, n_pad)] = True
+        for pids, p_ok in seeds:
+            is_seed[torch.where(p_ok, pids, torch.full_like(pids, n_pad)
+                                ).clamp(0, n_pad).to(dev)] = True
         is_seed = is_seed[:n_pad]
         n_seeds = backend.consume_count(is_seed.sum(), relation="cap")
         lengths = tuple(range(self.lower, self.upper + 1))
@@ -232,12 +254,16 @@ class VarExpandOp(RelationalOperator):
             r2_d = torch.cat([r2_d, zeros])
 
         if on_ring:
-            def shard_pad(t):
-                k = -(-max(t.shape[0], 1) // n_shards) * n_shards
-                return torch.cat([t, torch.zeros(k - t.shape[0],
-                                                 dtype=t.dtype, device=dev)])
-            ring_edges = tuple(shard_pad(t) for t in (frm_d, to_d, okp_d))
-            ring_extra3 = tuple(shard_pad(t) for t in extra3)
+            # the edge arrays resident on the shards: placed once per
+            # graph and mesh (each shard's blocks, the JAX package's
+            # row-sharded edge arrays)
+            ring = static.get("ring")
+            if ring is None or ring[0] is not mesh:
+                ring = (mesh, tuple(_resident(t, mesh)
+                                    for t in (frm_d, to_d, okp_d)),
+                        tuple(_resident(t, mesh) for t in extra3))
+                static["ring"] = ring
+            ring_edges, ring_extra3 = ring[1], ring[2]
 
         def run_chunk(f0, lens):
             if on_ring:
@@ -297,9 +323,11 @@ class VarExpandOp(RelationalOperator):
             parts = [parts[i].union_all(parts[i + 1])
                      if i + 1 < len(parts) else parts[i]
                      for i in range(0, len(parts), 2)]
+        # the (source, target) rows placed over the mesh, as the JAX
+        # package places them
         return self._ring_assemble(parent_header, parent_table, src_id_col,
                                    tgt_header, tgt_table, tgt_id_col,
-                                   parts[0], rel_list_type)
+                                   place_table(parts[0]), rel_list_type)
 
     def _matrix_static(self, backend):
         """The matrix form's graph-static inputs — the edge list of this
@@ -503,6 +531,10 @@ class VarExpandOp(RelationalOperator):
         out = branches[0]
         for b in branches[1:]:
             out = out.union_all(b)
+        if len(branches) > 1:
+            # the union of the lengths' rows placed over the mesh
+            from caps_tpu_torch.backends.cuda.sharded import place_table
+            out = place_table(out)
 
         out_header = parent_header.with_expr(E.Var(self.rel), rel_list_type,
                                              column=self.rel)

@@ -240,6 +240,7 @@ class MultiwayJoinOp(RelationalOperator):
     def _compute_wcoj(self):
         from caps_tpu_torch import ops as OPS
         from caps_tpu_torch.backends.cuda import kernels as K
+        from caps_tpu_torch.backends.cuda.sharded import whole
         from caps_tpu_torch.backends.cuda.table import (
             DeviceTable, _gather_cols,
         )
@@ -252,6 +253,9 @@ class MultiwayJoinOp(RelationalOperator):
         dev = backend.device
 
         def need_device(t):
+            # the multiway join probes whole scans: a row-resident one
+            # gathers to the lead first (the all_gather GSPMD inserts)
+            t = whole(t)
             if not isinstance(t, DeviceTable):
                 raise _Unsuitable("no device table")
             return t
@@ -259,13 +263,13 @@ class MultiwayJoinOp(RelationalOperator):
         node_parts: Dict[str, tuple] = {}
         for var in seg.order:
             header, _raw, t = self._node_scan(var)
-            need_device(t)
+            t = need_device(t)
             node_parts[var] = (header, t,
                                t._cols[header.column(E.Var(var))])
         rel_parts: Dict[str, tuple] = {}
         for e in seg.edges:
             header, t = self._rel_scan(e)
-            need_device(t)
+            t = need_device(t)
             v = E.Var(e.rel)
             rel_parts[e.rel] = (
                 header, t,

@@ -132,13 +132,16 @@ def _adopt_pool(src, dst) -> bool:
 
 def _copy_device_table(backend, table):
     """``table``'s columns cloned onto ``backend``'s device (on the
-    current stream), each through its placement seam; the ingest-time
-    host mirrors are shared (immutable numpy arrays), so the target
-    builds its CSR from them as an ingest does."""
-    from caps_tpu_torch.backends.cuda.table import DeviceTable
+    current stream), each through its placement seam (row-resident on
+    the replica's mesh where its rows divide; a row-resident source
+    gathers first); the ingest-time host mirrors are shared (immutable
+    numpy arrays), so the target builds its CSR from them as an ingest
+    does."""
+    from caps_tpu_torch.backends.cuda.sharded import assemble, whole
+    table = whole(table)
     cols = {c: backend.place_column(col.to_device(backend.device))
             for c, col in table._cols.items()}
-    return DeviceTable(backend, cols, table._n)
+    return assemble(backend, cols, table._n)
 
 
 def supports_replication(graph) -> bool:

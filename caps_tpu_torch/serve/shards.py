@@ -304,7 +304,11 @@ def _table_host_columns(table) -> Tuple[Dict[str, np.ndarray],
 
 def _host_strings(table, col: str):
     """(object array of str, ok) of a string column of a device table:
-    its codes read in bulk, decoded through the pool."""
+    its codes read in bulk, decoded through the pool (a row-resident
+    table's column gathered to the lead first)."""
+    from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+    if isinstance(table, ShardedTable):
+        table = table.gathered([col])
     c = table._cols.get(col)
     if c is None or c.kind != "str":
         return None

@@ -646,16 +646,17 @@ def sick_shard(group: str, member: Optional[int] = None,
 @contextlib.contextmanager
 def corrupt_shard(session, shard: int = 0, flip_bits: int = 1):
     """While active, every *data* buffer placed on the session's mesh
-    gets ``flip_bits`` added to the rows of shard ``shard``'s block
-    (validity masks are left intact — the corruption is silent, like
-    real bit damage).  Only affects tables ingested inside the ``with``
-    block.
+    gets ``flip_bits`` added to shard ``shard``'s resident block, and to
+    no other block (validity masks are left intact — the corruption is
+    silent, like real bit damage).  Only affects tables placed inside
+    the ``with`` block.
 
-    A column the injector CANNOT damage (row count not divisible by the
-    shard count, or a bool or non-numeric dtype where "+1" is not bit
-    damage) is skipped with a warning, and if NOTHING was corrupted by
-    the time the block exits the context raises — a fault test that
-    injected no fault must fail loudly, not pass vacuously."""
+    A column the injector CANNOT damage (placed whole: its row count
+    does not divide over the shards; or a bool or non-numeric dtype
+    where "+1" is not bit damage) is skipped with a warning, and if
+    NOTHING was corrupted by the time the block exits the context
+    raises — a fault test that injected no fault must fail loudly, not
+    pass vacuously."""
     backend = _placement_backend(session, "corrupt_shard")
     if getattr(backend, "mesh", None) is None:
         raise ValueError("corrupt_shard needs a sharded session "
@@ -666,11 +667,13 @@ def corrupt_shard(session, shard: int = 0, flip_bits: int = 1):
     def wrap(orig):
         def poisoned(col):
             n = col.data.shape[0]
-            if n % n_shards == 0 and col.data.dtype != torch.bool:
-                rows = n // n_shards
-                data = col.data.clone()
-                data[shard * rows:(shard + 1) * rows] += flip_bits
-                col = dataclasses.replace(col, data=data)
+            placed = orig(col)
+            if isinstance(placed, list) and col.data.dtype != torch.bool:
+                # the named shard's resident block, only
+                block = placed[shard]
+                placed = list(placed)
+                placed[shard] = dataclasses.replace(
+                    block, data=block.data + flip_bits)
                 counts["corrupted"] += 1
                 _count_injection("corrupt_shard")
             else:
@@ -681,7 +684,7 @@ def corrupt_shard(session, shard: int = 0, flip_bits: int = 1):
                 warnings.warn(f"corrupt_shard skipped a column ({reason}) "
                               f"— this column was placed UNDAMAGED",
                               stacklevel=2)
-            return orig(col)
+            return placed
         return poisoned
 
     with _patched(backend, "place_column", wrap):

@@ -194,10 +194,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 own stream) under ``device_loss(0)``;
  16. mesh     — the multi-GPU slice on a mesh of 4 shards (4 cards where
                 the process sees as many, else all on the one card, run
-                one after another): M1 the grouped 2-hop query on a
-                ``mesh_shape=(4,), use_csr=False`` session (radix-exchange
-                joins, K2 on every shard's expansion, K1 once per shard
-                then the combine, K3), cold, 5 exact replays (0 size
+                one after another), the graph's rows resident per shard
+                (a line with the cards the mesh used, one with each
+                slot's resident column bytes: a quarter of the graph's
+                each, no graph column whole on the lead): M1 the grouped
+                2-hop query on a ``mesh_shape=(4,), use_csr=False``
+                session (radix-exchange joins over the resident blocks,
+                K2 on every shard's expansion, K1 once per shard's block
+                then the combine, K3 after the gather), cold, 5 exact
+                replays (0 size
                 reads), eager and the 8 rotating ages, each against the
                 numpy oracle and an unsharded session, each shard's K1
                 combine against the plain version over the whole column;
@@ -206,12 +211,16 @@ Phases, one JSON line each; any failure raises and exits nonzero:
                 through a hub node (20 % of the edges, seeded; hot above
                 half a shard's fair share); M4 the ring 2-hop count and a
                 ``[*1..3]`` ring-matrix var-expand against the unsharded
-                session; M5 the sharded two-hop step and the collectives
-                smoke over the 10M edges against numpy; M6 a re-shard to
+                session; M8 a 2-hop count whose hops' targets differ
+                (``spmv-sharded``: each shard segment-sums its edge
+                block, the frontiers all-reduced per hop) against numpy;
+                M5 the sharded two-hop step over the KNOWS table's
+                resident blocks and the collectives smoke over the 10M
+                edges against numpy; M6 a re-shard to
                 the 3 healthy slots (2 shards, the power-of-two rule),
                 then M1 again; M7 a ``QueryServer`` whose graph a shard
                 group of 4 members serves (partitioned by city): 8
-                clients, 300 requests (routed single-city reads and
+                clients, 150 requests (routed single-city reads and
                 M1), a member lost under traffic and rebuilt, one write
                 read back.  Per query cold and warm latency, size reads,
                 dist joins, bytes between shards, launches, peak bytes
@@ -4627,10 +4636,17 @@ QUERY_VARLEN3_CITY = (
     "MATCH (a:Person)-[:KNOWS*1..3]->(c) WHERE a.age = $age "
     "AND a.city = $city "
     "RETURN c.city AS city, count(*) AS n ORDER BY n DESC, city LIMIT 20")
+# M8: the hops' target specs differ, so the chain runs off the ring
+MESH_OLD_AGE = 50
+QUERY_SPMV_SHARDED = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person) "
+    f"WHERE a.age = $age AND c.age > {MESH_OLD_AGE} RETURN count(*) AS c")
 # M7: the shard group's traffic, and the member loss under it
 SHARD_CLIENTS = 8
-SHARD_REQUESTS = 300
-SHARD_LOSS_REQUESTS = 200
+# cut from 300 and 200 when the mesh's rows became resident per shard
+# (each cross-shard request runs its row-local stages once per shard)
+SHARD_REQUESTS = 150
+SHARD_LOSS_REQUESTS = 100
 SHARD_LOSS_FAULTS = 6
 QUERY_CITY = ("MATCH (p:Person {city: $c}) "
               "RETURN count(*) AS n, min(p.age) AS lo, max(p.age) AS hi")
@@ -4808,13 +4824,28 @@ def run_shard_group(torch, np, nodes, rels, card: str) -> dict:
     return out
 
 
+def own_storage(torch, graph) -> bool:
+    """Whether every resident block of the graph's row-resident tables
+    owns its storage (no block a view into a whole column)."""
+    from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+    for et in tuple(graph.node_tables) + tuple(graph.rel_tables):
+        if not isinstance(et.table, ShardedTable):
+            return False
+        for p in et.table.parts:
+            for c in p._cols.values():
+                for t in (c.data, c.valid):
+                    if t.untyped_storage().nbytes() != t.nbytes:
+                        return False
+    return True
+
+
 def run_mesh(torch, np, args, card: str, state) -> dict:
-    """M1–M6 of the mesh phase (module docstring)."""
+    """M1–M8 of the mesh phase (module docstring)."""
     import caps_tpu_torch
     from caps_tpu_torch import ops
+    from caps_tpu_torch.backends.cuda.sharded import resident_bytes
     from caps_tpu_torch.interop import graph_from_numpy
     from caps_tpu_torch.okapi.config import EngineConfig
-    from caps_tpu_torch.parallel.mesh import make_mesh
     from caps_tpu_torch.parallel.query_step import (
         make_collectives_smoke, make_sharded_two_hop)
     from caps_tpu_torch.relational.session import degraded_execution
@@ -4835,11 +4866,31 @@ def run_mesh(torch, np, args, card: str, state) -> dict:
     torch.cuda.synchronize()
     out["ingest_s"] = time.perf_counter() - t0
     out["mesh"] = msess.backend.mesh.describe()
+    emit({"mesh_devices": {
+        "device_count": torch.cuda.device_count(),
+        "distinct": [str(d) for d in msess.backend.mesh.distinct_devices],
+        "slots": [str(s) for s in msess.backend.mesh.slots]}})
+    # the graph's rows resident per slot: a quarter of the graph's column
+    # bytes each, no table whole on the lead, every block its own storage
+    res = resident_bytes(mgraph)
+    graph_bytes = sum(et.table.nbytes for et in
+                      tuple(pgraph.node_tables) + tuple(pgraph.rel_tables))
+    resident = {"per_slot": res["per_slot"], "whole_on_lead": res["whole"],
+                "graph_bytes": graph_bytes,
+                "own_storage": own_storage(torch, mgraph),
+                "allocated_bytes": torch.cuda.memory_allocated()}
+    emit({"mesh_resident_bytes": resident})
+    expect("mesh", res["whole"] == 0 and resident["own_storage"]
+           and len(res["per_slot"]) == MESH_SHARDS
+           and sum(res["per_slot"]) == graph_bytes
+           and max(res["per_slot"]) == min(res["per_slot"]), resident,
+           "mesh")
+    out["resident"] = resident
 
     # -- M1: the grouped 2-hop query: radix joins, sharded K1, K3 ------
     want = oracle(np, nodes, rels, AGE)[0]
     sharded = Recorder(ops, "dense_segment_agg_sharded",
-                       lambda a: a[1].shape[0])
+                       lambda a: sum(c.shape[0] for c in a[1]))
     per_query = query_recorders()
     rows, m1, result = mesh_numbers(torch, msess, mgraph, QUERY_GROUPED, age,
                                     card, recorders=per_query + [sharded])
@@ -4856,11 +4907,18 @@ def run_mesh(torch, np, args, card: str, state) -> dict:
     combines = 0
     for args_ in sharded.calls:
         mesh, codes, okm, vals, S, kind = args_
+        # each shard's resident block, one list entry per shard
+        expect("M1", isinstance(codes, list) and len(codes) == MESH_SHARDS,
+               "the sharded group-by did not read resident blocks", "mesh")
         got = ops.segment.dense_segment_agg_sharded(*args_)
-        whole = ops.dense_segment_agg_plain(codes, okm, vals, S, kind)
+
+        def cat(blocks):
+            return torch.cat([b.to(got.device) for b in blocks])
+        whole = ops.dense_segment_agg_plain(cat(codes), cat(okm), cat(vals),
+                                            S, kind)
         expect("M1", torch.equal(got, whole),
-               f"sharded {kind} over {codes.shape[0]} rows differs from "
-               f"the plain version", "mesh")
+               f"sharded {kind} over {sum(c.shape[0] for c in codes)} rows "
+               f"differs from the plain version", "mesh")
         combines += 1
     expect("M1", combines > 0, "no sharded group-by ran", "mesh")
     m1["sharded_group_bys"] = combines
@@ -4934,23 +4992,37 @@ def run_mesh(torch, np, args, card: str, state) -> dict:
         expect("M4", want_c == [{"c": int(round(hop2.sum()))}], want_c,
                "mesh")
     out["M4"] = {"count": m4c, "varlen3": m4v}
+
+    # -- M8: a count chain off the ring: spmv-sharded -------------------
+    rows, m8, _ = mesh_numbers(torch, rsess, rgraph, QUERY_SPMV_SHARDED, age,
+                               card)
+    old = nodes["Person"]["age"] > MESH_OLD_AGE
+    want8 = int(round((hop2 * old).sum()))
+    expect("M8", rows == [{"c": want8}], (rows, want8), "mesh")
+    expect("M8", m8["strategies"].get("CountPattern") == "spmv-sharded",
+           m8["strategies"], "mesh")
+    out["M8"] = m8
     del rsess, rgraph
 
     # -- M5: the sharded query steps over the 10M edges -----------------
-    mesh = make_mesh(MESH_SHARDS, device=msess.device)
+    # the two-hop step reads the KNOWS table's resident blocks
+    mesh = msess.backend.mesh
     dev = mesh.lead
     ages_d = torch.from_numpy(nodes["Person"]["age"].astype(np.int32)).to(dev)
-    src = torch.from_numpy(k["_src"].astype(np.int32)).to(dev)
-    dst = torch.from_numpy(k["_tgt"].astype(np.int32)).to(dev)
-    okd = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    kt = mgraph.rel_tables[0]
+    src_b = [p._cols[kt.mapping.source_col].data for p in kt.table.parts]
+    dst_b = [p._cols[kt.mapping.target_col].data for p in kt.table.parts]
+    ok_b = [p._cols[kt.mapping.source_col].valid & p.row_ok
+            for p in kt.table.parts]
     step = make_sharded_two_hop(mesh, len(nodes["Person"]["_id"]))
     t0 = time.perf_counter()
-    total, _cnt2 = step(ages_d, src, dst, okd, AGE)
+    total, _cnt2 = step(ages_d, src_b, dst_b, ok_b, AGE)
     total = int(total)
     two_hop_s = time.perf_counter() - t0
     seeds = nodes["Person"]["age"][k["_src"]] == AGE
     cnt1 = np.bincount(k["_tgt"][seeds], minlength=len(nodes["Person"]["_id"]))
     expect("M5", total == int(cnt1[k["_src"]].sum()), total, "mesh")
+    src = torch.from_numpy(k["_src"].astype(np.int32)).to(dev)
     t0 = time.perf_counter()
     smoke = int(make_collectives_smoke(mesh)(src))
     smoke_s = time.perf_counter() - t0

@@ -203,13 +203,15 @@ def _sharded_both(codes, ok, values, s, kind, n_shards=8):
         dense_segment_agg_sharded as jax_sharded
     from caps_tpu.parallel.mesh import make_mesh as jax_make_mesh
     from caps_tpu_torch.ops import dense_segment_agg_sharded
+    from caps_tpu_torch.parallel.collectives import shard_blocks
     from caps_tpu_torch.parallel.mesh import make_mesh
     want = np.asarray(jax_sharded(
         jax_make_mesh(n_shards), "shard", jnp.asarray(codes),
         jnp.asarray(ok), jnp.asarray(values), s, kind, interpret=True))
+    mesh = make_mesh(n_shards, device="cpu")
     got = dense_segment_agg_sharded(
-        make_mesh(n_shards, device="cpu"), torch.from_numpy(codes),
-        torch.from_numpy(ok), torch.from_numpy(values), s, kind).numpy()
+        mesh, *(shard_blocks(torch.from_numpy(a), mesh)
+                for a in (codes, ok, values)), s, kind).numpy()
     assert got.shape == want.shape == (s,) and got.dtype == want.dtype
     return got, want
 

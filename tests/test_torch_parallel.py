@@ -43,6 +43,14 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def _edges(mesh, args, at):
+    """``args`` as tensors, the edge arrays at positions ``at`` cut into
+    the shards' resident blocks (the port's stages take blocks)."""
+    from caps_tpu_torch.parallel.collectives import shard_blocks
+    return [shard_blocks(_t(a), mesh) if i in at else _t(a)
+            for i, a in enumerate(args)]
+
+
 def _same(port_rows, jax_rows) -> bool:
     """Rows equal as bags; entity values of the two packages are
     different classes, so rows compare by their text."""
@@ -59,8 +67,10 @@ def _graph(n_nodes, n_edges, seed=7):
 
 
 def _two_hop_both(mesh_n, names, src, dst, ok, seed_code, n_nodes):
-    step = QS.make_sharded_two_hop(make_mesh(mesh_n, device="cpu"), n_nodes)
-    total, cnt2 = step(*map(_t, (names, src, dst, ok)), seed_code)
+    pmesh = make_mesh(mesh_n, device="cpu")
+    step = QS.make_sharded_two_hop(pmesh, n_nodes)
+    total, cnt2 = step(*_edges(pmesh, (names, src, dst, ok), (1, 2, 3)),
+                       seed_code)
     jstep = jax_qs.make_sharded_two_hop(jax_mesh.make_mesh(mesh_n), n_nodes)
     jt, jc = jstep(*map(jnp.asarray, (names, src, dst, ok)),
                    jnp.int32(seed_code))
@@ -167,7 +177,7 @@ def test_ring_khop_matches_reference(mesh, jmesh, masked):
     mask = (rng.rand(n_nodes) < 0.7).astype(np.int32)
     extra = (mask,) if masked else ()
     total, blocks = R.make_ring_khop(mesh, n_nodes, hops, masked=masked)(
-        *map(_t, (seed, src, dst, ok) + extra))
+        *_edges(mesh, (seed, src, dst, ok) + extra, (1, 2, 3)))
     jt, jb = jax_ring.make_ring_khop(jmesh, n_nodes, hops, masked=masked)(
         *map(jnp.asarray, (seed, src, dst, ok) + extra))
     assert int(total) == int(jt)
@@ -194,7 +204,8 @@ def test_ring_varexpand_matrix_matches_reference(mesh, jmesh):
     tmask = (rng.rand(n_nodes) < 0.7).astype(np.int64)
     args = (f0, src, dst, ok, tmask)
     for lengths in [(1,), (2,), (1, 2), (0, 1, 2), (0,)]:
-        got = R.make_ring_varexpand(mesh, n_nodes, lengths)(*map(_t, args))
+        got = R.make_ring_varexpand(mesh, n_nodes, lengths)(
+            *_edges(mesh, args, (1, 2, 3)))
         want = jax_ring.make_ring_varexpand(jmesh, n_nodes, lengths)(
             *map(jnp.asarray, args))
         twin = R.ring_varexpand_reference(*map(_t, args), lengths)
@@ -212,7 +223,8 @@ def test_ring_varexpand_pathcount_oracle(mesh, jmesh):
     f0 = np.eye(n_nodes, dtype=np.int64)
     tmask = np.ones(n_nodes, dtype=np.int64)
     args = (f0, src, dst, ok, tmask)
-    got = R.make_ring_varexpand(mesh, n_nodes, (1, 2))(*map(_t, args))
+    got = R.make_ring_varexpand(mesh, n_nodes, (1, 2))(
+        *_edges(mesh, args, (1, 2, 3)))
     want = jax_ring.make_ring_varexpand(jmesh, n_nodes, (1, 2))(
         *map(jnp.asarray, args))
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -301,7 +313,8 @@ def test_ring_varexpand_undirected_oracle(mesh, jmesh):
     tmask = np.ones(n_nodes, dtype=np.int64)
     args = (f0, a, b, okp, tmask)
     got = R.make_ring_varexpand(mesh, n_nodes, (1, 2),
-                                correction="degree")(*map(_t, args))
+                                correction="degree")(
+        *_edges(mesh, args, (1, 2, 3)))
     want = jax_ring.make_ring_varexpand(jmesh, n_nodes, (1, 2),
                                         correction="degree")(
         *map(jnp.asarray, args))
@@ -334,8 +347,8 @@ def test_two_level_mesh_parity():
     """A 2-D (DCN x shard) mesh runs the engine with the JAX package's
     oracle's rows; the var-expand takes the single-device ``matrix``
     form on it, as the JAX package's 2-D sessions do, and the count
-    pushdown runs unsharded on the lead device and says so (``spmv``;
-    the JAX package's GSPMD shards it and reports ``spmv-sharded``)."""
+    pushdown segment-sums each shard's resident edge block and reports
+    ``spmv-sharded``, as the JAX package does."""
     create = ("CREATE (a:Person {name:'Ada', age:30}), "
               "(b:Person {name:'Bo', age:40}), (c:Person {name:'Cy'}), "
               "(a)-[:KNOWS]->(b), (b)-[:KNOWS]->(c), (a)-[:KNOWS]->(c)")
@@ -362,7 +375,7 @@ def test_two_level_mesh_parity():
     res = gp.cypher("MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) "
                     "WHERE a.name='Ada' RETURN count(*) AS c")
     cp = [m for m in res.metrics["operators"] if m["op"] == "CountPattern"]
-    assert cp and cp[0]["strategy"] == "spmv"
+    assert cp and cp[0]["strategy"] == "spmv-sharded"
 
 
 def test_count_chain_rides_ring_on_mesh():
@@ -435,7 +448,8 @@ def test_ring_varexpand3_kernel_vs_twin(mesh, jmesh):
             np.ones(n_nodes, dtype=np.int64)) + pad(sp13) + pad(spt)
     for lengths in [(1, 2, 3), (0, 1, 2, 3), (3,)]:
         got = R.make_ring_varexpand3(mesh, n_nodes, lengths,
-                                     correction="degree")(*map(_t, args))
+                                     correction="degree")(
+            *_edges(mesh, args, (1, 2, 3, 5, 6, 7, 8, 9, 10)))
         want = jax_ring.make_ring_varexpand3(jmesh, n_nodes, lengths,
                                              correction="degree")(
             *map(jnp.asarray, args))

@@ -153,6 +153,143 @@ def test_fault_injection_is_detected_by_parity():
     assert got != want
 
 
+def test_corrupt_shard_damages_only_the_named_block():
+    """The damage lands in the named shard's resident block of each
+    placed numeric column, and every other block holds the clean
+    rows."""
+    import torch
+    from caps_tpu_torch.testing.faults import corrupt_shard
+    from caps_tpu_torch.okapi.types import CTInteger
+    rows = {"x": list(range(40)), "y": [i * 3 for i in range(40)]}
+    types = {"x": CTInteger, "y": CTInteger}
+    clean = _session(mesh_shape=(8,)).table_factory.from_columns(rows, types)
+    hurt_s = _session(mesh_shape=(8,))
+    with corrupt_shard(hurt_s, shard=2, flip_bits=100) as counts:
+        hurt = hurt_s.table_factory.from_columns(rows, types)
+    assert counts["corrupted"] == 2
+    for c in rows:
+        for i, (a, b) in enumerate(zip(clean.parts, hurt.parts)):
+            delta = b._cols[c].data - a._cols[c].data
+            assert torch.equal(delta, torch.full_like(
+                delta, 100 if i == 2 else 0))
+            assert torch.equal(a._cols[c].valid, b._cols[c].valid)
+
+
+def test_reshard_places_blocks_on_the_survivors():
+    """After a loss the graph's tables are placed anew over the
+    surviving slots — every resident block on a survivor — and answer
+    as the JAX package's sharded session does; one survivor leaves them
+    whole on it."""
+    from caps_tpu.backends.tpu.session import TPUCypherSession
+    from caps_tpu.okapi.config import EngineConfig as JaxConfig
+    from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+    create = ("CREATE " + ", ".join(f"(n{i}:P {{v: {i % 7}}})"
+                                    for i in range(30)) + ", "
+              + ", ".join(f"(n{i})-[:R]->(n{(i * 5 + 2) % 30})"
+                          for i in range(30)))
+    queries = ["MATCH (a:P)-[:R]->(b:P) WHERE a.v < 3 "
+               "RETURN a.v AS a, b.v AS b",
+               "MATCH (a:P)-[:R]->(b:P)-[:R]->(c:P) WHERE a.v = 2 "
+               "AND c.v > 1 RETURN count(*) AS c",
+               "MATCH (a:P) RETURN a.v AS v, count(*) AS n ORDER BY v"]
+    jg = jax_create_graph(TPUCypherSession(config=JaxConfig(
+        mesh_shape=(8,))), create, {})
+    want = [jg.cypher(q).records.to_maps() for q in queries]
+    sess = _session(mesh_shape=(8,), use_csr=False)
+    g = create_graph(sess, create, {})
+    sess.catalog.store("g", g)
+    slots = list(sess.backend.mesh.slots)
+    for healthy, shards in ((slots[1:6], 4), (slots[2:5], 2),
+                            (slots[3:4], 1)):
+        assert sess.shrink_and_reshard(healthy=healthy) == shards
+        for et in tuple(g.node_tables) + tuple(g.rel_tables):
+            t = et.table
+            if shards == 1:
+                assert not isinstance(t, ShardedTable)
+                assert t._cols[et.mapping.id_col].data.device == \
+                    healthy[0].device
+                continue
+            assert isinstance(t, ShardedTable) and len(t.parts) == shards
+            assert all(p.backend.slot in healthy for p in t.parts)
+        for q, w in zip(queries, want):
+            assert Bag(g.cypher(q).records.to_maps()) == w, q
+
+
+def _lose(graph, lost):
+    """Every per-row tensor of the blocks on the ``lost`` slots made
+    unreadable (a lost card's buffers: their shape and type read, their
+    data not)."""
+    import dataclasses
+    import torch
+    from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+
+    class Lost(torch.Tensor):
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("__get__", "dim", "size"):
+                with torch._C.DisableTorchFunctionSubclass():
+                    return func(*args, **(kwargs or {}))
+            raise RuntimeError("read of a lost slot's buffer")
+
+    def dead(col):
+        return dataclasses.replace(col, **{
+            f: getattr(col, f).as_subclass(Lost)
+            for f in ("data", "valid", "lens", "elem_valid", "tags", "order")
+            if getattr(col, f) is not None})
+    for et in tuple(graph.node_tables) + tuple(graph.rel_tables):
+        t = et.table
+        for p in (t.parts if isinstance(t, ShardedTable) else ()):
+            if p.backend.slot in lost:
+                p._cols = {c: dead(col) for c, col in p._cols.items()}
+
+
+def test_reshard_reads_no_block_of_a_lost_slot():
+    """A re-shard rebuilds the tables from their ingest mirrors: the
+    blocks on the lost slots (the lead's among them) are never read, and
+    the answers equal the JAX package's sharded session's.  A table with
+    a column that has no mirror and a block on a lost slot raises,
+    naming it, and leaves the session as it was."""
+    import pytest
+    from caps_tpu.backends.tpu.session import TPUCypherSession
+    from caps_tpu.okapi.config import EngineConfig as JaxConfig
+    from caps_tpu_torch.backends.cuda.sharded import ShardedTable
+    create = ("CREATE " + ", ".join(f"(n{i}:P {{v: {i % 7}, s: 'x{i % 3}'}})"
+                                    for i in range(32)) + ", "
+              + ", ".join(f"(n{i})-[:R {{w: {i % 4}}}]->(n{(i * 5 + 2) % 32})"
+                          for i in range(32)))
+    queries = ["MATCH (a:P)-[r:R]->(b:P) WHERE a.v < 3 "
+               "RETURN a.s AS a, b.v AS b, r.w AS w",
+               "MATCH (a:P)-[:R]->(b:P)-[:R]->(c:P) WHERE a.v = 2 "
+               "AND c.v > 1 RETURN count(*) AS c",
+               "MATCH (a:P) RETURN a.s AS s, count(*) AS n ORDER BY s"]
+    jg = jax_create_graph(TPUCypherSession(config=JaxConfig(
+        mesh_shape=(8,))), create, {})
+    want = [jg.cypher(q).records.to_maps() for q in queries]
+    sess = _session(mesh_shape=(8,), use_csr=False)
+    g = create_graph(sess, create, {})
+    sess.catalog.store("g", g)
+    assert all(isinstance(et.table, ShardedTable)
+               for et in tuple(g.node_tables) + tuple(g.rel_tables))
+    slots = list(sess.backend.mesh.slots)
+    _lose(g, [slots[0], slots[6], slots[7]])
+    assert sess.shrink_and_reshard(healthy=slots[1:6]) == 4
+    for et in tuple(g.node_tables) + tuple(g.rel_tables):
+        assert all(p.backend.slot in slots[1:6] for p in et.table.parts)
+    for q, w in zip(queries, want):
+        assert Bag(g.cypher(q).records.to_maps()) == w, q
+
+    s2 = _session(mesh_shape=(8,))
+    g2 = create_graph(s2, "CREATE " + ", ".join(
+        f"(:Q {{xs: [{i}, {i + 1}]}})" for i in range(16)), {})
+    s2.catalog.store("g2", g2)
+    slots = list(s2.backend.mesh.slots)
+    _lose(g2, slots[4:])
+    with pytest.raises(RuntimeError, match="table Q .*'xs'"):
+        s2.shrink_and_reshard(healthy=slots[:4])
+    assert s2.backend.mesh.size == 8
+    assert len(g2.node_tables[0].table.parts) == 8
+
+
 def test_corrupt_shard_requires_mesh():
     import pytest
     from caps_tpu_torch.testing.faults import corrupt_shard
