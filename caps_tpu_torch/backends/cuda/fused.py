@@ -107,6 +107,12 @@ def _merge_streams(merged: List[Tuple], rec: List[Tuple],
             # consume_obj invariant (table.py) — every consumer is guarded
             # by a later relation-checked consume
             out.append(r)
+        elif m[0] == "seeds":
+            # the prefixes seeded from the result cache: a stream of
+            # another set is another op sequence
+            if m[1] != r[1]:
+                return None
+            out.append(r)
         elif m[0] == "rows":
             hi = max(m[1], r[1])
             if widen_rows is not None and r[1] > m[1]:

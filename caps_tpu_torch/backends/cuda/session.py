@@ -22,6 +22,7 @@ from caps_tpu_torch.backends.cuda.table import DeviceBackend, DeviceTableFactory
 from caps_tpu_torch.obs import clock
 from caps_tpu_torch.obs.compile import current_charges
 from caps_tpu_torch.okapi.config import EngineConfig
+from caps_tpu_torch.relational.result_cache import seeded_prefix_ids
 from caps_tpu_torch.relational.session import (
     RelationalCypherSession, degraded_state,
 )
@@ -151,6 +152,18 @@ class CUDACypherSession(RelationalCypherSession):
             self._annotate_profile(result, use_fused)
         return result
 
+    def _seed_subplans(self, rcache, root) -> int:
+        """Seed the memoized prefixes, then put the set seeded into the
+        size stream (``DeviceBackend.consume_seeds``): a replay recorded
+        with another set diverges there, before an operator reads a size
+        meant for another — the fused executor's audit then re-records,
+        as the JAX package's does at its end-of-run count."""
+        seeded = super()._seed_subplans(rcache, root)
+        if seeded:
+            self.backend.consume_seeds(",".join(
+                str(i) for i in seeded_prefix_ids(root)))
+        return seeded
+
     def _annotate_profile(self, result, use_fused: bool) -> None:
         """Fused-replay-aware PROFILE epilogue (never silently wrong
         numbers): when the query REPLAYED and per-op sync was off, the
@@ -262,9 +275,9 @@ class CUDACypherSession(RelationalCypherSession):
 
         A re-shard changes the shard count and with it every recorded
         size stream (bin capacities, per-shard output sizes): the fused
-        executor's memo, the plan cache's entries and the count
-        closures of the re-placed graphs are dropped, so the next run of
-        any query re-records.
+        executor's memo, the plan cache's entries, the count closures of
+        the re-placed graphs and the result cache's memoized prefixes
+        are dropped, so the next run of any query re-records.
 
         ``healthy``: the surviving mesh slots (default: those whose
         ``health_check`` passes)."""
@@ -336,7 +349,10 @@ class CUDACypherSession(RelationalCypherSession):
                 # rebuild the CSR physical layout on the new placement
                 self._factory.prepare_rel_table(rt)
         # every recorded size stream and cached plan was made for the
-        # old shard count
+        # old shard count; a memoized prefix may hold a block on a lost
+        # slot's card, which is never read again
         self.fused.clear()
         self.plan_cache.clear()
+        if self.result_cache is not None:
+            self.result_cache.clear_subplans()
         return be.n_shards

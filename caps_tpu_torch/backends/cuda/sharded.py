@@ -571,7 +571,37 @@ class ShardedTable(Table):
 
     @property
     def nbytes(self) -> int:
-        return sum(p.nbytes for p in self.parts)
+        """The bytes the table holds: every block's per-row tensors, and
+        each side column once per distinct device that holds it (the
+        blocks on one device share it, ``_carried``)."""
+        sides: Dict[int, Column] = {}
+
+        def held(col: Column) -> int:
+            n = sum(int(t.nbytes) for t in (col.data, col.valid, col.lens,
+                                            col.elem_valid, col.tags,
+                                            col.order) if t is not None)
+            n += sum(held(c) for c in (col.fields or {}).values())
+            for side in (col.child, col.maps):
+                if side is not None and id(side) not in sides:
+                    sides[id(side)] = side
+                    n += held(side)
+            return n
+        return sum(held(c) for p in self.parts for c in p._cols.values())
+
+    def held_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of every block (``table.held_tensors``)."""
+        from caps_tpu_torch.backends.cuda.table import held_tensors
+        return held_tensors(self.parts)
+
+    def stream_mark(self):
+        """``table.stream_mark`` over every block's card."""
+        from caps_tpu_torch.backends.cuda.table import stream_mark
+        return stream_mark(self.held_tensors())
+
+    def adopt_streams(self, mark) -> None:
+        """``table.adopt_streams`` over every block's card."""
+        from caps_tpu_torch.backends.cuda.table import adopt_streams
+        adopt_streams(self.held_tensors(), mark)
 
     def resident_bytes(self) -> List[int]:
         """Per slot, the bytes of its blocks' per-row tensors."""

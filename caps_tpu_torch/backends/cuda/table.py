@@ -355,6 +355,28 @@ class DeviceBackend:
         # counts as its guard (see consume_obj's invariant)
         self._obj_unguarded = 0
 
+    def consume_seeds(self, ids: str) -> None:
+        """The prefixes a run seeded from the result cache's subplan
+        level (``CUDACypherSession._seed_subplans``), as an entry of the
+        size stream.  A seeded prefix reads none of its sizes, so a
+        stream recorded with another set of seeded prefixes would serve
+        every later size to the wrong operator: a record run appends the
+        set, a replay checks it against its recording's and diverges
+        HERE, before any operator above the prefixes reads a size (a
+        replay that seeds nothing where the recording seeded meets this
+        entry at its first read and diverges on the tag)."""
+        mode = self.count_mode
+        if mode is None:
+            return
+        if mode[0] == "record":
+            mode[1].append(("seeds", ids))
+            return
+        v = self._next_entry(mode, "seeds")
+        if v[1] != ids:
+            raise FusedReplayMismatch(
+                f"replay seeded prefixes {ids!r} where the recording "
+                f"seeded {v[1]!r}")
+
     def consume_obj(self, make):
         """Materialize a small data-dependent HOST value (the hot-key
         sample of the radix dist join) through the same record/replay
@@ -500,6 +522,19 @@ class DeviceTable(Table):
             kids += [c for c in (col.child, col.maps) if c is not None]
             return n + sum(size(c) for c in kids)
         return sum(size(col) for col in self._cols.values())
+
+    def held_tensors(self) -> List[torch.Tensor]:
+        """Every tensor the table holds, side columns and the live
+        count included, each once."""
+        return held_tensors([self])
+
+    def stream_mark(self):
+        """See :func:`stream_mark`."""
+        return stream_mark(self.held_tensors())
+
+    def adopt_streams(self, mark) -> None:
+        """See :func:`adopt_streams`."""
+        adopt_streams(self.held_tensors(), mark)
 
     # -- column ops ------------------------------------------------------
 
@@ -1437,6 +1472,65 @@ def _pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 _ROW_FIELDS = ("data", "valid", "lens", "elem_valid", "tags", "order")
+
+
+def held_tensors(tables) -> List[torch.Tensor]:
+    """Every tensor the DeviceTables ``tables`` hold — each column's
+    per-row tensors, its map keys' and the side columns it shares, and
+    each table's live count — each once."""
+    out: Dict[int, torch.Tensor] = {}
+    cols: Dict[int, Column] = {}
+    stack = [c for t in tables for c in t._cols.values()]
+    for t in tables:
+        if isinstance(t._live, torch.Tensor):
+            out[id(t._live)] = t._live
+    while stack:
+        col = stack.pop()
+        if id(col) in cols:
+            continue
+        cols[id(col)] = col
+        for f in _ROW_FIELDS:
+            x = getattr(col, f)
+            if x is not None:
+                out[id(x)] = x
+        stack.extend((col.fields or {}).values())
+        stack.extend(c for c in (col.child, col.maps) if c is not None)
+    return list(out.values())
+
+
+def stream_mark(tensors) -> Optional[Dict[torch.device, tuple]]:
+    """For each card that holds one of ``tensors``: the stream current
+    there now and an event recorded on it (None when none is on a card).
+    A cache that keeps tensors made by this run for a later run passes
+    the mark to :func:`adopt_streams` then."""
+    devices = {t.device for t in tensors if t.is_cuda}
+    if not devices:
+        return None
+    mark = {}
+    for d in devices:
+        stream = torch.cuda.current_stream(d)
+        event = torch.cuda.Event()
+        event.record(stream)
+        mark[d] = (stream, event)
+    return mark
+
+
+def adopt_streams(tensors, mark) -> None:
+    """Make ``tensors`` safe to read on the streams current now, where
+    :func:`stream_mark` recorded other ones: each such stream waits for
+    the marked event (the reads come after the writes that made the
+    tensors), and each tensor is recorded on it (the caching allocator
+    reuses its memory only once this stream's work queued so far is
+    done, even if every reference is dropped meanwhile).  Neither
+    blocks the host."""
+    for d, (stream, event) in mark.items():
+        cur = torch.cuda.current_stream(d)
+        if cur == stream:
+            continue
+        cur.wait_event(event)
+        for t in tensors:
+            if t.device == d:
+                t.record_stream(cur)
 
 
 def _col_tensors(col: Column) -> List[torch.Tensor]:

@@ -376,11 +376,13 @@ class RelationalCypherSession(CypherSession):
         self.plan_cache = PlanCache(self.config.plan_cache_size,
                                     enabled=self.config.use_plan_cache,
                                     registry=self.metrics_registry)
-        # Snapshot-keyed result cache (relational/result_cache.py):
-        # attached by the serving tier (ServerConfig.result_cache), which
-        # reads and fills it at admission and completion; None means
-        # every read runs on the device.  It holds host rows only, and
-        # exists before the memory ledger registers its gauge over it.
+        # Snapshot-keyed result & subplan cache (relational/
+        # result_cache.py): attached by the serving tier
+        # (ServerConfig.result_cache), which reads and fills its result
+        # level at admission and completion; the execution paths seed
+        # and store its scan→filter prefixes.  None means every read
+        # runs on the device.  It exists before the memory ledger
+        # registers its gauge over it.
         self.result_cache = None
         # Memory ledger (obs/ledger.py): live mem.* gauges over the plan
         # cache, string pool, tracked graphs and the card's allocator.
@@ -872,7 +874,15 @@ class RelationalCypherSession(CypherSession):
             if logical.returns_graph:
                 result_graph = self._evaluate_graph(root)
             else:
+                rcache = self.result_cache
+                if rcache is not None:
+                    # snapshot-keyed subplan reuse: seed memoized
+                    # scan→filter intermediates before pulling the root
+                    self._seed_subplans(rcache, root)
                 header, table = root.result
+                if rcache is not None:
+                    # capture BEFORE any reset_plan clears the memos
+                    rcache.store_subplans(root)
                 records = RelationalCypherRecords(
                     self, header, table, logical.result_fields,
                     graph=rel_planner.current_graph)
@@ -926,6 +936,13 @@ class RelationalCypherSession(CypherSession):
         result.profile = result_profile
         return result
 
+    def _seed_subplans(self, rcache, root) -> int:
+        """Seed ``root``'s memoized prefixes from the result cache's
+        second level (relational/result_cache.py).  A backend whose runs
+        replay recorded sizes extends it: a seeded prefix skips the
+        sizes its operators would have read."""
+        return rcache.seed_subplans(root)
+
     def _run_cached(self, plan: CachedPlan, query: str,
                     params: Dict[str, Any], t0: float,
                     family: Optional[str] = None) -> CypherResult:
@@ -941,11 +958,18 @@ class RelationalCypherSession(CypherSession):
             context = plan.context
             context.rebind(params)
             reset_plan(plan.root)
+            rcache = self.result_cache
+            if rcache is not None:
+                # seed AFTER reset_plan (reset clears seeded memos)
+                self._seed_subplans(rcache, plan.root)
             t1 = clock.now()
             try:
                 with self.tracer.span("execute", kind="phase",
                                       plan_cache="hit"):
                     header, table = plan.root.result
+                    if rcache is not None:
+                        # capture before the finally's reset_plan
+                        rcache.store_subplans(plan.root)
                     records = RelationalCypherRecords(
                         self, header, table, plan.result_fields,
                         graph=plan.records_graph)

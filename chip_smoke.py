@@ -3569,6 +3569,196 @@ def serve_load(torch, server, graph, requests, want, threads: int,
             "launches": launches, "profile": profile}, infos
 
 
+# The serve phase's sub-phase ``subplan``: two plan families over one
+# parameter-free scan→filter prefix (about 2.8 % of the persons, under
+# the result cache's 2 MiB entry limit at 1M persons), one grouping the
+# prefix's rows by city, one joining them one hop; each with ``LIMIT $k``
+# for the served requests (a new $k misses the result level and runs).
+SUBPLAN_AGE = 88
+SUBPLAN_GROUP = ("MATCH (a:Person) WHERE a.age >= 88 "
+                 "RETURN a.city AS city, count(*) AS n ORDER BY city")
+SUBPLAN_HOP = ("MATCH (a:Person) WHERE a.age >= 88 MATCH (a)-[:KNOWS]->(b) "
+               "RETURN b.city AS city, count(*) AS n ORDER BY city")
+SUBPLAN_WHOLE = ("MATCH (a:Person) RETURN a.city AS city, count(*) AS n "
+                 "ORDER BY city")
+SUBPLAN_WARM = 20      # warm runs of each family, with and without
+SUBPLAN_LIMITS = 6     # $k values of the served requests, per family
+
+
+def subplan_held_bytes(rcache) -> int:
+    """The bytes of the storages the subplan level's tables hold (each
+    once), as the allocator counts them."""
+    seen = {}
+    for entry in list(rcache._subplans.values()):
+        for t in entry.table.held_tensors():
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def run_subplan(torch, np, session, graph, nodes, rels, card: str) -> dict:
+    """The result cache's second level on the card: SUBPLAN_GROUP and
+    SUBPLAN_HOP share the prefix ``Filter(a.age >= 88, Scan(a))``.  Each
+    runs SUBPLAN_WARM warm times on the session with the level off, then
+    on (each run held to its numpy oracle; with it on, every warm run of
+    the second family seeds the prefix and runs no Scan or Filter of
+    it); a prefix over the whole person scan is refused by the entry
+    limit; then both families with ``LIMIT $k`` are served by two
+    replicas on the card with the cache on, and each family once more
+    from this thread, whose (default) stream seeds the memos made on
+    replica 0's."""
+    import collections
+    from caps_tpu_torch.relational.result_cache import (ResultCache,
+                                                        ResultCacheConfig)
+    from caps_tpu_torch.serve import QueryServer, ServerConfig
+    t_phase = time.perf_counter()
+    age = nodes["Person"]["age"]
+    city = nodes["Person"]["city"]
+    pick = age >= SUBPLAN_AGE
+
+    def by_city(values):
+        names, counts = np.unique(values, return_counts=True)
+        return [{"city": str(c), "n": int(n)} for c, n in zip(names, counts)]
+    src, tgt = rels["KNOWS"]["_src"], rels["KNOWS"]["_tgt"]
+    want = {SUBPLAN_GROUP: by_city(city[pick]),
+            SUBPLAN_HOP: by_city(city[tgt[pick[src]]]),
+            SUBPLAN_WHOLE: by_city(city)}
+    out = {"phase": "serve.subplan", "card": card,
+           "prefix_rows": int(pick.sum()), "warm_runs": SUBPLAN_WARM}
+    mismatches0 = session.fused.mismatches
+
+    def run(q, params=None):
+        t0 = time.perf_counter()
+        r = graph.cypher(q, params or {})
+        rows = r.records.to_maps()
+        return time.perf_counter() - t0, r, rows
+
+    warm = {}
+    for on in (False, True):
+        rc = ResultCache(ResultCacheConfig(subplan=on),
+                         registry=session.metrics_registry)
+        session.result_cache = rc
+        label = "subplan" if on else "no_subplan"
+        lat = {SUBPLAN_GROUP: [], SUBPLAN_HOP: []}
+        ops = {}
+        for i in range(SUBPLAN_WARM + 2):   # two cold-ish runs first
+            for q in (SUBPLAN_GROUP, SUBPLAN_HOP):
+                hits0 = rc.stats()["subplan_hits"]
+                dt, r, rows = run(q)
+                expect("subplan", rows == want[q],
+                       f"{label}: {q!r} disagrees with its oracle", "serve")
+                if i < 2:
+                    continue
+                lat[q].append(dt)
+                names = [m["op"] for m in r.metrics["operators"]]
+                ops[q] = names
+                hit = rc.stats()["subplan_hits"] - hits0
+                if on and q == SUBPLAN_HOP:
+                    expect("subplan", hit >= 1 and "Filter" not in names,
+                           f"a warm run of the second family seeded "
+                           f"{hit} prefixes and ran {names}", "serve")
+        torch.cuda.synchronize()
+        warm[label] = {
+            "latency_ms": {name: 1e3 * statistics.median(lat[q])
+                           for name, q in (("group", SUBPLAN_GROUP),
+                                           ("hop", SUBPLAN_HOP))},
+            "latency_ms_min": {name: 1e3 * min(lat[q])
+                               for name, q in (("group", SUBPLAN_GROUP),
+                                               ("hop", SUBPLAN_HOP))},
+            "operators": {name: ops[q] for name, q in (
+                ("group", SUBPLAN_GROUP), ("hop", SUBPLAN_HOP))}}
+        if on:
+            stats = rc.stats()
+            out["held"] = {
+                "subplan_entries": stats["subplan_entries"],
+                "rescache_bytes": rc.bytes,
+                "allocated_bytes": subplan_held_bytes(rc),
+                "subplan_hits": stats["subplan_hits"],
+                "subplan_misses": stats["subplan_misses"]}
+            removed = collections.Counter(
+                warm["no_subplan"]["operators"]["hop"])
+            removed.subtract(ops[SUBPLAN_HOP])
+            expect("subplan", removed["Filter"] == 1
+                   and removed["Scan"] >= 1,
+                   f"the seeded runs dropped {dict(removed)}", "serve")
+            # a prefix of the whole person scan is over the entry limit
+            entries = stats["subplan_entries"]
+            inserted0 = rc._subplan_insertions.value
+            _dt, _r, rows = run(SUBPLAN_WHOLE)
+            expect("subplan", rows == want[SUBPLAN_WHOLE]
+                   and rc.stats()["subplan_entries"] == entries
+                   and rc._subplan_insertions.value == inserted0,
+                   f"the whole scan's prefix was stored "
+                   f"({rc.stats()['subplan_entries']} entries)", "serve")
+            out["whole_scan_refused"] = True
+    session.result_cache = None
+    out["warm"] = warm
+    out["fused_mismatches"] = session.fused.mismatches - mismatches0
+
+    # served: two replicas on the card, the result cache on; the first
+    # request of each $k runs, the repeats hit the result level
+    limited = {q: q + " LIMIT $k" for q in (SUBPLAN_GROUP, SUBPLAN_HOP)}
+    requests = [(limited[q], {"k": k}, want[q][:k])
+                for k in range(1, SUBPLAN_LIMITS + 1)
+                for q in (SUBPLAN_GROUP, SUBPLAN_HOP)] * 2
+    server = QueryServer(session, graph=graph, config=ServerConfig(
+        devices=2, result_cache=ResultCacheConfig()))
+    infos, wrong, errors = [None] * len(requests), [], []
+
+    def client(mine):
+        try:
+            for i in mine:
+                q, p, rows = requests[i]
+                h = server.submit(q, p, deadline_s=SERVE_DEADLINE_S)
+                if h.rows(timeout=60) != rows:
+                    wrong.append((q, p))
+                infos[i] = h.info
+        except Exception as ex:  # the run fails below
+            errors.append(ex)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(t, len(requests), 4),))
+               for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    served_s = time.perf_counter() - t0
+    rstats = server.result_cache.stats()
+    served_hits = rstats["subplan_hits"]
+    # the memos the served requests made on replica 0's stream, seeded
+    # into runs on this thread's (the default) stream
+    marks = [e.mark for e in list(server.result_cache._subplans.values())]
+    foreign = sum(stream != torch.cuda.current_stream(d)
+                  for m in marks if m for d, (stream, _ev) in m.items())
+    expect("subplan", foreign >= 1 or session.device.type != "cuda",
+           "no served memo was made on another stream", "serve")
+    for q in (SUBPLAN_GROUP, SUBPLAN_HOP):
+        hits1 = server.result_cache.stats()["subplan_hits"]
+        _dt, _r, rows = run(q)
+        expect("subplan", rows == want[q]
+               and server.result_cache.stats()["subplan_hits"] > hits1,
+               f"a default-stream run of {q!r} over the served memos "
+               f"disagrees or seeded nothing", "serve")
+    server.shutdown(timeout=60)
+    devices = collections.Counter(i.get("device") for i in infos if i)
+    expect("subplan", not wrong and not errors and None not in infos
+           and served_hits >= 1,
+           f"wrong {wrong[:2]}, errors {errors[:1]}, subplan hits "
+           f"{served_hits}, devices {dict(devices)}", "serve")
+    out["served"] = {
+        "requests": len(requests), "seconds": served_s,
+        "result_hits": sum(i.get("cache") == "hit" for i in infos),
+        "subplan_hits": served_hits,
+        "devices": {str(k): v for k, v in devices.items()},
+        "rescache_bytes": rstats["bytes"],
+        "subplan_entries": rstats["subplan_entries"],
+        "memos_from_another_stream": foreign}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def batch_sizes(infos) -> dict:
     sizes = [i.get("batch_size", 1) for i in infos if "batch_size" in i]
     return {"mean": statistics.mean(sizes) if sizes else None,
@@ -3586,7 +3776,8 @@ def run_serve(torch, np, args, card: str, state):
     requests from one thread; one ``cypher_batch`` of 8 exact replays
     (no size read, no synchronizing call before its rows are read, its
     K1–K3 calls kept for the kernels phase); the load again with the
-    result cache on; an overload burst; an expiring deadline; a second
+    result cache on; the cache's second level (``run_subplan``); an
+    overload burst; an expiring deadline; a second
     and a third session, warmed from the plan store the first server
     saved and cold; and failover between two replicas on the one card
     under ``device_loss(0)``."""
@@ -3738,6 +3929,11 @@ def run_serve(torch, np, args, card: str, state):
     expect("result_cache", hits, "no result-cache hit", "serve")
     server.shutdown(timeout=60)
     out["result_cache"] = cached
+
+    # the result cache's second level: prefixes shared across families
+    sub = run_subplan(torch, np, session, graph, nodes, rels, card)
+    out["subplan"] = {k: sub[k] for k in ("warm", "held",
+                                          "fused_mismatches", "phase_s")}
 
     # overload: a burst of 4 x max_queue from 16 threads
     config = ServerConfig()

@@ -5,8 +5,8 @@ The same CREATE text is seeded into ``caps_tpu.local_session(backend=
 "tpu")`` and ``caps_tpu_torch.local_session(device="cpu")``; every case
 compares the constructed graphs' node and relationship bags exactly and
 the rows of the queries run on them.  The cases are those of
-``tests/test_multiple_graph.py`` that need no file system (``io/`` is
-not ported), then the port's own: a NEW property computed on the device
+``tests/test_multiple_graph.py`` that need no file system (the port's
+``io/`` has tests of its own), then the port's own: a NEW property computed on the device
 path, two parameter values building two graphs, a catalog graph replaced
 by a CONSTRUCT never replaying the old sizes, minted ids disjoint from
 the ON graphs', the largest id read on the device equal to the

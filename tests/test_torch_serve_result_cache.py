@@ -14,8 +14,10 @@ miss.  Covered here:
 * write -> miss -> repopulate through the server, retirement on
   commit/compaction, family eviction on quarantine;
 * budget never exceeded under an adversarial soak;
-* the cache holds host rows only: the session's own execution paths
-  never read or fill it (the reference's subplan level is not ported);
+* the session's own execution paths never read or fill the result
+  level; they seed and store the subplan level's device tables
+  (``tests/test_torch_result_cache_subplan.py`` holds that level to the
+  JAX package);
 * the ``stale_cache`` fault injector (a forged wrong-version entry is
   rejected, never served);
 * fleet: read-your-writes with caching on, and the rejoin fencing
@@ -370,13 +372,14 @@ def test_stale_cache_injector_is_rejected_not_served():
             "faults.injected.stale_cache"] >= 1
 
 
-# -- host rows only -----------------------------------------------------------
+# -- the session's paths and the two levels ---------------------------------
 
 def test_session_execution_never_touches_the_cache():
-    # the port ports the result level alone: a cache attached to the
-    # session is read and filled by the serving tier, never by the
-    # session's execution paths (which would hold device tables)
-    assert not hasattr(ResultCacheConfig(), "subplan")
+    # the session's execution paths never read or fill the RESULT level
+    # (the serving tier does, at admission and completion); they seed
+    # and store the second level's scan→filter prefixes, held as the
+    # device tables they are
+    assert ResultCacheConfig().subplan is True
     session = _session()
     rc = ResultCache(ResultCacheConfig(), registry=session.metrics_registry)
     session.result_cache = rc
@@ -387,9 +390,18 @@ def test_session_execution_never_touches_the_cache():
     assert [r["n"] for r in a] == ["Alice", "Bob", "Dana"]
     assert [r["n"] for r in b] == ["Bob", "Dana"]
     stats = rc.stats()
-    assert (stats["entries"], stats["bytes"], stats["hits"],
-            stats["misses"], stats["insertions"]) == (0, 0, 0, 0, 0)
-    assert not any(k.startswith("subplan") for k in stats)
+    assert (stats["entries"], stats["hits"], stats["misses"],
+            stats["insertions"]) == (0, 0, 0, 0)
+    # the Scan prefix of the count parked once, then seeded by both
+    # runs of Q_AGE, whose $min filter is no prefix of its own
+    assert (stats["subplan_entries"], stats["subplan_misses"],
+            stats["subplan_hits"]) == (1, 1, 2)
+    from caps_tpu_torch.backends.cuda.table import DeviceTable
+    (entry,) = rc._subplans.values()
+    assert isinstance(entry.table, DeviceTable)
+    assert stats["bytes"] == entry.nbytes == entry.table.nbytes > 0
+    assert session.metrics_snapshot()["mem.result_cache_bytes"] \
+        == stats["bytes"]
 
 
 # -- fleet -------------------------------------------------------------------

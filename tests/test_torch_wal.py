@@ -31,8 +31,12 @@ The contracts under test:
   version and state, a torn tail drops the same way, and a lease one
   package claims is seen and fenced by the other.
 
-Shard groups (the reference's sharded-commit tests) are not ported
-(ROADMAP item 12).
+* sharded commits — a shard group's writes (``serve/shards.py``) go
+  through its group WAL as one atomic commit: digests equal the JAX
+  package's unsharded ``VersionedGraph``'s, a fresh group recovers from
+  the group WAL, a failed WAL append or a member's failed prepare rolls
+  every member back, and routed point reads see the writes (the
+  reference's sharded-commit tests, on both of the port's backends).
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from caps_tpu_torch.relational.updates import (VersionedGraph,
 from caps_tpu_torch.serve.errors import StaleEpoch, WalWriteError
 from caps_tpu_torch.serve.fleet import BackendSpec, FleetBackend
 from caps_tpu_torch.serve.router import FleetRouter, RouterConfig
+from caps_tpu_torch.serve.shards import ShardGroup, ShardGroupConfig
 from caps_tpu_torch.serve.wire import WireClient
 from caps_tpu_torch.testing.factory import create_graph
 from caps_tpu_torch.testing.faults import failing_fsync, torn_wal
@@ -726,3 +731,151 @@ def test_an_expired_lease_is_stolen_across_packages(tmp_path, claimer,
     # the deposed owner learns it from the other package's lease file
     assert a.holder("a") is None and a.renew("a") is False
     assert a.holder("b") == 2
+
+
+# -- sharded commits ---------------------------------------------------------
+
+#: the port's two backends: the device one on the CPU, and its oracle
+BACKENDS = {"cuda": dict(device="cpu"), "local": dict(backend="local")}
+
+
+def _sharded(backend, tmp_path=None):
+    session = caps_tpu_torch.local_session(**BACKENDS[backend])
+    graph = create_graph(session, PEOPLE)
+    cfg = ShardGroupConfig(name="g0", members=2, partitions_per_member=2,
+                           wal_dir=None if tmp_path is None
+                           else str(tmp_path), wal_fsync="always")
+    return session, ShardGroup(session, graph, cfg,
+                               registry=session.metrics_registry)
+
+
+_ORACLE: list = []
+
+
+def _oracle_digests():
+    """The READS' digests on the JAX package's unsharded VersionedGraph
+    after the WRITES (computed once)."""
+    if not _ORACLE:
+        js = caps_tpu.local_session(backend="local")
+        vg = JaxVersionedGraph(js, jax_create_graph(js, PEOPLE))
+        for q, p in WRITES:
+            js.cypher_on_graph(vg, q, p)
+        _ORACLE.extend(_digests(lambda q, p: js.cypher_on_graph(vg, q, p)))
+    return list(_ORACLE)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_writes_digest_parity_with_unsharded(tmp_path, backend):
+    session, group = _sharded(backend, tmp_path)
+    try:
+        for q, p in WRITES:
+            group.execute(q, p)
+        assert _digests(group.execute) == _oracle_digests()
+        snap = session.metrics_registry.snapshot()
+        assert snap["shard.requests.write"] == len(WRITES)
+        assert snap["shard.commits"] == len(WRITES)
+        assert snap["wal.appends"] == len(WRITES)
+        # the point lookups above routed to owning members, overlays on
+        assert snap["shard.requests.single"] >= 3
+        assert group.summary()["version"] == len(WRITES)
+        assert group.summary()["durable"] is True
+    finally:
+        group.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_group_recovers_from_the_group_wal(tmp_path, backend):
+    _session, group = _sharded(backend, tmp_path)
+    try:
+        for q, p in WRITES:
+            group.execute(q, p)
+    finally:
+        group.close()
+    # a fresh process: new session, spec-built graph, same group WAL
+    _s2, reborn = _sharded(backend, tmp_path)
+    try:
+        assert reborn.summary()["version"] == len(WRITES)
+        assert _digests(reborn.execute) == _oracle_digests()
+    finally:
+        reborn.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_commit_atomic_on_wal_failure(tmp_path, backend):
+    session, group = _sharded(backend, tmp_path)
+    try:
+        group.execute(*WRITES[0])
+        before = _digests(group.execute)
+        with failing_fsync():
+            with pytest.raises(WalWriteError):
+                group.execute("CREATE (x:Person {id: 11, name: 'X'})")
+        # the group WAL append is the commit point: its failure rolled
+        # EVERY member back — no shard partially applied, version held
+        assert group.summary()["version"] == 1
+        assert _digests(group.execute) == before
+        snap = session.metrics_registry.snapshot()
+        assert snap["shard.commit_rollbacks"] == 1
+        # the SAME write retried commits exactly once
+        group.execute("CREATE (x:Person {id: 11, name: 'X'})")
+        assert group.summary()["version"] == 2
+        rows = group.execute(
+            "MATCH (n:Person {id: 11}) RETURN count(*) AS c").to_maps()
+        assert rows == [{"c": 1}]
+    finally:
+        group.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_commit_atomic_on_member_prepare_failure(monkeypatch,
+                                                         backend):
+    session, group = _sharded(backend)
+    orig = ShardGroup.__dict__["_overlay_graph"].__func__
+    state = {"armed": False, "injected": 0}
+
+    def poisoned(sess, base, st, version):
+        if state["armed"]:
+            state["armed"] = False
+            state["injected"] += 1
+            raise RuntimeError("injected member prepare fault")
+        return orig(sess, base, st, version)
+
+    monkeypatch.setattr(ShardGroup, "_overlay_graph",
+                        staticmethod(poisoned))
+    try:
+        group.execute(*WRITES[0])
+        before = _digests(group.execute)
+        state["armed"] = True
+        with pytest.raises(Exception):
+            group.execute(*WRITES[1])
+        assert state["injected"] == 1
+        # one member's prepare died mid-round: every member's pool mark
+        # rolled back, no shard shows a half-applied overlay
+        assert group.summary()["version"] == 1
+        assert _digests(group.execute) == before
+        assert session.metrics_registry.snapshot()[
+            "shard.commit_rollbacks"] == 1
+        group.execute(*WRITES[1])  # the retry lands
+        assert group.summary()["version"] == 2
+    finally:
+        group.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_routed_single_shard_reads_see_writes(backend):
+    session, group = _sharded(backend)
+    try:
+        for q, p in WRITES:
+            group.execute(q, p)
+        snap0 = session.metrics_registry.snapshot()
+        routed0 = snap0.get("shard.requests.single", 0)
+        # a created delta node, a SET node, and a deleted node — all
+        # answered by the owning member's overlay, not the cross session
+        q = "MATCH (n:Person) WHERE n.id = $id RETURN n.name AS name"
+        assert group.execute(q, {"id": 9}).to_maps() == [{"name": "Zed"}]
+        assert group.execute(q, {"id": 3}).to_maps() == []
+        q_age = "MATCH (n:Person) WHERE n.id = $id RETURN n.age AS age"
+        assert group.execute(q_age, {"id": 2}).to_maps() == [{"age": 45}]
+        snap1 = session.metrics_registry.snapshot()
+        assert snap1["shard.requests.single"] == routed0 + 3
+    finally:
+        group.close()
